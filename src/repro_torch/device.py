@@ -1,0 +1,46 @@
+"""Device resolution and the kernels' launch counters.
+
+There is no silent fallback: a request for CUDA on a machine without it
+raises, and only an explicit ``device="cpu"`` runs the plain PyTorch
+versions of the kernels.
+"""
+from __future__ import annotations
+
+from typing import Dict, Union
+
+import torch
+
+DeviceLike = Union[str, torch.device]
+
+
+def resolve_device(device: DeviceLike = "cuda") -> torch.device:
+    """``torch.device`` for ``device``; raises ``RuntimeError`` when CUDA
+    is asked for and not available."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain "
+            "PyTorch path on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _counted_wrappers():
+    # imported here: the kernel modules import this one
+    from repro_torch.kernels.gat_mp import ops as gat_ops
+    from repro_torch.memsim import simulator
+    return {"gat_mp": gat_ops.gat_mp,
+            "memsim": simulator.evaluate_population}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per wrapper since the last reset.  A wrapper adds
+    one where it launches its CUDA kernel and nowhere else, so a run on
+    CPU tensors leaves every count at 0."""
+    return {name: fn.launches for name, fn in _counted_wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _counted_wrappers().values():
+        fn.launches = 0

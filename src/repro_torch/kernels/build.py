@@ -1,0 +1,114 @@
+"""Build the CUDA sources in ``repro_torch/csrc`` with ``nvcc`` and load
+them with ``ctypes``.
+
+Each source compiles on its own into ``build/repro_torch/<name>-<hash>.so``
+at the repository root (listed in ``.gitignore``).  The hash covers the
+source text and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is.  Each library exposes plain C
+functions that take device pointers and a stream and return the CUDA
+error code of their launch; no PyTorch header is compiled.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+# per-source extra flags: the simulator's float adds must not be
+# contracted into FMAs, or rectify/latency lose bit-parity with the
+# reference's float32 order
+EXTRA_FLAGS = {"memsim": ["-fmad=false"]}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                       "the CUDA toolkit is installed")
+
+
+def _flags(name: str) -> List[str]:
+    return ARCH_FLAGS + BASE_FLAGS + EXTRA_FLAGS.get(name, [])
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(_flags(name)).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def _start(name: str):
+    """Start ``nvcc`` for one source unless its library is current.
+    Returns (process or None, output path, temporary path)."""
+    out = library_path(name)
+    if out.exists():
+        return None, out, None
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, out, tmp
+
+
+def build(names: Iterable[str]) -> Dict[str, dict]:
+    """Compile every named source in parallel (one ``nvcc`` each, all
+    started together) and return per source its seconds and the
+    compiler's report (``-Xptxas -v``: registers, shared memory, spills).
+    Raises ``RuntimeError`` with the compiler output if a build fails."""
+    t0 = time.perf_counter()
+    started = {n: _start(n) for n in names}
+    report, failed = {}, []
+    for name, (proc, out, tmp) in started.items():
+        if proc is None:
+            report[name] = {"seconds": 0.0, "cached": True, "log": ""}
+            continue
+        log, _ = proc.communicate()     # every started nvcc is waited for
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)
+        report[name] = {"seconds": time.perf_counter() - t0, "cached": False,
+                        "log": log}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return report
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built at first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _LIBS[name] = lib
+    return lib
+
+
+def function(lib_name: str, fn_name: str, argtypes) -> ctypes._CFuncPtr:
+    """C function ``fn_name`` of ``csrc/<lib_name>.cu`` with its argument
+    types declared and an int (CUDA error code) result."""
+    fn = getattr(load(lib_name), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn

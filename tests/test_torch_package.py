@@ -1,0 +1,111 @@
+"""The PyTorch port stands alone: importing it loads neither JAX nor the
+JAX package, and its entry points refuse to run on a machine without
+CUDA unless the caller asks for the CPU."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import device as rdev  # noqa: E402
+from repro_torch.core.egrl import EGRL, EGRLConfig  # noqa: E402
+from repro_torch.graphs.zoo import resnet50  # noqa: E402
+from repro_torch.launch import optimize_placement  # noqa: E402
+from repro_torch.memsim import compiler  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+    for p in PORT.rglob("*.py") if p.name != "__init__.py")
+
+
+def test_import_loads_no_jax_and_no_reference_package():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(len(sys.modules)); assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert len(MODULES) >= 14
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_source_has_no_reference_imports(path):
+    text = (ROOT / path).read_text()
+    bad = re.findall(r"^\s*(?:import jax|from jax|import repro\.|"
+                     r"from repro\.|from repro import|import repro$)",
+                     text, flags=re.M)
+    assert not bad, bad
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rdev.resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        EGRL(resnet50(), EGRLConfig(total_steps=20))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        optimize_placement.optimize("resnet50", "-", steps=20)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compiler.compiler_reference(resnet50())
+    assert rdev.resolve_device("cpu") == torch.device("cpu")
+    algo = EGRL(resnet50(), EGRLConfig(total_steps=20), device="cpu")
+    assert algo.gnn_pop.device.type == "cpu"
+
+
+def test_other_modes_and_llm_archs_say_what_is_missing():
+    with pytest.raises(NotImplementedError, match="SAC"):
+        EGRL(resnet50(), EGRLConfig(), mode="egrl", device="cpu")
+    with pytest.raises(NotImplementedError, match="SAC"):
+        EGRL(resnet50(), EGRLConfig(), mode="pg", device="cpu")
+    with pytest.raises(NotImplementedError, match="config port"):
+        optimize_placement.optimize("granite-3-8b", "decode_32k", steps=20,
+                                    device="cpu")
+
+
+def test_cpu_run_launches_no_kernel():
+    rdev.reset_launch_counts()
+    EGRL(resnet50(), EGRLConfig(total_steps=20), device="cpu").train()
+    assert rdev.launch_counts() == {"gat_mp": 0, "memsim": 0}
+
+
+def test_optimize_writes_the_reference_plan_schema():
+    plan, algo = optimize_placement.optimize("resnet50", "decode_32k",
+                                             steps=40, device="cpu")
+    assert plan["graph_nodes"] == 57 and plan["env_steps"] == 40
+    assert len(plan["ops"]) == 57
+    assert set(plan["ops"][0]) == {"index", "op", "weight_tier", "act_tier",
+                                   "weight_bytes", "act_bytes"}
+    assert plan["speedup_vs_compiler"] == pytest.approx(
+        algo.best_reward / algo.cfg.reward_scale, rel=1e-6)
+    assert set(plan["derived"]) == {"act_resident_frac", "suggested_remat"}
+
+
+def test_kernel_build_names_and_missing_toolkit(monkeypatch, tmp_path):
+    from repro_torch.kernels import build
+    paths = {name: build.library_path(name) for name in ("gat_mp", "memsim")}
+    for name, path in paths.items():
+        assert path.parent == ROOT / "build" / "repro_torch"
+        assert path.name.startswith(f"{name}-") and path.suffix == ".so"
+    # the simulator is built without FMA contraction, the GAT kernel is not
+    assert "-fmad=false" in build._flags("memsim")
+    assert "-fmad=false" not in build._flags("gat_mp")
+    assert "arch=compute_90a,code=sm_90a" in build._flags("gat_mp")
+    # no toolkit: the build says so instead of falling back
+    monkeypatch.setattr(build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(build.os.path, "exists", lambda _: False)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build(["gat_mp"])
+    assert not (tmp_path / "build").exists()
