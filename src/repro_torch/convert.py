@@ -1,10 +1,11 @@
 """Carry parameters between the JAX package and the port.
 
 The JAX side hands over numpy arrays (``np.asarray`` of its jax
-arrays); the port side is torch tensors.  GNN genomes share one flat
-layout (``core.params.SPEC``, JAX leaf order) and Boltzmann genomes one
-flat encoding (``core.boltzmann``), so a conversion is a layout check
-plus a copy, never a reordering of values.
+arrays); the port side is torch tensors.  GNN genomes and SAC critics
+share one flat layout each (``core.params.SPEC`` / ``critic_spec``, JAX
+leaf order) and Boltzmann genomes one flat encoding
+(``core.boltzmann``), so a conversion is a layout check plus a copy,
+never a reordering of values.
 """
 from __future__ import annotations
 
@@ -33,12 +34,13 @@ def gnn_from_jax(x, spec=P_.SPEC, device="cpu") -> torch.Tensor:
     """A JAX GNN genome as the port's flat tensor: a flat (V,) vector, a
     stacked (P, V) population (``gnn.flatten_params`` layout), or a
     params pytree (nested dict of arrays, exported with ``np.asarray``)
-    -> (V,) or (P, V) f32."""
+    -> (V,) or (P, V) f32.  Any other ``spec`` (the critic's) works the
+    same way."""
     if isinstance(x, Mapping):
         leaves = _leaves(x)
         if set(leaves) != {name for name, _, _ in spec}:
             raise ValueError(f"params tree leaves {sorted(leaves)} do not "
-                             f"match the GNN spec")
+                             f"match the spec")
         parts = []
         for name, shape, _ in spec:
             if leaves[name].shape != shape:
@@ -49,7 +51,7 @@ def gnn_from_jax(x, spec=P_.SPEC, device="cpu") -> torch.Tensor:
     else:
         flat = np.asarray(x)
         if flat.shape[-1] != P_.genome_size(spec) or flat.ndim > 2:
-            raise ValueError(f"genome shape {flat.shape}, expected (V,) or "
+            raise ValueError(f"flat shape {flat.shape}, expected (V,) or "
                              f"(P, V) with V = {P_.genome_size(spec)}")
     return torch.tensor(flat, dtype=torch.float32, device=device)
 
@@ -62,7 +64,7 @@ def gnn_to_jax(vec: torch.Tensor, spec=P_.SPEC, tree: bool = False):
     if not tree:
         return flat
     if flat.ndim != 1:
-        raise ValueError("a params tree holds one genome")
+        raise ValueError("a params tree holds one parameter vector")
     out: Dict = {}
     off = 0
     for name, shape, _ in spec:
@@ -73,6 +75,56 @@ def gnn_to_jax(vec: torch.Tensor, spec=P_.SPEC, tree: bool = False):
             node = node.setdefault(p, {})
         node[leaf] = flat[off:off + n].reshape(shape)
         off += n
+    return out
+
+
+def critic_from_jax(x, n_features: int = P_.N_FEATURES,
+                    device="cpu") -> torch.Tensor:
+    """A JAX critic (params pytree of ``critic_defs``, or its flat
+    ``jax.tree.leaves`` concatenation) as the port's flat critic."""
+    return gnn_from_jax(x, P_.critic_spec(n_features), device)
+
+
+def critic_to_jax(vec: torch.Tensor, n_features: int = P_.N_FEATURES,
+                  tree: bool = True):
+    """The port's flat critic as the JAX params pytree of numpy arrays
+    (or, with ``tree=False``, the flat vector)."""
+    return gnn_to_jax(vec, P_.critic_spec(n_features), tree)
+
+
+def sac_state_from_jax(learner, device="cpu") -> Dict:
+    """The whole state of a JAX ``SACLearner`` (its ``actor``,
+    ``critic``, ``opt_a`` and ``opt_c`` attributes; each Adam state is
+    ``{"m": tree, "v": tree, "t": int32}``) as the port learner's
+    ``load_state`` input: flat tensors and an int step count."""
+    n_features = np.asarray(learner.actor["inp"]).shape[0]
+    specs = {"a": P_.gnn_spec(n_features), "c": P_.critic_spec(n_features)}
+    state = {"actor": gnn_from_jax(learner.actor, specs["a"], device),
+             "critic": gnn_from_jax(learner.critic, specs["c"], device)}
+    for k in ("a", "c"):
+        opt = getattr(learner, f"opt_{k}")
+        state[f"opt_{k}"] = {
+            "m": gnn_from_jax(opt["m"], specs[k], device),
+            "v": gnn_from_jax(opt["v"], specs[k], device),
+            "t": int(np.asarray(opt["t"]))}
+    return state
+
+
+def sac_state_to_jax(state: Mapping) -> Dict:
+    """The port learner's ``state()`` as the JAX ``SACLearner``'s
+    attributes: {"actor", "critic", "opt_a", "opt_c"} of numpy pytrees,
+    each to be mapped through ``jnp.asarray`` and assigned."""
+    # the input layer is the only leaf whose size depends on F
+    n_features = ((state["actor"].numel() - P_.genome_size(P_.gnn_spec(0)))
+                  // P_.HIDDEN)
+    specs = {"a": P_.gnn_spec(n_features), "c": P_.critic_spec(n_features)}
+    out = {"actor": gnn_to_jax(state["actor"], specs["a"], True),
+           "critic": gnn_to_jax(state["critic"], specs["c"], True)}
+    for k in ("a", "c"):
+        opt = state[f"opt_{k}"]
+        out[f"opt_{k}"] = {"m": gnn_to_jax(opt["m"], specs[k], True),
+                           "v": gnn_to_jax(opt["v"], specs[k], True),
+                           "t": np.int32(opt["t"])}
     return out
 
 

@@ -9,6 +9,13 @@ batch axis of every tensor, and each attention level is ONE ``gat_mp``
 call over all P genomes.  Level 0 shares one adjacency mask (passed
 with a leading 1, never expanded); from level 1 on every genome pooled
 its own node set, so each has its own mask.
+
+The forward is differentiable with respect to a flat genome that
+requires grad (the SAC actor): through ``gat_mp``'s autograd.Function,
+the gathers and scatters of ``_pool`` / ``_unpool``, and the sorted
+pool scores that gate the kept rows (JAX's ``top_k`` values carry
+gradient the same way).  A population without grad builds no autograd
+graph.
 """
 from __future__ import annotations
 

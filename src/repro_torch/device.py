@@ -31,6 +31,7 @@ def _counted_wrappers():
     from repro_torch.kernels.gat_mp import ops as gat_ops
     from repro_torch.memsim import simulator
     return {"gat_mp": gat_ops.gat_mp,
+            "gat_mp_bwd": gat_ops.gat_mp_bwd,
             "memsim": simulator.evaluate_population}
 
 

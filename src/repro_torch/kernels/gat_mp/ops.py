@@ -1,15 +1,21 @@
-"""Masked multi-head GAT attention with a leading batch axis.
+"""Masked multi-head GAT attention with a leading batch axis, and its
+gradient.
 
 Counterpart of ``src/repro/kernels/gat_mp/ops.py`` ``gat_mp`` (the
-Pallas ``_fwd_kernel`` in ``gat_mp.py``), forward only.  For each batch
-element b, destination row i and head h::
+Pallas pair ``_fwd_kernel`` / ``_bwd_kernel`` in ``gat_mp.py``).  For
+each batch element b, row i (the node that aggregates), column j and
+head h::
 
     s[i, j] = leaky_relu(e_src[i, h] + e_dst[j, h], 0.2)  masked to -1e30
     m, l    = max_j s,  sum_j exp(s - m)
     out[i]  = sum_j exp(s - m) / max(l, 1e-30) * z[j, head h]
 
-``gat_mp`` is the wrapper: on CUDA tensors it launches
-``csrc/gat_mp.cu``; on CPU tensors it runs ``gat_mp_plain``.
+``gat_mp`` is the public entry.  On CUDA tensors it launches
+``csrc/gat_mp.cu``; on CPU tensors it runs ``gat_mp_plain``.  When z,
+e_src or e_dst requires grad, ``out`` is differentiable with respect to
+them through ``_GatMP``, whose backward is ``gat_mp_bwd``: the kernel
+``csrc/gat_mp_bwd.cu`` on CUDA tensors, ``gat_mp_bwd_plain`` on CPU
+tensors.  The mask gets no gradient.
 """
 from __future__ import annotations
 
@@ -24,6 +30,9 @@ KERNEL_HEAD_DIM = 32    # the kernel maps one lane to one head feature
 KERNEL_MAX_HEADS = 8
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
              + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                 + [ctypes.c_void_p])
 
 
 def gat_mp_plain(z, e_src, e_dst, adj):
@@ -68,27 +77,44 @@ def _check(z, e_src, e_dst, adj):
         raise ValueError("gat_mp inputs lie on different devices")
 
 
-def _launch(z, e_src, e_dst, adj):
+def _kernel_inputs(z, e_src, named, aligned):
+    """What both CUDA kernels require beyond ``_check``: ``named``
+    tensors contiguous, ``aligned`` ones 16-byte aligned (the kernels
+    stage them in shared memory with 16-byte loads)."""
     B, N, D = z.shape
     H = e_src.shape[-1]
+    if B == 0 or N == 0:
+        raise ValueError("empty batch or graph")
     if D != H * KERNEL_HEAD_DIM or H > KERNEL_MAX_HEADS:
         raise ValueError(f"the CUDA kernel takes {KERNEL_HEAD_DIM} features "
                          f"per head and at most {KERNEL_MAX_HEADS} heads; got "
                          f"D={D}, H={H}")
-    for name, x in (("z", z), ("e_src", e_src), ("e_dst", e_dst),
-                    ("adj", adj)):
+    for name, x in named:
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if z.data_ptr() % 16:
-        raise ValueError("z must be 16-byte aligned")
+    for name, x in aligned:
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     if B > 65535:
         raise ValueError(f"batch {B} exceeds the kernel grid")
+
+
+def _mask_args(adj):
+    mask = adj.view(torch.uint8) if adj.dtype == torch.bool else adj
+    N = adj.shape[-1]
+    return mask, (0 if adj.shape[0] == 1 else N * N)
+
+
+def _launch(z, e_src, e_dst, adj):
+    B, N, D = z.shape
+    H = e_src.shape[-1]
+    _kernel_inputs(z, e_src, (("z", z), ("e_src", e_src), ("e_dst", e_dst),
+                              ("adj", adj)), aligned=(("z", z),))
     fn = build.function("gat_mp", "gat_mp_fwd", _ARGTYPES)
     out = torch.empty_like(z)
     m = torch.empty_like(e_src)
     l = torch.empty_like(e_src)
-    mask = adj.view(torch.uint8) if adj.dtype == torch.bool else adj
-    stride = 0 if adj.shape[0] == 1 else N * N
+    mask, stride = _mask_args(adj)
     with torch.cuda.device(z.device):
         err = fn(z.data_ptr(), e_src.data_ptr(), e_dst.data_ptr(),
                  mask.data_ptr(), stride, out.data_ptr(), m.data_ptr(),
@@ -100,18 +126,128 @@ def _launch(z, e_src, e_dst, adj):
     return out, m, l
 
 
+def _forward(z, e_src, e_dst, adj):
+    if z.device.type == "cpu":
+        return gat_mp_plain(z, e_src, e_dst, adj)
+    return _launch(z, e_src, e_dst, adj)
+
+
+class _GatMP(torch.autograd.Function):
+    """``gat_mp`` with a gradient for z, e_src and e_dst (the counterpart
+    of the JAX ``custom_vjp`` pair ``_fused``).  m and l are residuals,
+    not differentiable outputs."""
+
+    @staticmethod
+    def forward(ctx, z, e_src, e_dst, adj):
+        out, m, l = _forward(z, e_src, e_dst, adj)
+        ctx.set_materialize_grads(False)
+        ctx.mark_non_differentiable(m, l)
+        ctx.save_for_backward(z, e_src, e_dst, adj, out, m, l)
+        return out, m, l
+
+    @staticmethod
+    def backward(ctx, g, _gm, _gl):
+        if g is None:
+            return None, None, None, None
+        z, e_src, e_dst, adj, out, m, l = ctx.saved_tensors
+        dz, de_src, de_dst = gat_mp_bwd(z, e_src, e_dst, adj, m, l, out,
+                                        g.contiguous())
+        return dz, de_src, de_dst, None
+
+
 def gat_mp(z, e_src, e_dst, adj):
     """z (B, N, D) f32; e_src / e_dst (B, N, H) f32; adj (1 or B, N, N)
     bool/uint8 mask, a leading 1 meaning one mask shared by the batch
     (never expanded).  Returns (out (B, N, D), m (B, N, H), l (B, N, H))
     f32.  CUDA tensors launch the kernel (contiguous inputs, 32 features
-    per head); CPU tensors run ``gat_mp_plain``."""
+    per head); CPU tensors run ``gat_mp_plain``.  ``out`` carries a
+    gradient when z, e_src or e_dst requires one; otherwise no autograd
+    node is made."""
     _check(z, e_src, e_dst, adj)
-    if z.device.type == "cpu":
-        return gat_mp_plain(z, e_src, e_dst, adj)
-    if z.shape[0] == 0 or z.shape[1] == 0:
-        raise ValueError("empty batch or graph")
-    return _launch(z, e_src, e_dst, adj)
+    if torch.is_grad_enabled() and (z.requires_grad or e_src.requires_grad
+                                    or e_dst.requires_grad):
+        return _GatMP.apply(z, e_src, e_dst, adj)
+    return _forward(z, e_src, e_dst, adj)
 
 
 gat_mp.launches = 0
+
+
+# ---------------------------------------------------------------- backward
+def gat_mp_bwd_plain(z, e_src, e_dst, adj, m, l, out, g):
+    """Plain PyTorch backward, any device: dense (B, N, N, H) tensors.
+
+    Recomputes alpha = exp(s - m) / max(l, 1e-30) from the forward's
+    residuals, as the Pallas ``_bwd_kernel`` does; g is the cotangent of
+    ``out``.  Returns (dz (B, N, D), de_src (B, N, H), de_dst (B, N, H)).
+    ``de_src`` sums over columns per row; ``dz`` and ``de_dst`` sum over
+    rows per column.  A row with every column masked weighs every column
+    1/N in ``dz`` and adds nothing to ``de_src`` / ``de_dst``."""
+    B, N, D = z.shape
+    H = e_src.shape[-1]
+    edge = adj.bool()[..., None]                                # (., N, N, 1)
+    pre = e_src[:, :, None, :] + e_dst[:, None, :, :]           # (B, N, N, H)
+    s = torch.where(edge, torch.where(pre >= 0, pre, 0.2 * pre), NEG_INF)
+    alpha = (torch.exp(s - m[:, :, None, :])
+             / torch.clamp(l, min=1e-30)[:, :, None, :])
+    gh = g.reshape(B, N, H, D // H)
+    zh = z.reshape(B, N, H, D // H)
+    dz = torch.einsum("bijh,bihd->bjhd", alpha, gh).reshape(B, N, D)
+    dalpha = torch.einsum("bihd,bjhd->bijh", gh, zh)
+    drow = (gh * out.reshape(B, N, H, D // H)).sum(-1)          # (B, N, H)
+    ds = alpha * (dalpha - drow[:, :, None, :])
+    dpre = torch.where(edge, torch.where(pre >= 0, ds, 0.2 * ds), 0.0)
+    return dz, dpre.sum(dim=2), dpre.sum(dim=1)
+
+
+def _check_bwd(z, e_src, e_dst, adj, m, l, out, g):
+    _check(z, e_src, e_dst, adj)
+    for name, x, like in (("m", m, e_src), ("l", l, e_src),
+                          ("out", out, z), ("g", g, z)):
+        if x.shape != like.shape:
+            raise ValueError(f"{name} {tuple(x.shape)} must be "
+                             f"{tuple(like.shape)}")
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {x.dtype}")
+        if x.device != z.device:
+            raise ValueError("gat_mp_bwd inputs lie on different devices")
+
+
+def _launch_bwd(z, e_src, e_dst, adj, m, l, out, g):
+    B, N, D = z.shape
+    H = e_src.shape[-1]
+    _kernel_inputs(z, e_src, (("z", z), ("e_src", e_src), ("e_dst", e_dst),
+                              ("adj", adj), ("m", m), ("l", l),
+                              ("out", out), ("g", g)),
+                   aligned=(("z", z), ("g", g)))
+    fn = build.function("gat_mp_bwd", "gat_mp_bwd", _BWD_ARGTYPES)
+    dz = torch.empty_like(z)
+    de_src = torch.empty_like(e_src)
+    de_dst = torch.empty_like(e_dst)
+    drow = torch.empty_like(e_src)          # scratch: g_i . out_i per head
+    mask, stride = _mask_args(adj)
+    with torch.cuda.device(z.device):
+        err = fn(z.data_ptr(), e_src.data_ptr(), e_dst.data_ptr(),
+                 mask.data_ptr(), stride, m.data_ptr(), l.data_ptr(),
+                 out.data_ptr(), g.data_ptr(), drow.data_ptr(),
+                 dz.data_ptr(), de_src.data_ptr(), de_dst.data_ptr(),
+                 B, N, H, torch.cuda.current_stream(z.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"gat_mp_bwd kernel launch failed: CUDA error "
+                           f"{err}")
+    gat_mp_bwd.launches += 1
+    return dz, de_src, de_dst
+
+
+def gat_mp_bwd(z, e_src, e_dst, adj, m, l, out, g):
+    """Gradient of ``gat_mp``'s ``out`` for the cotangent g (B, N, D):
+    returns (dz, de_src, de_dst).  m, l, out are the forward's outputs.
+    CUDA tensors launch ``csrc/gat_mp_bwd.cu`` (contiguous inputs, 32
+    features per head); CPU tensors run ``gat_mp_bwd_plain``."""
+    _check_bwd(z, e_src, e_dst, adj, m, l, out, g)
+    if z.device.type == "cpu":
+        return gat_mp_bwd_plain(z, e_src, e_dst, adj, m, l, out, g)
+    return _launch_bwd(z, e_src, e_dst, adj, m, l, out, g)
+
+
+gat_mp_bwd.launches = 0

@@ -5,7 +5,7 @@ same plan schema (``plan_from_mapping``).  It takes the workload graphs
 of ``graphs.zoo.WORKLOADS``; the LLM architecture ids need graph
 extraction from the model configs, which comes with the config port.
 
-    python -m repro_torch.launch.optimize_placement --arch bert --mode ea
+    python -m repro_torch.launch.optimize_placement --arch bert
 """
 from __future__ import annotations
 
@@ -50,7 +50,7 @@ def plan_from_mapping(graph, mapping: np.ndarray, meta: dict) -> dict:
                         "suggested_remat": remat}}
 
 
-def optimize(arch: str, shape_name: str, steps: int, mode: str = "ea",
+def optimize(arch: str, shape_name: str, steps: int, mode: str = "egrl",
              seed: int = 0, device="cuda", log=print):
     """Search a placement for ``arch``; returns (plan dict, driver).
     ``shape_name`` is recorded in the plan; zoo workloads carry their
@@ -78,7 +78,7 @@ def main():
     ap.add_argument("--arch", required=True, choices=list(WORKLOADS))
     ap.add_argument("--shape", default="decode_32k")
     ap.add_argument("--steps", type=int, default=2000)
-    ap.add_argument("--mode", default="ea", choices=["egrl", "ea", "pg"])
+    ap.add_argument("--mode", default="egrl", choices=["egrl", "ea", "pg"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="experiments/plans")

@@ -1,9 +1,9 @@
 """Quickstart on the port: the paper's technique end to end.
 
 Builds the ResNet-50 workload graph (57 nodes, as in §4), runs a short
-EA-mode EGRL search against the memory-tier simulator, and prints the
-found placement's speedup over the heuristic compiler.  Mirrors
-``examples/quickstart.py`` with ``mode="ea"``.
+EGRL search (EA population + SAC learner) against the memory-tier
+simulator, and prints the found placement's speedup over the heuristic
+compiler.  Mirrors ``examples/quickstart.py``.
 
     python -m repro_torch.launch.quickstart [--device cpu]
 """
@@ -23,7 +23,7 @@ def main():
     print(f"workload: {graph.name}, {graph.n} nodes "
           f"(action space 3^{2 * graph.n} ~ 10^{int(2 * graph.n * 0.477)})")
 
-    algo = EGRL(graph, EGRLConfig(total_steps=400, seed=0), mode="ea",
+    algo = EGRL(graph, EGRLConfig(total_steps=400, seed=0), mode="egrl",
                 device=args.device)
     algo.train(log=print)
 

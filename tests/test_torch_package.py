@@ -35,7 +35,7 @@ def test_import_loads_no_jax_and_no_reference_package():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(MODULES) >= 14
+    assert len(MODULES) >= 16
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -65,25 +65,32 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 def test_other_modes_and_llm_archs_say_what_is_missing():
-    with pytest.raises(NotImplementedError, match="SAC"):
-        EGRL(resnet50(), EGRLConfig(), mode="egrl", device="cpu")
-    with pytest.raises(NotImplementedError, match="SAC"):
-        EGRL(resnet50(), EGRLConfig(), mode="pg", device="cpu")
+    # every mode of the reference runs; an unknown one lists them
+    with pytest.raises(ValueError, match="egrl, ea, pg"):
+        EGRL(resnet50(), EGRLConfig(), mode="sac", device="cpu")
     with pytest.raises(NotImplementedError, match="config port"):
         optimize_placement.optimize("granite-3-8b", "decode_32k", steps=20,
                                     device="cpu")
 
 
 def test_cpu_run_launches_no_kernel():
+    """Two "egrl" generations: the second trains SAC, through the GAT
+    backward, on CPU tensors only."""
     rdev.reset_launch_counts()
-    EGRL(resnet50(), EGRLConfig(total_steps=20), device="cpu").train()
-    assert rdev.launch_counts() == {"gat_mp": 0, "memsim": 0}
+    algo = EGRL(resnet50(), EGRLConfig(total_steps=40), mode="egrl",
+                device="cpu")
+    algo.train()
+    assert "critic_loss" in algo.history[-1]
+    assert rdev.launch_counts() == {"gat_mp": 0, "gat_mp_bwd": 0,
+                                    "memsim": 0}
 
 
 def test_optimize_writes_the_reference_plan_schema():
     plan, algo = optimize_placement.optimize("resnet50", "decode_32k",
                                              steps=40, device="cpu")
-    assert plan["graph_nodes"] == 57 and plan["env_steps"] == 40
+    # two "egrl" generations: 20 population rollouts and 1 PG rollout each
+    assert plan["graph_nodes"] == 57 and plan["env_steps"] == 42
+    assert plan["mode"] == "egrl"
     assert len(plan["ops"]) == 57
     assert set(plan["ops"][0]) == {"index", "op", "weight_tier", "act_tier",
                                    "weight_bytes", "act_bytes"}
@@ -94,14 +101,17 @@ def test_optimize_writes_the_reference_plan_schema():
 
 def test_kernel_build_names_and_missing_toolkit(monkeypatch, tmp_path):
     from repro_torch.kernels import build
-    paths = {name: build.library_path(name) for name in ("gat_mp", "memsim")}
+    paths = {name: build.library_path(name)
+             for name in ("gat_mp", "gat_mp_bwd", "memsim")}
     for name, path in paths.items():
         assert path.parent == ROOT / "build" / "repro_torch"
         assert path.name.startswith(f"{name}-") and path.suffix == ".so"
     # the simulator is built without FMA contraction, the GAT kernel is not
     assert "-fmad=false" in build._flags("memsim")
     assert "-fmad=false" not in build._flags("gat_mp")
+    assert "-fmad=false" not in build._flags("gat_mp_bwd")
     assert "arch=compute_90a,code=sm_90a" in build._flags("gat_mp")
+    assert "arch=compute_90a,code=sm_90a" in build._flags("gat_mp_bwd")
     # no toolkit: the build says so instead of falling back
     monkeypatch.setattr(build.shutil, "which", lambda _: None)
     monkeypatch.setattr(build.os.path, "exists", lambda _: False)
