@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    PYTHONPATH=src python3 chip_smoke.py
+    python3 chip_smoke.py
 
 Phases, each printing JSON lines:
 
 1. device   -- the card's name and power limit (nvidia-smi);
-2. build    -- the three CUDA kernels compiled from
+2. build    -- the five CUDA kernels compiled from
                ``src/repro_torch/csrc``, one ``nvcc`` each, in parallel;
 3. gat      -- the GAT forward kernel against its plain PyTorch version,
                at the main path's shapes and at edge-case graph sizes;
@@ -24,14 +24,32 @@ Phases, each printing JSON lines:
                after it, and must match the counts the path implies;
 7. profile  -- device time by kernel over 3 EA-mode and 1 "egrl"-mode
                BERT generations;
-8. kernels  -- per kernel: launches in the BERT "egrl" run (and the EA
-               run), error, time on the card, plain time, bound and
-               library time.
+8. flash    -- the flash-attention kernel against its plain version at
+               every attention prefill shape of the serve phase
+               (zamba2, qwen3-0.6b; bf16), in f32, without the causal
+               mask and at S = 100; SDPA timed beside it as a yardstick;
+9. ssd      -- the SSD scan kernel against its plain version at every
+               Mamba2 prefill shape of the serve phase (zamba2,
+               mamba2-780m), at B = 2, at S < chunk and from an initial
+               state;
+10. serve_check -- zamba2 at full width in f32, cut to 7 layers: a
+               512-token prefill and one decode step on the card
+               (kernels) against the same on the CPU (plain versions);
+11. serve   -- ``launch.serve.serve`` of zamba2-1.2b at its published
+               config: 8 requests of 256 to 2048 tokens, 32 new tokens
+               each, exact launch counts, run twice for equal tokens; then
+               mamba2-780m and qwen3-0.6b, 2 requests each; serve_profile:
+               device time by kernel over one 2048-token prefill and 10
+               decode ticks;
+12. kernels -- per kernel: launches in its slice's main path (the BERT
+               "egrl" run, the zamba2 serve run), error, time on the card,
+               plain time, bound and library time.
 
 Then the nvidia-smi line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero before the last line.  It needs
 CUDA and the repository's sources: alone, or without a card, it fails.
 """
+import argparse
 import json
 import os
 import subprocess
@@ -46,6 +64,9 @@ SRC = os.path.join(ROOT, "src")
 # non-tensor-core FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# H100 SXM dense bf16 tensor-core FLOP/s (NVIDIA H100 data sheet, SXM
+# part: 989 TFLOP/s dense, 1,979 with sparsity)
+PEAK_BF16 = 989e12
 # fp32 operations per (edge, head) of GAT attention with head dim 32:
 # add, leaky-relu multiply, max, subtract, exp, denominator add, and a
 # multiply-add per feature
@@ -82,8 +103,8 @@ def time_ms(fn, reps, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes, ops):
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32
+def bound(nbytes, ops, peak=PEAK_F32):
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -430,7 +451,7 @@ def run_slice(torch, np, name, make, egrl, sim, compiler, rdev, mode="ea",
     launches for the population and, outside "ea" mode, 4 for the PG
     rollout; per SAC step 8 forward and 8 backward GAT launches; one
     simulator launch per population and one for the PG rollouts per
-    generation, plus the compiler reference's."""
+    generation, plus the compiler reference's; no LLM kernel."""
     cfg = egrl.EGRLConfig(total_steps=steps, seed=0)
     graph = make()
     sac_s = [0.0]
@@ -462,7 +483,8 @@ def run_slice(torch, np, name, make, egrl, sim, compiler, rdev, mode="ea",
     want = {"gat_mp": 4 * gens * (1 if algo.n_g else 0) + 8 * sac_steps
             + (4 * gens if mode != "ea" else 0),
             "gat_mp_bwd": 8 * sac_steps,
-            "memsim": 1 + gens * (pop + (mode != "ea"))}
+            "memsim": 1 + gens * (pop + (mode != "ea")),
+            "flash_attention": 0, "ssd_scan": 0}
     check(counts == want, f"{name} {mode}: launches {counts}, the path "
           f"implies {want}")
     if mode != "ea":
@@ -551,44 +573,434 @@ def phase_profile(torch, egrl, zoo, mode="ea", generations=3):
           else "not measured", "top_kernels": kernels[:12]})
 
 
-def main():
-    import numpy as np
-    import torch
-    if not torch.cuda.is_available():
-        sys.exit("chip_smoke: no CUDA device")
-    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
-        sys.exit("chip_smoke: src/repro_torch not found next to the script")
-    sys.path.insert(0, SRC)
-    from repro_torch import device as rdev
+# ------------------------------------------------------------ serve runs
+# The serve phase's runs: (arch, requests, slots, new tokens, prompt
+# lengths, kernel launches per request).  Each prefill runs at B = 1, and
+# the flash and ssd phases check the kernels at every (arch, prompt
+# length) pair here, so the shapes checked are the shapes served.
+SERVE_RUNS = (
+    ("zamba2-1.2b", 8, 4, 32, (256, 512, 1024, 2048),
+     {"flash_attention": 6, "ssd_scan": 38}),
+    ("mamba2-780m", 2, 2, 16, (1024, 2048), {"ssd_scan": 48}),
+    ("qwen3-0.6b", 2, 2, 16, (1024, 2048), {"flash_attention": 28}),
+)
+SERVE_MAX_LEN = 2112
+
+
+def served_prefills():
+    """(config, prompt length) of every prefill shape the serve runs give."""
+    from repro_torch.configs.registry import get_config
+    return [(get_config(run[0]), S) for run in SERVE_RUNS for S in run[4]]
+
+
+# ------------------------------------------------------ attention kernel
+FLASH_TILE = 64            # BK of csrc/flash_attention.cu: keys per tile
+ATTN_CHUNK = 1024          # ModelConfig.attn_chunk of the served configs
+
+
+def flash_cases():
+    """(name, B, S, K, G, h, dtype, causal): every attention prefill of the
+    serve runs (zamba2's shared block, 32 heads of 64; qwen3-0.6b, 8 KV
+    heads of 128 with 2 queries each), then zamba2's heads in f32,
+    without the causal mask, and at S = 100 (not a multiple of a tile)."""
+    cases = [(cfg.name, 1, S, cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim,
+              cfg.dtype, True) for cfg, S in served_prefills()
+             if cfg.family in ("dense", "hybrid")]
+    _, _, _, K, G, h, dtype, _ = cases[0]
+    return cases + [("zamba2-1.2b:f32", 1, 1024, K, G, h, "float32", True),
+                    ("zamba2-1.2b:non-causal", 1, 1024, K, G, h, dtype,
+                     False),
+                    ("zamba2-1.2b:S=100", 1, 100, K, G, h, dtype, True)]
+
+
+def flash_error(torch, got, want, bf16):
+    """The kernel's output against the plain version's.  f32: within 1e-5
+    of the largest element.  bf16: both round f32 sums to bf16, and each
+    rounds its bf16 probabilities against its own running max (64-key
+    tiles here, attn_chunk keys there), which moves a short row's sum by
+    up to about 1e-3.  So each element lies within one ulp of its own
+    magnitude plus 2e-3, and on the rows past the first KV tile the RMS
+    error lies within 2**-7 of the output's RMS: rounding alone gives
+    about 2e-3 of it, while a key lost or added in every row moves row i
+    by about 1/sqrt(i) of its value, 0.07 of the RMS at S = 2048."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    err = {"max_abs_err": d.max().item(), "scale": w.abs().max().item()}
+    late_d, late_w = d[:, FLASH_TILE:], w[:, FLASH_TILE:]
+    if late_d.numel():
+        err["max_abs_err_past_first_tile"] = late_d.max().item()
+        err["rel_rms_err_past_first_tile"] = (
+            late_d.square().mean().sqrt() / late_w.square().mean().sqrt()
+        ).item()
+    if not bf16:
+        err["tolerance"] = 1e-5 * err["scale"]
+        err["within_tolerance"] = err["max_abs_err"] <= err["tolerance"]
+        return err
+    err["tolerance"] = "2**-7 |want| + 2e-3; past tile 1: rel RMS 2**-7"
+    over = d - (2.0 ** -7 * w.abs() + 2e-3)
+    err["worst_over_elementwise_limit"] = over.max().item()
+    err["within_tolerance"] = (
+        err["worst_over_elementwise_limit"] <= 0
+        and err.get("rel_rms_err_past_first_tile", 0.0) <= 2 ** -7)
+    return err
+
+
+def sdpa_attention(torch, q, k, v, causal):
+    """One scaled_dot_product_attention call computing the same function
+    on the same tensors (heads moved to dim 1 as strided views), timed as
+    a yardstick only."""
+    import torch.nn.functional as F
+    B, S, K, G, h = q.shape
+    qs = q.view(B, S, K * G, h).transpose(1, 2)
+    ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=causal, enable_gqa=G > 1)
+
+
+def phase_flash(torch, fops, gen):
+    """The attention kernel against ``flash_attention_plain`` (chunks of
+    attn_chunk keys, as the models call it) on the same inputs, held as
+    ``flash_error`` says."""
+    rows = {}
+    for name, B, S, K, G, h, dtype, causal in flash_cases():
+        dt = getattr(torch, dtype)
+        q = torch.randn((B, S, K, G, h), generator=gen, device="cuda").to(dt)
+        k = torch.randn((B, S, K, h), generator=gen, device="cuda").to(dt)
+        v = torch.randn((B, S, K, h), generator=gen, device="cuda").to(dt)
+        chunk = min(ATTN_CHUNK, S)
+        got = fops.flash_attention(q, k, v, causal=causal)
+        want = fops.flash_attention_plain(q, k, v, chunk=chunk, causal=causal)
+        lib_out = sdpa_attention(torch, q, k, v, causal)()
+        torch.cuda.synchronize()
+        check(got.dtype == dt and got.shape == q.shape, f"flash {name}: out")
+        check(bool(torch.isfinite(got).all()), f"flash {name}: not finite")
+        err = flash_error(torch, got, want, dt == torch.bfloat16)
+        check(err["within_tolerance"], f"flash {name} S={S}: error {err}")
+        H = K * G
+        flops = 4 * B * S * S * H * h / (2 if causal else 1)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        b_ms, b_by = bound(nbytes, flops,
+                           PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32)
+        row = {"phase": "flash", "case": name, "B": B, "S": S, "K": K,
+               "G": G, "h": h, "dtype": dtype, "causal": causal,
+               **err,
+               "sdpa_max_abs_err_vs_plain":
+                   (lib_out.transpose(1, 2).reshape(want.shape).float()
+                    - want.float()).abs().max().item(),
+               "ms": time_ms(lambda: fops.flash_attention(
+                   q, k, v, causal=causal), 20),
+               "plain_ms": time_ms(lambda: fops.flash_attention_plain(
+                   q, k, v, chunk=chunk, causal=causal), 3, warmup=1),
+               "library_ms": time_ms(sdpa_attention(torch, q, k, v, causal),
+                                     20),
+               "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+               "bytes": nbytes}
+        row["tflops"] = flops / row["ms"] / 1e9
+        emit(row)
+        rows[name, S] = row
+    return rows
+
+
+# --------------------------------------------------------- SSD scan kernel
+def ssd_cases():
+    """(name, B, S, H, hd, N, chunk, dtype, init_state): every Mamba2
+    prefill of the serve runs (zamba2: d_model 2048, expand 2, d_state 64;
+    mamba2-780m: d_model 1536, d_state 128; chunk 256), then zamba2's
+    heads at B = 2, at S = 100 < chunk, and from a given initial state."""
+    from repro_torch.models.mamba2 import _dims
+    cases = [(cfg.name, 1, S, _dims(cfg)[1], cfg.ssm.head_dim,
+              cfg.ssm.d_state, cfg.ssm.chunk, cfg.dtype, False)
+             for cfg, S in served_prefills() if cfg.ssm is not None]
+    _, _, _, H, hd, N, Q, dtype, _ = cases[0]
+    return cases + [("zamba2-1.2b:B=2", 2, 1024, H, hd, N, Q, dtype, False),
+                    ("zamba2-1.2b:S=100", 1, 100, H, hd, N, Q, dtype, False),
+                    ("zamba2-1.2b:init_state", 1, 512, H, hd, N, Q, dtype,
+                     True)]
+
+
+def ssd_ops_count(B, S, H, hd, N, Q):
+    """f32 operations of the chunked form on these shapes: per chunk the
+    lower triangle of C B^T (shared by the heads); per chunk and head the
+    decay (subtract, exp, multiply) and the masked product with xd on
+    that triangle, the carried state's part (C . state, times exp(cum))
+    and the state update (decay, then B^T (w xd) with w = exp(total -
+    cum))."""
+    nc, tri = S // Q, Q * (Q + 1) // 2
+    per_head = (tri * (3 + 2 * hd) + 2 * Q * N * hd + Q * hd
+                + N * hd + 2 * Q * N * hd + 2 * Q * hd)
+    return B * nc * (tri * 2 * N + H * per_head)
+
+
+def phase_ssd(torch, sops, gen):
+    """The SSD kernel against ``ssd_scan_plain`` on the operands the
+    wrapper forms (x and B, C in the activation dtype, as the models pass
+    them): y and the final state within 1e-4 of their largest element."""
+    rows = {}
+    for name, B, S, H, hd, N, chunk, dtype, init in ssd_cases():
+        act = getattr(torch, dtype)
+        x = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(act)
+        dt = torch.nn.functional.softplus(
+            torch.randn((B, S, H), generator=gen, device="cuda"))
+        A_log = torch.randn((H,), generator=gen, device="cuda") * 0.3
+        Bm = torch.randn((B, S, N), generator=gen, device="cuda").to(act)
+        Cm = torch.randn((B, S, N), generator=gen, device="cuda").to(act)
+        st0 = (torch.randn((B, H, N, hd), generator=gen, device="cuda")
+               if init else None)
+        y, fs = sops.ssd_scan(x, dt, A_log, Bm, Cm, chunk=chunk,
+                              init_state=st0)
+        xd, la = sops._operands(x, dt, A_log)
+        Bf, Cf = Bm.float(), Cm.float()
+        py, pfs = sops.ssd_scan_plain(xd, la, Bf, Cf, chunk, st0)
+        torch.cuda.synchronize()
+        errs, scales = {}, {}
+        for what, a, b in (("y", y, py), ("state", fs, pfs)):
+            scale = scales[what] = b.abs().max().item()
+            errs[what] = (a - b).abs().max().item()
+            check(bool(torch.isfinite(a).all()), f"ssd {name}: {what} "
+                  f"not finite")
+            check(errs[what] <= 1e-4 * scale, f"ssd {name} S={S}: {what} "
+                  f"error {errs[what]} > 1e-4 x {scale}")
+        Q = min(chunk, S)
+        nbytes = sum(t.numel() * 4 for t in (xd, la, Bf, Cf, y, fs)
+                     + (() if st0 is None else (st0,)))
+        nops = ssd_ops_count(B, S, H, hd, N, Q)
+        b_ms, b_by = bound(nbytes, nops)
+        row = {"phase": "ssd", "case": name, "B": B, "S": S, "H": H,
+               "hd": hd, "N": N, "Q": Q, "init_state": init,
+               "max_abs_err": errs, "scale": scales,
+               "ms": time_ms(lambda: sops._launch(xd, la, Bf, Cf, chunk,
+                                                  st0), 20),
+               "plain_ms": time_ms(lambda: sops.ssd_scan_plain(
+                   xd, la, Bf, Cf, chunk, st0), 3, warmup=1),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               "flops": nops, "bytes": nbytes}
+        row["tflops"] = nops / row["ms"] / 1e9
+        emit(row)
+        rows[name, S] = row
+    return rows
+
+
+# ------------------------------------------------------------- LM serving
+def phase_serve_check(torch, rdev):
+    """zamba2 at full width in f32, cut to 7 layers (one group of 6 and a
+    tail layer): the same parameters prefill a 512-token prompt and take
+    one decode step on the card (kernels) and on the CPU (plain
+    versions).  Last-token logits and every cache entry agree within
+    1e-3 of their largest element."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.zoo import get_model
+    from repro_torch.utils.params import tree_map
+    cfg = get_config("zamba2-1.2b").replace(n_layers=7, dtype="float32")
+    gpu = get_model(cfg)
+    gpu.init(torch.Generator("cuda").manual_seed(1))
+    cpu = get_model(cfg)
+    cpu.load(tree_map(lambda t: t.detach().cpu(), gpu.params))
+    S, max_len = 512, 520
+    tokens = torch.randint(0, cfg.vocab_size, (1, S),
+                           generator=torch.Generator().manual_seed(2))
+
+    def compare(what, a, b):
+        scale = b.abs().max().item()
+        err = (a.cpu().float() - b.float()).abs().max().item()
+        check(err <= 1e-3 * max(scale, 1e-30),
+              f"serve_check {what}: error {err} > 1e-3 x {scale}")
+        return err
+
+    errs = {}
+    with torch.no_grad():
+        rdev.reset_launch_counts()
+        g_cache, g_logits = gpu.prefill(gpu.params, tokens.cuda(), max_len)
+        torch.cuda.synchronize()
+        counts = rdev.launch_counts()
+        t0 = time.perf_counter()
+        c_cache, c_logits = cpu.prefill(cpu.params, tokens, max_len)
+        cpu_s = time.perf_counter() - t0
+        errs["logits"] = compare("logits", g_logits, c_logits)
+        for name in c_cache:
+            errs[name] = compare(f"cache {name}", g_cache[name], c_cache[name])
+        tok = torch.argmax(c_logits[:, :cfg.vocab_size], dim=-1)
+        g2, _ = gpu.decode_step(gpu.params, g_cache, tok.cuda(), S)
+        c2, _ = cpu.decode_step(cpu.params, c_cache, tok, S)
+        errs["decode_logits"] = compare("decode logits", g2, c2)
+    check(counts["flash_attention"] == 1 and counts["ssd_scan"] == 7,
+          f"serve_check launches {counts}")
+    emit({"phase": "serve_check", "arch": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "dtype": cfg.dtype, "prompt": S,
+          "launches": counts, "max_abs_err": errs, "cpu_prefill_s": cpu_s,
+          "top_token_agrees": int(torch.argmax(g_logits[0, :cfg.vocab_size]))
+          == int(tok[0])})
+
+
+class WatchLogits:
+    """Records whether every prefill and decode step of the served model
+    classes returns finite logits (a device flag, read once at the end)."""
+
+    def __init__(self, torch, classes):
+        self.torch, self.classes = torch, classes
+        self.flags, self.saved = [], []
+
+    def __enter__(self):
+        for cls in self.classes:
+            pre, dec = cls.prefill, cls.decode_step
+            self.saved.append((cls, pre, dec))
+
+            def prefill(model, *a, _f=pre, **kw):
+                cache, logits = _f(model, *a, **kw)
+                self.flags.append(self.torch.isfinite(logits).all())
+                return cache, logits
+
+            def decode_step(model, *a, _f=dec, **kw):
+                logits, cache = _f(model, *a, **kw)
+                self.flags.append(self.torch.isfinite(logits).all())
+                return logits, cache
+
+            cls.prefill, cls.decode_step = prefill, decode_step
+        return self
+
+    def __exit__(self, *exc):
+        for cls, pre, dec in self.saved:
+            cls.prefill, cls.decode_step = pre, dec
+
+    def all_finite(self):
+        return bool(self.torch.stack(self.flags).all().item())
+
+
+def run_serve(torch, rdev, arch, requests, slots, max_len, max_new,
+              prompt_lens):
+    """``serve(..., smoke=False)`` between a reset and a read of the
+    launch counters; returns (serve's result, counts, all logits finite,
+    peak device bytes)."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import mamba2, transformer, zamba2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with WatchLogits(torch, (zamba2.Zamba2LM, mamba2.Mamba2LM,
+                             transformer.TransformerLM)) as watch:
+        rdev.reset_launch_counts()
+        out = serve_mod.serve(arch, smoke=False, requests=requests,
+                              slots=slots, max_len=max_len, max_new=max_new,
+                              seed=0, device="cuda", prompt_lens=prompt_lens)
+        torch.cuda.synchronize()
+        counts = rdev.launch_counts()
+        finite = watch.all_finite()
+    return out, counts, finite, torch.cuda.max_memory_allocated()
+
+
+def serve_row(np, arch, out, counts, finite, peak):
+    eng = out["engine"]
+    by_len = {}
+    for n, sec in eng.prefill_s:
+        by_len.setdefault(n, []).append(sec * 1e3)
+    ticks = np.asarray(eng.tick_s) * 1e3
+    return {"phase": "serve", "arch": arch, "layers": out["cfg"].n_layers,
+            "d_model": out["cfg"].d_model, "dtype": out["cfg"].dtype,
+            "param_dtype": out["cfg"].param_dtype,
+            "params": sum(p.numel() for p in out["model"].parameters()),
+            "requests": len(out["done"]), "slots": eng.B,
+            "max_len": eng.max_len, "launches": counts,
+            "logits_finite": finite, **out["stats"], "wall_s": out["wall_s"],
+            "prefill_ms_by_prompt_len": by_len,
+            "decode_ticks": len(ticks),
+            "decode_tick_ms_mean": float(ticks.mean()),
+            "decode_tick_ms_median": float(np.median(ticks)),
+            "max_memory_allocated_bytes": peak}
+
+
+def phase_serve(torch, np, rdev):
+    """The runs of ``SERVE_RUNS`` at published configs, through ``serve``.
+    zamba2-1.2b first: 8 requests (prompts of 256, 512, 1024 and 2048
+    tokens, twice each), 32 new tokens each, 4 slots; each prefill
+    launches the attention kernel once per shared block (6) and the SSD
+    kernel once per mamba layer (38), decode neither; a second run gives
+    the same tokens.  Then mamba2-780m (48 SSD launches per request) and
+    qwen3-0.6b (28 attention launches per request), 2 requests each."""
+    none = {"gat_mp": 0, "gat_mp_bwd": 0, "memsim": 0, "flash_attention": 0,
+            "ssd_scan": 0}
+    first = None
+    for arch, requests, slots, max_new, lens, per in SERVE_RUNS:
+        out, counts, finite, peak = run_serve(
+            torch, rdev, arch, requests, slots, SERVE_MAX_LEN, max_new, lens)
+        want = {**none, **{k: requests * v for k, v in per.items()}}
+        check(counts == want, f"{arch} serve launches {counts}, want {want}")
+        check(finite, f"{arch} serve: non-finite logits")
+        check(len(out["done"]) == requests
+              and all(len(r.tokens) == max_new for r in out["done"]),
+              f"{arch} serve: a request did not finish with {max_new} tokens")
+        check(sorted(len(r.prompt) for r in out["done"])
+              == sorted([lens[i % len(lens)] for i in range(requests)]),
+              f"{arch} serve: prompt lengths")
+        row = serve_row(np, arch, out, counts, finite, peak)
+        if first is None:
+            tokens = {r.rid: r.tokens for r in out["done"]}
+            model = out["model"]
+            out = None          # frees the engine's caches before the rerun
+            again, counts2, _, _ = run_serve(torch, rdev, arch, requests,
+                                             slots, SERVE_MAX_LEN, max_new,
+                                             lens)
+            check({r.rid: r.tokens for r in again["done"]} == tokens,
+                  f"{arch} serve: a second run gave other tokens")
+            check(counts2 == want, f"{arch} second run launches {counts2}")
+            row["second_run_same_tokens"] = True
+            row["second_run_tokens_per_s"] = again["stats"]["tokens_per_s"]
+            del again
+            first = row
+        del out
+        emit(row)
+    torch.cuda.empty_cache()
+    return first, model
+
+
+def phase_serve_profile(torch, np, model):
+    """Device time by kernel (torch.profiler) over one 2048-token zamba2
+    prefill and 10 decode ticks of the engine, against the host clock of
+    the same window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.engine import Engine, Request
+    eng = Engine(model, model.params, slots=4, max_len=2112)
+    prompt = np.random.default_rng(5).integers(0, model.cfg.vocab_size, 2048,
+                                               dtype=np.int32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.submit(Request(rid=0, prompt=prompt, max_new_tokens=11))
+        for _ in range(10):
+            eng.tick()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    check(len(eng.done) == 1 and len(eng.done[0].tokens) == 11,
+          "profiled request did not finish")
+    kernels = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0))
+        if dev_us > 0:
+            kernels.append({"name": evt.key[:80], "calls": evt.count,
+                            "device_ms": dev_us / 1e3})
+    kernels.sort(key=lambda k: -k["device_ms"])
+    busy = sum(k["device_ms"] for k in kernels)
+    mine = {tag: sum(k["device_ms"] for k in kernels if tag in k["name"])
+            for tag in ("flash_fwd_kernel", "ssd_kernel", "cb_kernel")}
+    emit({"phase": "serve_profile", "arch": model.cfg.name,
+          "window": "one 2048-token prefill and 10 decode ticks, 4 slots",
+          "wall_ms": wall_ms, "prefill_ms": eng.prefill_s[0][1] * 1e3,
+          "decode_tick_ms": [t * 1e3 for t in eng.tick_s],
+          "device_busy_ms": busy,
+          "device_idle_share": (1.0 - busy / wall_ms) if kernels
+          else "not measured", "kernel_device_ms": mine,
+          "top_kernels": kernels[:15]})
+
+
+def run_egrl(torch, np, rdev, gen):
+    """Phases 3-7, the EGRL slices' paths; returns their kernel rows."""
     from repro_torch.core import egrl, gnn, params, replay, sac
     from repro_torch.graphs import zoo
-    from repro_torch.kernels import build
     from repro_torch.kernels.gat_mp import ops
     from repro_torch.memsim import compiler, simulator as sim
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    # 1. device
-    smi = nvidia_smi()
-    kind = torch.cuda.get_device_name(0)
-    emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
-          "count": torch.cuda.device_count(),
-          "python": sys.version.split()[0], "torch": torch.__version__,
-          "cuda": torch.version.cuda})
-
-    # 2. build, every source in parallel
-    t0 = time.perf_counter()
-    rep = build.build(["gat_mp", "gat_mp_bwd", "memsim"])
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_source": {k: {"seconds": v["seconds"], "cached": v["cached"],
-                             "ptxas": [ln.strip() for ln in
-                                       v["log"].splitlines()
-                                       if "registers" in ln or "spill" in ln
-                                       or "smem" in ln]}
-                         for k, v in rep.items()}})
-
-    gen = torch.Generator("cuda").manual_seed(0)
     masks = {name: torch.as_tensor(make().adjacency() > 0, device="cuda")
              for name, make in zoo.WORKLOADS.items()}
 
@@ -632,13 +1044,14 @@ def main():
     phase_profile(torch, egrl, zoo)
     phase_profile(torch, egrl, zoo, mode="egrl", generations=1)
 
-    # 8. kernels
     ea = runs["bert", "ea"]["launches"]
-    emit({"kernels": [
+    src = "the BERT egrl run (launches_ea: the BERT EA run)"
+    return [
         {"name": "gat_mp_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/gat_mp.cu",
          "replaces": "src/repro/kernels/gat_mp/gat_mp.py:35",
          "launches": counts["gat_mp"], "launches_ea": ea["gat_mp"],
+         "launches_from": src,
          "max_abs_err": gat_path["err"],
          "ms": gat_path["ms"], "plain_ms": gat_path["plain_ms"],
          "bound_ms": gat_path["bound_ms"], "bound_by": gat_path["bound_by"],
@@ -648,6 +1061,7 @@ def main():
          "source": "src/repro_torch/csrc/gat_mp_bwd.cu",
          "replaces": "src/repro/kernels/gat_mp/gat_mp.py:98",
          "launches": counts["gat_mp_bwd"], "launches_ea": ea["gat_mp_bwd"],
+         "launches_from": src,
          "max_abs_err": bwd_path["err"],
          "ms": bwd_path["ms"], "plain_ms": bwd_path["plain_ms"],
          "bound_ms": bwd_path["bound_ms"], "bound_by": bwd_path["bound_by"],
@@ -657,13 +1071,89 @@ def main():
          "source": "src/repro_torch/csrc/memsim.cu",
          "replaces": "src/repro/memsim/simulator.py:163",
          "launches": counts["memsim"], "launches_ea": ea["memsim"],
+         "launches_from": src,
          "max_abs_err": mem_path["err"],
          "ms": mem_path["ms"], "plain_ms": mem_path["plain_ms"],
          "bound_ms": mem_path["bound_ms"], "bound_by": mem_path["bound_by"],
          "library_ms": None,
-         "per": "one population: 1 launch, BERT, P=20"}],
-        "launches_from": "the BERT egrl run (launches_ea: the BERT EA run)",
-        "device": kind, "nvidia_smi": smi})
+         "per": "one population: 1 launch, BERT, P=20"}]
+
+
+def main(argv=None):
+    argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args(
+        argv)
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device")
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        sys.exit("chip_smoke: src/repro_torch not found next to the script")
+    sys.path.insert(0, SRC)
+    from repro_torch import device as rdev
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. device
+    smi = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
+          "count": torch.cuda.device_count(),
+          "python": sys.version.split()[0], "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    # 2. build, every source in parallel
+    t0 = time.perf_counter()
+    rep = build.build(["gat_mp", "gat_mp_bwd", "memsim", "flash_attention",
+                       "ssd_scan"])
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "per_source": {k: {"seconds": v["seconds"], "cached": v["cached"],
+                             "ptxas": [ln.strip() for ln in
+                                       v["log"].splitlines()
+                                       if "registers" in ln or "spill" in ln
+                                       or "smem" in ln]}
+                         for k, v in rep.items()}})
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    rows = run_egrl(torch, np, rdev, gen)                  # 3-7
+    flash = phase_flash(torch, fops, gen)                  # 8
+    ssd = phase_ssd(torch, sops, gen)                      # 9
+    phase_serve_check(torch, rdev)                         # 10
+    serve, model = phase_serve(torch, np, rdev)            # 11
+    phase_serve_profile(torch, np, model)
+    del model
+
+    # 12. kernels
+    f, s_ = flash["zamba2-1.2b", 2048], ssd["zamba2-1.2b", 2048]
+    src = "the zamba2-1.2b serve run (8 requests, 256 to 2048 tokens)"
+    rows += [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:23",
+         "launches": serve["launches"]["flash_attention"],
+         "launches_from": src, "max_abs_err": f["max_abs_err"],
+         "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+         "bound_by": f["bound_by"], "library_ms": f["library_ms"],
+         "per": "one call at zamba2's 2048-token prefill: B=1, 32 heads of "
+                "64, bf16, causal"},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:23",
+         "launches": serve["launches"]["ssd_scan"],
+         "launches_from": src, "max_abs_err": max(s_["max_abs_err"].values()),
+         "ms": s_["ms"], "plain_ms": s_["plain_ms"],
+         "bound_ms": s_["bound_ms"], "bound_by": s_["bound_by"],
+         "library_ms": None,
+         "per": "one call at zamba2's 2048-token prefill: B=1, H=64, hd=64, "
+                "N=64, Q=256"}]
+    for r in rows:
+        r["launches_zamba2_serve"] = serve["launches"].get(
+            {"gat_mp_fwd": "gat_mp", "memsim_evaluate": "memsim"}.get(
+                r["name"], r["name"]))
+    emit({"kernels": rows, "device": kind, "nvidia_smi": smi})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -5,7 +5,9 @@ arrays); the port side is torch tensors.  GNN genomes and SAC critics
 share one flat layout each (``core.params.SPEC`` / ``critic_spec``, JAX
 leaf order) and Boltzmann genomes one flat encoding
 (``core.boltzmann``), so a conversion is a layout check plus a copy,
-never a reordering of values.
+never a reordering of values.  Language-model parameters and caches
+keep the JAX pytree's keys and stacked axes in the port
+(``nn.ParameterDict`` / dicts of tensors), so they convert key for key.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 
 from repro_torch.core import boltzmann as bz
 from repro_torch.core import params as P_
+from repro_torch.utils.params import to_parameter_dict, tree_map
 
 
 def _leaves(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -140,3 +143,38 @@ def boltzmann_from_jax(flat, n_nodes: int, device="cpu") -> torch.Tensor:
 
 def boltzmann_to_jax(flat: torch.Tensor) -> np.ndarray:
     return flat.detach().cpu().numpy().astype(np.float32)
+
+
+# ------------------------------------------------------- language models
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16: no torch view
+        return torch.tensor(a.astype(np.float32), device=device).to(
+            torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def lm_params_from_jax(tree: Mapping, device="cpu"):
+    """A JAX language model's parameter pytree (nested dicts of arrays,
+    stacked axes ``layers``, ``groups`` (G, k, ...) and ``tail`` kept) as
+    the port model's nested ``nn.ParameterDict``: a key-for-key copy."""
+    return to_parameter_dict(tree_map(lambda a: _tensor(a, device), tree))
+
+
+def lm_params_to_jax(params: Mapping) -> Dict:
+    """The port model's parameters as the JAX pytree of numpy arrays
+    (bfloat16 tensors come back as float32)."""
+    return tree_map(_numpy, params)
+
+
+def lm_cache_from_jax(cache: Mapping, device="cpu") -> Dict:
+    """A JAX model's cache dict (``init_cache`` / ``prefill`` layout) as
+    the port's cache: the same keys and shapes, as tensors."""
+    return {k: _tensor(v, device) for k, v in cache.items()}

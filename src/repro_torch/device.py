@@ -28,11 +28,15 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
 
 def _counted_wrappers():
     # imported here: the kernel modules import this one
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.gat_mp import ops as gat_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.memsim import simulator
     return {"gat_mp": gat_ops.gat_mp,
             "gat_mp_bwd": gat_ops.gat_mp_bwd,
-            "memsim": simulator.evaluate_population}
+            "memsim": simulator.evaluate_population,
+            "flash_attention": flash_ops.flash_attention,
+            "ssd_scan": ssd_ops.ssd_scan}
 
 
 def launch_counts() -> Dict[str, int]:

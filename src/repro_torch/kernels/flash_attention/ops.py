@@ -1,0 +1,132 @@
+"""Causal or full attention softmax(q k^T / sqrt(h)) v with grouped KV
+heads, in the layout of the port's attention (q (B, Sq, K, G, h), k and
+v (B, Sk, K, h)).
+
+Counterpart of ``src/repro/kernels/flash_attention/ops.py``
+``flash_attention`` (the Pallas kernel ``_kernel`` /
+``flash_attention_pallas`` in ``flash_attention.py``), which is the TPU
+lowering of the contract of ``repro.models.attention.blocked_attention``.
+``flash_attention`` is the public entry.  On CUDA tensors it launches
+``csrc/flash_attention.cu``, which reads q, k and v in place (query head
+k * G + g reads KV head k: no repeat, no transposed copy); on CPU tensors
+it runs ``flash_attention_plain``, the forward of ``blocked_attention``
+in torch ops.  Query i sits at position i + q_offset; with ``causal``
+it sees the keys at positions <= its own.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float]
+             + [ctypes.c_void_p])
+
+
+def softmax_scale(h: int, dtype: torch.dtype) -> float:
+    """h ** -0.5 rounded to the inputs' dtype: the JAX code multiplies q
+    by the scale as an array of q's dtype."""
+    return float(torch.tensor(h ** -0.5, dtype=dtype))
+
+
+def flash_attention_plain(q, k, v, *, chunk: int, causal: bool,
+                          q_offset: int = 0):
+    """Plain PyTorch version, any device: an online softmax over KV
+    chunks of ``chunk`` keys, with the JAX code's roundings (q * scale
+    and the probabilities fed to the second product in q's dtype, the
+    products and sums in f32).  Returns (B, Sq, K, G, h) in q's dtype."""
+    B, Sq, K, G, h = q.shape
+    Sk = k.shape[1]
+    n = Sk // chunk
+    qf = (q * torch.tensor(softmax_scale(h, q.dtype), dtype=q.dtype)).float()
+    q_pos = torch.arange(Sq, device=q.device) + q_offset
+    m = torch.full((B, K, G, Sq), NEG_INF, device=q.device)
+    l = torch.zeros((B, K, G, Sq), device=q.device)
+    acc = torch.zeros((B, K, G, Sq, h), device=q.device)
+    for idx in range(n):
+        kc = k[:, idx * chunk:(idx + 1) * chunk].float()
+        vc = v[:, idx * chunk:(idx + 1) * chunk].float()
+        s = torch.einsum("bqkgh,bckh->bkgqc", qf, kc)
+        if causal:
+            kv_pos = idx * chunk + torch.arange(chunk, device=q.device)
+            mask = q_pos[:, None] >= kv_pos[None, :]
+            s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        pe = torch.exp(s - m_new[..., None])
+        l = l * alpha + pe.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgqc,bckh->bkgqh", pe.to(q.dtype).float(), vc)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
+def _check(q, k, v):
+    if q.dim() != 5 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("flash_attention takes q (B, Sq, K, G, h) and k, v "
+                         "(B, Sk, K, h)")
+    B, Sq, K, G, h = q.shape
+    if k.shape[0] != B or k.shape[2] != K or k.shape[3] != h:
+        raise ValueError(f"k {tuple(k.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError("q, k and v must share one dtype")
+    if len({q.device, k.device, v.device}) != 1:
+        raise ValueError("flash_attention inputs lie on different devices")
+
+
+def _launch(q, k, v, causal, q_offset):
+    B, Sq, K, G, h = q.shape
+    Sk = k.shape[1]
+    if h not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head dims "
+                         f"{KERNEL_HEAD_DIMS}, got {h}")
+    if q.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"the CUDA kernel takes float32 or bfloat16, got "
+                         f"{q.dtype}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if min(B, Sq, Sk, K, G) == 0 or q_offset < 0:
+        raise ValueError("empty input or negative q_offset")
+    if B > 65535 or K * G > 65535:
+        raise ValueError("batch or head count exceeds the kernel grid")
+    fn = build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, Sq, Sk, K, G, h, KERNEL_DTYPES[q.dtype], int(causal),
+                 q_offset, softmax_scale(h, q.dtype),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                    chunk: int = 0):
+    """q (B, Sq, K, G, h); k, v (B, Sk, K, h), f32 or bf16 -> (B, Sq, K,
+    G, h) in the inputs' dtype.  CUDA tensors launch the kernel
+    (contiguous inputs, h in 16, 32, 64, 128); CPU tensors run
+    ``flash_attention_plain`` over KV chunks of ``chunk`` keys (0: one
+    chunk of all Sk keys), which must divide Sk."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        Sk = k.shape[1]
+        chunk = chunk or Sk
+        if Sk % chunk:
+            raise ValueError(f"chunk {chunk} does not divide Sk={Sk}")
+        return flash_attention_plain(q, k, v, chunk=chunk, causal=causal,
+                                     q_offset=q_offset)
+    return _launch(q, k, v, causal, q_offset)
+
+
+flash_attention.launches = 0

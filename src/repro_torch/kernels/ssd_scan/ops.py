@@ -1,0 +1,148 @@
+"""The Mamba2 SSD scan in its chunked form: y and the final state of
+the recurrence state_t = exp(la_t) state_{t-1} + B_t (x) xd_t,
+y_t = C_t . state_t, per batch element and head.
+
+Counterpart of ``src/repro/kernels/ssd_scan/ops.py`` ``ssd_scan`` (the
+Pallas kernel ``_kernel`` / ``ssd_scan_pallas`` in ``ssd_scan.py``),
+the same math as ``repro.models.mamba2.ssd_chunked``.  ``ssd_scan`` is
+the public entry: it forms the kernel's operands xd = x * dt and
+la = dt * -exp(A_log) in f32, then launches ``csrc/ssd_scan.cu`` on
+CUDA tensors or runs ``ssd_scan_plain`` on CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def ssd_scan_plain(xd, la, B_, C_, chunk: int, init_state=None):
+    """Plain PyTorch version, any device: ``ssd_chunked``'s chunked
+    matmul form, with the scan over chunk states as a loop.
+
+    xd (B, S, H, hd), la (B, S, H), B_ / C_ (B, S, N), all f32; the
+    chunk Q = min(chunk, S) must divide S.  Returns (y (B, S, H, hd),
+    final state (B, H, N, hd)), f32."""
+    Bb, S, H, hd = xd.shape
+    N = B_.shape[-1]
+    Q = min(chunk, S)
+    c = S // Q
+    la_c = la.reshape(Bb, c, Q, H)
+    x_c = xd.reshape(Bb, c, Q, H, hd)
+    B_c = B_.reshape(Bb, c, Q, N)
+    C_c = C_.reshape(Bb, c, Q, N)
+
+    cum = torch.cumsum(la_c, dim=2)                            # (B,c,Q,H)
+    total = cum[:, :, -1, :]                                   # (B,c,H)
+
+    # intra-chunk: y_i += sum_{j<=i} (C_i.B_j) exp(cum_i-cum_j) x_j
+    CB = torch.einsum("bcin,bcjn->bcij", C_c, B_c)
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]       # (B,c,i,j,H)
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                 device=xd.device))
+    decay = torch.where(mask[None, None, :, :, None], torch.exp(diff), 0.0)
+    y_intra = torch.einsum("bcij,bcijh,bcjhp->bcihp", CB, decay, x_c)
+
+    # end-of-chunk states: sum_j exp(total-cum_j) B_j (x) x_j
+    dte = torch.exp(total[:, :, None, :] - cum)                # (B,c,Q,H)
+    cstate = torch.einsum("bcjh,bcjn,bcjhp->bchnp", dte, B_c, x_c)
+
+    st = (torch.zeros((Bb, H, N, hd), dtype=torch.float32, device=xd.device)
+          if init_state is None else init_state.float())
+    prev = []
+    for i in range(c):
+        prev.append(st)
+        st = st * torch.exp(total[:, i])[:, :, None, None] + cstate[:, i]
+    prev = torch.stack(prev, dim=1)                            # (B,c,H,N,hd)
+
+    y_inter = torch.einsum("bcih,bcin,bchnp->bcihp", torch.exp(cum), C_c,
+                           prev)
+    y = (y_intra + y_inter).reshape(Bb, S, H, hd)
+    return y, st
+
+
+def _operands(x, dt, A_log):
+    A = -torch.exp(A_log.float())
+    la = dt.float() * A
+    xd = x.float() * dt.float()[..., None]
+    return xd, la
+
+
+def _check(x, dt, A_log, B_, C_, chunk, init_state):
+    if x.dim() != 4 or dt.dim() != 3 or B_.dim() != 3:
+        raise ValueError("ssd_scan takes x (B, S, H, hd), dt (B, S, H), "
+                         "A_log (H,) and B_, C_ (B, S, N)")
+    Bb, S, H, hd = x.shape
+    N = B_.shape[-1]
+    if dt.shape != (Bb, S, H) or A_log.shape != (H,):
+        raise ValueError(f"dt {tuple(dt.shape)} / A_log "
+                         f"{tuple(A_log.shape)} do not match x "
+                         f"{tuple(x.shape)}")
+    if B_.shape != (Bb, S, N) or C_.shape != (Bb, S, N):
+        raise ValueError(f"B_ {tuple(B_.shape)} / C_ {tuple(C_.shape)} "
+                         f"must be {(Bb, S, N)}")
+    if init_state is not None and init_state.shape != (Bb, H, N, hd):
+        raise ValueError(f"init_state {tuple(init_state.shape)} must be "
+                         f"{(Bb, H, N, hd)}")
+    Q = min(chunk, S)
+    if Q < 1 or S % Q:
+        raise ValueError(f"chunk {Q} does not divide S={S}")
+    devs = {t.device for t in (x, dt, A_log, B_, C_)
+            + (() if init_state is None else (init_state,))}
+    if len(devs) != 1:
+        raise ValueError("ssd_scan inputs lie on different devices")
+
+
+def _launch(xd, la, B_, C_, chunk, init_state):
+    Bb, S, H, hd = xd.shape
+    N = B_.shape[-1]
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head dims "
+                         f"{KERNEL_HEAD_DIMS}, got {hd}")
+    if N > 256:
+        raise ValueError(f"the CUDA kernel takes d_state <= 256, got {N}")
+    if Bb > 65535 or H > 65535 or Bb * (S // min(chunk, S)) > 65535:
+        raise ValueError("batch, head or chunk count exceeds the kernel "
+                         "grid")
+    B_ = B_.float().contiguous()
+    C_ = C_.float().contiguous()
+    st0 = None if init_state is None else init_state.float().contiguous()
+    fn = build.function("ssd_scan", "ssd_scan_fwd", _ARGTYPES)
+    Q = min(chunk, S)
+    cb = torch.empty((Bb, S // Q, Q, Q), dtype=torch.float32,
+                     device=xd.device)          # scratch: C B^T per chunk
+    y = torch.empty_like(xd)
+    final = torch.empty((Bb, H, N, hd), dtype=torch.float32,
+                        device=xd.device)
+    with torch.cuda.device(xd.device):
+        err = fn(xd.data_ptr(), la.data_ptr(), B_.data_ptr(), C_.data_ptr(),
+                 None if st0 is None else st0.data_ptr(), cb.data_ptr(),
+                 y.data_ptr(), final.data_ptr(), Bb, S, H, hd, N, Q,
+                 torch.cuda.current_stream(xd.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
+    ssd_scan.launches += 1
+    return y, final
+
+
+def ssd_scan(x, dt, A_log, B_, C_, *, chunk: int, init_state=None):
+    """x (B, S, H, hd); dt (B, S, H) post-softplus; A_log (H,); B_ / C_
+    (B, S, N) shared by the heads; optional init_state (B, H, N, hd).
+    Returns (y (B, S, H, hd), final state (B, H, N, hd)), f32.  The chunk
+    Q = min(chunk, S) must divide S.  CUDA tensors launch the kernel (hd
+    in 16, 32, 64, 128); CPU tensors run ``ssd_scan_plain``."""
+    _check(x, dt, A_log, B_, C_, chunk, init_state)
+    xd, la = _operands(x, dt, A_log)
+    if x.device.type == "cpu":
+        return ssd_scan_plain(xd, la, B_.float(), C_.float(), chunk,
+                              init_state)
+    return _launch(xd.contiguous(), la.contiguous(), B_, C_, chunk,
+                   init_state)
+
+
+ssd_scan.launches = 0

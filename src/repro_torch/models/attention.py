@@ -1,0 +1,113 @@
+"""GQA attention: the blocked (flash) prefill path, the single-step
+decode path, optional qk-norm / qkv-bias, RoPE.
+
+Copied from ``src/repro/models/attention.py``, forward only.
+``blocked_attention`` runs the flash kernel (``kernels.flash_attention``)
+on CUDA tensors and its plain version on CPU tensors; ``decode_attention``
+is plain torch ops, as in the JAX package.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.common import NEG_INF, rms_norm, rope
+from repro_torch.utils.params import ParamDef
+
+
+def attn_defs(cfg: ModelConfig):
+    D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    d = {
+        "wq": ParamDef((D, H, hd), ("embed", "heads", "head_dim"), "scaled", fan_in_axes=(0,)),
+        "wk": ParamDef((D, K, hd), ("embed", "kv_heads", "head_dim"), "scaled", fan_in_axes=(0,)),
+        "wv": ParamDef((D, K, hd), ("embed", "kv_heads", "head_dim"), "scaled", fan_in_axes=(0,)),
+        "wo": ParamDef((H, hd, D), ("heads", "head_dim", "embed"), "scaled", fan_in_axes=(0, 1)),
+    }
+    if cfg.qkv_bias:
+        d["bq"] = ParamDef((H, hd), ("heads", "head_dim"), "zeros")
+        d["bk"] = ParamDef((K, hd), ("kv_heads", "head_dim"), "zeros")
+        d["bv"] = ParamDef((K, hd), ("kv_heads", "head_dim"), "zeros")
+    if cfg.qk_norm:
+        d["q_norm"] = ParamDef((hd,), (None,), "ones")
+        d["k_norm"] = ParamDef((hd,), (None,), "ones")
+    return d
+
+
+def _proj(x, w):
+    """x (B, S, D) @ w (D, H, k) -> (B, S, H, k)."""
+    D, H, k = w.shape
+    return (x @ w.reshape(D, H * k).to(x.dtype)).reshape(*x.shape[:-1], H, k)
+
+
+def project_qkv(p, x, cfg: ModelConfig, positions):
+    """x: (B,S,D) -> q (B,S,K,G,h), k/v (B,S,K,h); rope + qk-norm applied."""
+    dt = x.dtype
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    B, S = x.shape[:2]
+    q = q.reshape(B, S, cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim)
+    return q, k, v
+
+
+def blocked_attention(q, k, v, *, chunk: int, causal: bool,
+                      q_positions=None, kv_offset: int = 0):
+    """Flash attention, forward.  q: (B,Sq,K,G,h); k,v: (B,Sk,K,h).
+    Returns (B,Sq,K,G,h).  ``q_positions`` may only be
+    ``arange(Sq) + kv_offset`` (every call the JAX models make); the CUDA
+    kernel takes the first position as an offset.  Checking them reads
+    them on the host, so the port's models pass ``kv_offset`` alone."""
+    Sq = q.shape[1]
+    Sk = k.shape[1]
+    chunk = min(chunk, Sk)
+    assert Sk % chunk == 0, (Sk, chunk)
+    if q_positions is not None:
+        want = torch.arange(Sq, device=q_positions.device) + kv_offset
+        if not torch.equal(q_positions.to(want.dtype), want):
+            raise ValueError("q_positions must be arange(Sq) + kv_offset")
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=causal, q_offset=kv_offset, chunk=chunk)
+
+
+def decode_attention(q, k_cache, v_cache, pos):
+    """Single-token attention over the cache.
+
+    q: (B,1,K,G,h); caches: (B,Smax,K,h); pos: current position.
+    Positions > pos are masked."""
+    B, _, K, G, h = q.shape
+    Smax = k_cache.shape[1]
+    scale = torch.tensor(h ** -0.5, dtype=q.dtype)
+    s = torch.einsum("bokgh,bskh->bkgs", (q * scale).float(),
+                     k_cache.float())
+    valid = torch.arange(Smax, device=q.device)[None, None, None, :] <= pos
+    s = torch.where(valid, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskh->bkgh", w, v_cache.float())
+    return out.reshape(B, 1, K, G, h).to(q.dtype)
+
+
+def attn_out(p, ctx, cfg: ModelConfig):
+    """ctx: (B,S,K,G,h) -> (B,S,D)."""
+    B, S = ctx.shape[:2]
+    wo = p["wo"].reshape(cfg.n_heads * cfg.head_dim, cfg.d_model)
+    return ctx.reshape(B, S, cfg.n_heads * cfg.head_dim) @ wo.to(ctx.dtype)
+
+
+def update_cache(cache, new, pos, mode: str = "dus"):
+    """Write new (B,1,K,h) into cache (B,S,K,h) at sequence index pos, in
+    place (the JAX code returns an updated copy), and return the cache.
+    ``pos`` is clamped into the cache as ``dynamic_update_slice`` does;
+    both modes ("dus", "onehot") write the same values."""
+    if mode not in ("dus", "onehot"):
+        raise ValueError(f"unknown cache update mode {mode!r}")
+    pos = min(max(int(pos), 0), cache.shape[1] - 1)
+    cache[:, pos] = new[:, 0].to(cache.dtype)
+    return cache

@@ -1,0 +1,216 @@
+"""Mamba2 (SSD, state-space duality) LM, forward for serving.
+
+Copied from ``src/repro/models/mamba2.py`` (prefill and decode; the
+training forward and loss are not ported).  The SSD forward is the
+chunked matmul form (arXiv:2405.21060 §6): quadratic attention-like
+products within chunks and a sequential scan over chunk states; on CUDA
+tensors ``ssd_chunked`` runs the kernel of ``kernels.ssd_scan``.
+Decode is the O(1) recurrent step on (H, N, hd) states.  n_groups = 1
+(B/C shared across heads), as in the published 780m config.  z, x, B, C
+and dt have separate projection and conv parameters, as in the JAX
+package: mathematically the fused in_proj of the reference
+implementation.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.models import common as cm
+from repro_torch.models.transformer import _stack_defs
+from repro_torch.utils.params import ParamDef
+
+
+def _dims(cfg: ModelConfig):
+    s = cfg.ssm
+    d_in = cfg.d_model * s.expand
+    H = d_in // s.head_dim
+    return d_in, H
+
+
+def mamba_defs(cfg: ModelConfig):
+    s = cfg.ssm
+    D = cfg.d_model
+    d_in, H = _dims(cfg)
+    N = s.d_state
+    W = s.conv_width
+    return {
+        "w_z": ParamDef((D, d_in), ("embed", "ssm_inner"), "scaled"),
+        "w_x": ParamDef((D, d_in), ("embed", "ssm_inner"), "scaled"),
+        "w_B": ParamDef((D, N), ("embed", "ssm_state"), "scaled"),
+        "w_C": ParamDef((D, N), ("embed", "ssm_state"), "scaled"),
+        "w_dt": ParamDef((D, H), ("embed", "ssm_head"), "scaled"),
+        "conv_x": ParamDef((W, d_in), (None, "ssm_inner"), "scaled"),
+        "conv_bx": ParamDef((d_in,), ("ssm_inner",), "zeros"),
+        "conv_B": ParamDef((W, N), (None, "ssm_state"), "scaled"),
+        "conv_bB": ParamDef((N,), ("ssm_state",), "zeros"),
+        "conv_C": ParamDef((W, N), (None, "ssm_state"), "scaled"),
+        "conv_bC": ParamDef((N,), ("ssm_state",), "zeros"),
+        "A_log": ParamDef((H,), ("ssm_head",), "ones"),
+        "dt_bias": ParamDef((H,), ("ssm_head",), "zeros"),
+        "D_skip": ParamDef((H,), ("ssm_head",), "ones"),
+        "norm": ParamDef((d_in,), ("ssm_inner",), "ones"),
+        "out_proj": ParamDef((d_in, D), ("ssm_inner", "embed"), "scaled"),
+        "ln": cm.norm_defs(cfg),
+    }
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv1d. x (B,S,C), w (W,C)."""
+    W = w.shape[0]
+    S = x.shape[1]
+    pad = F.pad(x, (0, 0, W - 1, 0))
+    out = 0
+    for i in range(W):
+        out = out + pad[:, i:i + S, :] * w[i]
+    return F.silu(out + b)
+
+
+def _conv_step(x_t, state, w, b):
+    """x_t (B,C) newest input; state (B,W-1,C) raw history."""
+    window = torch.cat([state, x_t[:, None, :]], dim=1)       # (B,W,C)
+    out = torch.einsum("bwc,wc->bc", window, w)
+    return F.silu(out + b), window[:, 1:, :]
+
+
+def ssd_chunked(x, B_, C_, dt, A_log, chunk: int, init_state=None):
+    """SSD chunked matmul form.
+
+    x (B,S,H,hd); B_/C_ (B,S,N); dt (B,S,H) post-softplus; A_log (H,).
+    Returns (y (B,S,H,hd) fp32, final_state (B,H,N,hd) fp32)."""
+    S = x.shape[1]
+    Q = min(chunk, S)
+    assert S % Q == 0, (S, Q)
+    return ssd_scan(x, dt, A_log, B_, C_, chunk=Q, init_state=init_state)
+
+
+def mamba_block(p, x, cfg: ModelConfig, return_state: bool = False):
+    """Pre-norm residual mamba2 mixer on (B,S,D)."""
+    s = cfg.ssm
+    d_in, H = _dims(cfg)
+    dt_ = x.dtype
+    Bb, S = x.shape[:2]
+    h = cm.rms_norm(x, p["ln"]["scale"], cfg.norm_eps)
+    z = h @ p["w_z"].to(dt_)
+    xr = h @ p["w_x"].to(dt_)                                  # raw conv input
+    Br = h @ p["w_B"].to(dt_)
+    Cr = h @ p["w_C"].to(dt_)
+    dtl = h @ p["w_dt"].to(dt_)
+    xc = _causal_conv(xr, p["conv_x"].to(dt_), p["conv_bx"].to(dt_))
+    Bc = _causal_conv(Br, p["conv_B"].to(dt_), p["conv_bB"].to(dt_))
+    Cc = _causal_conv(Cr, p["conv_C"].to(dt_), p["conv_bC"].to(dt_))
+    xc_ = xc.reshape(Bb, S, H, s.head_dim)
+    dt = F.softplus(dtl.float() + p["dt_bias"].float())
+    y, fstate = ssd_chunked(xc_, Bc, Cc, dt, p["A_log"], s.chunk)
+    y = y.to(dt_) + p["D_skip"].to(dt_)[None, None, :, None] * xc_
+    y = y.reshape(Bb, S, d_in)
+    y = y * F.silu(z)
+    y = cm.rms_norm(y, p["norm"], cfg.norm_eps)
+    out = y @ p["out_proj"].to(dt_)
+    if return_state:
+        W = s.conv_width
+        tails = (xr[:, -(W - 1):, :], Br[:, -(W - 1):, :], Cr[:, -(W - 1):, :])
+        return x + out, (tails, fstate.to(dt_))
+    return x + out, None
+
+
+def mamba_decode(p, x, cfg: ModelConfig, conv_x, conv_B, conv_C, ssm_state):
+    """One-token step. x (B,1,D); conv_* raw history; ssm_state (B,H,N,hd)."""
+    s = cfg.ssm
+    d_in, H = _dims(cfg)
+    dt_ = x.dtype
+    h = cm.rms_norm(x, p["ln"]["scale"], cfg.norm_eps)[:, 0]   # (B,D)
+    z = h @ p["w_z"].to(dt_)
+    xr = h @ p["w_x"].to(dt_)
+    Br = h @ p["w_B"].to(dt_)
+    Cr = h @ p["w_C"].to(dt_)
+    dtl = h @ p["w_dt"].to(dt_)
+    xc, ncx = _conv_step(xr, conv_x, p["conv_x"].to(dt_), p["conv_bx"].to(dt_))
+    Bc, ncB = _conv_step(Br, conv_B, p["conv_B"].to(dt_), p["conv_bB"].to(dt_))
+    Cc, ncC = _conv_step(Cr, conv_C, p["conv_C"].to(dt_), p["conv_bC"].to(dt_))
+    x_ssm = xc.reshape(-1, H, s.head_dim)
+    dt = F.softplus(dtl.float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+    a = torch.exp(dt * A)                                      # (B,H)
+    xd = x_ssm.float() * dt[..., None]
+    new_state = (ssm_state.float() * a[:, :, None, None]
+                 + torch.einsum("bn,bhp->bhnp", Bc.float(), xd))
+    y = torch.einsum("bn,bhnp->bhp", Cc.float(), new_state)
+    y = y.to(dt_) + p["D_skip"].to(dt_)[None, :, None] * x_ssm
+    y = y.reshape(-1, d_in)
+    y = y * F.silu(z)
+    y = cm.rms_norm(y, p["norm"], cfg.norm_eps)
+    out = (y @ p["out_proj"].to(dt_))[:, None, :]
+    return x + out, (ncx, ncB, ncC), new_state.to(dt_)
+
+
+def ssm_cache_struct(cfg: ModelConfig, batch: int):
+    """The recurrent part of a cache: raw conv history and SSD state per
+    mamba layer."""
+    s = cfg.ssm
+    d_in, H = _dims(cfg)
+    L, W, N = cfg.n_layers, s.conv_width, s.d_state
+    f = lambda sh: cm.CacheSpec(sh, cfg.act_dtype)  # noqa: E731
+    return {
+        "conv_x": f((L, batch, W - 1, d_in)),
+        "conv_B": f((L, batch, W - 1, N)),
+        "conv_C": f((L, batch, W - 1, N)),
+        "state": f((L, batch, H, N, s.head_dim)),
+    }
+
+
+def decode_layer(p, x, cfg, cache, i):
+    """``mamba_decode`` of layer i against its slices of ``cache``,
+    written back in place (the JAX code stacks new cache arrays)."""
+    x, (ncx, ncb, ncc), ns = mamba_decode(
+        p, x, cfg, cache["conv_x"][i], cache["conv_B"][i],
+        cache["conv_C"][i], cache["state"][i])
+    cache["conv_x"][i] = ncx
+    cache["conv_B"][i] = ncb
+    cache["conv_C"][i] = ncc
+    cache["state"][i] = ns
+    return x
+
+
+class Mamba2LM(cm.LMBase):
+    def _param_defs_raw(self):
+        cfg = self.cfg
+        return {
+            "embed": cm.embed_defs(cfg),
+            "layers": _stack_defs(mamba_defs(cfg), cfg.n_layers),
+            "final_norm": cm.norm_defs(cfg),
+        }
+
+    # ----------------------------------------------------------- serving
+    def cache_struct(self, batch: int, max_len: int):
+        return ssm_cache_struct(self.cfg, batch)
+
+    def decode_step(self, params, cache, token, pos):
+        """token (B,) -> (logits (B,Vp), cache updated in place)."""
+        cfg = self.cfg
+        x = cm.embed(params["embed"], token[:, None], cfg)
+        for i in range(cfg.n_layers):
+            x = decode_layer(cm.layer_slice(params["layers"], i), x, cfg,
+                             cache, i)
+        x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+        logits = cm.logits_last(params["embed"], x[:, 0], cfg)
+        return logits, cache
+
+    def prefill(self, params, tokens, max_len: int):
+        cfg = self.cfg
+        x = cm.embed(params["embed"], tokens, cfg)
+        tails, states = [], []
+        for i in range(cfg.n_layers):
+            x, (t3, st) = mamba_block(cm.layer_slice(params["layers"], i), x,
+                                      cfg, return_state=True)
+            tails.append(t3)
+            states.append(st)
+        x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+        logits = cm.logits_last(params["embed"], x[:, -1], cfg)
+        cache = {"conv_x": torch.stack([t[0] for t in tails]),
+                 "conv_B": torch.stack([t[1] for t in tails]),
+                 "conv_C": torch.stack([t[2] for t in tails]),
+                 "state": torch.stack(states)}
+        return cache, logits

@@ -1,0 +1,115 @@
+"""Zamba2-style hybrid: Mamba2 backbone + one weight-TIED transformer
+block applied after every `shared_attn_every` mamba layers.
+
+Copied from ``src/repro/models/zamba2.py`` (prefill and decode).  Layers
+are grouped as (G groups of [k mamba layers + shared attn/mlp block]) +
+a tail of (n_layers % k) mamba layers; the parameters keep the JAX
+layout, ``groups`` stacked (G, k, ...) and ``tail`` (tail, ...), and
+each shared-block application has its own KV-cache slice.
+
+Simplification vs the released checkpoints, as in the JAX package: the
+shared block consumes the residual stream directly (no
+concat-with-embedding re-projection, no per-invocation LoRA deltas).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as att
+from repro_torch.models import common as cm
+from repro_torch.models.mamba2 import (decode_layer, mamba_block, mamba_defs,
+                                       ssm_cache_struct)
+from repro_torch.models.transformer import TransformerLM, _stack_defs
+
+
+class Zamba2LM(cm.LMBase):
+    def __init__(self, cfg: ModelConfig):
+        assert cfg.shared_attn_every > 0 and cfg.ssm is not None
+        super().__init__(cfg)
+        self.k = cfg.shared_attn_every
+        self.G = cfg.n_layers // self.k
+        self.tail = cfg.n_layers % self.k
+        # reuse transformer attention/mlp machinery for the shared block
+        self._tf = TransformerLM(cfg)
+
+    # ------------------------------------------------------------ params
+    def _param_defs_raw(self):
+        cfg = self.cfg
+        md = mamba_defs(cfg)
+        d = {
+            "embed": cm.embed_defs(cfg),
+            "groups": _stack_defs(_stack_defs(md, self.k), self.G),
+            "shared": {
+                "ln1": cm.norm_defs(cfg), "attn": att.attn_defs(cfg),
+                "ln2": cm.norm_defs(cfg), "mlp": cm.mlp_defs(cfg),
+            },
+            "final_norm": cm.norm_defs(cfg),
+        }
+        if self.tail:
+            d["tail"] = _stack_defs(md, self.tail)
+        return d
+
+    def _mamba_layers(self, params):
+        """(depth index, layer params) for the n_layers mamba layers in
+        depth order, with the shared block due after each group."""
+        for g in range(self.G):
+            p_g = cm.layer_slice(params["groups"], g)
+            for j in range(self.k):
+                yield g * self.k + j, cm.layer_slice(p_g, j)
+        for j in range(self.tail):
+            yield self.G * self.k + j, cm.layer_slice(params["tail"], j)
+
+    # ----------------------------------------------------------- serving
+    def cache_struct(self, batch: int, max_len: int):
+        cfg = self.cfg
+        sh = (self.G, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        return {**ssm_cache_struct(cfg, batch),
+                "attn_k": cm.CacheSpec(sh, cfg.act_dtype),
+                "attn_v": cm.CacheSpec(sh, cfg.act_dtype)}
+
+    def decode_step(self, params, cache, token, pos):
+        """token (B,), pos int -> (logits (B,Vp), cache updated in place)."""
+        cfg = self.cfg
+        x = cm.embed(params["embed"], token[:, None], cfg)
+        shared = params["shared"]
+        for i, p_l in self._mamba_layers(params):
+            x = decode_layer(p_l, x, cfg, cache, i)
+            if i < self.G * self.k and (i + 1) % self.k == 0:
+                g = i // self.k
+                x = self._tf._decode_layer(shared, x, cache["attn_k"][g],
+                                           cache["attn_v"][g], pos)
+        x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+        logits = cm.logits_last(params["embed"], x[:, 0], cfg)
+        return logits, cache
+
+    def prefill(self, params, tokens, max_len: int):
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = cm.embed(params["embed"], tokens, cfg)
+        positions = torch.arange(S, device=x.device)
+        shared = params["shared"]
+        kv_len = max(max_len, S)
+        attn = cm.CacheSpec((self.G, B, kv_len, cfg.n_kv_heads,
+                             cfg.head_dim), cfg.act_dtype)
+        ks = torch.zeros(attn.shape, dtype=attn.dtype, device=x.device)
+        vs = torch.zeros_like(ks)
+        tails, states = [], []
+        for i, p_l in self._mamba_layers(params):
+            x, (t3, st) = mamba_block(p_l, x, cfg, return_state=True)
+            tails.append(t3)
+            states.append(st)
+            if i < self.G * self.k and (i + 1) % self.k == 0:
+                # shared attention over the full prefix, keep kv
+                g = i // self.k
+                x, ks[g, :, :S], vs[g, :, :S] = self._tf._attn_block(
+                    shared, x, positions)
+                x, _ = self._tf._ffn_block(shared, x)
+        cache = {"conv_x": torch.stack([t[0] for t in tails]),
+                 "conv_B": torch.stack([t[1] for t in tails]),
+                 "conv_C": torch.stack([t[2] for t in tails]),
+                 "state": torch.stack(states),
+                 "attn_k": ks, "attn_v": vs}
+        x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+        logits = cm.logits_last(params["embed"], x[:, -1], cfg)
+        return cache, logits

@@ -35,7 +35,14 @@ def test_import_loads_no_jax_and_no_reference_package():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(MODULES) >= 16
+    assert len(MODULES) >= 34
+    serving = {"configs.base", "configs.registry", "configs.zamba2_1_2b",
+               "configs.mamba2_780m", "configs.qwen3_0_6b", "utils.params",
+               "kernels.flash_attention.ops", "kernels.ssd_scan.ops",
+               "models.common", "models.attention", "models.mamba2",
+               "models.transformer", "models.zamba2", "models.zoo",
+               "serving.engine", "launch.serve"}
+    assert {f"repro_torch.{m}" for m in serving} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -82,7 +89,8 @@ def test_cpu_run_launches_no_kernel():
     algo.train()
     assert "critic_loss" in algo.history[-1]
     assert rdev.launch_counts() == {"gat_mp": 0, "gat_mp_bwd": 0,
-                                    "memsim": 0}
+                                    "memsim": 0, "flash_attention": 0,
+                                    "ssd_scan": 0}
 
 
 def test_optimize_writes_the_reference_plan_schema():
@@ -102,7 +110,8 @@ def test_optimize_writes_the_reference_plan_schema():
 def test_kernel_build_names_and_missing_toolkit(monkeypatch, tmp_path):
     from repro_torch.kernels import build
     paths = {name: build.library_path(name)
-             for name in ("gat_mp", "gat_mp_bwd", "memsim")}
+             for name in ("gat_mp", "gat_mp_bwd", "memsim", "flash_attention",
+                          "ssd_scan")}
     for name, path in paths.items():
         assert path.parent == ROOT / "build" / "repro_torch"
         assert path.name.startswith(f"{name}-") and path.suffix == ".so"
@@ -110,8 +119,8 @@ def test_kernel_build_names_and_missing_toolkit(monkeypatch, tmp_path):
     assert "-fmad=false" in build._flags("memsim")
     assert "-fmad=false" not in build._flags("gat_mp")
     assert "-fmad=false" not in build._flags("gat_mp_bwd")
-    assert "arch=compute_90a,code=sm_90a" in build._flags("gat_mp")
-    assert "arch=compute_90a,code=sm_90a" in build._flags("gat_mp_bwd")
+    for name in paths:
+        assert "arch=compute_90a,code=sm_90a" in build._flags(name)
     # no toolkit: the build says so instead of falling back
     monkeypatch.setattr(build.shutil, "which", lambda _: None)
     monkeypatch.setattr(build.os.path, "exists", lambda _: False)
