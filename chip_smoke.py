@@ -6,8 +6,9 @@
 Phases, each printing JSON lines:
 
 1. device   -- the card's name and power limit (nvidia-smi);
-2. build    -- the five CUDA kernels compiled from
-               ``src/repro_torch/csrc``, one ``nvcc`` each, in parallel;
+2. build    -- the five CUDA sources of ``src/repro_torch/csrc``
+               compiled, one ``nvcc`` each, in parallel; each kernel's
+               registers and spills printed;
 3. gat      -- the GAT forward kernel against its plain PyTorch version,
                at the main path's shapes and at edge-case graph sizes;
                gat_path: the 4 launches of one BERT population forward;
@@ -24,10 +25,13 @@ Phases, each printing JSON lines:
                after it, and must match the counts the path implies;
 7. profile  -- device time by kernel over 3 EA-mode and 1 "egrl"-mode
                BERT generations;
-8. flash    -- the flash-attention kernel against its plain version at
+8. flash    -- the attention kernels against their plain version at
                every attention prefill shape of the serve phase
                (zamba2, qwen3-0.6b; bf16), in f32, without the causal
-               mask and at S = 100; SDPA timed beside it as a yardstick;
+               mask, at S = 100 (both heads) and with a causal offset
+               (Sq = 512, Sk = 1024); every bf16 case through both the
+               tensor-core route and the fp32-core route, timed beside
+               SDPA as a yardstick;
 9. ssd      -- the SSD scan kernel against its plain version at every
                Mamba2 prefill shape of the serve phase (zamba2,
                mamba2-780m), at B = 2, at S < chunk and from an initial
@@ -101,6 +105,27 @@ def time_ms(fn, reps, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps=20):
+    """Device time per call of ``fn``: the kernels torch.profiler records
+    over ``reps`` calls, summed, over ``reps``.  Unlike ``time_ms`` it
+    leaves out the host's time between launches, which is what a call
+    of a few microseconds of device work mostly measures."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / reps if us > 0 else "not measured"
 
 
 def bound(nbytes, ops, peak=PEAK_F32):
@@ -484,7 +509,7 @@ def run_slice(torch, np, name, make, egrl, sim, compiler, rdev, mode="ea",
             + (4 * gens if mode != "ea" else 0),
             "gat_mp_bwd": 8 * sac_steps,
             "memsim": 1 + gens * (pop + (mode != "ea")),
-            "flash_attention": 0, "ssd_scan": 0}
+            "flash_attention": 0, "flash_attention_tc": 0, "ssd_scan": 0}
     check(counts == want, f"{name} {mode}: launches {counts}, the path "
           f"implies {want}")
     if mode != "ea":
@@ -580,9 +605,10 @@ def phase_profile(torch, egrl, zoo, mode="ea", generations=3):
 # length) pair here, so the shapes checked are the shapes served.
 SERVE_RUNS = (
     ("zamba2-1.2b", 8, 4, 32, (256, 512, 1024, 2048),
-     {"flash_attention": 6, "ssd_scan": 38}),
+     {"flash_attention": 6, "flash_attention_tc": 6, "ssd_scan": 38}),
     ("mamba2-780m", 2, 2, 16, (1024, 2048), {"ssd_scan": 48}),
-    ("qwen3-0.6b", 2, 2, 16, (1024, 2048), {"flash_attention": 28}),
+    ("qwen3-0.6b", 2, 2, 16, (1024, 2048),
+     {"flash_attention": 28, "flash_attention_tc": 28}),
 )
 SERVE_MAX_LEN = 2112
 
@@ -594,23 +620,30 @@ def served_prefills():
 
 
 # ------------------------------------------------------ attention kernel
-FLASH_TILE = 64            # BK of csrc/flash_attention.cu: keys per tile
+FLASH_TILE = 64            # BK of the fp32-core kernel: keys per tile
 ATTN_CHUNK = 1024          # ModelConfig.attn_chunk of the served configs
 
 
 def flash_cases():
-    """(name, B, S, K, G, h, dtype, causal): every attention prefill of the
-    serve runs (zamba2's shared block, 32 heads of 64; qwen3-0.6b, 8 KV
-    heads of 128 with 2 queries each), then zamba2's heads in f32,
-    without the causal mask, and at S = 100 (not a multiple of a tile)."""
-    cases = [(cfg.name, 1, S, cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim,
-              cfg.dtype, True) for cfg, S in served_prefills()
+    """(name, B, S, Sk, K, G, h, dtype, causal, q_offset): every attention
+    prefill of the serve runs (zamba2's shared block, 32 heads of 64;
+    qwen3-0.6b, 8 KV heads of 128 with 2 queries each), then zamba2's
+    heads in f32, without the causal mask, at S = 100 (not a multiple
+    of a tile) and 512 queries at positions 512.. over 1024 keys, and
+    qwen3's heads at S = 100."""
+    cases = [(cfg.name, 1, S, S, cfg.n_kv_heads, cfg.q_per_kv,
+              cfg.head_dim, cfg.dtype, True, 0)
+             for cfg, S in served_prefills()
              if cfg.family in ("dense", "hybrid")]
-    _, _, _, K, G, h, dtype, _ = cases[0]
-    return cases + [("zamba2-1.2b:f32", 1, 1024, K, G, h, "float32", True),
-                    ("zamba2-1.2b:non-causal", 1, 1024, K, G, h, dtype,
-                     False),
-                    ("zamba2-1.2b:S=100", 1, 100, K, G, h, dtype, True)]
+    zamba = next(c for c in cases if c[0] == "zamba2-1.2b")
+    qwen = next(c for c in cases if c[0] == "qwen3-0.6b")
+    K, G, h, dtype = zamba[4:8]
+    return cases + [
+        ("zamba2-1.2b:f32", 1, 1024, 1024, K, G, h, "float32", True, 0),
+        ("zamba2-1.2b:non-causal", 1, 1024, 1024, K, G, h, dtype, False, 0),
+        ("zamba2-1.2b:S=100", 1, 100, 100, K, G, h, dtype, True, 0),
+        ("zamba2-1.2b:offset", 1, 512, 1024, K, G, h, dtype, True, 512),
+        ("qwen3-0.6b:S=100", 1, 100, 100, *qwen[4:8], True, 0)]
 
 
 def flash_error(torch, got, want, bf16):
@@ -645,57 +678,100 @@ def flash_error(torch, got, want, bf16):
     return err
 
 
-def sdpa_attention(torch, q, k, v, causal):
+def sdpa_attention(torch, q, k, v, causal, q_offset=0):
     """One scaled_dot_product_attention call computing the same function
     on the same tensors (heads moved to dim 1 as strided views), timed as
-    a yardstick only."""
+    a yardstick only.  Queries at positions Sk - Sq.. take SDPA's
+    lower-right causal mask."""
     import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
     B, S, K, G, h = q.shape
+    Sk = k.shape[1]
     qs = q.view(B, S, K * G, h).transpose(1, 2)
     ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+    if causal and (S != Sk or q_offset):
+        check(q_offset == Sk - S, "SDPA's causal masks align at the top "
+              "left or the bottom right")
+        mask = causal_lower_right(S, Sk)
+        return lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=G > 1)
     return lambda: F.scaled_dot_product_attention(
         qs, ks, vs, is_causal=causal, enable_gqa=G > 1)
 
 
+def attention_pairs(Sq, Sk, causal, q_offset):
+    """(query, key) pairs the masks leave: query i sees keys <= i +
+    q_offset when causal."""
+    if not causal:
+        return Sq * Sk
+    return sum(min(Sk, i + q_offset + 1) for i in range(Sq))
+
+
 def phase_flash(torch, fops, gen):
-    """The attention kernel against ``flash_attention_plain`` (chunks of
+    """The attention kernels against ``flash_attention_plain`` (chunks of
     attn_chunk keys, as the models call it) on the same inputs, held as
-    ``flash_error`` says."""
+    ``flash_error`` says.  The wrapper's route must be the tensor cores
+    for every bf16 case (h = 64 and 128) and the fp32 cores for f32;
+    each bf16 case also runs the fp32-core kernel on the same tensors
+    (behind the wrapper: its counter still counts), checked and timed
+    in the same way."""
     rows = {}
-    for name, B, S, K, G, h, dtype, causal in flash_cases():
+    for name, B, S, Sk, K, G, h, dtype, causal, off in flash_cases():
         dt = getattr(torch, dtype)
+        bf16 = dt == torch.bfloat16
         q = torch.randn((B, S, K, G, h), generator=gen, device="cuda").to(dt)
-        k = torch.randn((B, S, K, h), generator=gen, device="cuda").to(dt)
-        v = torch.randn((B, S, K, h), generator=gen, device="cuda").to(dt)
-        chunk = min(ATTN_CHUNK, S)
-        got = fops.flash_attention(q, k, v, causal=causal)
-        want = fops.flash_attention_plain(q, k, v, chunk=chunk, causal=causal)
-        lib_out = sdpa_attention(torch, q, k, v, causal)()
+        k = torch.randn((B, Sk, K, h), generator=gen, device="cuda").to(dt)
+        v = torch.randn((B, Sk, K, h), generator=gen, device="cuda").to(dt)
+        chunk = min(ATTN_CHUNK, Sk)
+        route = fops.kernel_route(q, k, v)
+        check(route == ("tensor_cores" if bf16 else "fp32_cores"),
+              f"flash {name}: route {route}")
+        tc0 = fops.flash_attention.tensor_core_launches
+        got = fops.flash_attention(q, k, v, causal=causal, q_offset=off)
+        check(fops.flash_attention.tensor_core_launches - tc0
+              == (route == "tensor_cores"), f"flash {name}: route counter")
+        want = fops.flash_attention_plain(q, k, v, chunk=chunk, causal=causal,
+                                          q_offset=off)
+        lib = sdpa_attention(torch, q, k, v, causal, off)
+        lib_out = lib()
         torch.cuda.synchronize()
         check(got.dtype == dt and got.shape == q.shape, f"flash {name}: out")
         check(bool(torch.isfinite(got).all()), f"flash {name}: not finite")
-        err = flash_error(torch, got, want, dt == torch.bfloat16)
+        err = flash_error(torch, got, want, bf16)
         check(err["within_tolerance"], f"flash {name} S={S}: error {err}")
         H = K * G
-        flops = 4 * B * S * S * H * h / (2 if causal else 1)
+        flops = 4 * B * H * h * attention_pairs(S, Sk, causal, off)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        b_ms, b_by = bound(nbytes, flops,
-                           PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32)
-        row = {"phase": "flash", "case": name, "B": B, "S": S, "K": K,
-               "G": G, "h": h, "dtype": dtype, "causal": causal,
-               **err,
+        b_ms, b_by = bound(nbytes, flops, PEAK_BF16 if bf16 else PEAK_F32)
+        row = {"phase": "flash", "case": name, "B": B, "S": S, "Sk": Sk,
+               "q_offset": off, "K": K, "G": G, "h": h, "dtype": dtype,
+               "causal": causal, "route": route, **err,
                "sdpa_max_abs_err_vs_plain":
                    (lib_out.transpose(1, 2).reshape(want.shape).float()
                     - want.float()).abs().max().item(),
                "ms": time_ms(lambda: fops.flash_attention(
-                   q, k, v, causal=causal), 20),
+                   q, k, v, causal=causal, q_offset=off), 20),
                "plain_ms": time_ms(lambda: fops.flash_attention_plain(
-                   q, k, v, chunk=chunk, causal=causal), 3, warmup=1),
-               "library_ms": time_ms(sdpa_attention(torch, q, k, v, causal),
-                                     20),
+                   q, k, v, chunk=chunk, causal=causal, q_offset=off), 3,
+                   warmup=1),
+               "library_ms": time_ms(lib, 20),
                "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
                "bytes": nbytes}
+        row["device_ms"] = device_ms(torch, lambda: fops.flash_attention(
+            q, k, v, causal=causal, q_offset=off))
+        row["library_device_ms"] = device_ms(torch, lib)
+        if bf16:
+            f32c = fops._launch_fp32cores(q, k, v, causal, off)
+            torch.cuda.synchronize()
+            err32 = flash_error(torch, f32c, want, True)
+            check(err32["within_tolerance"],
+                  f"flash {name} S={S}, fp32-core route: error {err32}")
+            row["fp32_cores_err"] = err32
+            row["ms_fp32_cores"] = time_ms(lambda: fops._launch_fp32cores(
+                q, k, v, causal, off), 5)
         row["tflops"] = flops / row["ms"] / 1e9
+        row["bound_share"] = b_ms / row["ms"]
+        row["ms_over_library"] = row["ms"] / row["library_ms"]
         emit(row)
         rows[name, S] = row
     return rows
@@ -822,8 +898,9 @@ def phase_serve_check(torch, rdev):
         g2, _ = gpu.decode_step(gpu.params, g_cache, tok.cuda(), S)
         c2, _ = cpu.decode_step(cpu.params, c_cache, tok, S)
         errs["decode_logits"] = compare("decode logits", g2, c2)
-    check(counts["flash_attention"] == 1 and counts["ssd_scan"] == 7,
-          f"serve_check launches {counts}")
+    # the f32 prefill's one attention launch takes the fp32-core route
+    check(counts["flash_attention"] == 1 and counts["flash_attention_tc"] == 0
+          and counts["ssd_scan"] == 7, f"serve_check launches {counts}")
     emit({"phase": "serve_check", "arch": cfg.name, "layers": cfg.n_layers,
           "d_model": cfg.d_model, "dtype": cfg.dtype, "prompt": S,
           "launches": counts, "max_abs_err": errs, "cpu_prefill_s": cpu_s,
@@ -913,15 +990,18 @@ def phase_serve(torch, np, rdev):
     launches the attention kernel once per shared block (6) and the SSD
     kernel once per mamba layer (38), decode neither; a second run gives
     the same tokens.  Then mamba2-780m (48 SSD launches per request) and
-    qwen3-0.6b (28 attention launches per request), 2 requests each."""
+    qwen3-0.6b (28 attention launches per request), 2 requests each.
+    Every attention launch takes the tensor-core route (bf16)."""
     none = {"gat_mp": 0, "gat_mp_bwd": 0, "memsim": 0, "flash_attention": 0,
-            "ssd_scan": 0}
+            "flash_attention_tc": 0, "ssd_scan": 0}
     first = None
     for arch, requests, slots, max_new, lens, per in SERVE_RUNS:
         out, counts, finite, peak = run_serve(
             torch, rdev, arch, requests, slots, SERVE_MAX_LEN, max_new, lens)
         want = {**none, **{k: requests * v for k, v in per.items()}}
         check(counts == want, f"{arch} serve launches {counts}, want {want}")
+        check(counts["flash_attention_tc"] == counts["flash_attention"],
+              f"{arch} serve: an attention launch left the tensor cores")
         check(finite, f"{arch} serve: non-finite logits")
         check(len(out["done"]) == requests
               and all(len(r.tokens) == max_new for r in out["done"]),
@@ -983,7 +1063,8 @@ def phase_serve_profile(torch, np, model):
     kernels.sort(key=lambda k: -k["device_ms"])
     busy = sum(k["device_ms"] for k in kernels)
     mine = {tag: sum(k["device_ms"] for k in kernels if tag in k["name"])
-            for tag in ("flash_fwd_kernel", "ssd_kernel", "cb_kernel")}
+            for tag in ("flash_fwd_wgmma", "flash_fwd_fp32cores",
+                        "ssd_kernel", "cb_kernel")}
     emit({"phase": "serve_profile", "arch": model.cfg.name,
           "window": "one 2048-token prefill and 10 decode ticks, 4 slots",
           "wall_ms": wall_ms, "prefill_ms": eng.prefill_s[0][1] * 1e3,
@@ -1114,7 +1195,7 @@ def main(argv=None):
                              "ptxas": [ln.strip() for ln in
                                        v["log"].splitlines()
                                        if "registers" in ln or "spill" in ln
-                                       or "smem" in ln]}
+                                       or "smem" in ln or "entry" in ln]}
                          for k, v in rep.items()}})
 
     gen = torch.Generator("cuda").manual_seed(0)
@@ -1128,6 +1209,7 @@ def main(argv=None):
 
     # 12. kernels
     f, s_ = flash["zamba2-1.2b", 2048], ssd["zamba2-1.2b", 2048]
+    fq = flash["qwen3-0.6b", 2048]
     src = "the zamba2-1.2b serve run (8 requests, 256 to 2048 tokens)"
     rows += [
         {"name": "flash_attention", "route": "cuda",
@@ -1137,6 +1219,14 @@ def main(argv=None):
          "launches_from": src, "max_abs_err": f["max_abs_err"],
          "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
          "bound_by": f["bound_by"], "library_ms": f["library_ms"],
+         "kernel_route": f["route"],
+         "launches_tensor_cores": serve["launches"]["flash_attention_tc"],
+         "ms_fp32_cores": f["ms_fp32_cores"], "tflops": f["tflops"],
+         "bound_share": f["bound_share"],
+         "ms_over_library": f["ms_over_library"],
+         "qwen3_2048": {k: fq[k] for k in ("ms", "ms_fp32_cores",
+                                           "library_ms", "bound_ms",
+                                           "tflops")},
          "per": "one call at zamba2's 2048-token prefill: B=1, 32 heads of "
                 "64, bf16, causal"},
         {"name": "ssd_scan", "route": "cuda",

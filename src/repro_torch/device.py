@@ -26,26 +26,32 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     return dev
 
 
-def _counted_wrappers():
+def _counters():
+    """name -> (wrapper, attribute holding its count)."""
     # imported here: the kernel modules import this one
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.gat_mp import ops as gat_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.memsim import simulator
-    return {"gat_mp": gat_ops.gat_mp,
-            "gat_mp_bwd": gat_ops.gat_mp_bwd,
-            "memsim": simulator.evaluate_population,
-            "flash_attention": flash_ops.flash_attention,
-            "ssd_scan": ssd_ops.ssd_scan}
+    flash = flash_ops.flash_attention
+    return {"gat_mp": (gat_ops.gat_mp, "launches"),
+            "gat_mp_bwd": (gat_ops.gat_mp_bwd, "launches"),
+            "memsim": (simulator.evaluate_population, "launches"),
+            "flash_attention": (flash, "launches"),
+            "flash_attention_tc": (flash, "tensor_core_launches"),
+            "ssd_scan": (ssd_ops.ssd_scan, "launches")}
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per wrapper since the last reset.  A wrapper adds
     one where it launches its CUDA kernel and nowhere else, so a run on
-    CPU tensors leaves every count at 0."""
-    return {name: fn.launches for name, fn in _counted_wrappers().items()}
+    CPU tensors leaves every count at 0.  "flash_attention" counts both
+    attention kernels, "flash_attention_tc" those of the tensor-core
+    kernel among them."""
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in _counters().items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in _counted_wrappers().values():
-        fn.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)

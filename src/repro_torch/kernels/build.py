@@ -3,10 +3,11 @@ them with ``ctypes``.
 
 Each source compiles on its own into ``build/repro_torch/<name>-<hash>.so``
 at the repository root (listed in ``.gitignore``).  The hash covers the
-source text and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  Each library exposes plain C
-functions that take device pointers and a stream and return the CUDA
-error code of their launch; no PyTorch header is compiled.
+source text, every shared header ``csrc/*.cuh`` and the flags, so an
+edited source or header is rebuilt and an unchanged one is loaded as it
+is.  Each library exposes plain C functions that take device pointers
+and a stream and return the CUDA error code of their launch; no PyTorch
+header is compiled.
 """
 from __future__ import annotations
 
@@ -27,7 +28,9 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 # per-source extra flags: the simulator's float adds must not be
 # contracted into FMAs, or rectify/latency lose bit-parity with the
-# reference's float32 order
+# reference's float32 order.  The attention source needs none: it uses
+# no CUTLASS header, and it finds libcuda's cuTensorMapEncodeTiled at run
+# time (cudaGetDriverEntryPoint), so it does not link -lcuda.
 EXTRA_FLAGS = {"memsim": ["-fmad=false"]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -49,10 +52,11 @@ def _flags(name: str) -> List[str]:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(_flags(name)).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(_flags(name)).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -7,15 +7,20 @@ Counterpart of ``src/repro/kernels/flash_attention/ops.py``
 ``flash_attention_pallas`` in ``flash_attention.py``), which is the TPU
 lowering of the contract of ``repro.models.attention.blocked_attention``.
 ``flash_attention`` is the public entry.  On CUDA tensors it launches
-``csrc/flash_attention.cu``, which reads q, k and v in place (query head
-k * G + g reads KV head k: no repeat, no transposed copy); on CPU tensors
-it runs ``flash_attention_plain``, the forward of ``blocked_attention``
-in torch ops.  Query i sits at position i + q_offset; with ``causal``
-it sees the keys at positions <= its own.
+one of the two kernels of ``csrc/flash_attention.cu``, which read q, k
+and v in place (query head k * G + g reads KV head k: no repeat, no
+transposed copy); ``kernel_route`` says which: the tensor-core kernel
+(wgmma, TMA) for bf16 at h = 64 or 128, the fp32-core kernel for f32
+and for bf16 at h = 16 or 32.  There is no other choice and no
+fallback: a launch that fails raises.  On CPU tensors it runs
+``flash_attention_plain``, the forward of ``blocked_attention`` in torch
+ops.  Query i sits at position i + q_offset; with ``causal`` it sees the
+keys at positions <= its own.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -24,13 +29,18 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TENSOR_CORE_HEAD_DIMS = (64, 128)   # whole 64-column (128-byte) TMA boxes
+TMA_ALIGN = 16                      # bytes: base address and strides
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float]
              + [ctypes.c_void_p])
+_TC_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                + [ctypes.c_float] + [ctypes.c_void_p])
 
 
+@functools.lru_cache(maxsize=None)
 def softmax_scale(h: int, dtype: torch.dtype) -> float:
     """h ** -0.5 rounded to the inputs' dtype: the JAX code multiplies q
-    by the scale as an array of q's dtype."""
+    by the scale as an array of q's dtype.  Cached: every launch asks."""
     return float(torch.tensor(h ** -0.5, dtype=dtype))
 
 
@@ -81,7 +91,13 @@ def _check(q, k, v):
         raise ValueError("flash_attention inputs lie on different devices")
 
 
-def _launch(q, k, v, causal, q_offset):
+def kernel_route(q, k, v) -> str:
+    """The CUDA kernel ``flash_attention`` launches for these inputs:
+    "tensor_cores" for bf16 at h = 64 or 128, "fp32_cores" for f32 and
+    for bf16 at h = 16 or 32.  Depends on dtype, shape and layout only,
+    not on the device.  Raises ``ValueError`` for inputs neither kernel
+    takes, among them a tensor-core input whose base address or row
+    stride is not a multiple of 16 bytes (TMA reads neither)."""
     B, Sq, K, G, h = q.shape
     Sk = k.shape[1]
     if h not in KERNEL_HEAD_DIMS:
@@ -93,31 +109,79 @@ def _launch(q, k, v, causal, q_offset):
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if min(B, Sq, Sk, K, G) == 0 or q_offset < 0:
-        raise ValueError("empty input or negative q_offset")
+    if min(B, Sq, Sk, K, G) == 0:
+        raise ValueError("empty input")
     if B > 65535 or K * G > 65535:
         raise ValueError("batch or head count exceeds the kernel grid")
+    if q.dtype != torch.bfloat16 or h not in TENSOR_CORE_HEAD_DIMS:
+        return "fp32_cores"
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        row = x.stride(1) * x.element_size()
+        if x.data_ptr() % TMA_ALIGN or row % TMA_ALIGN:
+            raise ValueError(
+                f"{name}: TMA needs a base address and row stride that are "
+                f"multiples of {TMA_ALIGN} bytes, got address "
+                f"{x.data_ptr():#x} (storage offset {x.storage_offset()}) "
+                f"and stride {row} bytes")
+    return "tensor_cores"
+
+
+def _cuda_call(fn, q, *args):
+    """fn(*args, stream) on q's device and its current stream."""
+    with torch.cuda.device(q.device):
+        return fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _launch_fp32cores(q, k, v, causal, q_offset):
+    """The fp32-core kernel on checked inputs (any dtype and h it takes)."""
+    B, Sq, K, G, h = q.shape
     fn = build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, Sq, Sk, K, G, h, KERNEL_DTYPES[q.dtype], int(causal),
-                 q_offset, softmax_scale(h, q.dtype),
-                 torch.cuda.current_stream(q.device).cuda_stream)
+    err = _cuda_call(fn, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), B, Sq, k.shape[1], K, G, h,
+                     KERNEL_DTYPES[q.dtype], int(causal), q_offset,
+                     softmax_scale(h, q.dtype))
     if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash_attention fp32-core kernel launch "
+                           f"failed: CUDA error {err}")
     flash_attention.launches += 1
     return out
+
+
+def _launch_tensor_cores(q, k, v, causal, q_offset):
+    """The tensor-core kernel on inputs ``kernel_route`` sent there."""
+    B, Sq, K, G, h = q.shape
+    fn = build.function("flash_attention", "flash_attention_fwd_tc",
+                        _TC_ARGTYPES)
+    out = torch.empty_like(q)
+    err = _cuda_call(fn, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), B, Sq, k.shape[1], K, G, h, int(causal),
+                     q_offset, softmax_scale(h, q.dtype))
+    if err:
+        raise RuntimeError(f"flash_attention tensor-core kernel launch "
+                           f"failed: error {err} (a CUDA error, or 1000 + "
+                           f"the CUresult of the TMA map encoding)")
+    flash_attention.launches += 1
+    flash_attention.tensor_core_launches += 1
+    return out
+
+
+def _launch(q, k, v, causal, q_offset):
+    if q_offset < 0:
+        raise ValueError("negative q_offset")
+    if kernel_route(q, k, v) == "tensor_cores":
+        return _launch_tensor_cores(q, k, v, causal, q_offset)
+    return _launch_fp32cores(q, k, v, causal, q_offset)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                     chunk: int = 0):
     """q (B, Sq, K, G, h); k, v (B, Sk, K, h), f32 or bf16 -> (B, Sq, K,
-    G, h) in the inputs' dtype.  CUDA tensors launch the kernel
-    (contiguous inputs, h in 16, 32, 64, 128); CPU tensors run
-    ``flash_attention_plain`` over KV chunks of ``chunk`` keys (0: one
-    chunk of all Sk keys), which must divide Sk."""
+    G, h) in the inputs' dtype.  CUDA tensors launch the kernel that
+    ``kernel_route`` names (contiguous inputs, h in 16, 32, 64, 128);
+    CPU tensors run ``flash_attention_plain`` over KV chunks of
+    ``chunk`` keys (0: one chunk of all Sk keys), which must divide
+    Sk."""
     _check(q, k, v)
     if q.device.type == "cpu":
         Sk = k.shape[1]
@@ -129,4 +193,5 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     return _launch(q, k, v, causal, q_offset)
 
 
-flash_attention.launches = 0
+flash_attention.launches = 0               # every kernel launch
+flash_attention.tensor_core_launches = 0   # those of the tensor-core kernel

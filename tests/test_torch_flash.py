@@ -72,3 +72,116 @@ def test_blocked_attention_takes_only_contiguous_positions():
                               q_positions=torch.arange(32).flip(0))
     with pytest.raises(AssertionError):
         att.blocked_attention(q, k, v, chunk=24, causal=True)
+
+
+# ---------------------------------------------------------------- routes
+def _served():
+    from repro_torch.configs.registry import get_config
+    return [get_config(n) for n in ("zamba2-1.2b", "qwen3-0.6b")]
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "qwen3-0.6b"])
+@pytest.mark.parametrize("S", [100, 512, 2048])
+def test_served_bf16_shapes_take_the_tensor_cores(arch, S):
+    cfg = {c.name: c for c in _served()}[arch]
+    assert cfg.dtype == "bfloat16"
+    q = torch.zeros((1, S, cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim),
+                    dtype=torch.bfloat16)
+    k = torch.zeros((1, S, cfg.n_kv_heads, cfg.head_dim),
+                    dtype=torch.bfloat16)
+    assert ops.kernel_route(q, k, k) == "tensor_cores"
+    # the f32 prefill of the same heads stays on the fp32 cores
+    assert ops.kernel_route(q.float(), k.float(), k.float()) == "fp32_cores"
+
+
+@pytest.mark.parametrize("h,dtype,route", [
+    (16, torch.bfloat16, "fp32_cores"), (32, torch.bfloat16, "fp32_cores"),
+    (64, torch.bfloat16, "tensor_cores"), (128, torch.bfloat16,
+                                           "tensor_cores"),
+    (16, torch.float32, "fp32_cores"), (64, torch.float32, "fp32_cores"),
+    (128, torch.float32, "fp32_cores")])
+def test_route_by_dtype_and_head_dim(h, dtype, route):
+    q = torch.zeros((1, 8, 2, 2, h), dtype=dtype)
+    k = torch.zeros((1, 8, 2, h), dtype=dtype)
+    assert ops.kernel_route(q, k, k) == route
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_misaligned_storage_offset_raises(which):
+    shapes = {"q": (1, 64, 2, 2, 64), "k": (1, 64, 2, 64),
+              "v": (1, 64, 2, 64)}
+    x = {n: torch.zeros(s, dtype=torch.bfloat16) for n, s in shapes.items()}
+    n = x[which].numel()
+    # a contiguous view 2 bytes into its storage: TMA cannot read it
+    x[which] = torch.zeros(n + 1, dtype=torch.bfloat16)[1:].view(
+        shapes[which])
+    assert x[which].is_contiguous() and x[which].storage_offset() == 1
+    with pytest.raises(ValueError, match="16 bytes"):
+        ops.kernel_route(x["q"], x["k"], x["v"])
+    # 8 elements (16 bytes) in is aligned
+    x[which] = torch.zeros(n + 8, dtype=torch.bfloat16)[8:].view(
+        shapes[which])
+    assert ops.kernel_route(x["q"], x["k"], x["v"]) == "tensor_cores"
+
+
+def test_route_rejects_what_neither_kernel_takes():
+    q = torch.zeros((1, 8, 1, 1, 48), dtype=torch.bfloat16)
+    k = torch.zeros((1, 8, 1, 48), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        ops.kernel_route(q, k, k)
+    q = torch.zeros((1, 8, 1, 1, 64), dtype=torch.float16)
+    k = torch.zeros((1, 8, 1, 64), dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.kernel_route(q, k, k)
+
+
+class _FakeLib:
+    """Stands in for the built library: records which C entry each launch
+    calls and returns ``err``."""
+
+    def __init__(self, err=0):
+        self.err, self.calls = err, []
+
+    def function(self, lib, name, argtypes):
+        def fn(*args):
+            self.calls.append(name)
+            return self.err
+        return fn
+
+
+@pytest.mark.parametrize("h,dtype,entry", [
+    (64, torch.bfloat16, "flash_attention_fwd_tc"),
+    (128, torch.bfloat16, "flash_attention_fwd_tc"),
+    (32, torch.bfloat16, "flash_attention_fwd"),
+    (64, torch.float32, "flash_attention_fwd")])
+def test_launch_takes_one_route_and_counts_it(monkeypatch, h, dtype, entry):
+    from repro_torch import device as rdev
+    lib = _FakeLib()
+    monkeypatch.setattr(ops.build, "function", lib.function)
+    monkeypatch.setattr(ops, "_cuda_call",
+                        lambda fn, q, *args: fn(*args, 0))
+    q = torch.zeros((1, 16, 2, 2, h), dtype=dtype)
+    k = torch.zeros((1, 16, 2, h), dtype=dtype)
+    rdev.reset_launch_counts()
+    ops._launch(q, k, k, True, 0)
+    assert lib.calls == [entry]
+    counts = rdev.launch_counts()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_tc"] == int(entry.endswith("_tc"))
+    rdev.reset_launch_counts()
+    assert rdev.launch_counts()["flash_attention_tc"] == 0
+
+
+def test_failed_tensor_core_launch_raises_without_fallback(monkeypatch):
+    from repro_torch import device as rdev
+    lib = _FakeLib(err=1001)
+    monkeypatch.setattr(ops.build, "function", lib.function)
+    monkeypatch.setattr(ops, "_cuda_call",
+                        lambda fn, q, *args: fn(*args, 0))
+    q = torch.zeros((1, 16, 2, 2, 64), dtype=torch.bfloat16)
+    k = torch.zeros((1, 16, 2, 64), dtype=torch.bfloat16)
+    rdev.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="tensor-core kernel launch"):
+        ops._launch(q, k, k, True, 0)
+    assert lib.calls == ["flash_attention_fwd_tc"]
+    assert rdev.launch_counts()["flash_attention"] == 0

@@ -90,7 +90,7 @@ def test_cpu_run_launches_no_kernel():
     assert "critic_loss" in algo.history[-1]
     assert rdev.launch_counts() == {"gat_mp": 0, "gat_mp_bwd": 0,
                                     "memsim": 0, "flash_attention": 0,
-                                    "ssd_scan": 0}
+                                    "flash_attention_tc": 0, "ssd_scan": 0}
 
 
 def test_optimize_writes_the_reference_plan_schema():
@@ -128,3 +128,23 @@ def test_kernel_build_names_and_missing_toolkit(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build(["gat_mp"])
     assert not (tmp_path / "build").exists()
+
+
+def test_library_path_follows_shared_headers(monkeypatch, tmp_path):
+    """An edited csrc/*.cuh header gives every source a new library path,
+    so a stale library is never loaded; an unrelated file does not."""
+    from repro_torch.kernels import build
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build.library_path("k")
+    assert first == build.library_path("k")
+    (tmp_path / "notes.txt").write_text("not a header")
+    assert build.library_path("k") == first
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    second = build.library_path("k")
+    assert second != first and second.name.startswith("k-")
+    (tmp_path / "extra.cuh").write_text("// new\n")
+    assert build.library_path("k") not in (first, second)
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n// edited\n')
+    assert build.library_path("k") not in (first, second)
