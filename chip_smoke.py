@@ -10,12 +10,17 @@ Phases, each printing JSON lines:
                compiled, one ``nvcc`` each, in parallel; each kernel's
                registers and spills printed;
 3. gat      -- the GAT forward kernel against its plain PyTorch version,
-               at the main path's shapes and at edge-case graph sizes;
-               gat_path: the 4 launches of one BERT population forward;
+               at the main path's shapes and on edge-case masks (a
+               column no row reaches, a row with every column set or
+               masked, asymmetric per-batch masks, N = 1, a mask at an
+               odd byte offset, uint8 values) and head counts (H = 1, 3,
+               8); gat_path: the 4 launches of one BERT population
+               forward, per launch and in total;
 4. gat_bwd  -- the GAT backward kernel against its plain version at the
-               critic's and the actor's shapes and the edge cases, and
-               launched twice for bit-equal (deterministic) gradients;
-               gat_path_bwd: the 8 launches of one BERT SAC step;
+               critic's and the actor's shapes and the same edge cases,
+               and launched twice for bit-equal (deterministic)
+               gradients; gat_path_bwd: the 8 calls of one BERT SAC
+               step;
 5. memsim   -- the simulator kernel against its plain version on all 7
                zoo graphs (tiers and eps bit-equal);
 6. slice    -- the EA-mode search on BERT and ResNet-50 (400 steps),
@@ -47,7 +52,9 @@ Phases, each printing JSON lines:
                decode ticks;
 12. kernels -- per kernel: launches in its slice's main path (the BERT
                "egrl" run, the zamba2 serve run), error, time on the card,
-               plain time, bound and library time.
+               plain time, bound and library time; for the GAT kernels
+               both per launch (a launch is one call of the wrapper) and
+               over their group (4 forward launches, 8 backward calls).
 
 Then the nvidia-smi line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero before the last line.  It needs
@@ -128,6 +135,12 @@ def device_ms(torch, fn, reps=20):
     return us / 1e3 / reps if us > 0 else "not measured"
 
 
+def plus(a, b):
+    """a + b, or "not measured" where either is."""
+    return "not measured" if isinstance(a, str) or isinstance(b, str) \
+        else a + b
+
+
 def bound(nbytes, ops, peak=PEAK_F32):
     t_bytes, t_ops = nbytes / PEAK_BYTES, ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -144,12 +157,47 @@ def nvidia_smi():
 
 
 # ------------------------------------------------------------- GAT kernel
-def gat_inputs(torch, gen, B, N, adj):
+def gat_inputs(torch, gen, B, N, adj, H=4):
     dev = "cuda"
-    z = torch.randn((B, N, 128), generator=gen, device=dev)
-    es = torch.randn((B, N, 4), generator=gen, device=dev)
-    ed = torch.randn((B, N, 4), generator=gen, device=dev)
+    z = torch.randn((B, N, 32 * H), generator=gen, device=dev)
+    es = torch.randn((B, N, H), generator=gen, device=dev)
+    ed = torch.randn((B, N, H), generator=gen, device=dev)
     return z, es, ed, adj.contiguous()
+
+
+def gat_edge_cases(torch, gen):
+    """(name, B, H, adj) masks whose edge lists the kernels must get
+    right: N = 1 with its one column set and masked; a column that no
+    row reaches; a row with every column set; a row with every column
+    masked; asymmetric per-batch masks (odd N, so rows start at every
+    byte offset); a mask that starts at an odd byte offset of its
+    storage; uint8 values other than 1; and H = 1, 3 and 8."""
+    def rand(B, N, p=0.05):
+        adj = torch.rand((B, N, N), generator=gen, device="cuda") < p
+        return adj | torch.eye(N, dtype=torch.bool, device="cuda")
+
+    unreached = rand(1, 33)
+    unreached[0, :, 7] = False
+    unreached[0, 7, 8] = True
+    full = rand(1, 130)
+    full[0, 3] = True
+    masked = rand(1, 33)
+    masked[0, 5] = False
+    asym = torch.rand((3, 97, 97), generator=gen, device="cuda") < 0.05
+    check(not torch.equal(asym, asym.transpose(1, 2)), "mask is symmetric")
+    flat = torch.zeros(5 + 130 * 130, dtype=torch.bool, device="cuda")
+    offset = flat[5:].view(1, 130, 130)
+    offset.copy_(rand(1, 130))
+    return [("N=1", 2, 4, torch.ones((1, 1, 1), dtype=torch.bool,
+                                     device="cuda")),
+            ("N=1:masked", 2, 4, torch.zeros((1, 1, 1), dtype=torch.bool,
+                                             device="cuda")),
+            ("unreached-column", 2, 4, unreached),
+            ("full-row", 2, 4, full), ("all-masked-row", 2, 4, masked),
+            ("asymmetric", 3, 4, asym), ("offset-5-bytes", 2, 4, offset),
+            ("uint8", 2, 4, rand(1, 130).to(torch.uint8) * 3),
+            ("H=1", 2, 1, rand(1, 130)), ("H=3", 2, 3, rand(2, 97)),
+            ("H=8", 2, 8, full)]
 
 
 def gat_compare(torch, ops, z, es, ed, adj):
@@ -200,18 +248,20 @@ def sdpa_bwd_call(torch, z, es, ed, adj, g):
                                        retain_graph=True)
 
 
-def gat_bwd_compare(torch, ops, args):
+def gat_bwd_compare(torch, ops, args, floor=1e-30):
     """The backward kernel against ``gat_mp_bwd_plain`` on the same
     inputs: each gradient within 1e-5 of its largest element (f32 sums
     in another order; the plain version also adds the exact zeros of the
-    dense (N, N) products), and a second launch bit-equal to the first."""
+    dense (N, N) products), and a second launch bit-equal to the first.
+    ``floor`` is a least scale, for inputs whose gradient is rounding
+    noise only (see ``cancel_scale``)."""
     got = ops.gat_mp_bwd(*args)
     again = ops.gat_mp_bwd(*args)
     want = ops.gat_mp_bwd_plain(*args)
     torch.cuda.synchronize()
     errs = {}
     for name, a, b in zip(("dz", "de_src", "de_dst"), got, want):
-        scale = max(b.abs().max().item(), 1e-30)
+        scale = max(b.abs().max().item(), floor)
         errs[name] = (a - b).abs().max().item()
         check(errs[name] <= 1e-5 * scale,
               f"gat_mp_bwd {name} error {errs[name]} > 1e-5 x {scale}")
@@ -219,6 +269,16 @@ def gat_bwd_compare(torch, ops, args):
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           "gat_mp_bwd: two launches differ")
     return errs
+
+
+def cancel_scale(z, g, H):
+    """The largest sum over a head's features of |g_i| |z_j|.  At N = 1
+    with its one column set, out = z, so de_src and de_dst are g . z -
+    g . out: two equal dot products whose difference is rounding noise of
+    this size, in the kernel and the plain version alike."""
+    B, N, D = z.shape
+    gz = g.abs().reshape(B, N, H, D // H) * z.abs().reshape(B, N, H, D // H)
+    return gz.sum(-1).max().item()
 
 
 def gat_bwd_work(z, es, adj, m):
@@ -250,26 +310,30 @@ def gat_work(z, es, adj):
 
 def phase_gat(torch, gen, ops, masks):
     bert_adj = masks["bert"]
-    cases = []
+    cases = [("critic:bert", 24, 4, bert_adj[None])]
     for n in (388, 194, 97):     # per-genome pooled adjacency, B = 16
         adj = torch.stack([
             bert_adj[idx][:, idx] for idx in
             (torch.randperm(388, generator=gen, device="cuda")[:n]
              for _ in range(16))])
-        cases.append(("per-batch", 16, n, adj))
-    cases.append(("shared", 16, 388, bert_adj[None]))
+        cases.append(("per-batch", 16, 4, adj))
+    cases.append(("shared", 16, 4, bert_adj[None]))
     for name in ("resnet50", "moe_transformer", "dense_cnn"):
         adj = masks[name][None].clone()
         if name == "moe_transformer":
             adj[0, 5] = False    # a row with every column masked
-        cases.append((f"shared:{name}", 1, adj.shape[-1], adj))
-    for kind, B, N, adj in cases:
-        z, es, ed, adj = gat_inputs(torch, gen, B, N, adj)
+        cases.append((f"shared:{name}", 1, 4, adj))
+    cases += gat_edge_cases(torch, gen)
+    for kind, B, H, adj in cases:
+        N = adj.shape[-1]
+        z, es, ed, adj = gat_inputs(torch, gen, B, N, adj, H)
         err, l_rel = gat_compare(torch, ops, z, es, ed, adj)
-        row = {"phase": "gat", "adj": kind, "B": B, "N": N,
+        row = {"phase": "gat", "adj": kind, "B": B, "N": N, "H": H,
                "max_abs_err_out": err, "m_bit_equal": True,
                "max_rel_err_l": l_rel,
                "kernel_ms": time_ms(lambda: ops.gat_mp(z, es, ed, adj), 100),
+               "device_ms": device_ms(
+                   torch, lambda: ops.gat_mp(z, es, ed, adj)),
                "plain_ms": time_ms(
                    lambda: ops.gat_mp_plain(z, es, ed, adj), 10),
                "library_ms": time_ms(sdpa_call(torch, z, es, ed, adj), 20)}
@@ -294,30 +358,36 @@ def phase_gat_path(torch, gnn, ops, params, feats, adj, gen):
         gnn.gat_ops = ops
     check([c[0].shape[1] for c in captured] == [388, 194, 97, 194],
           f"unexpected level sizes {[c[0].shape for c in captured]}")
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
-           "ops": 0, "dense_ops": 0, "err": 0.0}
+    tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "bytes": 0, "ops": 0, "dense_ops": 0, "err": 0.0}
+    per = []
     for z, es, ed, a in captured:
         err, _ = gat_compare(torch, ops, z, es, ed, a)
-        tot["err"] = max(tot["err"], err)
-        tot["ms"] += time_ms(lambda: ops.gat_mp(z, es, ed, a), 200)
-        tot["plain_ms"] += time_ms(lambda: ops.gat_mp_plain(z, es, ed, a), 10)
-        tot["library_ms"] += time_ms(sdpa_call(torch, z, es, ed, a), 20)
         nbytes, nops, dense = gat_work(z, es, a)
+        one = {"ms": time_ms(lambda: ops.gat_mp(z, es, ed, a), 200),
+               "device_ms": device_ms(torch, lambda: ops.gat_mp(z, es, ed, a)),
+               "plain_ms": time_ms(lambda: ops.gat_mp_plain(z, es, ed, a), 10),
+               "library_ms": time_ms(sdpa_call(torch, z, es, ed, a), 20),
+               "bound_ms": bound(nbytes, nops)[0]}
+        per.append({"shape": list(z.shape), "adj_batch": a.shape[0], **one})
+        tot["err"] = max(tot["err"], err)
+        for k in ("ms", "device_ms", "plain_ms", "library_ms"):
+            tot[k] = plus(tot[k], one[k])
         tot["bytes"] += nbytes
         tot["ops"] += nops
         tot["dense_ops"] += dense
     tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"], tot["ops"])
-    emit({"phase": "gat_path", "graph": "bert", "P": 16,
-          "levels": [list(c[0].shape) for c in captured],
-          "adj_batch": [c[3].shape[0] for c in captured], **tot})
+    tot["launches"] = len(captured)
+    emit({"phase": "gat_path", "graph": "bert", "P": 16, "per_launch": per,
+          **tot})
     return tot
 
 
-def gat_bwd_inputs(torch, ops, gen, B, adj):
+def gat_bwd_inputs(torch, ops, gen, B, adj, H=4):
     N = adj.shape[-1]
-    z, es, ed, adj = gat_inputs(torch, gen, B, N, adj)
+    z, es, ed, adj = gat_inputs(torch, gen, B, N, adj, H)
     out, m, l = ops.gat_mp(z, es, ed, adj)
-    g = torch.randn((B, N, 128), generator=gen, device="cuda")
+    g = torch.randn(z.shape, generator=gen, device="cuda")
     return z, es, ed, adj, m, l, out, g
 
 
@@ -326,7 +396,8 @@ def phase_gat_bwd(torch, gen, ops, masks):
     BERT mask), the actor's four level shapes (B = 1: the BERT mask, then
     pooled masks of 194, 97 and 194 nodes), and edge cases: a row with
     every column masked (moe_transformer, N = 1043), the densest graph
-    (dense_cnn, N = 1010) and a mask that is not symmetric."""
+    (dense_cnn, N = 1010), a mask that is not symmetric, and the masks
+    and head counts of ``gat_edge_cases``."""
     bert_adj = masks["bert"]
 
     def pooled(n):
@@ -337,24 +408,28 @@ def phase_gat_bwd(torch, gen, ops, masks):
     moe[0, 5] = False            # a row with every column masked
     asym = torch.rand((2, 300, 300), generator=gen, device="cuda") < 0.02
     check(not torch.equal(asym, asym.transpose(1, 2)), "mask is symmetric")
-    cases = [("critic:bert", 24, bert_adj[None]),
-             ("actor:level0", 1, bert_adj[None]),
-             ("actor:level1", 1, pooled(194)), ("actor:level2", 1, pooled(97)),
-             ("actor:level3", 1, pooled(194)),
-             ("all-masked-row:moe_transformer", 1, moe),
-             ("dense_cnn", 1, masks["dense_cnn"][None]),
-             ("asymmetric", 2, asym)]
-    for kind, B, adj in cases:
-        args = gat_bwd_inputs(torch, ops, gen, B, adj)
-        errs = gat_bwd_compare(torch, ops, args)
+    cases = [("critic:bert", 24, 4, bert_adj[None]),
+             ("actor:level0", 1, 4, bert_adj[None]),
+             ("actor:level1", 1, 4, pooled(194)),
+             ("actor:level2", 1, 4, pooled(97)),
+             ("actor:level3", 1, 4, pooled(194)),
+             ("all-masked-row:moe_transformer", 1, 4, moe),
+             ("dense_cnn", 1, 4, masks["dense_cnn"][None]),
+             ("asymmetric:300", 2, 4, asym)] + gat_edge_cases(torch, gen)
+    for kind, B, H, adj in cases:
+        args = gat_bwd_inputs(torch, ops, gen, B, adj, H)
+        floor = cancel_scale(args[0], args[7], H) if kind == "N=1" else 1e-30
+        errs = gat_bwd_compare(torch, ops, args, floor)
         if kind.startswith("all-masked"):
-            check(bool((args[4][0, 5] <= -1e30).all()),
+            row = 5 if args[0].shape[1] > 5 else 0
+            check(bool((args[4][:, row] <= -1e30).all()),
                   "the masked row has a finite max")
         z, es, ed, a, m, l, out, g = args
         emit({"phase": "gat_bwd", "case": kind, "B": B, "N": a.shape[-1],
-              "mask_batch": a.shape[0], "max_abs_err": errs,
+              "H": H, "mask_batch": a.shape[0], "max_abs_err": errs,
               "deterministic": True,
               "kernel_ms": time_ms(lambda: ops.gat_mp_bwd(*args), 50),
+              "device_ms": device_ms(torch, lambda: ops.gat_mp_bwd(*args)),
               "plain_ms": time_ms(lambda: ops.gat_mp_bwd_plain(*args), 5),
               "library_ms": time_ms(sdpa_bwd_call(torch, z, es, ed, a, g),
                                     10)})
@@ -385,23 +460,29 @@ def phase_gat_path_bwd(torch, np, ops, sac, replay, feats, adj, gen):
     check(shapes == sorted([(24, 388)] * 2 + [(1, 388)] * 3
                            + [(1, 194)] * 2 + [(1, 97)]),
           f"unexpected backward shapes {shapes}")
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
-           "ops": 0, "err": 0.0}
+    tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "bytes": 0, "ops": 0, "err": 0.0}
+    per = []
     for args in captured:
         errs = gat_bwd_compare(torch, ops, args)
-        tot["err"] = max(tot["err"], *errs.values())
         z, es, ed, a, m, l, out, g = args
-        tot["ms"] += time_ms(lambda: ops.gat_mp_bwd(*args), 100)
-        tot["plain_ms"] += time_ms(lambda: ops.gat_mp_bwd_plain(*args), 5)
-        tot["library_ms"] += time_ms(sdpa_bwd_call(torch, z, es, ed, a, g),
-                                     10)
         nbytes, nops = gat_bwd_work(z, es, a, m)
+        one = {"ms": time_ms(lambda: ops.gat_mp_bwd(*args), 100),
+               "device_ms": device_ms(torch, lambda: ops.gat_mp_bwd(*args)),
+               "plain_ms": time_ms(lambda: ops.gat_mp_bwd_plain(*args), 5),
+               "library_ms": time_ms(sdpa_bwd_call(torch, z, es, ed, a, g),
+                                     10),
+               "bound_ms": bound(nbytes, nops)[0]}
+        per.append({"shape": [z.shape[0], z.shape[1], a.shape[0]], **one})
+        tot["err"] = max(tot["err"], *errs.values())
+        for k in ("ms", "device_ms", "plain_ms", "library_ms"):
+            tot[k] = plus(tot[k], one[k])
         tot["bytes"] += nbytes
         tot["ops"] += nops
     tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"], tot["ops"])
-    emit({"phase": "gat_path_bwd", "graph": "bert", "launches": len(captured),
-          "shapes": [[c[0].shape[0], c[0].shape[1], c[3].shape[0]]
-                     for c in captured], **tot})
+    tot["launches"] = len(captured)
+    emit({"phase": "gat_path_bwd", "graph": "bert", "per_launch": per,
+          **tot})
     return tot
 
 
@@ -592,10 +673,16 @@ def phase_profile(torch, egrl, zoo, mode="ea", generations=3):
     busy = sum(k["device_ms"] for k in kernels)
     check(mode == "ea" or "critic_loss" in algo.history[-1],
           "the profiled generation did not train")
+    mine = {tag: {"calls": sum(k["calls"] for k in kernels
+                               if tag in k["name"]),
+                  "device_ms": sum(k["device_ms"] for k in kernels
+                                   if tag in k["name"])}
+            for tag in ("gat_fwd_kernel", "gat_bwd_kernel", "memsim_kernel")}
     emit({"phase": "profile", "graph": "bert", "mode": mode,
           "generations": generations, "wall_ms": wall_ms, "device_busy_ms": busy,
           "device_idle_share": (1.0 - busy / wall_ms) if kernels
-          else "not measured", "top_kernels": kernels[:12]})
+          else "not measured", "kernel_device": mine,
+          "top_kernels": kernels[:12]})
 
 
 # ------------------------------------------------------------ serve runs
@@ -1075,6 +1162,15 @@ def phase_serve_profile(torch, np, model):
           "top_kernels": kernels[:15]})
 
 
+def per_launch(tot):
+    """A group's times over its launches (calls of the wrapper)."""
+    n = tot["launches"]
+    return {f"{k}_per_launch": (tot[k] / n if not isinstance(tot[k], str)
+                                else tot[k])
+            for k in ("ms", "device_ms", "bound_ms", "library_ms",
+                      "plain_ms")}
+
+
 def run_egrl(torch, np, rdev, gen):
     """Phases 3-7, the EGRL slices' paths; returns their kernel rows."""
     from repro_torch.core import egrl, gnn, params, replay, sac
@@ -1137,6 +1233,8 @@ def run_egrl(torch, np, rdev, gen):
          "ms": gat_path["ms"], "plain_ms": gat_path["plain_ms"],
          "bound_ms": gat_path["bound_ms"], "bound_by": gat_path["bound_by"],
          "library_ms": gat_path["library_ms"],
+         "device_ms": gat_path["device_ms"],
+         **per_launch(gat_path),
          "per": "one population forward: 4 launches, BERT, P=16"},
         {"name": "gat_mp_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/gat_mp_bwd.cu",
@@ -1147,7 +1245,10 @@ def run_egrl(torch, np, rdev, gen):
          "ms": bwd_path["ms"], "plain_ms": bwd_path["plain_ms"],
          "bound_ms": bwd_path["bound_ms"], "bound_by": bwd_path["bound_by"],
          "library_ms": bwd_path["library_ms"],
-         "per": "one SAC step: 8 launches, BERT, B=24 and B=1"},
+         "device_ms": bwd_path["device_ms"],
+         **per_launch(bwd_path),
+         "per": "one SAC step: 8 calls (one CUDA launch each), BERT, B=24 "
+                "and B=1"},
         {"name": "memsim_evaluate", "route": "cuda",
          "source": "src/repro_torch/csrc/memsim.cu",
          "replaces": "src/repro/memsim/simulator.py:163",

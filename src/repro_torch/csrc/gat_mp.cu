@@ -1,8 +1,8 @@
 // Masked multi-head GAT attention, forward only, batched.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` / `gat_mp_pallas` in
-// src/repro/kernels/gat_mp/gat_mp.py (wrapped there by ops.gat_mp).
-// For batch b, destination row i and head h:
+// src/repro/kernels/gat_mp/gat_mp.py:35 / :64 (wrapped there by
+// ops.gat_mp).  For batch b, destination row i and head h:
 //   s_ij  = leaky_relu(e_src[i,h] + e_dst[j,h], 0.2)   (x >= 0 branch)
 //   s_ij  = -1e30 where adj[i,j] == 0
 //   m, l  = max_j s_ij,  sum_j exp(s_ij - m)
@@ -11,19 +11,30 @@
 // Columns j >= N do not exist here (no padding copies), so a row with
 // every real column masked averages z over the N real columns.
 //
-// What bounds it on an H100: the Pallas kernel keeps all of z (N x D
-// f32) in VMEM, which at N = 1043 is 534 KB, more than the 227 KB a
-// block may use.  This kernel instead walks the source columns in tiles
-// of 32 with an online softmax; each tile of z (32 x D f32, 16 KB at
-// D = 128) is staged once in shared memory and read by all ROWS x H
-// warps of the block.  One warp owns one (row, head) pair and its 32
-// lanes own the 32 features of the head.  At the graph sizes of the
-// main path (N <= ~1k, 4 heads) the dense pair count makes the exp and
-// FMA work dominate over the bytes, and the adjacency is sparse, so
-// the warp skips the exp work of a tile with no edge once its running
-// max is finite (those terms are exact zeros) and runs the
-// accumulation only over the columns whose weight is non-zero.  fp32
-// CUDA cores only; the tensor-core version (wgmma) is later work.
+// What bounds it on an H100: the bytes.  The masks of the main path are
+// sparse (BERT: 1,762 set entries in 388 x 388, at most 10 a row), so a
+// row needs its mask row once (N bytes), and per set column j the row
+// z_j (4 D bytes) and e_dst[j] (4 H bytes); every other term is an
+// exact zero.  The operations (about 70 per edge and head) are far
+// below the bytes.  The design follows the edges: one warp owns one
+// destination row and all H heads.  It reads its mask row with one
+// 16-byte load per lane per 512 columns and compacts the set columns
+// into a list in shared memory (a popcount and a warp prefix sum).  It
+// computes the row's scores lane-parallel, 32 edges at a time, with an
+// online max over those chunks (one redux.sync per head: m is an exact
+// max, so it stays bit-equal to the plain version).  Then it gathers
+// z_j for each listed column with one coalesced 512-byte load (a float4
+// per lane at H = 4, 8 lanes a head), summing out and l in column
+// order.  No tile of z is staged: a block reads only the z rows its
+// edges name, from L2.  e_dst is gathered per edge as well: staging a
+// batch element's N x H block of it per block would move more bytes
+// than the edges need.  A row with no set column walks every column
+// with weight 1 (m = -1e30, l = N).
+//
+// Tensor cores are not used: the reference computes in fp32 and the
+// port holds out to 2e-5 with m bit-equal, which TF32 would not keep,
+// and with ~1 % of alpha non-zero a dense alpha z product would do ~86x
+// the work the edges need.  fp32 CUDA cores, expf (not __expf).
 //
 // C interface for ctypes: pointers are device pointers, `stream` is a
 // cudaStream_t, the return value is the CUDA error code of the launch.
@@ -31,93 +42,116 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "gat_edges.cuh"
+
 namespace {
 
-constexpr int TJ = 32;          // source columns per tile, one per lane
-constexpr int ROWS = 4;         // destination rows per block
-constexpr int HD = 32;          // features per head, one per lane
-constexpr int MAX_HEADS = 8;    // block = 32 * MAX_HEADS * ROWS <= 1024
-constexpr float MASKED = -1e30f;
-constexpr unsigned FULL = 0xffffffffu;
+using namespace gat;
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
+constexpr int WARPS = 4;         // destination rows per block
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-__global__ void __launch_bounds__(32 * MAX_HEADS * ROWS)
+template <int HP>
+__global__ void __launch_bounds__(32 * WARPS)
 gat_fwd_kernel(const float* __restrict__ z, const float* __restrict__ e_src,
                const float* __restrict__ e_dst,
                const unsigned char* __restrict__ adj, long long adj_bstride,
                float* __restrict__ out, float* __restrict__ m_out,
                float* __restrict__ l_out, int N, int H) {
-  __shared__ __align__(16) float zs[TJ * HD * MAX_HEADS];
-  const int D = H * HD;
-  const int b = blockIdx.y;
+  __shared__ unsigned short cols[WARPS][SWEEP];
+  __shared__ float ps[WARPS][32 * HP];  // p of chunk edge k, head h
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int h = warp % H;
-  const int i = blockIdx.x * ROWS + warp / H;
-  const bool row_ok = i < N;
-
+  const int b = blockIdx.y;
+  const int i = blockIdx.x * WARPS + warp;
+  if (i >= N) return;             // warps are independent: no barrier
+  const Slot<HP> me(lane, H);
+  const int D = H * HD;
+  const size_t r = (size_t)b * N + i;
   const float* zb = z + (size_t)b * N * D;
   const float* edb = e_dst + (size_t)b * N * H;
-  const unsigned char* arow =
-      adj + (long long)b * adj_bstride + (size_t)(row_ok ? i : 0) * N;
-  const float es = row_ok ? e_src[((size_t)b * N + i) * H + h] : 0.f;
 
-  float m_run = -INFINITY;
-  float l_run = 0.f;
-  float acc = 0.f;
-  for (int j0 = 0; j0 < N; j0 += TJ) {
-    const int cols = min(TJ, N - j0);
-    __syncthreads();  // every warp is done with the previous tile
-    const int n4 = cols * D / 4;
-    const float4* src = reinterpret_cast<const float4*>(zb + (size_t)j0 * D);
-    float4* dst = reinterpret_cast<float4*>(zs);
-    for (int k = threadIdx.x; k < n4; k += blockDim.x) dst[k] = src[k];
-    __syncthreads();
-    if (!row_ok) continue;
-
-    const int j = j0 + lane;
-    const bool in_range = lane < cols;
-    const bool edge = in_range && arow[j] != 0;
-    // no edge in the tile and a finite running max: every term of the
-    // tile is exp(-1e30 - m) == 0 exactly, so skipping changes nothing
-    if (__ballot_sync(FULL, edge) == 0u && m_run > MASKED) continue;
-
-    float s = -INFINITY;  // lanes past N take no part
-    if (in_range) {
-      const float pre = es + edb[(size_t)j * H + h];
-      const float lr = pre >= 0.f ? pre : 0.2f * pre;
-      s = edge ? lr : MASKED;
-    }
-    const float m_new = fmaxf(m_run, warp_max(s));
-    const float corr = expf(m_run - m_new);
-    const float p = in_range ? expf(s - m_new) : 0.f;
-    l_run = l_run * corr + warp_sum(p);
-    acc *= corr;
-    unsigned live = __ballot_sync(FULL, p != 0.f);
-    while (live) {
-      const int k = __ffs(live) - 1;
-      live &= live - 1;
-      acc += __shfl_sync(FULL, p, k) * zs[k * D + h * HD + lane];
-    }
-    m_run = m_new;
+  float es[HP], m[HP], acc[HP];
+#pragma unroll
+  for (int h = 0; h < HP; ++h) {
+    es[h] = h < H ? e_src[r * H + h] : 0.f;
+    m[h] = -INFINITY;
+    acc[h] = 0.f;
   }
-  if (row_ok) {
-    const size_t r = (size_t)b * N + i;
-    out[r * D + h * HD + lane] = acc / fmaxf(l_run, 1e-30f);
-    if (lane == 0) {
-      m_out[r * H + h] = m_run;
-      l_out[r * H + h] = l_run;
+  float l = 0.f;                  // of this lane's head
+  const MaskRow row(adj + b * adj_bstride + (size_t)i * N, N);
+  int edges = 0;
+  for (int s = 0; s < row.sweeps(); ++s) {
+    const int cnt = row.compact(s, lane, cols[warp]);
+    __syncwarp();
+    const int col0 = row.col0(s);
+    for (int c0 = 0; c0 < cnt; c0 += 32) {
+      const int n = min(32, cnt - c0);
+      float sc[HP];
+      const int jl = lane < n ? col0 + cols[warp][c0 + lane] : 0;
+#pragma unroll
+      for (int h = 0; h < HP; ++h)
+        sc[h] = (lane < n && h < H) ? leaky(es[h] + edb[(size_t)jl * H + h])
+                                    : -INFINITY;
+      const float m_old = me.pick(m);
+#pragma unroll
+      for (int h = 0; h < HP; ++h) {
+        if (h >= H) continue;
+        m[h] = fmaxf(m[h], warp_max(sc[h]));
+        ps[warp][lane * HP + h] = lane < n ? expf(sc[h] - m[h]) : 0.f;
+      }
+      // rescale the running sums to the new max; exp(-inf) = 0 at the
+      // first chunk
+      const float c = expf(m_old - me.pick(m));
+      l *= c;
+#pragma unroll
+      for (int q = 0; q < HP; ++q) acc[q] *= c;
+      __syncwarp();
+#pragma unroll 4
+      for (int k = 0; k < n; ++k) {
+        float zv[HP];
+        me.load(zb + (size_t)(col0 + cols[warp][c0 + k]) * D, zv, lane);
+        const float p = ps[warp][k * HP + me.head];
+        l += p;
+#pragma unroll
+        for (int q = 0; q < HP; ++q) acc[q] = fmaf(p, zv[q], acc[q]);
+      }
+      __syncwarp();               // ps and cols are rewritten next
+    }
+    edges += cnt;
+  }
+  if (edges == 0) {
+    // every column masked: s = m = -1e30, so each of the N columns has
+    // weight exp(0) = 1 and l = N
+#pragma unroll
+    for (int h = 0; h < HP; ++h) m[h] = MASKED;
+    l = (float)N;
+#pragma unroll 4
+    for (int j = 0; j < N; ++j) {
+      float zv[HP];
+      me.load(zb + (size_t)j * D, zv, lane);
+#pragma unroll
+      for (int q = 0; q < HP; ++q) acc[q] += zv[q];
     }
   }
+  const float lh = fmaxf(l, 1e-30f);
+  float o[HP];
+#pragma unroll
+  for (int q = 0; q < HP; ++q) o[q] = acc[q] / lh;
+  me.store(out + r * D, o, lane);
+  if (me.leader(lane)) {
+    m_out[r * H + me.head] = me.pick(m);
+    l_out[r * H + me.head] = l;
+  }
+}
+
+template <int HP>
+int launch(const float* z, const float* e_src, const float* e_dst,
+           const unsigned char* adj, long long adj_bstride, float* out,
+           float* m, float* l, int B, int N, int H, cudaStream_t stream) {
+  const dim3 grid((N + WARPS - 1) / WARPS, B);
+  gat_fwd_kernel<HP><<<grid, 32 * WARPS, 0, stream>>>(
+      z, e_src, e_dst, adj, adj_bstride, out, m, l, N, H);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -128,9 +162,12 @@ extern "C" int gat_mp_fwd(const float* z, const float* e_src,
                           float* l, int B, int N, int H, void* stream) {
   if (H < 1 || H > MAX_HEADS || B < 1 || N < 1 || B > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + ROWS - 1) / ROWS, B);
-  const dim3 block(32 * H * ROWS);
-  gat_fwd_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      z, e_src, e_dst, adj, adj_bstride, out, m, l, N, H);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  if (H == 1) return launch<1>(z, e_src, e_dst, adj, adj_bstride, out, m, l,
+                               B, N, H, s);
+  if (H == 2) return launch<2>(z, e_src, e_dst, adj, adj_bstride, out, m, l,
+                               B, N, H, s);
+  if (H <= 4) return launch<4>(z, e_src, e_dst, adj, adj_bstride, out, m, l,
+                               B, N, H, s);
+  return launch<8>(z, e_src, e_dst, adj, adj_bstride, out, m, l, B, N, H, s);
 }

@@ -1,10 +1,10 @@
 // Gradient of masked multi-head GAT attention, batched.
 //
 // Replaces the Pallas TPU kernel `_bwd_kernel` / `gat_mp_bwd_pallas` in
-// src/repro/kernels/gat_mp/gat_mp.py (the backward of ops._fused).  For
-// batch b, row i (the node that aggregates), column j (the node that is
-// aggregated) and head h, with alpha recomputed from the forward's
-// residuals m, l exactly as the forward defined it:
+// src/repro/kernels/gat_mp/gat_mp.py:98 / :146 (the backward of
+// ops._fused).  For batch b, row i (the node that aggregates), column j
+// (the node that is aggregated) and head h, with alpha recomputed from
+// the forward's residuals m, l exactly as the forward defined it:
 //   pre_ij   = e_src[i,h] + e_dst[j,h]
 //   s_ij     = leaky_relu(pre_ij, 0.2), or -1e30 where adj[i,j] == 0
 //   alpha_ij = exp(s_ij - m_i) / max(l_i, 1e-30)
@@ -14,199 +14,323 @@
 //   de_dst_j = sum_i dpre_ij
 // A row with every column masked has m = -1e30 and l = N, so alpha is
 // 1/N on EVERY column: its cotangent reaches dz of all columns while its
-// dpre is zero.
+// dpre is zero.  The mask need not be symmetric.
 //
-// Design.  The TPU kernel accumulates dz and de_dst across a sequential
-// grid in one VMEM buffer; blocks on the card run in no order, so the
-// work is split in two launches that each own their outputs, with no
-// atomics, and so give the same bits on every run:
-//   row pass    -- one warp per (row i, head h), lanes = the head's 32
-//                  features: drow_i, then de_src_i over the row's edges;
-//   column pass -- one warp per (column j, head h): dz_j and de_dst_j
-//                  over the rows that reach j (the edges, read from the
-//                  mask strided, since the mask need not be symmetric,
-//                  plus every all-masked row).
-// Each pass walks the other axis in tiles of 32 and stages the tile of
-// the operand it reads per entry (z rows in the row pass, g rows in the
-// column pass; 16 KB at D = 128) in shared memory, once for the ROWS x H
-// warps of the block.  A tile that no warp of the block needs (no edge,
-// no all-masked row) is neither staged nor computed.
+// What bounds it on an H100: the bytes.  On the main path's sparse
+// masks (BERT: 4.5 set columns a row) the function needs each mask byte
+// once and, per edge, the rows z_j, g_i and out_i (4 D bytes each) and
+// a few per-head scalars; the ~140 fp32 operations per edge and head
+// are far below that.  The design follows the edges, in ONE launch with
+// no scratch and no atomics: the grid's blocks take one of two roles,
+// and each output has one owner, which sums in a fixed order, so a
+// relaunch gives the same bits.
+//   column role (the first ceil(N/8) blocks of each batch element) --
+//     a block owns 8 consecutive columns, one warp each, for dz_j and
+//     de_dst_j.  It reads the mask by rows: adj[i, j0:j0+8] is 8
+//     contiguous bytes in one or two aligned 16-byte words, read once
+//     per row by one lane, which also marks the rows whose m is -1e30;
+//     each warp's 32 rows are or'd into a tile summary.  Each warp then
+//     lists its column's rows (edges, and every all-masked row) in
+//     ascending order, 512 rows at a time, skipping the tiles where its
+//     column has no edge and no row is masked, computes alpha
+//     lane-parallel, 32 rows at a time, and walks the list gathering
+//     g_i and, on an edge, out_i (512-byte coalesced loads at H = 4):
+//     dz_j += alpha g_i, and for de_dst_j each lane sums its share of
+//     leaky' alpha g_i . (z_j - out_i); one head sum at the end, no
+//     shuffle per edge.
+//   row role (the next ceil(N/8) blocks) -- one warp per row i for
+//     de_src_i: the forward's walk over the row's set columns (16-byte
+//     mask loads, a compacted list), alpha lane-parallel, then per edge
+//     the gather of z_j and the lane's share of leaky' alpha g_i .
+//     (z_j - out_i), summed in column order.
+// Column blocks come first in the grid, so they, which carry the most
+// work, start first.  The per-row scalars (e_src, e_dst, m, l) are
+// read where alpha is computed, per edge, from L1 and L2, rather than
+// staged per block (more bytes than the edges need at these densities)
+// or held in registers across the walk.  Measured on an NVIDIA H100
+// 80GB HBM3 at 700 W: the walk gathers two edges' rows at a time, and
+// the kernel stays at 64 registers a thread at H = 4, so three blocks
+// of 8 warps fit on an SM; more registers (more rows in flight) or
+// 16-warp blocks were slower at the critic's B = 24, as was a block of
+// 32 columns walked in turn.
 //
-// What bounds it on an H100.  Per (edge, head) the function needs about
-// 138 fp32 operations: recomputing alpha (add, leaky multiply, subtract,
-// exp, divide: 6 with the compare), the dz multiply-add over 32 features
-// (64), the 32-wide dot product g_i . z_j (64), and dpre and its two
-// sums (4).  The bytes are z, out, g and dz (4 B x D per node), e_src,
-// e_dst, m, l, de_src, de_dst (4 B x H per node) and the mask (1 B per
-// pair).  On the main path's sparse masks (a few edges per row) the
-// operations are far below the bytes, so the bound is the bytes, and
-// the design reads each tile only where an edge needs it.  fp32 CUDA
-// cores only; a tensor-core version (wgmma) is later work.
+// Tensor cores are not used: the reference computes in fp32 and the
+// port holds each gradient to 1e-5 of its largest element, which TF32
+// would not keep, and with ~1 % of alpha non-zero a dense product would
+// do ~86x the work the edges need.  fp32 CUDA cores, expf.
 //
 // C interface for ctypes: pointers are device pointers, `stream` is a
-// cudaStream_t, `drow` is a (B, N, H) scratch buffer, the return value
-// is the CUDA error code of the launches.
+// cudaStream_t, the return value is the CUDA error code of the launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "gat_edges.cuh"
+
 namespace {
 
-constexpr int TJ = 32;          // tile of the walked axis, one per lane
-constexpr int ROWS = 4;         // rows (row pass) / columns per block
-constexpr int HD = 32;          // features per head, one per lane
-constexpr int MAX_HEADS = 8;    // block = 32 * MAX_HEADS * ROWS <= 1024
-constexpr float MASKED = -1e30f;
-constexpr unsigned FULL = 0xffffffffu;
+using namespace gat;
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
+constexpr int WARPS = 8;         // rows or columns per block
+constexpr int RCH = 512;         // rows a column block lists at a time
+constexpr unsigned ANY_MASKED = 1u << WARPS;  // tile: a row has m = -1e30
+constexpr unsigned EDGE = 0x8000u;  // list entry: the row has an edge
+constexpr int BATCH = 2;         // edges whose rows are gathered at once
+
+template <int HP>
+struct RowSmem {
+  unsigned short cols[WARPS][SWEEP];
+  float alpha[WARPS][32 * HP];   // alpha of chunk edge k, head h
+};
+
+template <int HP>
+struct ColSmem {
+  unsigned short bits[RCH];      // the block's columns set in row i
+  unsigned char masked[RCH];     // row i has m = -1e30
+  unsigned tile[RCH / 32];       // the bits of 32 rows, or'd; ANY_MASKED
+  unsigned short rows[WARPS][RCH];
+  float alpha[WARPS][32 * HP];
+};
+
+template <int HP>
+union BwdSmem {
+  RowSmem<HP> row;
+  ColSmem<HP> col;
+};
+
+struct Args {
+  const float* __restrict__ z;
+  const float* __restrict__ e_src;
+  const float* __restrict__ e_dst;
+  const unsigned char* __restrict__ adj;
+  long long adj_bstride;
+  const float* __restrict__ m;
+  const float* __restrict__ l;
+  const float* __restrict__ out;
+  const float* __restrict__ g;
+  float* __restrict__ dz;
+  float* __restrict__ de_src;
+  float* __restrict__ de_dst;
+  int N, H;
+};
+
+// dpre_ij = c_ij (g_i . z_j - g_i . out_i) with c = leaky'(pre) alpha,
+// and the dot products are linear: a lane sums c times its own share
+// sum_q g_q (z_q - out_q) over the edges, and one head sum at the end
+// gives the gradient, with no shuffle per edge
+__device__ __forceinline__ float dpre_weight(float alpha, unsigned posb,
+                                             int k) {
+  return ((posb >> k) & 1u) ? alpha : 0.2f * alpha;
 }
 
-__device__ __forceinline__ void stage(float* dst_smem, const float* src,
-                                      int rows, int D) {
-  const int n4 = rows * D / 4;
-  const float4* s = reinterpret_cast<const float4*>(src);
-  float4* d = reinterpret_cast<float4*>(dst_smem);
-  for (int k = threadIdx.x; k < n4; k += blockDim.x) d[k] = s[k];
+template <int HP>
+__device__ __forceinline__ float dot_diff(const float (&g)[HP],
+                                          const float (&z)[HP],
+                                          const float (&o)[HP]) {
+  float t = 0.f;
+#pragma unroll
+  for (int q = 0; q < HP; ++q) t = fmaf(g[q], z[q] - o[q], t);
+  return t;
 }
 
-__global__ void __launch_bounds__(32 * MAX_HEADS * ROWS)
-gat_bwd_row_kernel(const float* __restrict__ z,
-                   const float* __restrict__ e_src,
-                   const float* __restrict__ e_dst,
-                   const unsigned char* __restrict__ adj,
-                   long long adj_bstride, const float* __restrict__ m,
-                   const float* __restrict__ l,
-                   const float* __restrict__ out,
-                   const float* __restrict__ g, float* __restrict__ drow,
-                   float* __restrict__ de_src, int N, int H) {
-  __shared__ __align__(16) float zs[TJ * HD * MAX_HEADS];
-  const int D = H * HD;
-  const int b = blockIdx.y;
+// per head h < H, the bits of the first n lanes whose `pos[h]` is true;
+// returns the one of this lane's head
+template <int HP>
+__device__ __forceinline__ unsigned pos_bits(const Slot<HP>& me,
+                                             const bool (&pos)[HP], int n,
+                                             int lane, int H) {
+  unsigned mine = 0;
+#pragma unroll
+  for (int h = 0; h < HP; ++h) {
+    if (h >= H) continue;
+    const unsigned bits = __ballot_sync(FULL, lane < n && pos[h]);
+    if (h == me.head) mine = bits;
+  }
+  return mine;
+}
+
+template <int HP>
+__device__ void columns(const Args& a, ColSmem<HP>& sm, int cb) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int h = warp % H;
-  const int i = blockIdx.x * ROWS + warp / H;
-  const bool row_ok = i < N;
-  const size_t r = (size_t)b * N + (row_ok ? i : 0);
+  const int N = a.N, H = a.H, D = H * HD;
+  const size_t nb = (size_t)blockIdx.y * N;
+  const unsigned char* ab = a.adj + blockIdx.y * a.adj_bstride;
+  const int j0 = cb * WARPS;
+  const int ncols = min(WARPS, N - j0);
+  const int j = j0 + warp;
+  const bool col_ok = warp < ncols;
+  const Slot<HP> me(lane, H);
 
-  const float* zb = z + (size_t)b * N * D;
-  const float* edb = e_dst + (size_t)b * N * H;
-  const unsigned char* arow =
-      adj + (long long)b * adj_bstride + (size_t)(row_ok ? i : 0) * N;
-  const float gi = row_ok ? g[r * D + h * HD + lane] : 0.f;
-  const float dr = warp_sum(gi * (row_ok ? out[r * D + h * HD + lane] : 0.f));
-  const float es = row_ok ? e_src[r * H + h] : 0.f;
-  const float mi = row_ok ? m[r * H + h] : 0.f;
-  const float li = row_ok ? fmaxf(l[r * H + h], 1e-30f) : 1.f;
-
-  float acc = 0.f;  // this lane's columns' dpre, summed over tiles
-  for (int j0 = 0; j0 < N; j0 += TJ) {
-    const int cols = min(TJ, N - j0);
-    const int j = j0 + lane;
-    const bool edge = row_ok && lane < cols && arow[j] != 0;
-    const unsigned edges = __ballot_sync(FULL, edge);
-    // a barrier too: every warp is done with the previous tile
-    if (!__syncthreads_or(edges != 0u)) continue;
-    stage(zs, zb + (size_t)j0 * D, cols, D);
-    __syncthreads();
-    if (edges == 0u) continue;
-    float pre = 0.f, a = 0.f;
-    if (edge) {
-      pre = es + edb[(size_t)j * H + h];
-      a = expf((pre >= 0.f ? pre : 0.2f * pre) - mi) / li;
-    }
-    unsigned live = edges;
-    while (live) {
-      const int k = __ffs(live) - 1;
-      live &= live - 1;
-      const float dot = warp_sum(gi * zs[k * D + h * HD + lane]);
-      if (lane == k) {
-        const float ds = a * (dot - dr);
-        acc += pre >= 0.f ? ds : 0.2f * ds;
+  float zj[HP], dzj[HP];
+  if (col_ok) me.load(a.z + (nb + j) * D, zj, lane);
+#pragma unroll
+  for (int h = 0; h < HP; ++h) dzj[h] = 0.f;
+  float acc = 0.f;  // this lane's share of de_dst of its head
+  for (int i0 = 0; i0 < N; i0 += RCH) {
+    const int nr = min(RCH, N - i0);
+    __syncthreads();              // the previous chunk's lists are done
+    // a warp scans 32 rows at a time, one a lane
+    for (int t0 = warp * 32; t0 < nr; t0 += blockDim.x) {
+      const int t = t0 + lane;
+      unsigned bits = 0;
+      bool masked = false;
+      if (t < nr) {
+        const size_t i = (size_t)(i0 + t);
+        bits = nonzero_bytes(ab + i * N + j0, ncols);
+#pragma unroll
+        for (int h = 0; h < HP; ++h)
+          if (h < H) masked |= !(a.m[(nb + i) * H + h] > MASKED);
+        sm.bits[t] = (unsigned short)bits;
+        sm.masked[t] = masked;
       }
+      bits = __reduce_or_sync(FULL, bits);
+      if (__any_sync(FULL, masked)) bits |= ANY_MASKED;
+      if (lane == 0) sm.tile[t0 / 32] = bits;
     }
-  }
-  const float total = warp_sum(acc);
-  if (row_ok && lane == 0) {
-    de_src[r * H + h] = total;
-    drow[r * H + h] = dr;
-  }
-}
-
-__global__ void __launch_bounds__(32 * MAX_HEADS * ROWS)
-gat_bwd_col_kernel(const float* __restrict__ z,
-                   const float* __restrict__ e_src,
-                   const float* __restrict__ e_dst,
-                   const unsigned char* __restrict__ adj,
-                   long long adj_bstride, const float* __restrict__ m,
-                   const float* __restrict__ l,
-                   const float* __restrict__ g,
-                   const float* __restrict__ drow, float* __restrict__ dz,
-                   float* __restrict__ de_dst, int N, int H) {
-  __shared__ __align__(16) float gs[TJ * HD * MAX_HEADS];
-  const int D = H * HD;
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int h = warp % H;
-  const int j = blockIdx.x * ROWS + warp / H;
-  const bool col_ok = j < N;
-  const size_t c = (size_t)b * N + (col_ok ? j : 0);
-
-  const float* gb = g + (size_t)b * N * D;
-  const size_t nb = (size_t)b * N;
-  // column j of the mask, read strided: adj[i, j] at acol[i * N]
-  const unsigned char* acol =
-      adj + (long long)b * adj_bstride + (col_ok ? j : 0);
-  const float zj = col_ok ? z[c * D + h * HD + lane] : 0.f;
-  const float ed = col_ok ? e_dst[c * H + h] : 0.f;
-
-  float dz_acc = 0.f;
-  float acc = 0.f;  // this lane's rows' dpre, summed over tiles
-  for (int i0 = 0; i0 < N; i0 += TJ) {
-    const int rows = min(TJ, N - i0);
-    const int i = i0 + lane;
-    const bool in = col_ok && lane < rows;
-    const float mi = in ? m[(nb + i) * H + h] : 0.f;
-    const bool edge = in && acol[(size_t)i * N] != 0;
-    // a row with no edge at all (m == -1e30) weighs every column 1/N
-    const bool contrib = edge || (in && !(mi > MASKED));
-    const unsigned live0 = __ballot_sync(FULL, contrib);
-    const unsigned edges = __ballot_sync(FULL, edge);
-    if (!__syncthreads_or(live0 != 0u)) continue;
-    stage(gs, gb + (size_t)i0 * D, rows, D);
     __syncthreads();
-    if (live0 == 0u) continue;
-    float pre = 0.f, a = 0.f, dr = 0.f;
-    if (contrib) {
-      pre = e_src[(nb + i) * H + h] + ed;
-      const float s = edge ? (pre >= 0.f ? pre : 0.2f * pre) : MASKED;
-      a = expf(s - mi) / fmaxf(l[(nb + i) * H + h], 1e-30f);
-      dr = drow[(nb + i) * H + h];
+    if (!col_ok) continue;
+    // the column's rows in this chunk, ascending, edges flagged
+    int cnt = 0;
+    for (int t0 = 0; t0 < nr; t0 += 32) {
+      const unsigned tile = sm.tile[t0 / 32];
+      if (!((tile >> warp) & 1u) && !(tile & ANY_MASKED)) continue;
+      const int t = t0 + lane;
+      const bool edge = t < nr && ((sm.bits[t] >> warp) & 1u);
+      const bool take = edge || (t < nr && sm.masked[t]);
+      const unsigned live = __ballot_sync(FULL, take);
+      if (take)
+        sm.rows[warp][cnt + __popc(live & ((1u << lane) - 1u))] =
+            (unsigned short)(t | (edge ? EDGE : 0u));
+      cnt += __popc(live);
     }
-    unsigned live = live0;
-    while (live) {
-      const int k = __ffs(live) - 1;
-      live &= live - 1;
-      const float gk = gs[k * D + h * HD + lane];
-      dz_acc += __shfl_sync(FULL, a, k) * gk;
-      if ((edges >> k) & 1u) {
-        const float dot = warp_sum(gk * zj);
-        if (lane == k) {
-          const float ds = a * (dot - dr);
-          acc += pre >= 0.f ? ds : 0.2f * ds;
+    __syncwarp();
+    for (int c0 = 0; c0 < cnt; c0 += 32) {
+      const int n = min(32, cnt - c0);
+      bool edge = false;
+      bool pos[HP];
+      if (lane < n) {
+        const unsigned e = sm.rows[warp][c0 + lane];
+        const size_t i = nb + i0 + (e & ~EDGE);
+        edge = e & EDGE;
+#pragma unroll
+        for (int h = 0; h < HP; ++h) {
+          pos[h] = false;
+          if (h >= H) continue;
+          const float pre = a.e_src[i * H + h] + a.e_dst[(nb + j) * H + h];
+          const float s = edge ? leaky(pre) : MASKED;
+          sm.alpha[warp][lane * HP + h] =
+              expf(s - a.m[i * H + h]) / fmaxf(a.l[i * H + h], 1e-30f);
+          pos[h] = pre >= 0.f;
         }
       }
+      const unsigned edges = __ballot_sync(FULL, edge);
+      const unsigned posb = pos_bits(me, pos, n, lane, H);
+      __syncwarp();
+      for (int k0 = 0; k0 < n; k0 += BATCH) {
+        float gi[BATCH][HP], oi[BATCH][HP];
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) {
+          if (k0 + u >= n) break;
+          const size_t i = nb + i0 + (sm.rows[warp][c0 + k0 + u] & ~EDGE);
+          me.load(a.g + i * D, gi[u], lane);
+          if ((edges >> (k0 + u)) & 1u) me.load(a.out + i * D, oi[u], lane);
+        }
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) {
+          const int k = k0 + u;
+          if (k >= n) break;
+          const float al = sm.alpha[warp][k * HP + me.head];
+#pragma unroll
+          for (int q = 0; q < HP; ++q) dzj[q] = fmaf(al, gi[u][q], dzj[q]);
+          if ((edges >> k) & 1u) acc = fmaf(
+              dpre_weight(al, posb, k), dot_diff(gi[u], zj, oi[u]), acc);
+        }
+      }
+      __syncwarp();               // rows and alpha are rewritten next
     }
   }
-  const float total = warp_sum(acc);
-  if (col_ok) {
-    dz[c * D + h * HD + lane] = dz_acc;
-    if (lane == 0) de_dst[c * H + h] = total;
+  if (!col_ok) return;
+  me.store(a.dz + (nb + j) * D, dzj, lane);
+  acc = Slot<HP>::head_sum(acc);
+  if (me.leader(lane)) a.de_dst[(nb + j) * H + me.head] = acc;
+}
+
+template <int HP>
+__device__ void rows(const Args& a, RowSmem<HP>& sm, int rb) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int N = a.N, H = a.H, D = H * HD;
+  const int i = rb * WARPS + warp;
+  if (i >= N) return;             // no barrier in this role
+  const size_t nb = (size_t)blockIdx.y * N;
+  const size_t r = nb + i;
+  const Slot<HP> me(lane, H);
+
+  float gi[HP], oi[HP];
+  me.load(a.g + r * D, gi, lane);
+  me.load(a.out + r * D, oi, lane);
+  float acc = 0.f;  // this lane's share of de_src of its head
+  const MaskRow row(a.adj + blockIdx.y * a.adj_bstride + (size_t)i * N, N);
+  for (int s = 0; s < row.sweeps(); ++s) {
+    const int cnt = row.compact(s, lane, sm.cols[warp]);
+    __syncwarp();
+    const int col0 = row.col0(s);
+    for (int c0 = 0; c0 < cnt; c0 += 32) {
+      const int n = min(32, cnt - c0);
+      bool pos[HP];
+      if (lane < n) {
+        const size_t jr = nb + (size_t)(col0 + sm.cols[warp][c0 + lane]);
+#pragma unroll
+        for (int h = 0; h < HP; ++h) {
+          pos[h] = false;
+          if (h >= H) continue;
+          const float pre = a.e_src[r * H + h] + a.e_dst[jr * H + h];
+          sm.alpha[warp][lane * HP + h] = expf(leaky(pre) - a.m[r * H + h]) /
+                                          fmaxf(a.l[r * H + h], 1e-30f);
+          pos[h] = pre >= 0.f;
+        }
+      }
+      const unsigned posb = pos_bits(me, pos, n, lane, H);
+      __syncwarp();
+      for (int k0 = 0; k0 < n; k0 += BATCH) {
+        float zv[BATCH][HP];
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) {
+          if (k0 + u >= n) break;
+          const size_t jr = nb + (size_t)(col0 + sm.cols[warp][c0 + k0 + u]);
+          me.load(a.z + jr * D, zv[u], lane);
+        }
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) {
+          const int k = k0 + u;
+          if (k >= n) break;
+          acc = fmaf(dpre_weight(sm.alpha[warp][k * HP + me.head], posb, k),
+                     dot_diff(gi, zv[u], oi), acc);
+        }
+      }
+      __syncwarp();               // cols and alpha are rewritten next
+    }
   }
+  acc = Slot<HP>::head_sum(acc);
+  if (me.leader(lane)) a.de_src[r * H + me.head] = acc;
+}
+
+template <int HP>
+__global__ void __launch_bounds__(32 * WARPS) gat_bwd_kernel(Args a) {
+  __shared__ BwdSmem<HP> sm;
+  const int nblk = (a.N + WARPS - 1) / WARPS;
+  if ((int)blockIdx.x < nblk)
+    columns<HP>(a, sm.col, blockIdx.x);
+  else
+    rows<HP>(a, sm.row, blockIdx.x - nblk);
+}
+
+template <int HP>
+int launch(const Args& a, int B, cudaStream_t stream) {
+  const dim3 grid(2 * ((a.N + WARPS - 1) / WARPS), B);
+  gat_bwd_kernel<HP><<<grid, 32 * WARPS, 0, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -215,20 +339,15 @@ extern "C" int gat_mp_bwd(const float* z, const float* e_src,
                           const float* e_dst, const unsigned char* adj,
                           long long adj_bstride, const float* m,
                           const float* l, const float* out, const float* g,
-                          float* drow, float* dz, float* de_src,
-                          float* de_dst, int B, int N, int H, void* stream) {
+                          float* dz, float* de_src, float* de_dst, int B,
+                          int N, int H, void* stream) {
   if (H < 1 || H > MAX_HEADS || B < 1 || N < 1 || B > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + ROWS - 1) / ROWS, B);
-  const dim3 block(32 * H * ROWS);
+  const Args a{z, e_src, e_dst, adj, adj_bstride, m, l, out, g,
+               dz, de_src, de_dst, N, H};
   cudaStream_t s = (cudaStream_t)stream;
-  gat_bwd_row_kernel<<<grid, block, 0, s>>>(z, e_src, e_dst, adj,
-                                            adj_bstride, m, l, out, g, drow,
-                                            de_src, N, H);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  gat_bwd_col_kernel<<<grid, block, 0, s>>>(z, e_src, e_dst, adj,
-                                            adj_bstride, m, l, g, drow, dz,
-                                            de_dst, N, H);
-  return (int)cudaGetLastError();
+  if (H == 1) return launch<1>(a, B, s);
+  if (H == 2) return launch<2>(a, B, s);
+  if (H <= 4) return launch<4>(a, B, s);
+  return launch<8>(a, B, s);
 }

@@ -14,8 +14,11 @@ head h::
 ``csrc/gat_mp.cu``; on CPU tensors it runs ``gat_mp_plain``.  When z,
 e_src or e_dst requires grad, ``out`` is differentiable with respect to
 them through ``_GatMP``, whose backward is ``gat_mp_bwd``: the kernel
-``csrc/gat_mp_bwd.cu`` on CUDA tensors, ``gat_mp_bwd_plain`` on CPU
-tensors.  The mask gets no gradient.
+``csrc/gat_mp_bwd.cu`` (one launch per call) on CUDA tensors,
+``gat_mp_bwd_plain`` on CPU tensors.  Both kernels follow the mask's
+set entries (one warp per row or column, z, g and out gathered per
+edge).  The mask gets no gradient.  A launch that fails raises; there is
+no fallback to the plain version for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -26,12 +29,12 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIM = 32    # the kernel maps one lane to one head feature
+KERNEL_HEAD_DIM = 32    # features per head the kernels take
 KERNEL_MAX_HEADS = 8
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
              + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
-                 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                  + [ctypes.c_void_p])
 
 
@@ -80,7 +83,7 @@ def _check(z, e_src, e_dst, adj):
 def _kernel_inputs(z, e_src, named, aligned):
     """What both CUDA kernels require beyond ``_check``: ``named``
     tensors contiguous, ``aligned`` ones 16-byte aligned (the kernels
-    stage them in shared memory with 16-byte loads)."""
+    gather their rows with 16-byte loads)."""
     B, N, D = z.shape
     H = e_src.shape[-1]
     if B == 0 or N == 0:
@@ -105,6 +108,12 @@ def _mask_args(adj):
     return mask, (0 if adj.shape[0] == 1 else N * N)
 
 
+def _cuda_call(fn, like, *args):
+    """fn(*args, stream) on like's device and its current stream."""
+    with torch.cuda.device(like.device):
+        return fn(*args, torch.cuda.current_stream(like.device).cuda_stream)
+
+
 def _launch(z, e_src, e_dst, adj):
     B, N, D = z.shape
     H = e_src.shape[-1]
@@ -115,11 +124,9 @@ def _launch(z, e_src, e_dst, adj):
     m = torch.empty_like(e_src)
     l = torch.empty_like(e_src)
     mask, stride = _mask_args(adj)
-    with torch.cuda.device(z.device):
-        err = fn(z.data_ptr(), e_src.data_ptr(), e_dst.data_ptr(),
-                 mask.data_ptr(), stride, out.data_ptr(), m.data_ptr(),
-                 l.data_ptr(), B, N, H,
-                 torch.cuda.current_stream(z.device).cuda_stream)
+    err = _cuda_call(fn, z, z.data_ptr(), e_src.data_ptr(), e_dst.data_ptr(),
+                     mask.data_ptr(), stride, out.data_ptr(), m.data_ptr(),
+                     l.data_ptr(), B, N, H)
     if err:
         raise RuntimeError(f"gat_mp kernel launch failed: CUDA error {err}")
     gat_mp.launches += 1
@@ -219,19 +226,16 @@ def _launch_bwd(z, e_src, e_dst, adj, m, l, out, g):
     _kernel_inputs(z, e_src, (("z", z), ("e_src", e_src), ("e_dst", e_dst),
                               ("adj", adj), ("m", m), ("l", l),
                               ("out", out), ("g", g)),
-                   aligned=(("z", z), ("g", g)))
+                   aligned=(("z", z), ("out", out), ("g", g)))
     fn = build.function("gat_mp_bwd", "gat_mp_bwd", _BWD_ARGTYPES)
     dz = torch.empty_like(z)
     de_src = torch.empty_like(e_src)
     de_dst = torch.empty_like(e_dst)
-    drow = torch.empty_like(e_src)          # scratch: g_i . out_i per head
     mask, stride = _mask_args(adj)
-    with torch.cuda.device(z.device):
-        err = fn(z.data_ptr(), e_src.data_ptr(), e_dst.data_ptr(),
-                 mask.data_ptr(), stride, m.data_ptr(), l.data_ptr(),
-                 out.data_ptr(), g.data_ptr(), drow.data_ptr(),
-                 dz.data_ptr(), de_src.data_ptr(), de_dst.data_ptr(),
-                 B, N, H, torch.cuda.current_stream(z.device).cuda_stream)
+    err = _cuda_call(fn, z, z.data_ptr(), e_src.data_ptr(), e_dst.data_ptr(),
+                     mask.data_ptr(), stride, m.data_ptr(), l.data_ptr(),
+                     out.data_ptr(), g.data_ptr(), dz.data_ptr(),
+                     de_src.data_ptr(), de_dst.data_ptr(), B, N, H)
     if err:
         raise RuntimeError(f"gat_mp_bwd kernel launch failed: CUDA error "
                            f"{err}")
@@ -242,8 +246,8 @@ def _launch_bwd(z, e_src, e_dst, adj, m, l, out, g):
 def gat_mp_bwd(z, e_src, e_dst, adj, m, l, out, g):
     """Gradient of ``gat_mp``'s ``out`` for the cotangent g (B, N, D):
     returns (dz, de_src, de_dst).  m, l, out are the forward's outputs.
-    CUDA tensors launch ``csrc/gat_mp_bwd.cu`` (contiguous inputs, 32
-    features per head); CPU tensors run ``gat_mp_bwd_plain``."""
+    CUDA tensors launch ``csrc/gat_mp_bwd.cu`` once (contiguous inputs,
+    32 features per head); CPU tensors run ``gat_mp_bwd_plain``."""
     _check_bwd(z, e_src, e_dst, adj, m, l, out, g)
     if z.device.type == "cpu":
         return gat_mp_bwd_plain(z, e_src, e_dst, adj, m, l, out, g)
