@@ -8,7 +8,8 @@ Phases, each printing JSON lines:
 1. device   -- the card's name and power limit (nvidia-smi);
 2. build    -- the five CUDA sources of ``src/repro_torch/csrc``
                compiled, one ``nvcc`` each, in parallel; each kernel's
-               registers and spills printed;
+               registers and spills printed (the SSD kernels must not
+               spill);
 3. gat      -- the GAT forward kernel against its plain PyTorch version,
                at the main path's shapes and on edge-case masks (a
                column no row reaches, a row with every column set or
@@ -37,10 +38,15 @@ Phases, each printing JSON lines:
                (Sq = 512, Sk = 1024); every bf16 case through both the
                tensor-core route and the fp32-core route, timed beside
                SDPA as a yardstick;
-9. ssd      -- the SSD scan kernel against its plain version at every
+9. ssd      -- the SSD scan kernels against their plain version at every
                Mamba2 prefill shape of the serve phase (zamba2,
-               mamba2-780m), at B = 2, at S < chunk and from an initial
-               state;
+               mamba2-780m), at B = 2, at S < chunk, from an initial
+               state (2 and 16 chunks) and at head dims 32 and 128,
+               with dt and A drawn as Mamba2 initialises them (slow
+               decay: the state passed between chunks shows in y), and
+               once with fast decay (|cum| > 88 inside a chunk);
+               ``ms`` (CUDA events), ``device_ms`` (profiler), the f32
+               bound and the 3xTF32 tensor-core bound;
 10. serve_check -- zamba2 at full width in f32, cut to 7 layers: a
                512-token prefill and one decode step on the card
                (kernels) against the same on the CPU (plain versions);
@@ -62,6 +68,7 @@ CUDA and the repository's sources: alone, or without a card, it fails.
 """
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -78,6 +85,8 @@ PEAK_F32 = 67e12
 # H100 SXM dense bf16 tensor-core FLOP/s (NVIDIA H100 data sheet, SXM
 # part: 989 TFLOP/s dense, 1,979 with sparsity)
 PEAK_BF16 = 989e12
+# ... and dense TF32 tensor-core FLOP/s (the same data sheet: 494.7)
+PEAK_TF32 = 494.7e12
 # fp32 operations per (edge, head) of GAT attention with head dim 32:
 # add, leaky-relu multiply, max, subtract, exp, denominator add, and a
 # multiply-add per feature
@@ -866,45 +875,78 @@ def phase_flash(torch, fops, gen):
 
 # --------------------------------------------------------- SSD scan kernel
 def ssd_cases():
-    """(name, B, S, H, hd, N, chunk, dtype, init_state): every Mamba2
-    prefill of the serve runs (zamba2: d_model 2048, expand 2, d_state 64;
-    mamba2-780m: d_model 1536, d_state 128; chunk 256), then zamba2's
-    heads at B = 2, at S = 100 < chunk, and from a given initial state."""
+    """(name, B, S, H, hd, N, chunk, dtype, init_state, decay): every
+    Mamba2 prefill of the serve runs (zamba2: d_model 2048, expand 2,
+    d_state 64; mamba2-780m: d_model 1536, d_state 128; chunk 256), then
+    zamba2's heads at B = 2, at S = 100 < chunk, from a given initial
+    state over 2 and 16 chunks (S = 512, 4096), zamba2's inner width cut
+    into heads of 32 and of 128 (the kernel's other head dims), and one
+    case of fast decay.  ``decay`` "slow" draws dt and A as Mamba2
+    initialises them: per head a dt log-uniform in [1e-3, 0.1] (its
+    dt_bias) and A = -uniform [1, 16], dt times exp(0.5 normal) per step
+    for the input's part; a head with dt near 1e-3 and A near 1 keeps
+    most of its state over a chunk of 256 steps, so the state passed from
+    chunk to chunk shows in y.  "fast" draws dt = softplus(normal) and
+    A = -exp(0.3 normal), ~0.8 a step, so |cum| passes 88 inside a chunk
+    (where exp(cum_i) exp(-cum_j) would overflow) and nothing carries."""
     from repro_torch.models.mamba2 import _dims
     cases = [(cfg.name, 1, S, _dims(cfg)[1], cfg.ssm.head_dim,
-              cfg.ssm.d_state, cfg.ssm.chunk, cfg.dtype, False)
+              cfg.ssm.d_state, cfg.ssm.chunk, cfg.dtype, False, "slow")
              for cfg, S in served_prefills() if cfg.ssm is not None]
-    _, _, _, H, hd, N, Q, dtype, _ = cases[0]
-    return cases + [("zamba2-1.2b:B=2", 2, 1024, H, hd, N, Q, dtype, False),
-                    ("zamba2-1.2b:S=100", 1, 100, H, hd, N, Q, dtype, False),
-                    ("zamba2-1.2b:init_state", 1, 512, H, hd, N, Q, dtype,
-                     True)]
+    _, _, _, H, hd, N, Q, dtype, _, _ = cases[0]
+    return cases + [
+        ("zamba2-1.2b:B=2", 2, 1024, H, hd, N, Q, dtype, False, "slow"),
+        ("zamba2-1.2b:S=100", 1, 100, H, hd, N, Q, dtype, False, "slow"),
+        ("zamba2-1.2b:init_state", 1, 512, H, hd, N, Q, dtype, True, "slow"),
+        ("zamba2-1.2b:init_state:16_chunks", 1, 4096, H, hd, N, Q, dtype,
+         True, "slow"),
+        ("zamba2-1.2b:hd=32", 1, 1024, H * hd // 32, 32, N, Q, dtype, False,
+         "slow"),
+        ("zamba2-1.2b:hd=128", 1, 1024, H * hd // 128, 128, N, Q, dtype,
+         True, "slow"),
+        ("zamba2-1.2b:fast_decay", 1, 1024, H, hd, N, Q, dtype, True,
+         "fast")]
 
 
-def ssd_ops_count(B, S, H, hd, N, Q):
-    """f32 operations of the chunked form on these shapes: per chunk the
-    lower triangle of C B^T (shared by the heads); per chunk and head the
-    decay (subtract, exp, multiply) and the masked product with xd on
-    that triangle, the carried state's part (C . state, times exp(cum))
-    and the state update (decay, then B^T (w xd) with w = exp(total -
-    cum))."""
+def ssd_ops_split(B, S, H, hd, N, Q):
+    """f32 operations of the chunked form on these shapes, as (matrix
+    products, the rest): per chunk the lower triangle of C B^T (shared by
+    the heads); per chunk and head the masked product of the decayed
+    C B^T with xd on that triangle, the carried state's part C . state and
+    the state update B^T (w xd), all products; then the decay (subtract,
+    exp, multiply), the exp(cum) scale, the state's decay and w xd with
+    w = exp(total - cum)."""
     nc, tri = S // Q, Q * (Q + 1) // 2
-    per_head = (tri * (3 + 2 * hd) + 2 * Q * N * hd + Q * hd
-                + N * hd + 2 * Q * N * hd + 2 * Q * hd)
-    return B * nc * (tri * 2 * N + H * per_head)
+    products = B * nc * (tri * 2 * N + H * (tri * 2 * hd + 4 * Q * N * hd))
+    rest = B * nc * H * (tri * 3 + Q * hd + N * hd + 2 * Q * hd)
+    return products, rest
 
 
 def phase_ssd(torch, sops, gen):
-    """The SSD kernel against ``ssd_scan_plain`` on the operands the
+    """The SSD kernels against ``ssd_scan_plain`` on the operands the
     wrapper forms (x and B, C in the activation dtype, as the models pass
-    them): y and the final state within 1e-4 of their largest element."""
+    them): y and the final state within 1e-4 of their largest element.
+    Each row: ``ms`` (CUDA events around back-to-back calls; below ~0.2 ms
+    of device work it reads the host's time per call), ``device_ms`` (the
+    profiler's, every kernel of a call summed), ``bound_ms`` (f32 cores),
+    ``bound_ms_tc`` (the products in 3xTF32 on the tensor cores, three
+    TF32 passes, the rest on the f32 cores, or the bytes if more) and
+    ``bound_share`` = bound_ms_tc / device_ms."""
     rows = {}
-    for name, B, S, H, hd, N, chunk, dtype, init in ssd_cases():
+    for name, B, S, H, hd, N, chunk, dtype, init, decay in ssd_cases():
         act = getattr(torch, dtype)
         x = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(act)
-        dt = torch.nn.functional.softplus(
-            torch.randn((B, S, H), generator=gen, device="cuda"))
-        A_log = torch.randn((H,), generator=gen, device="cuda") * 0.3
+        if decay == "slow":
+            dt_h = torch.empty((H,), device="cuda").uniform_(
+                math.log(1e-3), math.log(0.1), generator=gen).exp()
+            dt = dt_h * torch.exp(0.5 * torch.randn(
+                (B, S, H), generator=gen, device="cuda"))
+            A_log = torch.empty((H,), device="cuda").uniform_(
+                1.0, 16.0, generator=gen).log()
+        else:
+            dt = torch.nn.functional.softplus(
+                torch.randn((B, S, H), generator=gen, device="cuda"))
+            A_log = torch.randn((H,), generator=gen, device="cuda") * 0.3
         Bm = torch.randn((B, S, N), generator=gen, device="cuda").to(act)
         Cm = torch.randn((B, S, N), generator=gen, device="cuda").to(act)
         st0 = (torch.randn((B, H, N, hd), generator=gen, device="cuda")
@@ -924,20 +966,31 @@ def phase_ssd(torch, sops, gen):
             check(errs[what] <= 1e-4 * scale, f"ssd {name} S={S}: {what} "
                   f"error {errs[what]} > 1e-4 x {scale}")
         Q = min(chunk, S)
+        # the most of its incoming state a chunk keeps: exp(total)
+        carry = la.view(B, S // Q, Q, H).sum(2).exp().max().item()
         nbytes = sum(t.numel() * 4 for t in (xd, la, Bf, Cf, y, fs)
                      + (() if st0 is None else (st0,)))
-        nops = ssd_ops_count(B, S, H, hd, N, Q)
+        products, rest = ssd_ops_split(B, S, H, hd, N, Q)
+        nops = products + rest
         b_ms, b_by = bound(nbytes, nops)
+        tc_ms = max(nbytes / PEAK_BYTES,
+                    3 * products / PEAK_TF32 + rest / PEAK_F32) * 1e3
+
+        def call():
+            sops._launch(xd, la, Bf, Cf, chunk, st0)
         row = {"phase": "ssd", "case": name, "B": B, "S": S, "H": H,
                "hd": hd, "N": N, "Q": Q, "init_state": init,
-               "max_abs_err": errs, "scale": scales,
-               "ms": time_ms(lambda: sops._launch(xd, la, Bf, Cf, chunk,
-                                                  st0), 20),
+               "decay": decay, "carry": carry, "max_abs_err": errs, "scale": scales,
+               "ms": time_ms(call, 20), "device_ms": device_ms(torch, call),
                "plain_ms": time_ms(lambda: sops.ssd_scan_plain(
                    xd, la, Bf, Cf, chunk, st0), 3, warmup=1),
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-               "flops": nops, "bytes": nbytes}
+               "bound_ms_tc": tc_ms, "flops": nops,
+               "flops_products": products, "bytes": nbytes}
         row["tflops"] = nops / row["ms"] / 1e9
+        row["bound_share"] = (tc_ms / row["device_ms"]
+                              if not isinstance(row["device_ms"], str)
+                              else "not measured")
         emit(row)
         rows[name, S] = row
     return rows
@@ -1151,7 +1204,10 @@ def phase_serve_profile(torch, np, model):
     busy = sum(k["device_ms"] for k in kernels)
     mine = {tag: sum(k["device_ms"] for k in kernels if tag in k["name"])
             for tag in ("flash_fwd_wgmma", "flash_fwd_fp32cores",
-                        "ssd_kernel", "cb_kernel")}
+                        "ssd_state_kernel", "ssd_pass_kernel",
+                        "ssd_out_kernel")}
+    mine["ssd_scan (3 kernels)"] = sum(mine[k] for k in (
+        "ssd_state_kernel", "ssd_pass_kernel", "ssd_out_kernel"))
     emit({"phase": "serve_profile", "arch": model.cfg.name,
           "window": "one 2048-token prefill and 10 decode ticks, 4 slots",
           "wall_ms": wall_ms, "prefill_ms": eng.prefill_s[0][1] * 1e3,
@@ -1261,6 +1317,46 @@ def run_egrl(torch, np, rdev, gen):
          "per": "one population: 1 launch, BERT, P=20"}]
 
 
+def kernel_name(mangled):
+    """The kernel's own name in a mangled entry name (its length-prefixed
+    identifier that holds "kernel"), with its int template argument."""
+    import re
+    name = mangled
+    for m in re.finditer(r"\d+", mangled):
+        ident = mangled[m.end():m.end() + int(m.group())]
+        if "kernel" in ident and re.fullmatch(r"[A-Za-z_]\w*", ident):
+            name = ident
+    arg = re.search(r"ILi(\d+)E", mangled)
+    return name + (f"<{arg.group(1)}>" if arg else "")
+
+
+def ptxas_kernels(rep):
+    """Per source, each entry's registers and spill bytes (stores and
+    loads) from the compiler's ``-Xptxas -v`` report."""
+    import re
+    out = {}
+    for src, v in rep.items():
+        entry = None
+        for ln in v["log"].splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                entry = kernel_name(m.group(1))
+                out.setdefault(src, {})[entry] = {"registers": None,
+                                                  "spill_bytes": 0}
+                continue
+            if entry is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m:
+                out[src][entry]["spill_bytes"] = int(m.group(1)) + int(
+                    m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                out[src][entry]["registers"] = int(m.group(1))
+    return out
+
+
 def main(argv=None):
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args(
         argv)
@@ -1291,13 +1387,19 @@ def main(argv=None):
     t0 = time.perf_counter()
     rep = build.build(["gat_mp", "gat_mp_bwd", "memsim", "flash_attention",
                        "ssd_scan"])
+    regs = ptxas_kernels(rep)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source": {k: {"seconds": v["seconds"], "cached": v["cached"],
                              "ptxas": [ln.strip() for ln in
                                        v["log"].splitlines()
                                        if "registers" in ln or "spill" in ln
                                        or "smem" in ln or "entry" in ln]}
-                         for k, v in rep.items()}})
+                         for k, v in rep.items()},
+          "kernels": regs})
+    check(len(regs.get("ssd_scan", {})) == 9,
+          f"ssd_scan: no compiler report for its 9 kernels: {regs}")
+    for entry, info in regs["ssd_scan"].items():
+        check(info["spill_bytes"] == 0, f"ssd_scan {entry} spills {info}")
 
     gen = torch.Generator("cuda").manual_seed(0)
     rows = run_egrl(torch, np, rdev, gen)                  # 3-7
@@ -1337,9 +1439,15 @@ def main(argv=None):
          "launches_from": src, "max_abs_err": max(s_["max_abs_err"].values()),
          "ms": s_["ms"], "plain_ms": s_["plain_ms"],
          "bound_ms": s_["bound_ms"], "bound_by": s_["bound_by"],
-         "library_ms": None,
-         "per": "one call at zamba2's 2048-token prefill: B=1, H=64, hd=64, "
-                "N=64, Q=256"}]
+         "library_ms": None, "device_ms": s_["device_ms"],
+         "bound_ms_tc": s_["bound_ms_tc"], "bound_share": s_["bound_share"],
+         "cuda_kernels": ["ssd_state_kernel", "ssd_pass_kernel",
+                          "ssd_out_kernel"],
+         "mamba2_780m_2048": {k: ssd["mamba2-780m", 2048][k] for k in (
+             "ms", "device_ms", "bound_ms", "bound_ms_tc", "bound_share")},
+         "per": "one call (3 CUDA kernels) at zamba2's 2048-token prefill: "
+                "B=1, H=64, hd=64, N=64, Q=256; bound_ms on the f32 cores, "
+                "bound_ms_tc in 3xTF32 on the tensor cores"}]
     for r in rows:
         r["launches_zamba2_serve"] = serve["launches"].get(
             {"gat_mp_fwd": "gat_mp", "memsim_evaluate": "memsim"}.get(

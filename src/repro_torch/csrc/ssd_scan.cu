@@ -1,4 +1,4 @@
-// Mamba2 SSD scan, chunked form, forward only.
+// Mamba2 SSD scan, chunked form, forward only, on the tensor cores.
 //
 // Replaces the Pallas TPU kernel `_kernel` / `ssd_scan_pallas` in
 // src/repro/kernels/ssd_scan/ssd_scan.py (wrapped there by
@@ -8,282 +8,650 @@
 // is evaluated chunk by chunk (Q steps each, cum = cumsum of la within
 // the chunk, total = its last entry):
 //   y_i   = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) xd_j
-//         + exp(cum_i) C_i . state                    (carried state)
-//   state = exp(total) state + sum_j exp(total - cum_j) B_j (x) xd_j
+//         + exp(cum_i) C_i . prev_c                 (the incoming state)
+//   prev_{c+1} = exp(total) prev_c + sum_j exp(total - cum_j) B_j (x) xd_j
 // and y (B, S, H, hd) and the final state (B, H, N, hd) are written.  B
 // and C (B, S, N) are shared by the heads (one group).  All f32.
 //
-// What bounds it on an H100: operations, on the fp32 CUDA cores.  Per
-// chunk the intra-chunk part is a (Q x N) (N x Q) product shared by the
-// heads and, per head, a masked (Q x Q) (Q x hd) product; the traffic is
-// each input read once.  The TPU kernel holds a whole chunk in VMEM and
-// walks (b, h, chunk) in order on one core.  Here a block may use
-// 227 KB of shared memory, and Q (2N + hd) 4 bytes is 196 KB for zamba2
-// (N = 64) and 320 KB for mamba2-780m (N = 128), so chunks are cut into
-// 64-row tiles, and the work is split in two launches:
-//   1. cb_kernel: C B^T for the lower-triangle tiles of every (b, chunk)
-//      into a scratch buffer (B, S/Q, Q, Q) the wrapper allocates; it
-//      does not depend on the head, so it is computed once, not once
-//      per head.
-//   2. ssd_kernel: one block of 256 threads per (b, h, 16-column slice
-//      of hd).  Columns of the state evolve independently, so the slices
-//      give a B = 1 zamba2 prefill 256 blocks instead of 64.  The block
-//      walks the chunks in order with the (N x 16) state slice in shared
-//      memory (the counterpart of the TPU's state scratch).  Per chunk a
-//      warp scans la (sequential runs of Q/32 steps per lane, then a
-//      shuffle scan over the lanes); per row tile I it loads C_I, adds
-//      the carried state's part, then for each tile J <= I forms
-//      L = C B^T * exp(cum_i - cum_j) with the causal mask in shared
-//      memory and adds L xd_J; the last row tile also folds B_J and
-//      xd_J into the state.  Tensor cores are later work.
+// What bounds it on an H100: operations.  Nearly all of them are four
+// matrix products (C B^T, the masked L xd, B^T (w xd), C prev).  The TPU
+// kernel walks (b, h, chunk) in order on one core; here only the N x hd
+// state carries from one chunk to the next, so the work is split as in
+// the Mamba2 paper (Dao & Gu 2024, sections 6-7) into three launches:
+//   1. ssd_state_kernel, parallel over (b, chunk, head, 64 state rows):
+//      the chunk's own end state s_c = B^T diag(exp(total - cum)) xd, an
+//      (N x Q)(Q x hd) product, and the chunk's total; its other blocks
+//      form C B^T once per chunk (B and C do not depend on the head) in
+//      64 x 64 tiles of the lower triangle, into scratch.
+//   2. ssd_pass_kernel, sequential over the chunks of each (b, h), one
+//      thread per state element: prev_0 = init (or 0), prev_{c+1} =
+//      exp(total_c) prev_c + s_c, written over s_c in place (so the
+//      scratch holds each chunk's incoming state), and the final state.
+//   3. ssd_out_kernel, parallel over (b, chunk, head, 64-row tile):
+//      y = (C B^T o exp(cum_i - cum_j) o causal) xd + diag(exp(cum)) C
+//      prev_c, all hd columns in one block, written once.
+// Every product runs on the tensor cores in 3xTF32
+// (mma.sync.m16n8k8.tf32): each operand x is split into hi = tf32(x) and
+// lo = x - hi, and hi*hi + hi*lo + lo*hi is summed in f32, which keeps
+// f32-level error (one TF32 pass would not).  Operand tiles come from
+// global memory by cp.async, double-buffered (NS = 2).  The decay stays
+// exp(cum_i - cum_j), as in the reference: factored as exp(cum_i)
+// exp(-cum_j) it would overflow once |cum| > 88.  Rows past Q (S < chunk,
+// e.g. Q = 100) and state rows past N are zero-filled in shared memory
+// and never written.  What holds it back now (PERF.md): mma.sync takes
+// its operands from registers, so every MMA comes with its fragments'
+// shared-memory loads and splits (and, in L xd, the decays), about as
+// many instructions as the MMAs themselves; wgmma is later work.
 //
 // C interface for ctypes: pointers are device pointers (init_state may
-// be null: a zero state; cb is scratch of B * S * Q floats), `stream` is
-// a cudaStream_t, the return value is the CUDA error code of the launch.
+// be null: a zero state; `states` is scratch of B * S/Q * H * N * hd
+// floats, `totals` of B * S/Q * H, `cb` of B * S/Q * QP * QP with QP = Q
+// rounded up to 64), `stream` is a cudaStream_t, the return value is the
+// CUDA error code of the launches.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int QT = 64;          // rows of a chunk tile
-constexpr int PT = 16;          // state columns (of hd) per block
-constexpr int NK = 32;          // d_state slice of the C B^T pass
-constexpr int THREADS = 256;
-constexpr int EPT = QT * PT / THREADS;  // y elements per thread
+constexpr int THREADS = 256;    // 8 warps
+constexpr int RT = 64;          // chunk rows of an output tile
+constexpr int KT = 32;          // rows of a streamed xd / B / state tile
+constexpr int NT1 = 32;         // d_state columns of a C B^T step
+constexpr int NS = 2;           // tiles in flight (cp.async groups)
 constexpr int MAX_SMEM = 232448;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr float LOG2E = 1.4426950408889634f;
 
-size_t smem_floats(int Q, int N) {
-  return (size_t)3 * Q + 2 * QT * (N + 1) + QT * PT + QT * (QT + 1) +
-         (size_t)N * PT;
+__host__ __device__ constexpr int round_up(int a, int m) {
+  return (a + m - 1) / m * m;
 }
 
-// cb[b, c, i, j] = C[b, cQ + i] . B[b, cQ + j] for the 64 x 64 tiles with
-// j-tile <= i-tile; grid (ntile, ntile, B * S/Q), 4 x 4 outputs a thread
-__global__ void __launch_bounds__(THREADS)
-cb_kernel(const float* __restrict__ Bm, const float* __restrict__ Cm,
-          float* __restrict__ cb, int S, int N, int Q) {
-  __shared__ float cs[QT][NK + 1];
-  __shared__ float bs[QT][NK + 1];
-  const int it = blockIdx.x, jt = blockIdx.y;
-  if (jt > it) return;
-  const int bc = blockIdx.z;                     // b * (S / Q) + chunk
-  const size_t row0 = (size_t)bc * Q;            // its first time step
-  const int i0 = it * QT, j0 = jt * QT;
-  const int rows = min(QT, Q - i0), cols = min(QT, Q - j0);
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
+// --------------------------------------------------------------- cp.async
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every group but the newest `n` has landed
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+// ROWS x COLS floats (COLS a multiple of 4) from src (row stride ss)
+// into shared dst (row stride ds, a multiple of 4); entries at row >= rv
+// or column >= cv are zero-filled (nothing is read for them, `base`
+// stands in for their address).  16-byte copies where src's rows allow.
+template <int ROWS, int COLS>
+__device__ __forceinline__ void load_tile(float* dst, int ds, const float* src,
+                                          size_t ss, int rv, int cv,
+                                          bool vec, const float* base) {
+  if (vec) {
+    constexpr int C4 = COLS / 4;
+#pragma unroll
+    for (int e0 = 0; e0 < ROWS * C4; e0 += THREADS) {
+      const int e = e0 + threadIdx.x;
+      const int r = e / C4, c = (e % C4) * 4;
+      if (ROWS * C4 % THREADS == 0 || e < ROWS * C4) {
+        const bool ok = r < rv && c < cv;
+        cp_async16(dst + r * ds + c, ok ? src + r * ss + c : base, ok);
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * COLS; e += THREADS) {
+      const int r = e / COLS, c = e % COLS;
+      const bool ok = r < rv && c < cv;
+      cp_async4(dst + r * ds + c, ok ? src + r * ss + c : base, ok);
+    }
+  }
+}
+
+__device__ __forceinline__ bool aligned16(const float* p, size_t stride) {
+  return ((reinterpret_cast<uintptr_t>(p) & 15) == 0) && (stride % 4 == 0);
+}
+
+// ----------------------------------------------------------------- 3xTF32
+// x = hi + lo exactly in f32: hi is x rounded to tf32 (half up in
+// magnitude: add half a tf32 ulp, clear the 13 low bits; finite x), lo
+// the rest, of which the MMA reads the top 19 bits (it ignores a tf32
+// operand's low 13): lo loses 2^-11 of itself, about 2^-22 of x
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// 2^x (x in log2 units), subnormal results flushed to 0
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Fragments of m16n8k8 (g = lane / 4, t = lane % 4): A a0 (g, t),
+// a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); B b0 (k t, n g),
+// b1 (k t + 4, n g); D d0 (g, 2t), d1 (g, 2t + 1), d2 (g + 8, 2t),
+// d3 (g + 8, 2t + 1).  A and B are given as f32 and split here.
+struct AFrag {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ void set(float a0, float a1, float a2,
+                                      float a3) {
+    split(a0, hi[0], lo[0]);
+    split(a1, hi[1], lo[1]);
+    split(a2, hi[2], lo[2]);
+    split(a3, hi[3], lo[3]);
+  }
+};
+
+// d += a b in 3xTF32: the two small cross terms first, then hi * hi
+__device__ __forceinline__ void mma3(float (&d)[4], const AFrag& a, float b0,
+                                     float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  mma_tf32(d, a.lo, bh0, bh1);
+  mma_tf32(d, a.hi, bl0, bl1);
+  mma_tf32(d, a.hi, bh0, bh1);
+}
+
+// la of head h for chunk rows [0, len) into dst (zero past Q)
+__device__ __forceinline__ void load_la(float* dst, const float* la_h, int H,
+                                        int Q, int len) {
+  for (int i = threadIdx.x; i < len; i += THREADS)
+    cp_async4(dst + i, i < Q ? la_h + (size_t)i * H : la_h, i < Q);
+}
+
+// in-place inclusive cumsum of cum_s[0, len), times `scale`; one warp
+__device__ __forceinline__ void warp_cumsum(float* cum_s, int len, int lane,
+                                            float scale = 1.f) {
+  const int per = (len + 31) / 32;
+  const int a = min(lane * per, len), z = min(a + per, len);
+  float run = 0.f;
+  for (int i = a; i < z; ++i) {
+    run += cum_s[i];
+    cum_s[i] = run;
+  }
+  float incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float up = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += up;
+  }
+  const float off = incl - run;
+  for (int i = a; i < z; ++i) cum_s[i] = (cum_s[i] + off) * scale;
+}
+
+// ------------------------------------------------ 1a. C B^T of a chunk
+// cb[b, c, i, j] = C_i . B_j for the 64 x 64 tile (it, jt), jt <= it, of
+// chunk c, the d_state dimension streamed in NT1-column slices of C and
+// B.  Warp w owns rows 16 (w % 4) .. + 15 and columns 32 (w / 4) .. + 31;
+// warp tiles wholly above the diagonal are left unwritten (never read
+// unmasked).  Rows and columns past Q come out 0.
+__device__ __forceinline__ void cb_tile(const float* __restrict__ Bm,
+                                        const float* __restrict__ Cm,
+                                        float* __restrict__ cb, float* buf,
+                                        int S, int N, int Q, int c, int b,
+                                        int it, int jt) {
+  constexpr int SB1 = NT1 + 4;         // [row][n] slices: conflict-free
+  constexpr int BUF = 2 * RT * SB1;
+  const int QP = round_up(Q, RT), NCP = round_up(N, NT1);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rs = warp & 3, ch = warp >> 2;
+  const int nc = S / Q;
+  const size_t t0 = (size_t)b * S + (size_t)c * Q;
+  const int i0 = it * RT, j0 = jt * RT, ra = rs * 16 + g;
+  const bool vec = aligned16(Bm, N) && aligned16(Cm, N);
+  const int T = NCP / NT1;
+  auto prefetch = [&](int k) {
+    if (k < T) {
+      float* cs = buf + (k % NS) * BUF;
+      load_tile<RT, NT1>(cs, SB1, Cm + (t0 + i0) * N + k * NT1, N, Q - i0,
+                         N - k * NT1, vec, Cm);
+      load_tile<RT, NT1>(cs + RT * SB1, SB1, Bm + (t0 + j0) * N + k * NT1, N,
+                         Q - j0, N - k * NT1, vec, Bm);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int k = 0; k < NS - 1; ++k) prefetch(k);
   float acc[4][4];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
-  for (int n0 = 0; n0 < N; n0 += NK) {
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  const bool active = !(jt == it && ch * 32 > rs * 16 + 15);
+  for (int k = 0; k < T; ++k) {
+    prefetch(k + NS - 1);
+    cp_async_wait<NS - 1>();
     __syncthreads();
-    for (int e = tid; e < QT * NK; e += THREADS) {
-      const int r = e / NK, n = e % NK;
-      const bool in_n = n0 + n < N;
-      cs[r][n] = r < rows && in_n ? Cm[(row0 + i0 + r) * N + n0 + n] : 0.f;
-      bs[r][n] = r < cols && in_n ? Bm[(row0 + j0 + r) * N + n0 + n] : 0.f;
+    const float* cs = buf + (k % NS) * BUF;
+    const float* bs = cs + RT * SB1;
+    if (active) {
+#pragma unroll
+      for (int ks = 0; ks < NT1 / 8; ++ks) {
+        const float* ca = cs + ra * SB1 + ks * 8 + t;
+        AFrag a;
+        a.set(ca[0], ca[8 * SB1], ca[4], ca[8 * SB1 + 4]);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const float* br = bs + (ch * 32 + nt * 8 + g) * SB1 + ks * 8 + t;
+          mma3(acc[nt], a, br[0], br[4]);
+        }
+      }
     }
     __syncthreads();
-#pragma unroll 8
-    for (int n = 0; n < NK; ++n) {
-      float ca[4], bb[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) ca[a] = cs[ty + 16 * a][n];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) bb[c] = bs[tx + 16 * c][n];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] += ca[a] * bb[c];
-    }
   }
-  float* out = cb + (size_t)bc * Q * Q;
+  if (!active) return;
+  float* out = cb + (((size_t)b * nc + c) * QP + i0 + ra) * QP + j0 + ch * 32;
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int i = ty + 16 * a, j = tx + 16 * c;
-      if (i < rows && j < cols) out[(size_t)(i0 + i) * Q + j0 + j] = acc[a][c];
-    }
+  for (int nt = 0; nt < 4; ++nt) {
+    *reinterpret_cast<float2*>(out + nt * 8 + 2 * t) =
+        make_float2(acc[nt][0], acc[nt][1]);
+    *reinterpret_cast<float2*>(out + 8 * QP + nt * 8 + 2 * t) =
+        make_float2(acc[nt][2], acc[nt][3]);
+  }
 }
 
-// thread tid owns y rows (tid / PT) + 16 k, k < EPT, of column tid % PT
-__global__ void __launch_bounds__(THREADS)
-ssd_kernel(const float* __restrict__ xd, const float* __restrict__ la,
-           const float* __restrict__ Bm, const float* __restrict__ Cm,
-           const float* __restrict__ cb, const float* __restrict__ st0,
-           float* __restrict__ y, float* __restrict__ fs, int S, int H,
-           int hd, int N, int Q) {
-  extern __shared__ float sm[];
-  float* cum_s = sm;                    // Q: cumsum of la in the chunk
-  float* e_s = cum_s + Q;               // Q: exp(cum)
-  float* w_s = e_s + Q;                 // Q: exp(total - cum)
-  float* C_s = w_s + Q;                 // QT x (N + 1)
-  float* B_s = C_s + QT * (N + 1);      // QT x (N + 1)
-  float* x_s = B_s + QT * (N + 1);      // QT x PT
-  float* L_s = x_s + QT * PT;           // QT x (QT + 1)
-  float* st_s = L_s + QT * (QT + 1);    // N x PT
+// ------------------------------------------------ 1b. chunk end states
+// Blocks z < B * H: (64 state rows, chunk c, b * H + h); warp w owns state
+// rows
+// 16 (w % 4) .. + 15 and columns (w / 4) hd / 2 .. + hd / 2 of
+//   s_c[n, p] = sum_j B[j, n] w_j xd[j, p],  w_j = exp(total - cum_j),
+// the A operand B^T w read from a [j][n] tile, the B operand a [j][p]
+// tile of xd, KT rows of j a step, NS steps in flight.  Blocks z >= B * H
+// (x = 0) form the C B^T tiles of chunk c instead (cb_tile).
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 2)
+ssd_state_kernel(const float* __restrict__ xd, const float* __restrict__ la,
+                 const float* __restrict__ Bm, const float* __restrict__ Cm,
+                 float* __restrict__ states, float* __restrict__ totals,
+                 float* __restrict__ cb, int Bb, int S, int H, int N,
+                 int Q) {
+  constexpr int SB = 64 + 8;           // [j][n] tile stride: conflict-free
+  constexpr int SX = HD + 8;           // [j][p] tile stride
+  constexpr int BUF = KT * SB + KT * SX;
+  constexpr int NTW = HD / 16;         // 8-column MMA tiles per warp
+  extern __shared__ __align__(16) float sm[];
+  const int QP = round_up(Q, KT);
+  float* cum_s = sm;                   // QP
+  float* w_s = cum_s + QP;             // QP
+  float* buf = w_s + QP;               // NS x BUF
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int p = tid % PT;               // this thread's column
-  const int r0 = tid / PT;              // and its first row in a tile
-  const int p0 = blockIdx.x * PT;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int LN = N + 1;
-  const int ntile = (Q + QT - 1) / QT;
-  const size_t row0 = (size_t)b * S;    // first time step of batch b
+  if (blockIdx.z >= Bb * H) {
+    if (blockIdx.x) return;
+    int z = blockIdx.z - Bb * H;
+    const int nt = round_up(Q, RT) / RT, ntri = nt * (nt + 1) / 2;
+    const int b = z / ntri;
+    int it = 0;
+    for (z %= ntri; z > it; z -= ++it) {}
+    cb_tile(Bm, Cm, cb, sm, S, N, Q, blockIdx.y, b, it, z);
+    return;
+  }
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = warp & 3, ch = warp >> 2;
+  const int n0 = blockIdx.x * 64, c = blockIdx.y;
+  const int b = blockIdx.z / H, h = blockIdx.z % H;
+  const int nc = S / Q;
+  const size_t t0 = (size_t)b * S + (size_t)c * Q;   // chunk's first step
+  const bool vecB = aligned16(Bm, N);
+  const bool vecX = aligned16(xd, (size_t)H * HD);
 
-  for (int e = tid; e < N * PT; e += THREADS)
-    st_s[e] = st0 ? st0[(((size_t)b * H + h) * N + e / PT) * hd + p0 + e % PT]
-                  : 0.f;
-
-  for (int t0 = 0; t0 < S; t0 += Q) {
-    const float* cbc = cb + (row0 + t0) * Q;   // this chunk's C B^T
-    __syncthreads();  // the previous chunk is done with cum, e, w
-    for (int i = tid; i < Q; i += THREADS)
-      cum_s[i] = la[(row0 + t0 + i) * H + h];
-    __syncthreads();
-    if (tid < 32) {
-      const int per = (Q + 31) / 32;
-      const int a = min(lane * per, Q), z = min(a + per, Q);
-      float run = 0.f;
-      for (int i = a; i < z; ++i) {
-        run += cum_s[i];
-        cum_s[i] = run;
-      }
-      float incl = run;
-      for (int o = 1; o < 32; o <<= 1) {
-        const float up = __shfl_up_sync(FULL, incl, o);
-        if (lane >= o) incl += up;
-      }
-      const float off = incl - run;
-      for (int i = a; i < z; ++i) cum_s[i] += off;
+  const int T = QP / KT;
+  auto prefetch = [&](int k) {
+    if (k < T) {
+      float* bs = buf + (k % NS) * BUF;
+      const int j0 = k * KT;
+      load_tile<KT, 64>(bs, SB, Bm + (t0 + j0) * N + n0, N, Q - j0, N - n0,
+                        vecB, Bm);
+      load_tile<KT, HD>(bs + KT * SB, SX, xd + ((t0 + j0) * H + h) * HD,
+                        (size_t)H * HD, Q - j0, HD, vecX, xd);
     }
-    __syncthreads();
-    const float total = cum_s[Q - 1];
-    for (int i = tid; i < Q; i += THREADS) {
-      e_s[i] = expf(cum_s[i]);
-      w_s[i] = expf(total - cum_s[i]);
-    }
+    cp_async_commit();
+  };
 
-    for (int it = 0; it < ntile; ++it) {
-      const int i0 = it * QT;
-      const int rows = min(QT, Q - i0);
-      const bool last = it == ntile - 1;
-      __syncthreads();  // C_s of the previous tile is consumed
-      for (int e = tid; e < QT * N; e += THREADS) {
-        const int r = e / N, n = e % N;
-        C_s[r * LN + n] = r < rows ? Cm[(row0 + t0 + i0 + r) * N + n] : 0.f;
-      }
+  load_la(cum_s, la + t0 * H + h, H, Q, QP);
+#pragma unroll
+  for (int k = 0; k < NS - 1; ++k) prefetch(k);
+
+  float acc[NTW][4];
+#pragma unroll
+  for (int i = 0; i < NTW; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  const bool active = n0 + mt * 16 < N;
+  for (int k = 0; k < T; ++k) {
+    prefetch(k + NS - 1);
+    cp_async_wait<NS - 1>();
+    __syncthreads();
+    if (k == 0) {                      // la (group 0) has landed
+      if (warp == 0) warp_cumsum(cum_s, QP, lane);
       __syncthreads();
-
-      // the carried state's part: exp(cum_i) C_i . state
-      float yacc[EPT];
+      const float total = cum_s[Q - 1];
+      for (int j = tid; j < QP; j += THREADS)
+        w_s[j] = j < Q ? __expf(total - cum_s[j]) : 0.f;
+      if (blockIdx.x == 0 && tid == 0)
+        totals[((size_t)b * nc + c) * H + h] = total;
+      __syncthreads();
+    }
+    const float* bs = buf + (k % NS) * BUF;
+    const float* xs = bs + KT * SB;
+    if (active) {
 #pragma unroll
-      for (int k = 0; k < EPT; ++k) yacc[k] = 0.f;
-      for (int n = 0; n < N; ++n) {
-        const float sv = st_s[n * PT + p];
+      for (int ks = 0; ks < KT / 8; ++ks) {
+        const int jr = ks * 8 + t;
+        const float w0 = w_s[k * KT + jr], w1 = w_s[k * KT + jr + 4];
+        const float* r0 = bs + jr * SB + mt * 16 + g;
+        const float* r1 = r0 + 4 * SB;
+        AFrag a;
+        a.set(r0[0] * w0, r0[8] * w0, r1[0] * w1, r1[8] * w1);
 #pragma unroll
-        for (int k = 0; k < EPT; ++k) yacc[k] += C_s[(r0 + 16 * k) * LN + n] * sv;
-      }
-#pragma unroll
-      for (int k = 0; k < EPT; ++k) {
-        const int i = r0 + 16 * k;
-        yacc[k] = i < rows ? e_s[i0 + i] * yacc[k] : 0.f;
-      }
-      if (last) {
-        __syncthreads();  // every read of the carried state is done
-        const float dec = expf(total);
-        for (int e = tid; e < N * PT; e += THREADS) st_s[e] *= dec;
-      }
-
-      for (int jt = 0; jt <= it; ++jt) {
-        const int j0 = jt * QT;
-        const int cols = min(QT, Q - j0);
-        __syncthreads();  // B_s, x_s and L_s of the previous tile consumed
-        if (last) {
-          for (int e = tid; e < QT * N; e += THREADS) {
-            const int r = e / N, n = e % N;
-            B_s[r * LN + n] =
-                r < cols ? Bm[(row0 + t0 + j0 + r) * N + n] : 0.f;
-          }
-        }
-        for (int e = tid; e < QT * PT; e += THREADS) {
-          const int r = e / PT, c = e % PT;
-          x_s[e] = r < cols
-                       ? xd[((row0 + t0 + j0 + r) * H + h) * hd + p0 + c]
-                       : 0.f;
-        }
-        // L = C B^T * exp(cum_i - cum_j), zero above the diagonal
-        for (int e = tid; e < QT * QT; e += THREADS) {
-          const int i = e / QT, j = e % QT;
-          const int gi = i0 + i, gj = j0 + j;
-          L_s[i * (QT + 1) + j] =
-              (i < rows && j < cols && gj <= gi)
-                  ? cbc[(size_t)gi * Q + gj] * expf(cum_s[gi] - cum_s[gj])
-                  : 0.f;
-        }
-        __syncthreads();
-
-        for (int j = 0; j < cols; ++j) {
-          const float xv = x_s[j * PT + p];
-#pragma unroll
-          for (int k = 0; k < EPT; ++k)
-            yacc[k] += L_s[(r0 + 16 * k) * (QT + 1) + j] * xv;
-        }
-        if (last) {
-          for (int e = tid; e < N * PT; e += THREADS) {
-            const int n = e / PT, c = e % PT;
-            float s = 0.f;
-            for (int j = 0; j < cols; ++j)
-              s += B_s[j * LN + n] * w_s[j0 + j] * x_s[j * PT + c];
-            st_s[e] += s;
-          }
+        for (int nt = 0; nt < NTW; ++nt) {
+          const int col = ch * (HD / 2) + nt * 8 + g;
+          mma3(acc[nt], a, xs[jr * SX + col], xs[(jr + 4) * SX + col]);
         }
       }
+    }
+    __syncthreads();
+  }
 
+  float* out = states + (((size_t)b * nc + c) * H + h) * N * HD;
+  const int r = n0 + mt * 16 + g;
 #pragma unroll
-      for (int k = 0; k < EPT; ++k) {
-        const int i = r0 + 16 * k;
-        if (i < rows)
-          y[((row0 + t0 + i0 + i) * H + h) * hd + p0 + p] = yacc[k];
+  for (int nt = 0; nt < NTW; ++nt) {
+    const int col = ch * (HD / 2) + nt * 8 + 2 * t;
+    if (r < N)
+      *reinterpret_cast<float2*>(out + (size_t)r * HD + col) =
+          make_float2(acc[nt][0], acc[nt][1]);
+    if (r + 8 < N)
+      *reinterpret_cast<float2*>(out + (size_t)(r + 8) * HD + col) =
+          make_float2(acc[nt][2], acc[nt][3]);
+  }
+}
+
+// ------------------------------------------------- 2. passing the state
+// thread e of block (x, b * H + h) walks state element e of (b, h) over
+// the chunks: s_c is replaced by the state entering chunk c
+__global__ void __launch_bounds__(THREADS)
+ssd_pass_kernel(float* __restrict__ states, const float* __restrict__ totals,
+                const float* __restrict__ st0, float* __restrict__ fs,
+                int nc, int H, int NH) {
+  const int e = blockIdx.x * THREADS + threadIdx.x;
+  if (e >= NH) return;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  float prev = st0 ? st0[(size_t)bh * NH + e] : 0.f;
+  for (int c0 = 0; c0 < nc; c0 += 4) {
+    float s[4], dec[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int cc = c0 + u;
+      if (cc < nc) {
+        const size_t row = ((size_t)b * nc + cc) * H + h;
+        s[u] = states[row * NH + e];
+        dec[u] = expf(totals[row]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int cc = c0 + u;
+      if (cc < nc) {
+        states[(((size_t)b * nc + cc) * H + h) * NH + e] = prev;
+        prev = prev * dec[u] + s[u];
       }
     }
   }
+  fs[(size_t)bh * NH + e] = prev;
+}
 
-  __syncthreads();
-  for (int e = tid; e < N * PT; e += THREADS)
-    fs[(((size_t)b * H + h) * N + e / PT) * hd + p0 + e % PT] = st_s[e];
+// --------------------------------------------------------- 3. chunk output
+// Block (chunk c, b * H + h, 64-row tile); warp w owns rows 16 (w % 4) ..
+// + 15 of the tile and columns (w / 4) hd / 2 .. + hd / 2.  Tiles, NS in
+// flight: for k < TJ the C B^T tile (64 rows x KT columns j, from 1a)
+// with the xd tile of the same KT rows j: y += (C B^T o decay o causal)
+// xd; then [n][p] tiles of the incoming state: y += diag(exp(cum)) C prev
+// (the tile's C rows, all N, and la come with the first tile).
+template <int HD>
+__global__ void __launch_bounds__(THREADS, HD <= 64 ? 3 : 2)
+ssd_out_kernel(const float* __restrict__ xd, const float* __restrict__ la,
+               const float* __restrict__ Cm, const float* __restrict__ cb,
+               const float* __restrict__ states, float* __restrict__ y, int S,
+               int H, int N, int Q) {
+  constexpr int SL = KT + 4;           // [i][j] C B^T tile: conflict-free
+  constexpr int SX = HD + 8;           // [j][p] / [n][p] tiles
+  constexpr int BUF = RT * SL + KT * SX;
+  constexpr int NTW = HD / 16;
+  extern __shared__ __align__(16) float sm[];
+  const int QP = round_up(Q, RT), NCP = round_up(N, NT1);
+  const int SC = NCP + 4;
+  float* C_s = sm;                     // RT x SC: the tile's C rows
+  float* cum_s = C_s + RT * SC;        // QP: la, then its cumsum
+  float* buf = cum_s + QP;             // NS x BUF
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rs = warp & 3, ch = warp >> 2;
+  const int c = blockIdx.x;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int it = gridDim.z - 1 - blockIdx.z;   // the longest tiles first
+  const int nc = S / Q;
+  const size_t t0 = (size_t)b * S + (size_t)c * Q;
+  const int i0 = it * RT;                      // tile's first chunk row
+  const int rows = min(RT, Q - i0);
+  const bool vecC = aligned16(Cm, N);
+  const bool vecX = aligned16(xd, (size_t)H * HD);
+  const bool vecS = aligned16(states, HD);
+  const int ra = rs * 16 + g;                  // this thread's tile rows
+  const int ia = i0 + ra, ib = ia + 8;         // ra, ra + 8; chunk rows
+  const int jlast = i0 + rs * 16 + 15;         // the warp's last row
+  const float* cbt = cb + (((size_t)b * nc + c) * QP + i0) * QP;
+  const float* prev = states + (((size_t)b * nc + c) * H + h) * N * HD;
+
+  const int TJ = (it + 1) * (RT / KT);
+  const int T = TJ + NCP / KT;
+  auto prefetch = [&](int k) {
+    if (k < T) {
+      float* dst = buf + (k % NS) * BUF;
+      if (k < TJ) {
+        load_tile<RT, KT>(dst, SL, cbt + k * KT, QP, RT, KT, true, cb);
+        load_tile<KT, HD>(dst + RT * SL, SX,
+                          xd + ((t0 + k * KT) * H + h) * HD, (size_t)H * HD,
+                          Q - k * KT, HD, vecX, xd);
+      } else {
+        load_tile<KT, HD>(dst + RT * SL, SX,
+                          prev + (size_t)(k - TJ) * KT * HD, HD,
+                          N - (k - TJ) * KT, HD, vecS, states);
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int n0 = 0; n0 < NCP; n0 += NT1)
+    load_tile<RT, NT1>(C_s + n0, SC, Cm + (t0 + i0) * N + n0, N, rows, N - n0,
+                       vecC, Cm);
+  load_la(cum_s, la + t0 * H + h, H, Q, i0 + RT);
+#pragma unroll
+  for (int k = 0; k < NS - 1; ++k) prefetch(k);
+
+  float acc[NTW][4];
+#pragma unroll
+  for (int i = 0; i < NTW; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  float cum_a = 0.f, cum_b = 0.f;
+  for (int k = 0; k < T; ++k) {
+    prefetch(k + NS - 1);
+    cp_async_wait<NS - 1>();
+    __syncthreads();
+    if (k == 0) {                      // C rows and la (group 0) are in
+      if (warp == 0) warp_cumsum(cum_s, i0 + RT, lane, LOG2E);
+      __syncthreads();
+      cum_a = cum_s[ia];
+      cum_b = cum_s[ib];
+    }
+    const float* lt = buf + (k % NS) * BUF;
+    const float* xs = lt + RT * SL;
+    // y += (C B^T o decay) xd over KT columns j; `masked`: the tile's
+    // diagonal block, where j > i is cut off
+    auto intra = [&](auto mask) {
+      constexpr bool masked = decltype(mask)::value;
+#pragma unroll
+      for (int ks = 0; ks < KT / 8; ++ks) {
+        const int j = k * KT + ks * 8 + t;     // a0, a1; j + 4: a2, a3
+        if (masked && j - t > jlast) break;    // warp-uniform
+        const float cj0 = cum_s[j], cj1 = cum_s[j + 4];
+        const float* pa = lt + ra * SL + ks * 8 + t;
+        const float* pb = pa + 8 * SL;
+        float v[4] = {pa[0] * exp2_ftz(cum_a - cj0),
+                      pb[0] * exp2_ftz(cum_b - cj0),
+                      pa[4] * exp2_ftz(cum_a - cj1),
+                      pb[4] * exp2_ftz(cum_b - cj1)};
+        if (masked) {
+          v[0] = j <= ia ? v[0] : 0.f;
+          v[1] = j <= ib ? v[1] : 0.f;
+          v[2] = j + 4 <= ia ? v[2] : 0.f;
+          v[3] = j + 4 <= ib ? v[3] : 0.f;
+        }
+        AFrag a;
+        a.set(v[0], v[1], v[2], v[3]);
+#pragma unroll
+        for (int nt = 0; nt < NTW; ++nt) {
+          const int col = ch * (HD / 2) + nt * 8 + g;
+          mma3(acc[nt], a, xs[(ks * 8 + t) * SX + col],
+               xs[(ks * 8 + t + 4) * SX + col]);
+        }
+      }
+    };
+    if (k < TJ) {
+      if (k * KT + KT <= i0)                   // wholly below the diagonal
+        intra(std::false_type());
+      else
+        intra(std::true_type());
+    } else {
+      const float ea = exp2_ftz(cum_a), eb = exp2_ftz(cum_b);
+      const int n0 = (k - TJ) * KT;
+#pragma unroll
+      for (int ks = 0; ks < KT / 8; ++ks) {
+        const float* ca = C_s + ra * SC + n0 + ks * 8 + t;
+        AFrag a;
+        a.set(ea * ca[0], eb * ca[8 * SC], ea * ca[4], eb * ca[8 * SC + 4]);
+#pragma unroll
+        for (int nt = 0; nt < NTW; ++nt) {
+          const int col = ch * (HD / 2) + nt * 8 + g;
+          mma3(acc[nt], a, xs[(ks * 8 + t) * SX + col],
+               xs[(ks * 8 + t + 4) * SX + col]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int nt = 0; nt < NTW; ++nt) {
+    const int col = ch * (HD / 2) + nt * 8 + 2 * t;
+    if (ra < rows)
+      *reinterpret_cast<float2*>(y + ((t0 + ia) * H + h) * HD + col) =
+          make_float2(acc[nt][0], acc[nt][1]);
+    if (ra + 8 < rows)
+      *reinterpret_cast<float2*>(y + ((t0 + ib) * H + h) * HD + col) =
+          make_float2(acc[nt][2], acc[nt][3]);
+  }
+}
+
+size_t state_smem(int Q, int hd) {
+  const size_t state = (size_t)2 * round_up(Q, KT) +
+                       (size_t)NS * (KT * (64 + 8) + KT * (hd + 8));
+  const size_t cbt = (size_t)NS * 2 * RT * (NT1 + 4);
+  return (state > cbt ? state : cbt) * sizeof(float);
+}
+
+size_t out_smem(int Q, int N, int hd) {
+  return ((size_t)RT * (round_up(N, NT1) + 4) + round_up(Q, RT) +
+          (size_t)NS * (RT * (KT + 4) + KT * (hd + 8))) *
+         sizeof(float);
+}
+
+template <int HD>
+int launch(const float* xd, const float* la, const float* Bm, const float* Cm,
+           const float* st0, float* states, float* totals, float* cb,
+           float* y, float* fs, int Bb, int S, int H, int N, int Q,
+           cudaStream_t st) {
+  const int nc = S / Q, nt = round_up(Q, RT) / RT;
+  const size_t sm1 = state_smem(Q, HD), sm3 = out_smem(Q, N, HD);
+  if (sm1 > (size_t)MAX_SMEM || sm3 > (size_t)MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_state_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sm1);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid1((N + 63) / 64, nc, Bb * H + Bb * nt * (nt + 1) / 2);
+  ssd_state_kernel<HD><<<grid1, THREADS, sm1, st>>>(
+      xd, la, Bm, Cm, states, totals, cb, Bb, S, H, N, Q);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int NH = N * HD;
+  ssd_pass_kernel<<<dim3((NH + THREADS - 1) / THREADS, Bb * H), THREADS, 0,
+                    st>>>(states, totals, st0, fs, nc, H, NH);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(ssd_out_kernel<HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)sm3);
+  if (err != cudaSuccess) return (int)err;
+  ssd_out_kernel<HD><<<dim3(nc, Bb * H, nt), THREADS, sm3, st>>>(
+      xd, la, Cm, cb, states, y, S, H, N, Q);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int ssd_scan_fwd(const float* xd, const float* la, const float* Bm,
                             const float* Cm, const float* init_state,
-                            float* cb, float* y, float* final_state, int Bb,
-                            int S, int H, int hd, int N, int Q,
-                            void* stream) {
+                            float* states, float* totals, float* cb, float* y,
+                            float* final_state, int Bb, int S, int H, int hd,
+                            int N, int Q, void* stream) {
   if (Bb < 1 || S < 1 || H < 1 || N < 1 || N > 256 || Q < 1 || S % Q ||
-      hd % PT || Bb > 65535 || H > 65535 || (size_t)Bb * (S / Q) > 65535)
+      S / Q > 65535)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_floats(Q, N) * sizeof(float);
-  if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const long long nt = round_up(Q, RT) / RT;   // grid z of launch 1
+  if ((long long)Bb * H + Bb * nt * (nt + 1) / 2 > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int ntile = (Q + QT - 1) / QT;
-  cb_kernel<<<dim3(ntile, ntile, Bb * (S / Q)), THREADS, 0, st>>>(Bm, Cm, cb,
-                                                                 S, N, Q);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(
-      ssd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  ssd_kernel<<<dim3(hd / PT, H, Bb), THREADS, smem, st>>>(
-      xd, la, Bm, Cm, cb, init_state, y, final_state, S, H, hd, N, Q);
-  return (int)cudaGetLastError();
+  switch (hd) {
+#define SSD_CASE(HD)                                                      \
+  case HD:                                                                \
+    return launch<HD>(xd, la, Bm, Cm, init_state, states, totals, cb, y, \
+                      final_state, Bb, S, H, N, Q, st);
+    SSD_CASE(16)
+    SSD_CASE(32)
+    SSD_CASE(64)
+    SSD_CASE(128)
+#undef SSD_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -2,7 +2,8 @@
 them with ``ctypes``.
 
 Each source compiles on its own into ``build/repro_torch/<name>-<hash>.so``
-at the repository root (listed in ``.gitignore``).  The hash covers the
+at the repository root (listed in ``.gitignore``), the compiler's report
+beside it (``.log``).  The hash covers the
 source text, every shared header ``csrc/*.cuh`` and the flags, so an
 edited source or header is rebuilt and an unchanged one is loaded as it
 is.  Each library exposes plain C functions that take device pointers
@@ -77,19 +78,24 @@ def _start(name: str):
 def build(names: Iterable[str]) -> Dict[str, dict]:
     """Compile every named source in parallel (one ``nvcc`` each, all
     started together) and return per source its seconds and the
-    compiler's report (``-Xptxas -v``: registers, shared memory, spills).
+    compiler's report (``-Xptxas -v``: registers, shared memory, spills;
+    for a library already built, the report saved at its build).
     Raises ``RuntimeError`` with the compiler output if a build fails."""
     t0 = time.perf_counter()
     started = {n: _start(n) for n in names}
     report, failed = {}, []
     for name, (proc, out, tmp) in started.items():
         if proc is None:
-            report[name] = {"seconds": 0.0, "cached": True, "log": ""}
+            saved = out.with_suffix(".log")
+            report[name] = {"seconds": 0.0, "cached": True,
+                            "log": saved.read_text() if saved.exists()
+                            else ""}
             continue
         log, _ = proc.communicate()     # every started nvcc is waited for
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
         report[name] = {"seconds": time.perf_counter() - t0, "cached": False,
                         "log": log}
@@ -116,3 +122,11 @@ def function(lib_name: str, fn_name: str, argtypes) -> ctypes._CFuncPtr:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+def cuda_call(fn, like, *args):
+    """fn(*args, stream) on the device of tensor ``like`` and its current
+    stream: how every wrapper calls its library's C function."""
+    import torch
+    with torch.cuda.device(like.device):
+        return fn(*args, torch.cuda.current_stream(like.device).cuda_stream)

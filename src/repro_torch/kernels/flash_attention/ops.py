@@ -126,21 +126,15 @@ def kernel_route(q, k, v) -> str:
     return "tensor_cores"
 
 
-def _cuda_call(fn, q, *args):
-    """fn(*args, stream) on q's device and its current stream."""
-    with torch.cuda.device(q.device):
-        return fn(*args, torch.cuda.current_stream(q.device).cuda_stream)
-
-
 def _launch_fp32cores(q, k, v, causal, q_offset):
     """The fp32-core kernel on checked inputs (any dtype and h it takes)."""
     B, Sq, K, G, h = q.shape
     fn = build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     out = torch.empty_like(q)
-    err = _cuda_call(fn, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     out.data_ptr(), B, Sq, k.shape[1], K, G, h,
-                     KERNEL_DTYPES[q.dtype], int(causal), q_offset,
-                     softmax_scale(h, q.dtype))
+    err = build.cuda_call(
+        fn, q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, Sq, k.shape[1], K, G, h, KERNEL_DTYPES[q.dtype], int(causal),
+        q_offset, softmax_scale(h, q.dtype))
     if err:
         raise RuntimeError(f"flash_attention fp32-core kernel launch "
                            f"failed: CUDA error {err}")
@@ -154,9 +148,10 @@ def _launch_tensor_cores(q, k, v, causal, q_offset):
     fn = build.function("flash_attention", "flash_attention_fwd_tc",
                         _TC_ARGTYPES)
     out = torch.empty_like(q)
-    err = _cuda_call(fn, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     out.data_ptr(), B, Sq, k.shape[1], K, G, h, int(causal),
-                     q_offset, softmax_scale(h, q.dtype))
+    err = build.cuda_call(
+        fn, q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, Sq, k.shape[1], K, G, h, int(causal), q_offset,
+        softmax_scale(h, q.dtype))
     if err:
         raise RuntimeError(f"flash_attention tensor-core kernel launch "
                            f"failed: error {err} (a CUDA error, or 1000 + "

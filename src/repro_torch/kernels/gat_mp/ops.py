@@ -108,12 +108,6 @@ def _mask_args(adj):
     return mask, (0 if adj.shape[0] == 1 else N * N)
 
 
-def _cuda_call(fn, like, *args):
-    """fn(*args, stream) on like's device and its current stream."""
-    with torch.cuda.device(like.device):
-        return fn(*args, torch.cuda.current_stream(like.device).cuda_stream)
-
-
 def _launch(z, e_src, e_dst, adj):
     B, N, D = z.shape
     H = e_src.shape[-1]
@@ -124,9 +118,10 @@ def _launch(z, e_src, e_dst, adj):
     m = torch.empty_like(e_src)
     l = torch.empty_like(e_src)
     mask, stride = _mask_args(adj)
-    err = _cuda_call(fn, z, z.data_ptr(), e_src.data_ptr(), e_dst.data_ptr(),
-                     mask.data_ptr(), stride, out.data_ptr(), m.data_ptr(),
-                     l.data_ptr(), B, N, H)
+    err = build.cuda_call(
+        fn, z, z.data_ptr(), e_src.data_ptr(), e_dst.data_ptr(),
+        mask.data_ptr(), stride, out.data_ptr(), m.data_ptr(),
+        l.data_ptr(), B, N, H)
     if err:
         raise RuntimeError(f"gat_mp kernel launch failed: CUDA error {err}")
     gat_mp.launches += 1
@@ -232,10 +227,11 @@ def _launch_bwd(z, e_src, e_dst, adj, m, l, out, g):
     de_src = torch.empty_like(e_src)
     de_dst = torch.empty_like(e_dst)
     mask, stride = _mask_args(adj)
-    err = _cuda_call(fn, z, z.data_ptr(), e_src.data_ptr(), e_dst.data_ptr(),
-                     mask.data_ptr(), stride, m.data_ptr(), l.data_ptr(),
-                     out.data_ptr(), g.data_ptr(), dz.data_ptr(),
-                     de_src.data_ptr(), de_dst.data_ptr(), B, N, H)
+    err = build.cuda_call(
+        fn, z, z.data_ptr(), e_src.data_ptr(), e_dst.data_ptr(),
+        mask.data_ptr(), stride, m.data_ptr(), l.data_ptr(),
+        out.data_ptr(), g.data_ptr(), dz.data_ptr(), de_src.data_ptr(),
+        de_dst.data_ptr(), B, N, H)
     if err:
         raise RuntimeError(f"gat_mp_bwd kernel launch failed: CUDA error "
                            f"{err}")

@@ -7,7 +7,9 @@ Pallas kernel ``_kernel`` / ``ssd_scan_pallas`` in ``ssd_scan.py``),
 the same math as ``repro.models.mamba2.ssd_chunked``.  ``ssd_scan`` is
 the public entry: it forms the kernel's operands xd = x * dt and
 la = dt * -exp(A_log) in f32, then launches ``csrc/ssd_scan.cu`` on
-CUDA tensors or runs ``ssd_scan_plain`` on CPU tensors.
+CUDA tensors (three CUDA kernels, counted as one launch of the wrapper:
+chunk states and C B^T, the pass over the states, chunk outputs) or runs
+``ssd_scan_plain`` on CPU tensors.
 """
 from __future__ import annotations
 
@@ -18,7 +20,10 @@ import torch
 from repro_torch.kernels import build
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# the C B^T scratch's rows and columns are Q rounded up to this: the
+# square tile of C B^T that the CUDA source forms at a time (its RT)
+ROW_TILE = 64
 
 
 def ssd_scan_plain(xd, la, B_, C_, chunk: int, init_state=None):
@@ -106,24 +111,29 @@ def _launch(xd, la, B_, C_, chunk, init_state):
                          f"{KERNEL_HEAD_DIMS}, got {hd}")
     if N > 256:
         raise ValueError(f"the CUDA kernel takes d_state <= 256, got {N}")
-    if Bb > 65535 or H > 65535 or Bb * (S // min(chunk, S)) > 65535:
-        raise ValueError("batch, head or chunk count exceeds the kernel "
-                         "grid")
+    Q = min(chunk, S)
     B_ = B_.float().contiguous()
     C_ = C_.float().contiguous()
     st0 = None if init_state is None else init_state.float().contiguous()
     fn = build.function("ssd_scan", "ssd_scan_fwd", _ARGTYPES)
-    Q = min(chunk, S)
-    cb = torch.empty((Bb, S // Q, Q, Q), dtype=torch.float32,
-                     device=xd.device)          # scratch: C B^T per chunk
+    # scratch: each chunk's own end state, then (in place) the state
+    # entering it; each chunk's total log decay; each chunk's C B^T, its
+    # rows and columns padded to whole tiles
+    states = torch.empty((Bb, S // Q, H, N, hd), dtype=torch.float32,
+                         device=xd.device)
+    totals = torch.empty((Bb, S // Q, H), dtype=torch.float32,
+                         device=xd.device)
+    QP = -(-Q // ROW_TILE) * ROW_TILE
+    cb = torch.empty((Bb, S // Q, QP, QP), dtype=torch.float32,
+                     device=xd.device)
     y = torch.empty_like(xd)
     final = torch.empty((Bb, H, N, hd), dtype=torch.float32,
                         device=xd.device)
-    with torch.cuda.device(xd.device):
-        err = fn(xd.data_ptr(), la.data_ptr(), B_.data_ptr(), C_.data_ptr(),
-                 None if st0 is None else st0.data_ptr(), cb.data_ptr(),
-                 y.data_ptr(), final.data_ptr(), Bb, S, H, hd, N, Q,
-                 torch.cuda.current_stream(xd.device).cuda_stream)
+    err = build.cuda_call(
+        fn, xd, xd.data_ptr(), la.data_ptr(), B_.data_ptr(),
+        C_.data_ptr(), None if st0 is None else st0.data_ptr(),
+        states.data_ptr(), totals.data_ptr(), cb.data_ptr(), y.data_ptr(),
+        final.data_ptr(), Bb, S, H, hd, N, Q)
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     ssd_scan.launches += 1

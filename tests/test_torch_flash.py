@@ -158,7 +158,7 @@ def test_launch_takes_one_route_and_counts_it(monkeypatch, h, dtype, entry):
     from repro_torch import device as rdev
     lib = _FakeLib()
     monkeypatch.setattr(ops.build, "function", lib.function)
-    monkeypatch.setattr(ops, "_cuda_call",
+    monkeypatch.setattr(ops.build, "cuda_call",
                         lambda fn, q, *args: fn(*args, 0))
     q = torch.zeros((1, 16, 2, 2, h), dtype=dtype)
     k = torch.zeros((1, 16, 2, h), dtype=dtype)
@@ -176,7 +176,7 @@ def test_failed_tensor_core_launch_raises_without_fallback(monkeypatch):
     from repro_torch import device as rdev
     lib = _FakeLib(err=1001)
     monkeypatch.setattr(ops.build, "function", lib.function)
-    monkeypatch.setattr(ops, "_cuda_call",
+    monkeypatch.setattr(ops.build, "cuda_call",
                         lambda fn, q, *args: fn(*args, 0))
     q = torch.zeros((1, 16, 2, 2, 64), dtype=torch.bfloat16)
     k = torch.zeros((1, 16, 2, 64), dtype=torch.bfloat16)

@@ -323,7 +323,7 @@ def fake_lib(monkeypatch):
     def make(err=0):
         lib = _FakeLib(err)
         monkeypatch.setattr(ops.build, "function", lib.function)
-        monkeypatch.setattr(ops, "_cuda_call",
+        monkeypatch.setattr(ops.build, "cuda_call",
                             lambda fn, like, *args: fn(*args, 0))
         monkeypatch.setattr(ops, "gat_mp_plain", _no_plain)
         monkeypatch.setattr(ops, "gat_mp_bwd_plain", _no_plain)

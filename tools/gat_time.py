@@ -25,38 +25,7 @@ import subprocess
 import sys
 import time
 
-
-def device_ms(torch, fn, reps):
-    """Device time per call: the kernels the profiler records over
-    ``reps`` calls, summed, over ``reps``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-             for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / reps if us > 0 else "not measured"
-
-
-def event_ms(torch, fn, reps):
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+from timing import device_ms, event_ms
 
 
 def generation_profile(torch, egrl, zoo):
