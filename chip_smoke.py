@@ -8,8 +8,8 @@ Phases, each printing JSON lines:
 1. device   -- the card's name and power limit (nvidia-smi);
 2. build    -- the five CUDA sources of ``src/repro_torch/csrc``
                compiled, one ``nvcc`` each, in parallel; each kernel's
-               registers and spills printed (the SSD kernels must not
-               spill);
+               registers and spills printed (the SSD kernels and the
+               simulator kernel must not spill);
 3. gat      -- the GAT forward kernel against its plain PyTorch version,
                at the main path's shapes and on edge-case masks (a
                column no row reaches, a row with every column set or
@@ -23,22 +23,28 @@ Phases, each printing JSON lines:
                gradients; gat_path_bwd: the 8 calls of one BERT SAC
                step;
 5. memsim   -- the simulator kernel against its plain version on all 7
-               zoo graphs (tiers and eps bit-equal);
+               zoo graphs at P = 1, 9, 20, 33 and at more blocks of 32
+               mappings than the card has SMs (tiers, eps and valid
+               bit-equal; latency and reward within 1e-6 rel); ``ms``,
+               ``device_ms``, the roofline and latency bounds;
 6. slice    -- the EA-mode search on BERT and ResNet-50 (400 steps),
                the "egrl"-mode search on BERT and ResNet-50 (400 steps)
                and a "pg"-mode run on ResNet-50 (60 steps); the launch
                counters are reset just before each run and read just
                after it, and must match the counts the path implies;
-7. profile  -- device time by kernel over 3 EA-mode and 1 "egrl"-mode
+7. greedy   -- Greedy-DP at Figure 4's budget on BERT and ResNet-50:
+               exact simulator launches, the final reward re-evaluated
+               on the CPU, wall time and the simulator's device time;
+8. profile  -- device time by kernel over 3 EA-mode and 1 "egrl"-mode
                BERT generations;
-8. flash    -- the attention kernels against their plain version at
+9. flash    -- the attention kernels against their plain version at
                every attention prefill shape of the serve phase
                (zamba2, qwen3-0.6b; bf16), in f32, without the causal
                mask, at S = 100 (both heads) and with a causal offset
                (Sq = 512, Sk = 1024); every bf16 case through both the
                tensor-core route and the fp32-core route, timed beside
                SDPA as a yardstick;
-9. ssd      -- the SSD scan kernels against their plain version at every
+10. ssd     -- the SSD scan kernels against their plain version at every
                Mamba2 prefill shape of the serve phase (zamba2,
                mamba2-780m), at B = 2, at S < chunk, from an initial
                state (2 and 16 chunks) and at head dims 32 and 128,
@@ -47,21 +53,26 @@ Phases, each printing JSON lines:
                once with fast decay (|cum| > 88 inside a chunk);
                ``ms`` (CUDA events), ``device_ms`` (profiler), the f32
                bound and the 3xTF32 tensor-core bound;
-10. serve_check -- zamba2 at full width in f32, cut to 7 layers: a
+11. serve_check -- zamba2 at full width in f32, cut to 7 layers: a
                512-token prefill and one decode step on the card
                (kernels) against the same on the CPU (plain versions);
-11. serve   -- ``launch.serve.serve`` of zamba2-1.2b at its published
+12. serve   -- ``launch.serve.serve`` of zamba2-1.2b at its published
                config: 8 requests of 256 to 2048 tokens, 32 new tokens
                each, exact launch counts, run twice for equal tokens; then
                mamba2-780m and qwen3-0.6b, 2 requests each; serve_profile:
                device time by kernel over one 2048-token prefill and 10
                decode ticks;
-12. kernels -- per kernel: launches in its slice's main path (the BERT
-               "egrl" run, the zamba2 serve run), error, time on the card,
-               plain time, bound and library time; for the GAT kernels
-               both per launch (a launch is one call of the wrapper) and
-               over their group (4 forward launches, 8 backward calls).
+13. kernels -- per kernel: launches in its slice's main path (the BERT
+               "egrl" run, the zamba2 serve run; the simulator's also in
+               Greedy-DP), error, time on the card, plain time, bound and
+               library time; for the GAT kernels both per launch (a
+               launch is one call of the wrapper) and over their group (4
+               forward launches, 8 backward calls).
 
+Device times come from ``tools/timing.py``: up to 3 padded profiles
+(``*_tries`` on each row) are taken for one that recorded every launch;
+failing that, the last one's mean per recorded launch is printed, with
+its records (``*_records``).
 Then the nvidia-smi line and, last, ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero before the last line.  It needs
 CUDA and the repository's sources: alone, or without a card, it fails.
@@ -77,6 +88,10 @@ import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+
+from timing import (PROFILE_TRIES, device_ms, event_ms,  # noqa: E402
+                    padded_profile, profile_kernels, sm_clock_mhz)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, fp32
 # non-tensor-core FLOP/s
@@ -108,40 +123,16 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
-def time_ms(fn, reps, warmup=3):
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_ms(torch, fn, reps=20):
-    """Device time per call of ``fn``: the kernels torch.profiler records
-    over ``reps`` calls, summed, over ``reps``.  Unlike ``time_ms`` it
-    leaves out the host's time between launches, which is what a call
-    of a few microseconds of device work mostly measures."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-             for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / reps if us > 0 else "not measured"
+def profiled(torch, fn, key="device_ms", reps=20):
+    """{key: the profiler's device ms per call of ``fn`` over ``reps``
+    calls (or "not measured"), key_tries: the profiles it took; where no
+    profile recorded every launch, key_records: the launches per kernel
+    the last one recorded, of ``reps`` calls}."""
+    ms, tries, counts = device_ms(torch, fn, reps)
+    out = {key: ms, f"{key}_tries": tries}
+    if isinstance(ms, str) or any(n % reps for n in counts.values()):
+        out[f"{key}_records"] = counts
+    return out
 
 
 def plus(a, b):
@@ -340,12 +331,13 @@ def phase_gat(torch, gen, ops, masks):
         row = {"phase": "gat", "adj": kind, "B": B, "N": N, "H": H,
                "max_abs_err_out": err, "m_bit_equal": True,
                "max_rel_err_l": l_rel,
-               "kernel_ms": time_ms(lambda: ops.gat_mp(z, es, ed, adj), 100),
-               "device_ms": device_ms(
-                   torch, lambda: ops.gat_mp(z, es, ed, adj)),
-               "plain_ms": time_ms(
-                   lambda: ops.gat_mp_plain(z, es, ed, adj), 10),
-               "library_ms": time_ms(sdpa_call(torch, z, es, ed, adj), 20)}
+               "kernel_ms": event_ms(torch, lambda: ops.gat_mp(z, es, ed, adj),
+                                     100),
+               **profiled(torch, lambda: ops.gat_mp(z, es, ed, adj)),
+               "plain_ms": event_ms(
+                   torch, lambda: ops.gat_mp_plain(z, es, ed, adj), 10),
+               "library_ms": event_ms(torch,
+                                      sdpa_call(torch, z, es, ed, adj), 20)}
         emit(row)
 
 
@@ -373,10 +365,12 @@ def phase_gat_path(torch, gnn, ops, params, feats, adj, gen):
     for z, es, ed, a in captured:
         err, _ = gat_compare(torch, ops, z, es, ed, a)
         nbytes, nops, dense = gat_work(z, es, a)
-        one = {"ms": time_ms(lambda: ops.gat_mp(z, es, ed, a), 200),
-               "device_ms": device_ms(torch, lambda: ops.gat_mp(z, es, ed, a)),
-               "plain_ms": time_ms(lambda: ops.gat_mp_plain(z, es, ed, a), 10),
-               "library_ms": time_ms(sdpa_call(torch, z, es, ed, a), 20),
+        one = {"ms": event_ms(torch, lambda: ops.gat_mp(z, es, ed, a), 200),
+               **profiled(torch, lambda: ops.gat_mp(z, es, ed, a)),
+               "plain_ms": event_ms(
+                   torch, lambda: ops.gat_mp_plain(z, es, ed, a), 10),
+               "library_ms": event_ms(torch, sdpa_call(torch, z, es, ed, a),
+                                      20),
                "bound_ms": bound(nbytes, nops)[0]}
         per.append({"shape": list(z.shape), "adj_batch": a.shape[0], **one})
         tot["err"] = max(tot["err"], err)
@@ -437,11 +431,12 @@ def phase_gat_bwd(torch, gen, ops, masks):
         emit({"phase": "gat_bwd", "case": kind, "B": B, "N": a.shape[-1],
               "H": H, "mask_batch": a.shape[0], "max_abs_err": errs,
               "deterministic": True,
-              "kernel_ms": time_ms(lambda: ops.gat_mp_bwd(*args), 50),
-              "device_ms": device_ms(torch, lambda: ops.gat_mp_bwd(*args)),
-              "plain_ms": time_ms(lambda: ops.gat_mp_bwd_plain(*args), 5),
-              "library_ms": time_ms(sdpa_bwd_call(torch, z, es, ed, a, g),
-                                    10)})
+              "kernel_ms": event_ms(torch, lambda: ops.gat_mp_bwd(*args), 50),
+              **profiled(torch, lambda: ops.gat_mp_bwd(*args)),
+              "plain_ms": event_ms(
+                  torch, lambda: ops.gat_mp_bwd_plain(*args), 5),
+              "library_ms": event_ms(
+                  torch, sdpa_bwd_call(torch, z, es, ed, a, g), 10)})
 
 
 def phase_gat_path_bwd(torch, np, ops, sac, replay, feats, adj, gen):
@@ -476,11 +471,12 @@ def phase_gat_path_bwd(torch, np, ops, sac, replay, feats, adj, gen):
         errs = gat_bwd_compare(torch, ops, args)
         z, es, ed, a, m, l, out, g = args
         nbytes, nops = gat_bwd_work(z, es, a, m)
-        one = {"ms": time_ms(lambda: ops.gat_mp_bwd(*args), 100),
-               "device_ms": device_ms(torch, lambda: ops.gat_mp_bwd(*args)),
-               "plain_ms": time_ms(lambda: ops.gat_mp_bwd_plain(*args), 5),
-               "library_ms": time_ms(sdpa_bwd_call(torch, z, es, ed, a, g),
-                                     10),
+        one = {"ms": event_ms(torch, lambda: ops.gat_mp_bwd(*args), 100),
+               **profiled(torch, lambda: ops.gat_mp_bwd(*args)),
+               "plain_ms": event_ms(
+                   torch, lambda: ops.gat_mp_bwd_plain(*args), 5),
+               "library_ms": event_ms(
+                   torch, sdpa_bwd_call(torch, z, es, ed, a, g), 10),
                "bound_ms": bound(nbytes, nops)[0]}
         per.append({"shape": [z.shape[0], z.shape[1], a.shape[0]], **one})
         tot["err"] = max(tot["err"], *errs.values())
@@ -496,65 +492,186 @@ def phase_gat_path_bwd(torch, np, ops, sac, replay, feats, adj, gen):
 
 
 # ------------------------------------------------------- simulator kernel
-def memsim_mappings(torch, g, heuristic_mapping, gen):
-    n = g.n
-    rand = torch.randint(0, 3, (16, n, 2), generator=gen, device="cuda")
+# Mappings per launch the memsim phase checks: a PG rollout, Greedy-DP's
+# 9 candidates, the population, more than one warp of mappings; then one
+# P that needs more blocks (32 mappings each) than the card has SMs.
+MEMSIM_POPULATIONS = (1, 9, 20, 33)
+# The simulator kernel's latency bound, from the SASS of its build
+# (cuobjdump -sass; PERF.md §6).  A rectify step's dependency
+# chain through a free counter is compare (writes a predicate) ->
+# predicated subtract (the weight) -> compare -> predicated subtract (the
+# activation) -> release add; ptxas schedules 13 cycles from a compare
+# to the instruction its predicate guards and 5 from an FADD to its
+# dependent, so a step is 13 + 5 + 13 + 5 + 5 cycles.
+MEMSIM_CHAIN_CYCLES = 41
+MEMSIM_FADD_CYCLES = 5     # a dependent FADD of the ordered latency sum
+MEMSIM_DRAM_CYCLES = 1000  # one device-memory round trip, the first tile
+
+
+def memsim_latency_bound_ms(n, sm_mhz):
+    """N steps of the chain, N dependent FADDs of the ordered sum and one
+    device-memory round trip, at the SM clock read during the run."""
+    return (n * (MEMSIM_CHAIN_CYCLES + MEMSIM_FADD_CYCLES)
+            + MEMSIM_DRAM_CYCLES) / (sm_mhz * 1e3)
+
+
+def memsim_roofline(sg, maps):
+    """(bytes, operations) of one launch: every input read once, every
+    output written once; per (mapping, node) rectify 2 compares, 2
+    subtracts, 1 ring add, 3 release adds, latency 1 multiply, 3 divides,
+    2 adds, max, overhead add and the running sum; per fan-in edge a
+    divide and an add."""
+    P, n = maps.shape[:2]
+    edges = int((sg.in_acts >= 0).sum().item())
+    nbytes = sum(x.numel() * x.element_size() for x in (
+        sg.weight_bytes, sg.weight_frac, sg.act_bytes, sg.flops, sg.ring_t,
+        sg.ring_lc, sg.self_release, sg.in_acts, sg.total_bytes, maps)) \
+        + P * 5 * 4 + maps.numel() * 4
+    return nbytes, P * (17 * n + 2 * edges)
+
+
+def memsim_mappings(torch, g, heuristic_mapping, P, gen):
+    """(P, N, 2) int32 on the card: the compiler's heuristic, all-HBM,
+    all-CMEM and all-VMEM (the first min(P, 4)), then random tiers."""
     fixed = [torch.as_tensor(heuristic_mapping(g), device="cuda").int()] + [
-        torch.full((n, 2), t, dtype=torch.int32, device="cuda")
+        torch.full((g.n, 2), t, dtype=torch.int32, device="cuda")
         for t in (0, 1, 2)]
-    return torch.cat([rand.int(), torch.stack(fixed)]).contiguous()
+    rand = torch.randint(0, 3, (max(P - 4, 0), g.n, 2), generator=gen,
+                         device="cuda").int()
+    return torch.cat([torch.stack(fixed[:P]), rand]).contiguous()
 
 
 def phase_memsim(torch, zoo, sim, compiler, gen):
+    """The simulator kernel against ``evaluate_population_plain`` on the
+    card, on all 7 zoo graphs at every P of MEMSIM_POPULATIONS and at 32
+    mappings for each SM and 8 more blocks: rectified tiers, eps and valid
+    bit-equal, latency and reward within 1e-6 relative.  Each row: ``ms``
+    (CUDA events), ``device_ms`` (profiler), the roofline bound, the
+    latency bound and ``bound_share`` (the larger bound over device_ms).
+    Returns BERT's row at P = 20 (the population) for the kernels line."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = None
     path = None
     for name, make in zoo.WORKLOADS.items():
         g = make()
         sg = sim.build_sim_graph(g, "cuda")
         _, ref = compiler.compiler_reference(g)
-        maps = memsim_mappings(torch, g, compiler.heuristic_mapping, gen)
-        res = sim.evaluate_population(sg, maps, ref)
-        plain = sim.evaluate_population_plain(sg, maps, ref)
-        torch.cuda.synchronize()
-        check(torch.equal(res["rectified"], plain["rectified"]),
-              f"{name}: rectified tiers differ")
-        check(torch.equal(res["eps"], plain["eps"]), f"{name}: eps differs")
-        check(torch.equal(res["valid"], plain["valid"]),
-              f"{name}: valid differs")
-        rel = {k: ((res[k] - plain[k]).abs()
-                   / plain[k].abs().clamp_min(1e-30)).max().item()
-               for k in ("latency", "reward")}
-        check(max(rel.values()) <= 1e-6, f"{name}: {rel} > 1e-6 rel")
-        err = max((res[k] - plain[k]).abs().max().item()
-                  for k in ("latency", "reward", "speedup"))
-        row = {"phase": "memsim", "graph": name, "N": g.n, "P": 20,
-               "W": sg.ring_init.shape[0], "tiers_eps_bit_equal": True,
-               "latency_reward_bit_equal": all(
-                   torch.equal(res[k], plain[k])
-                   for k in ("latency", "reward")),
-               "max_rel_err": rel, "max_abs_err": err,
-               "spills": int((~res["valid"]).sum().item()),
-               "kernel_ms": time_ms(
-                   lambda: sim.evaluate_population(sg, maps, ref), 50),
-               "plain_ms": time_ms(
-                   lambda: sim.evaluate_population_plain(sg, maps, ref), 2,
-                   warmup=1)}
-        emit(row)
-        if name == "bert":
-            edges = int((sg.in_acts >= 0).sum().item())
-            n, P = g.n, maps.shape[0]
-            nbytes = sum(x.numel() * x.element_size() for x in (
-                sg.weight_bytes, sg.weight_frac, sg.act_bytes, sg.flops,
-                sg.ring_t, sg.ring_lc, sg.self_release, sg.in_acts,
-                sg.total_bytes, maps)) + P * 5 * 4 + maps.numel() * 4
-            # per (mapping, node): rectify 2 compares, 2 subtracts, 1
-            # ring add, 3 release adds; latency 1 multiply, 3 divides,
-            # 2 adds, max, overhead add, running sum; per fan-in edge a
-            # divide and an add
-            nops = P * (17 * n + 2 * edges)
+        for P in MEMSIM_POPULATIONS + (32 * (sms + 8),):
+            maps = memsim_mappings(torch, g, compiler.heuristic_mapping, P,
+                                   gen)
+            res = sim.evaluate_population(sg, maps, ref)
+            plain = sim.evaluate_population_plain(sg, maps, ref)
+            torch.cuda.synchronize()
+            case = f"{name} P={P}"
+            for k in ("rectified", "eps", "valid"):
+                check(torch.equal(res[k], plain[k]), f"{case}: {k} differs")
+            rel = {k: ((res[k] - plain[k]).abs()
+                       / plain[k].abs().clamp_min(1e-30)).max().item()
+                   for k in ("latency", "reward")}
+            check(max(rel.values()) <= 1e-6, f"{case}: {rel} > 1e-6 rel")
+            err = max((res[k] - plain[k]).abs().max().item()
+                      for k in ("latency", "reward", "speedup"))
+
+            def call():
+                sim.evaluate_population(sg, maps, ref)
+            if clock is None:
+                clock = sm_clock_mhz(torch, call)
+            nbytes, nops = memsim_roofline(sg, maps)
             b_ms, b_by = bound(nbytes, nops)
-            path = {"ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
-                    "bound_ms": b_ms, "bound_by": b_by, "err": err}
+            lat_ms = memsim_latency_bound_ms(g.n, clock[0])
+            row = {"phase": "memsim", "graph": name, "N": g.n, "P": P,
+                   "blocks": -(-P // 32), "W": sg.ring_init.shape[0],
+                   "max_in": sg.in_acts.shape[1],
+                   "tiers_eps_valid_bit_equal": True,
+                   "latency_reward_bit_equal": all(
+                       torch.equal(res[k], plain[k])
+                       for k in ("latency", "reward")),
+                   "max_rel_err": rel, "max_abs_err": err,
+                   "spilled_mappings": int((~res["valid"]).sum().item()),
+                   "ms": event_ms(torch, call, 50), **profiled(torch, call),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "latency_bound_ms": lat_ms, "sm_clock_mhz": clock[0],
+                   "sm_clock_max_mhz": clock[1]}
+            row["bound_share"] = (max(b_ms, lat_ms) / row["device_ms"]
+                                  if not isinstance(row["device_ms"], str)
+                                  else "not measured")
+            if P == 20:
+                row["plain_ms"] = event_ms(
+                    torch, lambda: sim.evaluate_population_plain(
+                        sg, maps, ref), 2, warmup=1)
+            emit(row)
+            if name == "bert" and P == 20:
+                path = dict(row, err=err)
     return path
+
+
+def greedy_launches(n, passes, budget):
+    """Simulator launches ``greedy_dp`` makes: the compiler reference,
+    one per node of a pass, one ``evaluate`` per finished pass or at the
+    budget."""
+    launches, iters = 1, 0
+    for _ in range(passes):
+        for _ in range(n):
+            launches += 1
+            iters += 9
+            if budget is not None and iters >= budget:
+                return launches + 1
+        launches += 1
+    return launches
+
+
+def phase_greedy(torch, np, rdev, zoo, sim, compiler, budget=4000):
+    """Greedy-DP at Figure 4's budget (benchmarks/fig4_speedup.py: 4000
+    candidates, max(1, 4000 // (9 N)) passes) on BERT and ResNet-50: the
+    counters reset just before the run and read just after must show the
+    launches the code implies and no other kernel; the final mapping,
+    re-evaluated on the CPU with the plain simulator, must give the
+    reward the run recorded.  A second run under the profiler gives the
+    simulator's device time and must find the same mapping.  Returns the
+    launches per graph."""
+    launches = {}
+    for name in ("bert", "resnet50"):
+        g = zoo.WORKLOADS[name]()
+        passes = max(1, budget // (9 * g.n))
+        want = greedy_launches(g.n, passes, budget)
+        rdev.reset_launch_counts()
+        t0 = time.perf_counter()
+        mapping, hist = compiler.greedy_dp(g, passes=passes, budget=budget)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = rdev.launch_counts()
+        check(counts == {**{k: 0 for k in counts}, "memsim": want},
+              f"greedy {name}: launches {counts}, the path implies {want}")
+        sg = sim.build_sim_graph(g, "cpu")
+        _, ref = compiler.compiler_reference(g, "cpu")
+        res = sim.evaluate_population_plain(
+            sg, torch.as_tensor(mapping)[None], ref)
+        check(res["reward"].item() == hist[-1][1],
+              f"greedy {name}: reward {hist[-1][1]} != {res['reward'].item()}"
+              f" re-evaluated on the CPU")
+        again = {}
+
+        def run():
+            again["out"] = compiler.greedy_dp(g, passes=passes, budget=budget)
+        for tries in range(1, PROFILE_TRIES + 1):
+            rec = profile_kernels(torch, run, 1)
+            sim_rec = [v for k, v in rec.items() if "memsim_kernel" in k]
+            if sim_rec and sim_rec[0][1] == want:
+                break
+        check(np.array_equal(again["out"][0], mapping)
+              and again["out"][1] == hist, f"greedy {name}: a second run "
+              f"found another mapping")
+        emit({"phase": "greedy", "graph": name, "N": g.n, "budget": budget,
+              "passes": passes, "launches": counts["memsim"],
+              "history": hist, "speedup": float(res["speedup"].item()),
+              "wall_ms": wall_ms,
+              "sim_device_ms": (sim_rec[0][0] if sim_rec and sim_rec[0][1]
+                                == want else "not measured"),
+              "sim_device_ms_tries": tries,
+              "device_busy_ms": sum(ms for ms, _ in rec.values()),
+              "nvidia_smi": nvidia_smi()})
+        launches[name] = counts["memsim"]
+    return launches
 
 
 # ------------------------------------------------------------- the slice
@@ -653,14 +770,12 @@ def phase_profile(torch, egrl, zoo, mode="ea", generations=3):
     (torch.profiler), against the host clock of the same window.  Two
     generations run first, so in "egrl" mode the buffer holds a batch
     and the profiled generations train."""
-    from torch.profiler import ProfilerActivity, profile
     algo = egrl.EGRL(zoo.bert(), egrl.EGRLConfig(seed=1), mode=mode,
                      device="cuda")
     for _ in range(2):
         algo.generation()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with padded_profile() as prof:
         t0 = time.perf_counter()
         for _ in range(generations):
             algo.generation()
@@ -845,17 +960,17 @@ def phase_flash(torch, fops, gen):
                "sdpa_max_abs_err_vs_plain":
                    (lib_out.transpose(1, 2).reshape(want.shape).float()
                     - want.float()).abs().max().item(),
-               "ms": time_ms(lambda: fops.flash_attention(
+               "ms": event_ms(torch, lambda: fops.flash_attention(
                    q, k, v, causal=causal, q_offset=off), 20),
-               "plain_ms": time_ms(lambda: fops.flash_attention_plain(
+               "plain_ms": event_ms(torch, lambda: fops.flash_attention_plain(
                    q, k, v, chunk=chunk, causal=causal, q_offset=off), 3,
                    warmup=1),
-               "library_ms": time_ms(lib, 20),
+               "library_ms": event_ms(torch, lib, 20),
                "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
                "bytes": nbytes}
-        row["device_ms"] = device_ms(torch, lambda: fops.flash_attention(
-            q, k, v, causal=causal, q_offset=off))
-        row["library_device_ms"] = device_ms(torch, lib)
+        row.update(profiled(torch, lambda: fops.flash_attention(
+            q, k, v, causal=causal, q_offset=off)))
+        row.update(profiled(torch, lib, "library_device_ms"))
         if bf16:
             f32c = fops._launch_fp32cores(q, k, v, causal, off)
             torch.cuda.synchronize()
@@ -863,8 +978,9 @@ def phase_flash(torch, fops, gen):
             check(err32["within_tolerance"],
                   f"flash {name} S={S}, fp32-core route: error {err32}")
             row["fp32_cores_err"] = err32
-            row["ms_fp32_cores"] = time_ms(lambda: fops._launch_fp32cores(
-                q, k, v, causal, off), 5)
+            row["ms_fp32_cores"] = event_ms(
+                torch, lambda: fops._launch_fp32cores(q, k, v, causal, off),
+                5)
         row["tflops"] = flops / row["ms"] / 1e9
         row["bound_share"] = b_ms / row["ms"]
         row["ms_over_library"] = row["ms"] / row["library_ms"]
@@ -981,8 +1097,8 @@ def phase_ssd(torch, sops, gen):
         row = {"phase": "ssd", "case": name, "B": B, "S": S, "H": H,
                "hd": hd, "N": N, "Q": Q, "init_state": init,
                "decay": decay, "carry": carry, "max_abs_err": errs, "scale": scales,
-               "ms": time_ms(call, 20), "device_ms": device_ms(torch, call),
-               "plain_ms": time_ms(lambda: sops.ssd_scan_plain(
+               "ms": event_ms(torch, call, 20), **profiled(torch, call),
+               "plain_ms": event_ms(torch, lambda: sops.ssd_scan_plain(
                    xd, la, Bf, Cf, chunk, st0), 3, warmup=1),
                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
                "bound_ms_tc": tc_ms, "flops": nops,
@@ -1175,14 +1291,12 @@ def phase_serve_profile(torch, np, model):
     prefill and 10 decode ticks of the engine, against the host clock of
     the same window."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import Engine, Request
     eng = Engine(model, model.params, slots=4, max_len=2112)
     prompt = np.random.default_rng(5).integers(0, model.cfg.vocab_size, 2048,
                                                dtype=np.int32)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with padded_profile() as prof:
         t0 = time.perf_counter()
         eng.submit(Request(rid=0, prompt=prompt, max_new_tokens=11))
         for _ in range(10):
@@ -1227,8 +1341,9 @@ def per_launch(tot):
                       "plain_ms")}
 
 
-def run_egrl(torch, np, rdev, gen):
-    """Phases 3-7, the EGRL slices' paths; returns their kernel rows."""
+def run_egrl(torch, np, rdev, gen, regs_memsim):
+    """Phases 3-8, the EGRL slices' paths; returns their kernel rows.
+    ``regs_memsim``: the simulator kernel's registers and spills."""
     from repro_torch.core import egrl, gnn, params, replay, sac
     from repro_torch.graphs import zoo
     from repro_torch.kernels.gat_mp import ops
@@ -1273,7 +1388,10 @@ def run_egrl(torch, np, rdev, gen):
         check(best > 1.0, f"resnet50 {mode} best speedup {best} <= 1.0")
     check(runs["resnet50", "pg"]["sac_steps"] > 0, "pg mode never trained")
 
-    # 7. profile
+    # 7. Greedy-DP, the simulator's heaviest caller
+    greedy = phase_greedy(torch, np, rdev, zoo, sim, compiler)
+
+    # 8. profile
     phase_profile(torch, egrl, zoo)
     phase_profile(torch, egrl, zoo, mode="egrl", generations=1)
 
@@ -1310,22 +1428,37 @@ def run_egrl(torch, np, rdev, gen):
          "replaces": "src/repro/memsim/simulator.py:163",
          "launches": counts["memsim"], "launches_ea": ea["memsim"],
          "launches_from": src,
+         "launches_greedy": greedy,
+         "launches_greedy_from": "Greedy-DP at Figure 4's budget (4000)",
          "max_abs_err": mem_path["err"],
          "ms": mem_path["ms"], "plain_ms": mem_path["plain_ms"],
          "bound_ms": mem_path["bound_ms"], "bound_by": mem_path["bound_by"],
-         "library_ms": None,
-         "per": "one population: 1 launch, BERT, P=20"}]
+         "library_ms": None, "device_ms": mem_path["device_ms"],
+         "latency_bound_ms": mem_path["latency_bound_ms"],
+         "bound_share": mem_path["bound_share"],
+         "sm_clock_mhz": mem_path["sm_clock_mhz"],
+         "latency_reward_bit_equal": mem_path["latency_reward_bit_equal"],
+         **regs_memsim,
+         "per": "one population: 1 launch, BERT, P=20; bound_ms is the "
+                "roofline, latency_bound_ms the dependent chain (the "
+                "larger sets bound_share)"}]
 
 
 def kernel_name(mangled):
-    """The kernel's own name in a mangled entry name (its length-prefixed
-    identifier that holds "kernel"), with its int template argument."""
+    """The kernel's own name in a mangled entry name (the last component
+    of its nested name that holds "kernel"), with its int template
+    argument."""
     import re
-    name = mangled
-    for m in re.finditer(r"\d+", mangled):
-        ident = mangled[m.end():m.end() + int(m.group())]
-        if "kernel" in ident and re.fullmatch(r"[A-Za-z_]\w*", ident):
-            name = ident
+    names, m = [], re.match(r"_ZN?", mangled)
+    pos = m.end() if m else len(mangled)
+    while True:
+        d = re.match(r"\d+", mangled[pos:])
+        if not d:
+            break
+        start = pos + d.end()
+        names.append(mangled[start:start + int(d.group())])
+        pos = start + int(d.group())
+    name = next((x for x in reversed(names) if "kernel" in x), mangled)
     arg = re.search(r"ILi(\d+)E", mangled)
     return name + (f"<{arg.group(1)}>" if arg else "")
 
@@ -1400,17 +1533,22 @@ def main(argv=None):
           f"ssd_scan: no compiler report for its 9 kernels: {regs}")
     for entry, info in regs["ssd_scan"].items():
         check(info["spill_bytes"] == 0, f"ssd_scan {entry} spills {info}")
+    check(list(regs.get("memsim", {})) == ["memsim_kernel"],
+          f"memsim: no compiler report for its kernel: {regs}")
+    memsim_regs = regs["memsim"]["memsim_kernel"]
+    check(memsim_regs["spill_bytes"] == 0, f"memsim_kernel spills "
+          f"{memsim_regs}")
 
     gen = torch.Generator("cuda").manual_seed(0)
-    rows = run_egrl(torch, np, rdev, gen)                  # 3-7
-    flash = phase_flash(torch, fops, gen)                  # 8
-    ssd = phase_ssd(torch, sops, gen)                      # 9
-    phase_serve_check(torch, rdev)                         # 10
-    serve, model = phase_serve(torch, np, rdev)            # 11
+    rows = run_egrl(torch, np, rdev, gen, memsim_regs)     # 3-8
+    flash = phase_flash(torch, fops, gen)                  # 9
+    ssd = phase_ssd(torch, sops, gen)                      # 10
+    phase_serve_check(torch, rdev)                         # 11
+    serve, model = phase_serve(torch, np, rdev)            # 12
     phase_serve_profile(torch, np, model)
     del model
 
-    # 12. kernels
+    # 13. kernels
     f, s_ = flash["zamba2-1.2b", 2048], ssd["zamba2-1.2b", 2048]
     fq = flash["qwen3-0.6b", 2048]
     src = "the zamba2-1.2b serve run (8 requests, 256 to 2048 tokens)"

@@ -1,8 +1,9 @@
 """The "native compiler" baseline: manually tuned heuristic placement
-rules (stand-in for the NNP-I compiler of §4).
+rules (stand-in for the NNP-I compiler of §4), plus the Greedy-DP
+baseline agent.
 
 Counterpart of ``src/repro/memsim/compiler.py``; ``heuristic_mapping``
-is a copy of the numpy original.  ``greedy_dp`` is not ported yet.
+is a copy of the numpy original.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs.graph import WorkloadGraph
 from repro_torch.memsim import tiers as T
-from repro_torch.memsim.simulator import build_sim_graph, evaluate
+from repro_torch.memsim.simulator import (build_sim_graph, evaluate,
+                                          evaluate_population)
 
 
 def heuristic_mapping(g: WorkloadGraph) -> np.ndarray:
@@ -48,3 +50,47 @@ def compiler_reference(g: WorkloadGraph, device: DeviceLike = "cuda"):
     m = torch.as_tensor(heuristic_mapping(g), device=dev)
     res = evaluate(sg, m, ref_latency=1.0)
     return res["rectified"].cpu().numpy(), float(res["latency"])
+
+
+def greedy_dp(g: WorkloadGraph, passes: int = 3, budget: int = None,
+              log=None, device: DeviceLike = "cuda"):
+    """Greedy-DP agent (§4 Baselines): layer-wise greedy sweeps assuming
+    conditional independence across nodes. 9 candidate (w, a) placements
+    per node, evaluated with the true simulator reward; several passes.
+
+    Step for step the JAX package's ``greedy_dp``: the start is all-HBM,
+    each node's 9 candidates are one ``evaluate_population`` (one
+    simulator launch on CUDA) and the first best reward wins; ``budget``
+    counts candidates and ends the search once reached.
+
+    Returns (best mapping as numpy int32, history of (iteration,
+    best_reward)).
+    """
+    dev = resolve_device(device)
+    sg = build_sim_graph(g, dev)
+    _, ref_lat = compiler_reference(g, dev)
+    n = g.n
+    combos = torch.tensor([(w, a) for w in range(3) for a in range(3)],
+                          dtype=torch.int32, device=dev)        # (9, 2)
+    mapping = torch.zeros((n, 2), dtype=torch.int32, device=dev)
+    history = []
+    iters = 0
+    for p in range(passes):
+        for i in range(n):
+            cand = mapping[None].repeat(9, 1, 1)
+            cand[:, i, :] = combos
+            res = evaluate_population(sg, cand, ref_lat)
+            # argmax returns the first of equal maxima, as jnp.argmax does
+            best = int(torch.argmax(res["reward"]))
+            mapping = cand[best]
+            iters += 9
+            if budget is not None and iters >= budget:
+                r = evaluate(sg, mapping, ref_lat)
+                history.append((iters, float(r["reward"])))
+                return mapping.cpu().numpy(), history
+        r = evaluate(sg, mapping, ref_lat)
+        history.append((iters, float(r["reward"])))
+        if log:
+            log(f"greedy-dp pass {p + 1}: reward {float(r['reward']):.3f} "
+                f"speedup {float(r['speedup']):.3f}")
+    return mapping.cpu().numpy(), history

@@ -266,15 +266,17 @@ def evaluate_population(sg: SimGraph, mappings: torch.Tensor,
                         ) -> Dict:
     """mappings (P, N, 2) -> dict of (P,) reward/eps/latency/speedup f32,
     valid bool and rectified (P, N, 2) int32.  CUDA tensors: one launch
-    of the simulator kernel (mappings must be contiguous int32); CPU
+    of the simulator kernel (mappings must be contiguous int32, 8-byte
+    aligned: the kernel reads a node's two tiers as one int2); CPU
     tensors: the plain version."""
     _check(sg, mappings)
     if mappings.device.type == "cpu":
         return evaluate_population_plain(sg, mappings, ref_latency,
                                          reward_scale)
-    if mappings.dtype != torch.int32 or not mappings.is_contiguous():
+    if (mappings.dtype != torch.int32 or not mappings.is_contiguous()
+            or mappings.data_ptr() % 8):
         raise ValueError("the simulator kernel takes contiguous int32 "
-                         "mappings")
+                         "mappings aligned to 8 bytes")
     if mappings.shape[0] == 0:
         raise ValueError("empty population")
     return _launch(sg, mappings, ref_latency, reward_scale)

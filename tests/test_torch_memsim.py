@@ -116,3 +116,21 @@ def test_evaluate_single_mapping_and_input_checks():
         sim.evaluate_population(sg, m[None, :10], ref)
     with pytest.raises(ValueError, match=r"\(P, N, 2\)"):
         sim.evaluate_population(sg, m, ref)
+
+
+@pytest.mark.parametrize("name,kwargs", [("resnet50", {"passes": 1}),
+                                         ("bert", {"budget": 72})])
+def test_greedy_dp_matches_jax(name, kwargs):
+    """Same mapping and history iterations as JAX's greedy_dp, rewards
+    within 1e-6 rel: the simulator agrees, so every argmax does too.
+    BERT stops at a budget of 72 candidates (8 nodes)."""
+    mapping, hist = compiler.greedy_dp(zoo.WORKLOADS[name](), device="cpu",
+                                       **kwargs)
+    jmapping, jhist = jcompiler.greedy_dp(jzoo.WORKLOADS[name](), **kwargs)
+    assert mapping.dtype == np.int32
+    np.testing.assert_array_equal(mapping, jmapping)
+    assert [it for it, _ in hist] == [it for it, _ in jhist]
+    np.testing.assert_allclose([r for _, r in hist], [r for _, r in jhist],
+                               rtol=REL, atol=0)
+    # the search moved off all-HBM
+    assert (mapping != 0).any()

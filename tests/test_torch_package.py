@@ -66,6 +66,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         optimize_placement.optimize("resnet50", "-", steps=20)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         compiler.compiler_reference(resnet50())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compiler.greedy_dp(resnet50(), passes=1)
     assert rdev.resolve_device("cpu") == torch.device("cpu")
     algo = EGRL(resnet50(), EGRLConfig(total_steps=20), device="cpu")
     assert algo.gnn_pop.device.type == "cpu"

@@ -25,19 +25,17 @@ import subprocess
 import sys
 import time
 
-from timing import device_ms, event_ms
+from timing import device_ms, event_ms, padded_profile
 
 
 def generation_profile(torch, egrl, zoo):
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     algo = egrl.EGRL(zoo.bert(), egrl.EGRLConfig(seed=1), mode="egrl",
                      device="cuda")
     for _ in range(2):
         algo.generation()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with padded_profile() as prof:
         t0 = time.perf_counter()
         algo.generation()
         torch.cuda.synchronize()
@@ -110,9 +108,10 @@ def main(argv=None):
 
             def call():
                 ops.gat_mp_bwd(z, es, ed, a, m, l, out, g)
+        dev, tries, _ = device_ms(torch, call, args.reps)
         print(json.dumps({"kernel": which, "shape": name, "B": B,
                           "N": adj.shape[-1], "mask_batch": adj.shape[0],
-                          "device_ms": device_ms(torch, call, args.reps),
+                          "device_ms": dev, "profile_tries": tries,
                           "event_ms": event_ms(torch, call, 4 * args.reps),
                           "src": args.src}), flush=True)
     print(json.dumps({"generation": "bert egrl", "src": args.src,

@@ -38,8 +38,8 @@ def main(argv=None):
         sys.exit("prefill_time: no CUDA device")
     sys.path.insert(0, os.path.abspath(args.src))
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
+    from timing import padded_profile
     from repro_torch.configs.registry import get_config
     from repro_torch.models.zoo import get_model
 
@@ -67,8 +67,7 @@ def main(argv=None):
                 prefill()
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t0) * 1e3)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with padded_profile() as prof:
                 prefill()
                 torch.cuda.synchronize()
         busy = attn = 0.0

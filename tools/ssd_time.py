@@ -63,11 +63,12 @@ def main(argv=None):
 
             def call():
                 ops._launch(xd, la, Bm, Cm, cfg.ssm.chunk, None)
-            per = kernel_ms(torch, call, args.reps)
-            total = sum(per.values()) or "not measured"
+            per, tries, _ = kernel_ms(torch, call, args.reps)
+            total = sum(per.values()) if per else "not measured"
             print(json.dumps({"arch": arch, "S": S, "H": H, "hd": hd,
                               "N": N, "Q": min(cfg.ssm.chunk, S),
                               "device_ms": total, "device_ms_by_kernel": per,
+                              "profile_tries": tries,
                               "event_ms": event_ms(torch, call,
                                                    2 * args.reps),
                               "src": args.src}), flush=True)
