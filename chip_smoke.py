@@ -16,7 +16,10 @@ Phases, each printing JSON lines:
                masked, asymmetric per-batch masks, N = 1, a mask at an
                odd byte offset, uint8 values) and head counts (H = 1, 3,
                8); gat_path: the 4 launches of one BERT population
-               forward, per launch and in total;
+               forward, per launch and in total; gat_zoo_mask: both GAT
+               kernels on a zoo bucket's (G, N, N) masks shared by 16
+               genomes or by 24 critic transitions, against their plain
+               versions;
 4. gat_bwd  -- the GAT backward kernel against its plain version at the
                critic's and the actor's shapes and the same edge cases,
                and launched twice for bit-equal (deterministic)
@@ -27,16 +30,25 @@ Phases, each printing JSON lines:
                mappings than the card has SMs (tiers, eps and valid
                bit-equal; latency and reward within 1e-6 rel); ``ms``,
                ``device_ms``, the roofline and latency bounds;
+               memsim_zoo: the kernel's zoo entry (one launch a bucket)
+               on the 7-graph zoo, "auto" (4 buckets) and "off" (1), at
+               P = 1, 20, 21, 33, against its plain version, against
+               the single-graph kernel graph by graph and with its
+               padded slots zeroed, every output bit-equal;
 6. slice    -- the EA-mode search on BERT and ResNet-50 (400 steps),
                the "egrl"-mode search on BERT and ResNet-50 (400 steps)
                and a "pg"-mode run on ResNet-50 (60 steps); the launch
                counters are reset just before each run and read just
                after it, and must match the counts the path implies;
+               zoo: ``ZooEGRL`` on the 7-graph zoo at full width, 3 "ea"
+               and 3 "egrl" generations with exact launch counts, then
+               ``evaluate_gnn_zoo`` of the trained genome on BERT;
 7. greedy   -- Greedy-DP at Figure 4's budget on BERT and ResNet-50:
                exact simulator launches, the final reward re-evaluated
                on the CPU, wall time and the simulator's device time;
 8. profile  -- device time by kernel over 3 EA-mode and 1 "egrl"-mode
-               BERT generations;
+               BERT generations, and 1 "egrl"-mode generation of the
+               7-graph zoo;
 9. flash    -- the attention kernels against their plain version at
                every attention prefill shape of the serve phase
                (zamba2, qwen3-0.6b; bf16), in f32, without the causal
@@ -63,8 +75,8 @@ Phases, each printing JSON lines:
                device time by kernel over one 2048-token prefill and 10
                decode ticks;
 13. kernels -- per kernel: launches in its slice's main path (the BERT
-               "egrl" run, the zamba2 serve run; the simulator's also in
-               Greedy-DP), error, time on the card, plain time, bound and
+               "egrl" run, the zamba2 serve run, the zoo "egrl" run; the
+               simulator's also in Greedy-DP), error, time on the card, plain time, bound and
                library time; for the GAT kernels both per launch (a
                launch is one call of the wrapper) and over their group (4
                forward launches, 8 backward calls).
@@ -200,9 +212,9 @@ def gat_edge_cases(torch, gen):
             ("H=8", 2, 8, full)]
 
 
-def gat_compare(torch, ops, z, es, ed, adj):
-    out, m, l = ops.gat_mp(z, es, ed, adj)
-    po, pm, pl = ops.gat_mp_plain(z, es, ed, adj)
+def gat_compare(torch, ops, z, es, ed, adj, rep=1):
+    out, m, l = ops.gat_mp(z, es, ed, adj, rep)
+    po, pm, pl = ops.gat_mp_plain(z, es, ed, adj, rep)
     torch.cuda.synchronize()
     err = (out - po).abs().max().item()
     l_rel = ((l - pl).abs() / pl.abs()).max().item()
@@ -248,16 +260,16 @@ def sdpa_bwd_call(torch, z, es, ed, adj, g):
                                        retain_graph=True)
 
 
-def gat_bwd_compare(torch, ops, args, floor=1e-30):
+def gat_bwd_compare(torch, ops, args, floor=1e-30, rep=1):
     """The backward kernel against ``gat_mp_bwd_plain`` on the same
     inputs: each gradient within 1e-5 of its largest element (f32 sums
     in another order; the plain version also adds the exact zeros of the
     dense (N, N) products), and a second launch bit-equal to the first.
     ``floor`` is a least scale, for inputs whose gradient is rounding
     noise only (see ``cancel_scale``)."""
-    got = ops.gat_mp_bwd(*args)
-    again = ops.gat_mp_bwd(*args)
-    want = ops.gat_mp_bwd_plain(*args)
+    got = ops.gat_mp_bwd(*args, rep)
+    again = ops.gat_mp_bwd(*args, rep)
+    want = ops.gat_mp_bwd_plain(*args, rep)
     torch.cuda.synchronize()
     errs = {}
     for name, a, b in zip(("dz", "de_src", "de_dst"), got, want):
@@ -341,6 +353,35 @@ def phase_gat(torch, gen, ops, masks):
         emit(row)
 
 
+def phase_gat_zoo(torch, gen, ops, zoo_masks):
+    """Both GAT kernels on the zoo's shared-mask form against their plain
+    versions: a bucket's G graph masks (G, N, N) shared by P genomes
+    (b = p G + g, rep 1, the population forward's level 0) or by the T
+    transitions of a critic batch (b = g T + t, rep T).  ``zoo_masks``:
+    {bucket name: (G, N_max, N_max) bool, padded rows self-loop only}."""
+    cases = [("genomes", "moe_transformer+dense_cnn", 16, 1),
+             ("transitions", "resnet101+tiny_gpt", 1, 24),
+             ("genomes", "bert", 16, 1)]
+    for kind, name, P, rep in cases:
+        adj = zoo_masks[name]
+        G, N = adj.shape[:2]
+        B = P * G * rep
+        z, es, ed, adj = gat_inputs(torch, gen, B, N, adj)
+        err, l_rel = gat_compare(torch, ops, z, es, ed, adj, rep)
+        g = torch.randn(z.shape, generator=gen, device="cuda")
+        out, m, l = ops.gat_mp(z, es, ed, adj, rep)
+        errs = gat_bwd_compare(torch, ops, (z, es, ed, adj, m, l, out, g),
+                               rep=rep)
+        emit({"phase": "gat_zoo_mask", "shared_by": kind, "bucket": name,
+              "B": B, "G": G, "rep": rep, "N": N, "max_abs_err_out": err,
+              "m_bit_equal": True, "max_rel_err_l": l_rel,
+              "bwd_max_abs_err": errs, "bwd_deterministic": True,
+              "kernel_ms": event_ms(
+                  torch, lambda: ops.gat_mp(z, es, ed, adj, rep), 50),
+              "bwd_kernel_ms": event_ms(torch, lambda: ops.gat_mp_bwd(
+                  z, es, ed, adj, m, l, out, g, rep), 20)})
+
+
 def phase_gat_path(torch, gnn, ops, params, feats, adj, gen):
     """The four launches of one BERT population forward (P = 16), on the
     inputs the path itself gives the kernel."""
@@ -348,7 +389,8 @@ def phase_gat_path(torch, gnn, ops, params, feats, adj, gen):
                        for _ in range(16)])
     captured = []
 
-    def capture(z, es, ed, a):
+    def capture(z, es, ed, a, rep=1):
+        check(rep == 1, "a single-graph forward shares no mask by rep")
         captured.append((z, es, ed, a))
         return ops.gat_mp(z, es, ed, a)
 
@@ -452,7 +494,9 @@ def phase_gat_path_bwd(torch, np, ops, sac, replay, feats, adj, gen):
     launch = ops._launch_bwd    # behind the wrapper: its counter still counts
 
     def capture(*args):
-        captured.append(args)
+        check(args[8:] in ((), (1,)), "a single-graph SAC step shares no "
+              "mask by rep")
+        captured.append(args[:8])
         return launch(*args)
 
     ops._launch_bwd = capture
@@ -605,6 +649,122 @@ def phase_memsim(torch, zoo, sim, compiler, gen):
     return path
 
 
+# Mappings per launch the memsim_zoo phase checks: a PG rollout, the
+# population, the population and a PG rollout, two blocks a graph
+MEMSIM_ZOO_POPULATIONS = (1, 20, 21, 33)
+
+
+def memsim_zoo_roofline(gb, maps):
+    """(bytes, operations) of one zoo launch: every input read once,
+    every output written once; per (mapping, real node) and real fan-in
+    edge the operations of ``memsim_roofline`` (padded nodes are not
+    walked)."""
+    sg = gb.sim
+    P = maps.shape[0]
+    real = int(sum(gb.sizes))
+    edges = int((sg.in_acts >= 0).sum().item())
+    nbytes = sum(x.numel() * x.element_size() for x in (
+        sg.weight_bytes, sg.weight_frac, sg.act_bytes, sg.flops, sg.ring_t,
+        sg.ring_lc, sg.self_release, sg.in_acts, sg.total_bytes,
+        gb.n_nodes, gb.ref_latency, maps)) \
+        + P * gb.n_graphs * 5 * 4 + maps.numel() * 4
+    return nbytes, P * (17 * real + 2 * edges)
+
+
+def phase_memsim_zoo(torch, zoo, sim, mb, bucketed, gen):
+    """The zoo entry of the simulator kernel (one launch a bucket) on the
+    7-graph zoo under the "auto" (4 buckets, up to N_max 1043 / W_max
+    126) and "off" (one bucket of 7) policies, at every P of
+    MEMSIM_ZOO_POPULATIONS, random tiers with other random tiers in the
+    padded slots: against ``evaluate_population_zoo_plain``, against the
+    same mappings with the padded slots zeroed, and graph by graph
+    against the single-graph kernel; every output bit-equal.  Rows:
+    ``ms`` (CUDA events), the roofline bound and the latency bound of the
+    bucket's largest graph; at P = 20 (the population) also
+    ``device_ms`` (profiler), ``bound_share`` and the single-graph
+    kernel's device ms per graph beside it.
+    Returns the row of the "auto" bucket of moe_transformer and
+    dense_cnn at P = 20, for the kernels line."""
+    graphs = [make() for make in zoo.WORKLOADS.values()]
+    singles = {g.name: sim.build_sim_graph(g, "cuda") for g in graphs}
+    single_ms = {}
+    clock = None
+    path = None
+    for policy in ("auto", "off"):
+        bz = bucketed.build_bucketed_zoo(graphs, policy, device="cuda")
+        check(bz.n_buckets == (4 if policy == "auto" else 1),
+              f"{policy}: {bz.n_buckets} buckets")
+        for P in MEMSIM_ZOO_POPULATIONS:
+            for k, gb in enumerate(bz.buckets):
+                G, N = gb.n_graphs, gb.n_max
+                maps = torch.randint(0, 3, (P, G, N, 2), generator=gen,
+                                     device="cuda").int()
+                clean = maps * gb.node_mask[None, :, :, None].int()
+                res = mb.evaluate_population_zoo(gb, maps)
+                res0 = mb.evaluate_population_zoo(gb, clean.contiguous())
+                plain = mb.evaluate_population_zoo_plain(gb, maps)
+                torch.cuda.synchronize()
+                case = f"memsim_zoo {policy} bucket {k} P={P}"
+                for key in res:
+                    check(torch.equal(res[key], plain[key]),
+                          f"{case}: {key} differs from the plain version")
+                    check(torch.equal(res[key], res0[key]),
+                          f"{case}: {key} moved with the padded slots")
+                for j, name in enumerate(gb.names):
+                    n = gb.sizes[j]
+                    one = sim.evaluate_population(
+                        singles[name], maps[:, j, :n].contiguous(),
+                        float(gb.ref_latency[j].item()))
+                    torch.cuda.synchronize()
+                    for key in mb.SCALARS:
+                        check(torch.equal(one[key], res[key][:, j]),
+                              f"{case} {name}: {key} differs from the "
+                              f"single-graph kernel")
+                    check(torch.equal(one["rectified"],
+                                      res["rectified"][:, j, :n]),
+                          f"{case} {name}: rectified differs from the "
+                          f"single-graph kernel")
+                    check(not res["rectified"][:, j, n:].any(),
+                          f"{case} {name}: a padded row is not 0")
+                    if P == 20 and name not in single_ms:
+                        single_ms[name] = profiled(
+                            torch, lambda: sim.evaluate_population(
+                                singles[name], maps[:, j, :n].contiguous(),
+                                1.0))["device_ms"]
+
+                def call():
+                    mb.evaluate_population_zoo(gb, maps)
+                if clock is None:
+                    clock = sm_clock_mhz(torch, call)
+                nbytes, nops = memsim_zoo_roofline(gb, maps)
+                b_ms, b_by = bound(nbytes, nops)
+                lat_ms = memsim_latency_bound_ms(max(gb.sizes), clock[0])
+                row = {"phase": "memsim_zoo", "policy": policy, "bucket": k,
+                       "graphs": list(gb.names), "sizes": list(gb.sizes),
+                       "N_max": N, "W_max": gb.w_max,
+                       "max_in": gb.sim.in_acts.shape[2], "P": P,
+                       "blocks": [-(-P // 32), G], "bit_equal": True,
+                       "spilled_mappings": int((~res["valid"]).sum().item()),
+                       "ms": event_ms(torch, call, 50), "bound_ms": b_ms,
+                       "bound_by": b_by, "latency_bound_ms": lat_ms,
+                       "sm_clock_mhz": clock[0]}
+                if P == 20:
+                    row.update(profiled(torch, call))
+                    row["bound_share"] = (
+                        max(b_ms, lat_ms) / row["device_ms"]
+                        if not isinstance(row["device_ms"], str)
+                        else "not measured")
+                    row["single_graph_device_ms"] = {
+                        name: single_ms[name] for name in gb.names}
+                    if policy == "auto" and k == bz.n_buckets - 1:
+                        row["plain_ms"] = event_ms(
+                            torch, lambda: mb.evaluate_population_zoo_plain(
+                                gb, maps), 1, warmup=1)
+                        path = dict(row, err=0.0)
+                emit(row)
+    return path
+
+
 def greedy_launches(n, passes, budget):
     """Simulator launches ``greedy_dp`` makes: the compiler reference,
     one per node of a pass, one ``evaluate`` per finished pass or at the
@@ -715,7 +875,7 @@ def run_slice(torch, np, name, make, egrl, sim, compiler, rdev, mode="ea",
     want = {"gat_mp": 4 * gens * (1 if algo.n_g else 0) + 8 * sac_steps
             + (4 * gens if mode != "ea" else 0),
             "gat_mp_bwd": 8 * sac_steps,
-            "memsim": 1 + gens * (pop + (mode != "ea")),
+            "memsim": 1 + gens * (pop + (mode != "ea")), "memsim_zoo": 0,
             "flash_attention": 0, "flash_attention_tc": 0, "ssd_scan": 0}
     check(counts == want, f"{name} {mode}: launches {counts}, the path "
           f"implies {want}")
@@ -765,13 +925,115 @@ def run_slice(torch, np, name, make, egrl, sim, compiler, rdev, mode="ea",
                             else None)}
 
 
-def phase_profile(torch, egrl, zoo, mode="ea", generations=3):
-    """Device time by kernel over steady BERT generations
-    (torch.profiler), against the host clock of the same window.  Two
-    generations run first, so in "egrl" mode the buffer holds a batch
-    and the profiled generations train."""
-    algo = egrl.EGRL(zoo.bert(), egrl.EGRLConfig(seed=1), mode=mode,
-                     device="cuda")
+def run_zoo(torch, np, zoo, egrl, sim, compiler, rdev, mode, gens):
+    """``ZooEGRL`` on the 7-graph zoo ("auto": 4 buckets) at full width
+    for ``gens`` generations, between a reset and a read of the launch
+    counters, which must match what the path launches: the zoo's 7
+    compiler references (single-graph simulator launches); per
+    generation and bucket 4 forward GAT launches for the population, one
+    simulator zoo launch for it and, outside "ea" mode, 4 and one more
+    for the PG rollout; per SAC step and bucket 8 forward and 8 backward
+    GAT launches.  Each graph's best mapping, re-evaluated on the CPU by
+    the plain single-graph simulator, must give its recorded reward."""
+    graphs = [make() for make in zoo.WORKLOADS.values()]
+    cfg = egrl.EGRLConfig(seed=0)
+    rdev.reset_launch_counts()
+    t0 = time.perf_counter()
+    algo = egrl.ZooEGRL(graphs, cfg, mode=mode, buckets="auto",
+                        device="cuda")
+    K = algo.zoo.n_buckets
+    gen_ms = []
+    for _ in range(gens):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        algo.generation()
+        torch.cuda.synchronize()
+        gen_ms.append((time.perf_counter() - t) * 1e3)
+    counts = rdev.launch_counts()
+    sac_steps = algo.learner.opt_a["t"] if algo.learner else 0
+    pg = mode != "ea"
+    want = {"gat_mp": gens * K * 4 * (1 + pg) + sac_steps * K * 8,
+            "gat_mp_bwd": sac_steps * K * 8, "memsim": len(graphs),
+            "memsim_zoo": gens * K * (1 + pg), "flash_attention": 0,
+            "flash_attention_tc": 0, "ssd_scan": 0}
+    check(counts == want, f"zoo {mode}: launches {counts}, the path "
+          f"implies {want}")
+    rows_per_gen = algo.n_g + algo.n_b + (cfg.pg_rollouts if pg else 0)
+    check(algo.steps == gens * rows_per_gen * len(graphs),
+          f"zoo {mode}: {algo.steps} steps")
+    if pg:
+        check(sac_steps == rows_per_gen * sum(
+            "critic_loss" in h for h in algo.history) and sac_steps > 0,
+            f"zoo {mode}: {sac_steps} SAC steps")
+        last = algo.history[-1]
+        check(all(np.isfinite(last[k]) for k in
+                  ("critic_loss", "actor_loss", "entropy")),
+              f"zoo {mode}: non-finite SAC losses {last}")
+    for gi, g in enumerate(graphs):
+        sg = sim.build_sim_graph(g, "cpu")
+        _, ref = compiler.compiler_reference(g, "cpu")
+        res = sim.evaluate_population_plain(
+            sg, torch.as_tensor(algo.best_mapping[gi])[None], ref)
+        want_r = algo.best_reward[gi]
+        check(abs(res["reward"].item() - want_r) <= 1e-6 * abs(want_r),
+              f"zoo {mode} {g.name}: best reward {want_r} != re-evaluated "
+              f"{res['reward'].item()}")
+    scale = cfg.reward_scale
+    return {"mode": mode, "graphs": list(algo.zoo.names),
+            "buckets": [{"graphs": list(b.names), "n_max": b.n_max,
+                         "w_max": b.w_max} for b in algo.zoo.buckets],
+            "pad_waste_frac": algo.zoo.pad_waste_frac(),
+            "n_eff": algo.n_eff, "generations": gens, "steps": algo.steps,
+            "sac_steps": sac_steps, "launches": counts,
+            "best_fitness": algo.best_fitness,
+            "best_speedup": {name: max(float(r), 0.0) / scale for name, r
+                             in zip(algo.zoo.names, algo.best_reward)},
+            "sac": {k: algo.history[-1][k] for k in
+                    ("critic_loss", "actor_loss", "entropy")
+                    if k in algo.history[-1]},
+            "build_and_first_generation_ms": (
+                (time.perf_counter() - t0) * 1e3 - sum(gen_ms[1:])),
+            "generation_ms": gen_ms}, algo
+
+
+def phase_zoo(torch, np, zoo, egrl, sim, compiler, rdev):
+    """The multi-workload path: ``ZooEGRL`` in "ea" mode (3 generations)
+    and "egrl" mode (3: the second and third train ZooSAC), then
+    ``evaluate_gnn_zoo`` of the "egrl" run's best genome on BERT (8
+    Gumbel rollouts and the greedy one), each between a reset and a read
+    of the launch counters.  Returns the "egrl" run's counts."""
+    out = {}
+    for mode in ("ea", "egrl"):
+        row, algo = run_zoo(torch, np, zoo, egrl, sim, compiler, rdev, mode, 3)
+        emit({"phase": "zoo", **row})
+        out[mode] = row
+    vec = algo.best_gnn_vec()
+    rdev.reset_launch_counts()
+    t0 = time.perf_counter()
+    speedup = egrl.evaluate_gnn_zoo([zoo.bert()], vec, device="cuda")
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = rdev.launch_counts()
+    want = {**{k: 0 for k in counts}, "memsim": 1, "gat_mp": 4,
+            "memsim_zoo": 1}
+    check(counts == want, f"evaluate_gnn_zoo: launches {counts}, want {want}")
+    check(set(speedup) == {"bert"} and np.isfinite(speedup["bert"])
+          and speedup["bert"] >= 0.0, f"evaluate_gnn_zoo: {speedup}")
+    emit({"phase": "zoo_zero_shot", "holdout": "bert", "speedup": speedup,
+          "launches": counts, "wall_ms": wall_ms})
+    return out
+
+
+def phase_profile(torch, egrl, zoo, mode="ea", generations=3, multi=False):
+    """Device time by kernel over steady BERT generations (``multi``: of
+    ``ZooEGRL`` on the 7-graph zoo, "auto" buckets) (torch.profiler),
+    against the host clock of the same window.  Two generations run
+    first, so in "egrl" mode the buffer holds a batch and the profiled
+    generations train."""
+    cfg = egrl.EGRLConfig(seed=1)
+    algo = (egrl.ZooEGRL([make() for make in zoo.WORKLOADS.values()], cfg,
+                         mode=mode, buckets="auto", device="cuda") if multi
+            else egrl.EGRL(zoo.bert(), cfg, mode=mode, device="cuda"))
     for _ in range(2):
         algo.generation()
     torch.cuda.synchronize()
@@ -801,8 +1063,10 @@ def phase_profile(torch, egrl, zoo, mode="ea", generations=3):
                                if tag in k["name"]),
                   "device_ms": sum(k["device_ms"] for k in kernels
                                    if tag in k["name"])}
-            for tag in ("gat_fwd_kernel", "gat_bwd_kernel", "memsim_kernel")}
-    emit({"phase": "profile", "graph": "bert", "mode": mode,
+            for tag in ("gat_fwd_kernel", "gat_bwd_kernel", "memsim_kernel",
+                        "memsim_zoo_kernel")}
+    emit({"phase": "profile", "graph": "zoo7" if multi else "bert",
+          "mode": mode,
           "generations": generations, "wall_ms": wall_ms, "device_busy_ms": busy,
           "device_idle_share": (1.0 - busy / wall_ms) if kernels
           else "not measured", "kernel_device": mine,
@@ -1248,8 +1512,8 @@ def phase_serve(torch, np, rdev):
     the same tokens.  Then mamba2-780m (48 SSD launches per request) and
     qwen3-0.6b (28 attention launches per request), 2 requests each.
     Every attention launch takes the tensor-core route (bf16)."""
-    none = {"gat_mp": 0, "gat_mp_bwd": 0, "memsim": 0, "flash_attention": 0,
-            "flash_attention_tc": 0, "ssd_scan": 0}
+    none = {"gat_mp": 0, "gat_mp_bwd": 0, "memsim": 0, "memsim_zoo": 0,
+            "flash_attention": 0, "flash_attention_tc": 0, "ssd_scan": 0}
     first = None
     for arch, requests, slots, max_new, lens, per in SERVE_RUNS:
         out, counts, finite, peak = run_serve(
@@ -1343,11 +1607,11 @@ def per_launch(tot):
 
 def run_egrl(torch, np, rdev, gen, regs_memsim):
     """Phases 3-8, the EGRL slices' paths; returns their kernel rows.
-    ``regs_memsim``: the simulator kernel's registers and spills."""
+    ``regs_memsim``: registers and spills of both simulator kernels."""
     from repro_torch.core import egrl, gnn, params, replay, sac
-    from repro_torch.graphs import zoo
+    from repro_torch.graphs import bucketed, zoo
     from repro_torch.kernels.gat_mp import ops
-    from repro_torch.memsim import compiler, simulator as sim
+    from repro_torch.memsim import batch as mb, compiler, simulator as sim
 
     masks = {name: torch.as_tensor(make().adjacency() > 0, device="cuda")
              for name, make in zoo.WORKLOADS.items()}
@@ -1359,13 +1623,20 @@ def run_egrl(torch, np, rdev, gen, regs_memsim):
     gat_path = phase_gat_path(torch, gnn, ops, params, feats, masks["bert"],
                               gen)
 
+    zoo_masks = {"+".join(b.names): b.adj > 0 for b in
+                 bucketed.build_bucketed_zoo(
+                     [make() for make in zoo.WORKLOADS.values()],
+                     device="cuda").buckets}
+    phase_gat_zoo(torch, gen, ops, zoo_masks)
+
     # 4. GAT backward kernel against its plain version
     phase_gat_bwd(torch, gen, ops, masks)
     bwd_path = phase_gat_path_bwd(torch, np, ops, sac, replay, feats,
                                   masks["bert"], gen)
 
-    # 5. simulator kernel against its plain version
+    # 5. simulator kernel against its plain version, and its zoo entry
     mem_path = phase_memsim(torch, zoo, sim, compiler, gen)
+    zoo_path = phase_memsim_zoo(torch, zoo, sim, mb, bucketed, gen)
 
     # 6. the slice: each run between a reset and a read of the counters
     runs = {}
@@ -1388,12 +1659,17 @@ def run_egrl(torch, np, rdev, gen, regs_memsim):
         check(best > 1.0, f"resnet50 {mode} best speedup {best} <= 1.0")
     check(runs["resnet50", "pg"]["sac_steps"] > 0, "pg mode never trained")
 
+    # the multi-workload path
+    zoo_runs = phase_zoo(torch, np, zoo, egrl, sim, compiler, rdev)
+    zoo_counts = zoo_runs["egrl"]["launches"]
+
     # 7. Greedy-DP, the simulator's heaviest caller
     greedy = phase_greedy(torch, np, rdev, zoo, sim, compiler)
 
     # 8. profile
     phase_profile(torch, egrl, zoo)
     phase_profile(torch, egrl, zoo, mode="egrl", generations=1)
+    phase_profile(torch, egrl, zoo, mode="egrl", generations=1, multi=True)
 
     ea = runs["bert", "ea"]["launches"]
     src = "the BERT egrl run (launches_ea: the BERT EA run)"
@@ -1409,6 +1685,7 @@ def run_egrl(torch, np, rdev, gen, regs_memsim):
          "library_ms": gat_path["library_ms"],
          "device_ms": gat_path["device_ms"],
          **per_launch(gat_path),
+         "launches_zoo_egrl": zoo_counts["gat_mp"],
          "per": "one population forward: 4 launches, BERT, P=16"},
         {"name": "gat_mp_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/gat_mp_bwd.cu",
@@ -1421,6 +1698,7 @@ def run_egrl(torch, np, rdev, gen, regs_memsim):
          "library_ms": bwd_path["library_ms"],
          "device_ms": bwd_path["device_ms"],
          **per_launch(bwd_path),
+         "launches_zoo_egrl": zoo_counts["gat_mp_bwd"],
          "per": "one SAC step: 8 calls (one CUDA launch each), BERT, B=24 "
                 "and B=1"},
         {"name": "memsim_evaluate", "route": "cuda",
@@ -1438,10 +1716,28 @@ def run_egrl(torch, np, rdev, gen, regs_memsim):
          "bound_share": mem_path["bound_share"],
          "sm_clock_mhz": mem_path["sm_clock_mhz"],
          "latency_reward_bit_equal": mem_path["latency_reward_bit_equal"],
-         **regs_memsim,
+         "launches_zoo_egrl": zoo_counts["memsim"],
+         **regs_memsim["memsim_kernel"],
          "per": "one population: 1 launch, BERT, P=20; bound_ms is the "
                 "roofline, latency_bound_ms the dependent chain (the "
-                "larger sets bound_share)"}]
+                "larger sets bound_share)"},
+        {"name": "memsim_evaluate_zoo", "route": "cuda",
+         "source": "src/repro_torch/csrc/memsim.cu",
+         "replaces": "src/repro/memsim/batch.py:79",
+         "launches": zoo_counts["memsim_zoo"],
+         "launches_ea": zoo_runs["ea"]["launches"]["memsim_zoo"],
+         "launches_from": "the 7-graph zoo egrl run, 3 generations "
+                          "(launches_ea: the zoo EA run)",
+         "max_abs_err": zoo_path["err"],
+         "ms": zoo_path["ms"], "plain_ms": zoo_path["plain_ms"],
+         "bound_ms": zoo_path["bound_ms"], "bound_by": zoo_path["bound_by"],
+         "library_ms": None, "device_ms": zoo_path["device_ms"],
+         "latency_bound_ms": zoo_path["latency_bound_ms"],
+         "bound_share": zoo_path["bound_share"],
+         "single_graph_device_ms": zoo_path["single_graph_device_ms"],
+         **regs_memsim["memsim_zoo_kernel"],
+         "per": "one bucket: 1 launch, moe_transformer + dense_cnn "
+                "(N_max 1043, W_max 126), P=20"}]
 
 
 def kernel_name(mangled):
@@ -1533,14 +1829,14 @@ def main(argv=None):
           f"ssd_scan: no compiler report for its 9 kernels: {regs}")
     for entry, info in regs["ssd_scan"].items():
         check(info["spill_bytes"] == 0, f"ssd_scan {entry} spills {info}")
-    check(list(regs.get("memsim", {})) == ["memsim_kernel"],
-          f"memsim: no compiler report for its kernel: {regs}")
-    memsim_regs = regs["memsim"]["memsim_kernel"]
-    check(memsim_regs["spill_bytes"] == 0, f"memsim_kernel spills "
-          f"{memsim_regs}")
+    check(sorted(regs.get("memsim", {})) == ["memsim_kernel",
+                                             "memsim_zoo_kernel"],
+          f"memsim: no compiler report for its two kernels: {regs}")
+    for entry, info in regs["memsim"].items():
+        check(info["spill_bytes"] == 0, f"{entry} spills {info}")
 
     gen = torch.Generator("cuda").manual_seed(0)
-    rows = run_egrl(torch, np, rdev, gen, memsim_regs)     # 3-8
+    rows = run_egrl(torch, np, rdev, gen, regs["memsim"])  # 3-8
     flash = phase_flash(torch, fops, gen)                  # 9
     ssd = phase_ssd(torch, sops, gen)                      # 10
     phase_serve_check(torch, rdev)                         # 11
@@ -1588,8 +1884,8 @@ def main(argv=None):
                 "bound_ms_tc in 3xTF32 on the tensor cores"}]
     for r in rows:
         r["launches_zamba2_serve"] = serve["launches"].get(
-            {"gat_mp_fwd": "gat_mp", "memsim_evaluate": "memsim"}.get(
-                r["name"], r["name"]))
+            {"gat_mp_fwd": "gat_mp", "memsim_evaluate": "memsim",
+             "memsim_evaluate_zoo": "memsim_zoo"}.get(r["name"], r["name"]))
     emit({"kernels": rows, "device": kind, "nvidia_smi": smi})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -24,11 +24,23 @@ and one generation is:
 Modes: "egrl" (full), "ea" (ablate PG), "pg" (ablate EA) -- the paper's
 agents.  The learner draws from a generator of its own, so the
 population's draws, and so "ea" mode's trajectory, do not depend on it.
+
+``ZooEGRL`` evolves one population against a zoo of workloads grouped
+into size buckets (``graphs/bucketed.py``): per bucket one population
+forward and one simulator launch for the population (one more for the
+PG rollouts), fitness an aggregate ("mean" / "worst",
+``REPRO_FITNESS_AGG``) of the per-graph rewards.  GNN genomes are the
+same flat vectors as ``EGRL``'s; Boltzmann genomes span the
+bucket-major padded node grid ``n_eff = sum_k G_k N_max_k``.  In
+"egrl" mode ``ZooSAC`` trains from a per-graph ``ReplayBank``.  The
+population code both classes share is ``_EvoPopulation``.
+``evaluate_gnn_on`` / ``evaluate_gnn_zoo`` score a trained genome
+zero-shot (Figure 5).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,12 +49,17 @@ from repro_torch.core import boltzmann as bz
 from repro_torch.core import ea as ea_mod
 from repro_torch.core import gnn
 from repro_torch.core import params as P_
-from repro_torch.core.replay import ReplayBuffer
-from repro_torch.core.sac import SACConfig, SACLearner
+from repro_torch.core.replay import ReplayBank, ReplayBuffer
+from repro_torch.core.sac import SACConfig, SACLearner, ZooSAC
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.graphs.batch import GraphBatch
+from repro_torch.graphs.bucketed import BucketedZoo, build_bucketed_zoo
 from repro_torch.graphs.graph import WorkloadGraph
+from repro_torch.memsim.batch import (aggregate_rewards,
+                                      evaluate_population_bucketed)
 from repro_torch.memsim.compiler import compiler_reference
 from repro_torch.memsim.simulator import build_sim_graph, evaluate_population
+from repro_torch.utils.envpolicy import env_policy
 
 
 @dataclasses.dataclass
@@ -77,18 +94,37 @@ class GenerationDraws:
     sac_noise: Optional[torch.Tensor] = None
 
 
+@dataclasses.dataclass
+class ZooGenerationDraws:
+    """Every random number one ``ZooEGRL`` generation uses: per bucket,
+    Gumbel noise for the GNN samples (n_g, G_k, N_max_k, 2, 3); Gumbel
+    noise for the Boltzmann samples over the bucket-major grid
+    (n_b, n_eff, 2, 3); the EA step's draws (over n_eff nodes); outside
+    "ea" mode, per bucket, the PG rollouts' Gumbel noise
+    (pg_rollouts, G_k, N_max_k, 2, 3) and the SAC action noise (one step
+    per rollout row, G_k, batch, N_max_k, 2, 3)."""
+    gumbel_g: Tuple[torch.Tensor, ...]
+    gumbel_b: torch.Tensor
+    evolve: ea_mod.EvolveDraws
+    gumbel_pg: Optional[Tuple[torch.Tensor, ...]] = None
+    sac_noise: Optional[Tuple[torch.Tensor, ...]] = None
+
+
 MODES = ("egrl", "ea", "pg")
 
 
-class EGRL:
-    def __init__(self, graph: WorkloadGraph, cfg: EGRLConfig = EGRLConfig(),
-                 mode: str = "egrl", device: DeviceLike = "cuda",
-                 generator: Optional[torch.Generator] = None):
+class _EvoPopulation:
+    """The population code ``EGRL`` and ``ZooEGRL`` share (JAX's
+    ``_EvoPopulation``): the device and generator, the fixed population
+    split and elite counts, the stacked genome init, the EA step and the
+    PG -> EA migration."""
+
+    def _setup(self, cfg: EGRLConfig, mode: str, device: DeviceLike,
+               generator: Optional[torch.Generator]):
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; choose one of "
                              f"{', '.join(MODES)}")
         self.device = resolve_device(device)
-        self.g = graph
         self.cfg = cfg
         self.mode = mode
         self.gen = (generator if generator is not None else
@@ -97,35 +133,10 @@ class EGRL:
             raise ValueError(f"generator on {self.gen.device}, driver on "
                              f"{self.device}")
 
-        self.feats = torch.as_tensor(graph.features(), device=self.device)
-        self.adj = torch.as_tensor(graph.adjacency() > 0, device=self.device)
-        self.sg = build_sim_graph(graph, self.device)
-        _, self.ref_latency = compiler_reference(graph, self.device)
-
-        self._split_population()
-        n_feat = self.feats.shape[1]
-        self.genome_size = P_.genome_size(P_.gnn_spec(n_feat))
-        self.gnn_pop = (torch.stack([P_.init_gnn(self.gen, n_feat)
-                                     for _ in range(self.n_g)])
-                        if self.n_g else
-                        torch.zeros((0, self.genome_size), device=self.device))
-        self.bz_pop = (torch.stack([bz.to_flat(*bz.init_boltzmann(
-            self.gen, graph.n)) for _ in range(self.n_b)]) if self.n_b else
-            torch.zeros((0, bz.flat_size(graph.n)), device=self.device))
-        self.learner = SACLearner(
-            self.feats, self.adj, cfg.sac,
-            torch.Generator(self.device).manual_seed(cfg.seed + 1))
-        self.buffer = ReplayBuffer(graph.n, seed=cfg.seed)
-
-        self.steps = 0
-        self.best_reward = -np.inf
-        self.best_mapping: Optional[np.ndarray] = None
-        self.history: List[Dict] = []
-
     def _split_population(self):
         """Fixed encoding slots (see core/ea.py): n_b Boltzmann + n_g GNN
         genomes whose counts never change; elites split proportionally
-        (Python's round, as the JAX driver)."""
+        (Python's round, as the JAX package)."""
         cfg = self.cfg
         if self.mode == "pg":
             self.n_g = self.n_b = 0
@@ -136,16 +147,74 @@ class EGRL:
             cfg.elites * self.n_g / max(cfg.pop_size, 1)))) if self.n_g else 0
         self.e_b = min(self.n_b, max(0, cfg.elites - self.e_g))
 
+    def _init_populations(self, n_features: int, bz_nodes: int):
+        """Stacked genomes from ``self.gen``: GNN (n_g, V) flat
+        parameters, then Boltzmann (n_b, F) flats over ``bz_nodes`` node
+        slots."""
+        self.genome_size = P_.genome_size(P_.gnn_spec(n_features))
+        self.gnn_pop = (torch.stack([P_.init_gnn(self.gen, n_features)
+                                     for _ in range(self.n_g)])
+                        if self.n_g else
+                        torch.zeros((0, self.genome_size), device=self.device))
+        self.bz_pop = (torch.stack([bz.to_flat(*bz.init_boltzmann(
+            self.gen, bz_nodes)) for _ in range(self.n_b)]) if self.n_b else
+            torch.zeros((0, bz.flat_size(bz_nodes)), device=self.device))
+
+    def _draw_evolve(self, n_nodes: int) -> ea_mod.EvolveDraws:
+        return ea_mod.draw_evolve(
+            self.gen, n_g=self.n_g, n_b=self.n_b, e_g=self.e_g, e_b=self.e_b,
+            genome_size=self.genome_size, n_nodes=n_nodes,
+            tournament_k=self.cfg.tournament_k)
+
+    def _evolve(self, fitness: torch.Tensor, logits_g: torch.Tensor,
+                draws: ea_mod.EvolveDraws, n_nodes: int):
+        """One EA step on the population's fitness (GNN rows first)."""
+        cfg = self.cfg
+        self.gnn_pop, self.bz_pop = ea_mod.evolve(
+            self.gnn_pop, fitness[:self.n_g], self.bz_pop,
+            fitness[self.n_g:], logits_g, draws, n_nodes=n_nodes,
+            e_g=self.e_g, e_b=self.e_b, crossover_prob=cfg.crossover_prob,
+            mut_prob=cfg.mut_prob, mut_frac=cfg.mut_frac,
+            mut_std=cfg.mut_std)
+
+    def _migrate(self):
+        """In "egrl" mode the actor's weights replace the last GNN genome,
+        the lowest-ranked child; when every GNN slot is an elite, elitism
+        wins."""
+        if self.mode == "egrl" and self.n_g > self.e_g:
+            self.gnn_pop[self.n_g - 1] = self.learner.actor
+
+
+class EGRL(_EvoPopulation):
+    def __init__(self, graph: WorkloadGraph, cfg: EGRLConfig = EGRLConfig(),
+                 mode: str = "egrl", device: DeviceLike = "cuda",
+                 generator: Optional[torch.Generator] = None):
+        self._setup(cfg, mode, device, generator)
+        self.g = graph
+        self.feats = torch.as_tensor(graph.features(), device=self.device)
+        self.adj = torch.as_tensor(graph.adjacency() > 0, device=self.device)
+        self.sg = build_sim_graph(graph, self.device)
+        _, self.ref_latency = compiler_reference(graph, self.device)
+
+        self._split_population()
+        self._init_populations(self.feats.shape[1], graph.n)
+        self.learner = SACLearner(
+            self.feats, self.adj, cfg.sac,
+            torch.Generator(self.device).manual_seed(cfg.seed + 1))
+        self.buffer = ReplayBuffer(graph.n, seed=cfg.seed)
+
+        self.steps = 0
+        self.best_reward = -np.inf
+        self.best_mapping: Optional[np.ndarray] = None
+        self.history: List[Dict] = []
+
     # --------------------------------------------------------- generation
     def draw_generation(self) -> GenerationDraws:
         n = self.g.n
         d = GenerationDraws(
             gnn.gumbel((self.n_g, n, 2, 3), self.gen),
             gnn.gumbel((self.n_b, n, 2, 3), self.gen),
-            ea_mod.draw_evolve(
-                self.gen, n_g=self.n_g, n_b=self.n_b, e_g=self.e_g,
-                e_b=self.e_b, genome_size=self.genome_size, n_nodes=n,
-                tournament_k=self.cfg.tournament_k))
+            self._draw_evolve(n))
         if self.mode != "ea":
             rollouts = self.cfg.pg_rollouts
             d.gumbel_pg = self.learner.draw_gumbel(rollouts)
@@ -175,13 +244,7 @@ class EGRL:
             parts.append((maps, evaluate_population(
                 self.sg, maps, self.ref_latency, cfg.reward_scale)))
         if n_pop:
-            reward = parts[0][1]["reward"]
-            self.gnn_pop, self.bz_pop = ea_mod.evolve(
-                self.gnn_pop, reward[:self.n_g], self.bz_pop,
-                reward[self.n_g:], logits_g, d.evolve, n_nodes=n,
-                e_g=self.e_g, e_b=self.e_b,
-                crossover_prob=cfg.crossover_prob, mut_prob=cfg.mut_prob,
-                mut_frac=cfg.mut_frac, mut_std=cfg.mut_std)
+            self._evolve(parts[0][1]["reward"], logits_g, d.evolve, n)
 
         # host copies, once the generation's device work is queued
         rewards = torch.cat([r["reward"] for _, r in parts]).cpu().numpy()
@@ -199,10 +262,7 @@ class EGRL:
             # one gradient step per rollout of this generation
             info = self.learner.update(self.buffer, len(maps_np),
                                        d.sac_noise)
-            # migration into the last GNN slot, the lowest-ranked child;
-            # when every GNN slot is an elite, elitism wins
-            if self.mode == "egrl" and self.n_g > self.e_g:
-                self.gnn_pop[self.n_g - 1] = self.learner.actor
+            self._migrate()
         rec = {
             "steps": self.steps,
             "gen_best_reward": float(rewards.max()),
@@ -245,3 +305,231 @@ class EGRL:
         if self.n_g:
             return self.gnn_pop[0].cpu().numpy()
         return self.learner.actor.cpu().numpy()
+
+
+class ZooEGRL(_EvoPopulation):
+    """Multi-workload EGRL: one population trained against a zoo of
+    workloads, every generation scored with one simulator launch per
+    size bucket (see the module docstring).  Steps count one per
+    (genome, graph); the best reward and mapping are kept per graph."""
+
+    def __init__(self, graphs: Sequence[WorkloadGraph],
+                 cfg: EGRLConfig = EGRLConfig(), mode: str = "ea",
+                 fitness_agg: Optional[str] = None,
+                 zoo: Optional[BucketedZoo] = None, buckets=None,
+                 device: DeviceLike = "cuda",
+                 generator: Optional[torch.Generator] = None):
+        """``zoo`` reuses a prebuilt ``BucketedZoo`` (or a flat
+        ``GraphBatch``, one bucket) on ``device``; ``buckets`` overrides
+        ``REPRO_ZOO_BUCKETS`` ("auto" / "off" / K); ``fitness_agg``
+        overrides ``REPRO_FITNESS_AGG`` ("mean" / "worst")."""
+        self._setup(cfg, mode, device, generator)
+        self.agg = env_policy("REPRO_FITNESS_AGG", choices=("mean", "worst"),
+                              default="mean", override=fitness_agg)
+        if isinstance(zoo, GraphBatch):
+            zoo = BucketedZoo.from_batch(zoo)
+        self.zoo = (zoo if zoo is not None
+                    else build_bucketed_zoo(graphs, buckets, self.device))
+        if self.zoo.device.type != self.device.type:
+            raise ValueError(f"zoo on {self.zoo.device}, the search on "
+                             f"{self.device}")
+        self.n_graphs = self.zoo.n_graphs
+        self.n_nodes = self.zoo.real_sizes()
+        self.n_eff = self.zoo.n_eff
+        self.masks = tuple(b.adj > 0 for b in self.zoo.buckets)
+        self._offs = np.concatenate(
+            [[0], np.cumsum([b.n_graphs * b.n_max
+                             for b in self.zoo.buckets])])
+
+        self._split_population()
+        self._init_populations(self.zoo.n_features, self.n_eff)
+        if mode == "ea":
+            self.learner, self.bank = None, None
+        else:
+            self.learner = ZooSAC(
+                self.zoo, cfg.sac,
+                torch.Generator(self.device).manual_seed(cfg.seed + 1))
+            self.bank = ReplayBank(self.zoo.node_slots, seed=cfg.seed)
+
+        self.steps = 0
+        self.best_reward = np.full(self.n_graphs, -np.inf)
+        self.best_mapping: List[Optional[np.ndarray]] = [None] * self.n_graphs
+        self.best_fitness = -np.inf
+        self.history: List[Dict] = []
+
+    def _split_grid(self, flat: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """(R, n_eff, ...) over the bucket-major grid -> per bucket
+        (R, G_k, N_max_k, ...)."""
+        return tuple(
+            flat[:, self._offs[k]:self._offs[k + 1]].reshape(
+                flat.shape[0], b.n_graphs, b.n_max, *flat.shape[2:])
+            for k, b in enumerate(self.zoo.buckets))
+
+    def population_logits(self, pop: torch.Tensor
+                          ) -> Tuple[torch.Tensor, ...]:
+        """(P, V) genomes -> per bucket (P, G_k, N_max_k, 2, 3)."""
+        return tuple(gnn.population_logits_zoo(pop, b.feats, mask,
+                                               b.node_mask, b.n_nodes)
+                     for b, mask in zip(self.zoo.buckets, self.masks))
+
+    # --------------------------------------------------------- generation
+    def draw_generation(self) -> ZooGenerationDraws:
+        d = ZooGenerationDraws(
+            tuple(gnn.gumbel((self.n_g, b.n_graphs, b.n_max, 2, 3),
+                             self.gen) for b in self.zoo.buckets),
+            gnn.gumbel((self.n_b, self.n_eff, 2, 3), self.gen),
+            self._draw_evolve(self.n_eff))
+        if self.mode != "ea":
+            rollouts = self.cfg.pg_rollouts
+            d.gumbel_pg = self.learner.draw_gumbel(rollouts)
+            d.sac_noise = self.learner.draw_noise(
+                self.n_g + self.n_b + rollouts)
+        return d
+
+    def generation(self, draws: Optional[ZooGenerationDraws] = None) -> Dict:
+        """One generation; ``draws`` (default: drawn from ``self.gen``)
+        fixes every random number it uses."""
+        cfg = self.cfg
+        d = self.draw_generation() if draws is None else draws
+        zoo, n_g, n_pop = self.zoo, self.n_g, self.n_g + self.n_b
+        parts = []                # (per-bucket mappings, simulator result)
+        logits_g = (self.population_logits(self.gnn_pop) if n_g else
+                    tuple(torch.zeros((0, b.n_graphs, b.n_max, 2, 3),
+                                      device=self.device)
+                          for b in zoo.buckets))
+        if n_pop:
+            maps_b = self._split_grid(bz.sample(
+                bz.from_flat(self.bz_pop, self.n_eff), d.gumbel_b))
+            maps = tuple(torch.cat([gnn.sample_actions(lg, gg), mb])
+                         .contiguous()
+                         for lg, gg, mb in zip(logits_g, d.gumbel_g, maps_b))
+            parts.append((maps, evaluate_population_bucketed(
+                zoo, maps, cfg.reward_scale)))
+        if self.mode != "ea":
+            maps = tuple(m.contiguous() for m in self.learner.explore_actions(
+                cfg.pg_rollouts, d.gumbel_pg))
+            parts.append((maps, evaluate_population_bucketed(
+                zoo, maps, cfg.reward_scale)))
+        fit = [aggregate_rewards(r["reward"], self.agg) for _, r in parts]
+        if n_pop:
+            # Boltzmann seeding grid: bucket-major (n_g, n_eff, 2, 3)
+            grid = torch.cat([lg.reshape(n_g, -1, 2, 3) for lg in logits_g],
+                             dim=1)
+            self._evolve(fit[0], grid, d.evolve, self.n_eff)
+
+        # host copies, once the generation's device work is queued
+        rewards = torch.cat([r["reward"] for _, r in parts]).cpu().numpy()
+        fitness = torch.cat(fit).cpu().numpy()
+        valid = torch.cat([r["valid"] for _, r in parts]).cpu().numpy()
+        maps_np = [torch.cat([m[k] for m, _ in parts]).cpu().numpy()
+                   for k in range(zoo.n_buckets)]     # (R, G_k, N_max_k, 2)
+        self.steps += rewards.size          # one per (genome, graph)
+        acts_by_graph = [maps_np[zoo.graph_bucket[gi]][:, zoo.graph_slot[gi]]
+                         for gi in range(self.n_graphs)]
+        for gi in range(self.n_graphs):
+            b = int(np.argmax(rewards[:, gi]))
+            if rewards[b, gi] > self.best_reward[gi]:
+                self.best_reward[gi] = float(rewards[b, gi])
+                self.best_mapping[gi] = acts_by_graph[gi][
+                    b, :self.n_nodes[gi]].copy()
+        self.best_fitness = max(self.best_fitness, float(fitness.max()))
+
+        info = {}
+        if self.mode != "ea":
+            for gi in range(self.n_graphs):
+                self.bank.add_graph(gi, acts_by_graph[gi], rewards[:, gi])
+            # one zoo-wide gradient step per rollout row
+            info = self.learner.update(self.bank, len(rewards), d.sac_noise)
+            self._migrate()
+        rec = {
+            "steps": self.steps,
+            "gen_best_fitness": float(fitness.max()),
+            "gen_mean_fitness": float(fitness.mean()),
+            "best_fitness": self.best_fitness,
+            "valid_frac": float(valid.mean()),
+            "best_reward_per_graph": {
+                name: float(self.best_reward[i])
+                for i, name in enumerate(zoo.names)},
+            **info,
+        }
+        self.history.append(rec)
+        return rec
+
+    def train(self, total_steps: Optional[int] = None, log=None):
+        total = total_steps or self.cfg.total_steps
+        while self.steps < total:
+            rec = self.generation()
+            if log and len(self.history) % 10 == 1:
+                log(f"[zoo/{self.agg}] steps {rec['steps']:6d} "
+                    f"best fitness {rec['best_fitness']:.3f} "
+                    f"valid {rec['valid_frac']:.2f}")
+        return self.history
+
+    def best_gnn_vec(self) -> Optional[np.ndarray]:
+        """Flat params of the best GNN after a generation (row 0), else
+        the ZooSAC actor's ("pg" mode), else None."""
+        if self.n_g:
+            return self.gnn_pop[0].cpu().numpy()
+        if self.learner is not None:
+            return self.learner.actor.cpu().numpy()
+        return None
+
+
+def evaluate_gnn_on(graph: WorkloadGraph, vec, n_features: int = None,
+                    samples: int = 8, seed: int = 0,
+                    gumbel: Optional[torch.Tensor] = None,
+                    device: DeviceLike = "cuda") -> float:
+    """Zero-shot transfer (Figure 5): a trained GNN genome on another
+    workload; the best speedup over ``samples`` Gumbel rollouts and the
+    greedy one.  ``gumbel`` (samples, N, 2, 3) fixes the draws (default:
+    a generator seeded ``seed``).  ``n_features`` is the JAX signature's;
+    the genome's width fixes it."""
+    dev = resolve_device(device)
+    feats = torch.as_tensor(graph.features(), device=dev)
+    mask = torch.as_tensor(graph.adjacency() > 0, device=dev)
+    vec = torch.tensor(np.asarray(vec, np.float32), device=dev)
+    if gumbel is None:
+        gumbel = gnn.gumbel((samples, graph.n, 2, 3),
+                            torch.Generator(dev).manual_seed(seed))
+    with torch.no_grad():
+        logits = gnn.gnn_forward(vec, feats, mask)
+        acts = torch.cat([gnn.sample_actions(logits[None], gumbel),
+                          gnn.greedy_actions(logits)[None]]).contiguous()
+        sg = build_sim_graph(graph, dev)
+        _, ref = compiler_reference(graph, dev)
+        res = evaluate_population(sg, acts, ref)
+    return float(res["speedup"].max())
+
+
+def evaluate_gnn_zoo(graphs: Sequence[WorkloadGraph], vec,
+                     samples: int = 8, seed: int = 0, batch=None,
+                     gumbel: Optional[Sequence[torch.Tensor]] = None,
+                     device: DeviceLike = "cuda") -> Dict[str, float]:
+    """Zero-shot transfer (Figure 5) over a zoo, bucket by bucket: one
+    masked forward and one simulator launch per bucket score ``samples``
+    Gumbel rollouts and the greedy mapping on every graph.  Returns
+    {graph name: best speedup} in zoo order.  ``batch`` reuses a
+    ``BucketedZoo`` (or a flat ``GraphBatch``); ``gumbel`` fixes the
+    draws, per bucket (samples, G_k, N_max_k, 2, 3) (default: a
+    generator seeded ``seed``)."""
+    if batch is None:
+        zoo = build_bucketed_zoo(graphs, device=resolve_device(device))
+    elif isinstance(batch, GraphBatch):
+        zoo = BucketedZoo.from_batch(batch)
+    else:
+        zoo = batch
+    dev = zoo.device
+    vec = torch.tensor(np.asarray(vec, np.float32), device=dev)
+    if gumbel is None:
+        gen = torch.Generator(dev).manual_seed(seed)
+        gumbel = [gnn.gumbel((samples, b.n_graphs, b.n_max, 2, 3), gen)
+                  for b in zoo.buckets]
+    with torch.no_grad():
+        acts = tuple(
+            torch.cat([gnn.sample_actions(lg[None], g),
+                       gnn.greedy_actions(lg)[None]]).contiguous()
+            for lg, g in zip(gnn.gnn_forward_bucketed(vec, zoo.buckets),
+                             gumbel))
+        res = evaluate_population_bucketed(zoo, acts)    # (S + 1, G)
+    best = res["speedup"].amax(dim=0).cpu().numpy()
+    return {name: float(best[i]) for i, name in enumerate(zoo.names)}

@@ -15,6 +15,20 @@ constexpr int SWEEP = 32 * 16;   // mask bytes a warp reads per sweep
 constexpr float MASKED = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
+// The mask of batch element b: `adj` holds `count` masks of N x N bytes,
+// `bstride` bytes apart, and element b reads mask (b / rep) % count.  One
+// mask shared by the batch is count 1; one per element, rep 1 and count
+// B; one per graph of a zoo bucket shared by the P genomes of a
+// population laid out genome-major (b = p G + g), rep 1 and count G, or
+// by the T transitions of a critic batch laid out graph-major
+// (b = g T + t), rep T and count G.
+__device__ __forceinline__ const unsigned char* batch_mask(
+    const unsigned char* adj, long long bstride, int rep, int count, int b) {
+  // (the shared mask skips the division: with it ptxas spilled in
+  // gat_fwd_kernel<8>)
+  return count == 1 ? adj : adj + (long long)((b / rep) % count) * bstride;
+}
+
 __device__ __forceinline__ float leaky(float x) {
   return x >= 0.f ? x : 0.2f * x;
 }

@@ -55,7 +55,7 @@ __global__ void __launch_bounds__(32 * WARPS)
 gat_fwd_kernel(const float* __restrict__ z, const float* __restrict__ e_src,
                const float* __restrict__ e_dst,
                const unsigned char* __restrict__ adj, long long adj_bstride,
-               float* __restrict__ out, float* __restrict__ m_out,
+               int adj_rep, int adj_count, float* __restrict__ out, float* __restrict__ m_out,
                float* __restrict__ l_out, int N, int H) {
   __shared__ unsigned short cols[WARPS][SWEEP];
   __shared__ float ps[WARPS][32 * HP];  // p of chunk edge k, head h
@@ -78,7 +78,8 @@ gat_fwd_kernel(const float* __restrict__ z, const float* __restrict__ e_src,
     acc[h] = 0.f;
   }
   float l = 0.f;                  // of this lane's head
-  const MaskRow row(adj + b * adj_bstride + (size_t)i * N, N);
+  const MaskRow row(
+      batch_mask(adj, adj_bstride, adj_rep, adj_count, b) + (size_t)i * N, N);
   int edges = 0;
   for (int s = 0; s < row.sweeps(); ++s) {
     const int cnt = row.compact(s, lane, cols[warp]);
@@ -146,11 +147,13 @@ gat_fwd_kernel(const float* __restrict__ z, const float* __restrict__ e_src,
 
 template <int HP>
 int launch(const float* z, const float* e_src, const float* e_dst,
-           const unsigned char* adj, long long adj_bstride, float* out,
-           float* m, float* l, int B, int N, int H, cudaStream_t stream) {
+           const unsigned char* adj, long long adj_bstride, int adj_rep,
+           int adj_count, float* out, float* m, float* l, int B, int N, int H,
+           cudaStream_t stream) {
   const dim3 grid((N + WARPS - 1) / WARPS, B);
   gat_fwd_kernel<HP><<<grid, 32 * WARPS, 0, stream>>>(
-      z, e_src, e_dst, adj, adj_bstride, out, m, l, N, H);
+      z, e_src, e_dst, adj, adj_bstride, adj_rep, adj_count, out, m, l, N,
+      H);
   return (int)cudaGetLastError();
 }
 
@@ -158,16 +161,22 @@ int launch(const float* z, const float* e_src, const float* e_dst,
 
 extern "C" int gat_mp_fwd(const float* z, const float* e_src,
                           const float* e_dst, const unsigned char* adj,
-                          long long adj_bstride, float* out, float* m,
-                          float* l, int B, int N, int H, void* stream) {
-  if (H < 1 || H > MAX_HEADS || B < 1 || N < 1 || B > 65535)
+                          long long adj_bstride, int adj_rep,
+                          int adj_count, float* out, float* m, float* l,
+                          int B, int N, int H, void* stream) {
+  if (H < 1 || H > MAX_HEADS || B < 1 || N < 1 || B > 65535 || adj_rep < 1 ||
+      adj_count < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (H == 1) return launch<1>(z, e_src, e_dst, adj, adj_bstride, out, m, l,
-                               B, N, H, s);
-  if (H == 2) return launch<2>(z, e_src, e_dst, adj, adj_bstride, out, m, l,
-                               B, N, H, s);
-  if (H <= 4) return launch<4>(z, e_src, e_dst, adj, adj_bstride, out, m, l,
-                               B, N, H, s);
-  return launch<8>(z, e_src, e_dst, adj, adj_bstride, out, m, l, B, N, H, s);
+  if (H == 1)
+    return launch<1>(z, e_src, e_dst, adj, adj_bstride, adj_rep, adj_count,
+                     out, m, l, B, N, H, s);
+  if (H == 2)
+    return launch<2>(z, e_src, e_dst, adj, adj_bstride, adj_rep, adj_count,
+                     out, m, l, B, N, H, s);
+  if (H <= 4)
+    return launch<4>(z, e_src, e_dst, adj, adj_bstride, adj_rep, adj_count,
+                     out, m, l, B, N, H, s);
+  return launch<8>(z, e_src, e_dst, adj, adj_bstride, adj_rep, adj_count,
+                   out, m, l, B, N, H, s);
 }

@@ -104,6 +104,7 @@ struct Args {
   const float* __restrict__ e_dst;
   const unsigned char* __restrict__ adj;
   long long adj_bstride;
+  int adj_rep, adj_count;
   const float* __restrict__ m;
   const float* __restrict__ l;
   const float* __restrict__ out;
@@ -155,7 +156,8 @@ __device__ void columns(const Args& a, ColSmem<HP>& sm, int cb) {
   const int lane = threadIdx.x & 31;
   const int N = a.N, H = a.H, D = H * HD;
   const size_t nb = (size_t)blockIdx.y * N;
-  const unsigned char* ab = a.adj + blockIdx.y * a.adj_bstride;
+  const unsigned char* ab =
+      batch_mask(a.adj, a.adj_bstride, a.adj_rep, a.adj_count, blockIdx.y);
   const int j0 = cb * WARPS;
   const int ncols = min(WARPS, N - j0);
   const int j = j0 + warp;
@@ -271,7 +273,10 @@ __device__ void rows(const Args& a, RowSmem<HP>& sm, int rb) {
   me.load(a.g + r * D, gi, lane);
   me.load(a.out + r * D, oi, lane);
   float acc = 0.f;  // this lane's share of de_src of its head
-  const MaskRow row(a.adj + blockIdx.y * a.adj_bstride + (size_t)i * N, N);
+  const MaskRow row(batch_mask(a.adj, a.adj_bstride, a.adj_rep, a.adj_count,
+                               blockIdx.y) +
+                        (size_t)i * N,
+                    N);
   for (int s = 0; s < row.sweeps(); ++s) {
     const int cnt = row.compact(s, lane, sm.cols[warp]);
     __syncwarp();
@@ -337,13 +342,16 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 
 extern "C" int gat_mp_bwd(const float* z, const float* e_src,
                           const float* e_dst, const unsigned char* adj,
-                          long long adj_bstride, const float* m,
+                          long long adj_bstride, int adj_rep,
+                          int adj_count, const float* m,
                           const float* l, const float* out, const float* g,
                           float* dz, float* de_src, float* de_dst, int B,
                           int N, int H, void* stream) {
-  if (H < 1 || H > MAX_HEADS || B < 1 || N < 1 || B > 65535)
+  if (H < 1 || H > MAX_HEADS || B < 1 || N < 1 || B > 65535 || adj_rep < 1 ||
+      adj_count < 1)
     return (int)cudaErrorInvalidValue;
-  const Args a{z, e_src, e_dst, adj, adj_bstride, m, l, out, g,
+  const Args a{z, e_src, e_dst, adj, adj_bstride, adj_rep, adj_count,
+               m, l, out, g,
                dz, de_src, de_dst, N, H};
   cudaStream_t s = (cudaStream_t)stream;
   if (H == 1) return launch<1>(a, B, s);

@@ -7,6 +7,14 @@
 // mappings in `evaluate_population` (:286).  PyTorch has no scan, and a
 // per-step loop of tensor ops launches O(N) kernels per evaluation.
 //
+// Two entries share the block's body (`memsim_block`): `memsim_evaluate`
+// (`memsim_kernel`) takes one graph, `memsim_evaluate_zoo`
+// (`memsim_zoo_kernel`) one bucket of padded graphs of
+// src/repro/memsim/batch.py (`evaluate_population_zoo`, :79, a vmap of
+// the scan over the bucket): its grid is (mapping group, graph), and each
+// block builds its graph's descriptor (pointers into the stacked arrays,
+// real N, total_bytes, ref_latency) from the block's graph index.
+//
 // What bounds it: latency.  A rectify step depends on the free-byte
 // counters the step before it left, so one mapping is N steps of one
 // dependent chain, whatever the card's rates (on an H100 the roofline
@@ -118,11 +126,30 @@ struct Consts {
 };
 
 struct Outs {
-  const int* maps;                     // (P, N, 2) int32
+  const int* maps;                     // mapping p's (N, 2) int32 tiers at
+                                       // maps + 2 * p * row
   int P, M;                            // mappings; per block
+  size_t row;                          // nodes from one mapping's row to
+                                       // the next
+  int stride;                          // mapping p's scalars at [p * stride]
+  int n_rows;                          // rows of rect per mapping (>= N;
+                                       // those past N are written 0)
   float *reward, *eps, *lat, *speedup;
   unsigned char* valid;
-  int* rect;                           // (P, N, 2) int32
+  int* rect;                           // laid out as maps
+};
+
+// One bucket of padded graphs (the zoo entry): G graphs stacked at
+// N_max nodes each, the ring W wide and max_in fan-in columns for all
+struct Zoo {
+  const float *wb, *wf, *ab, *flops;   // (G, N_max)
+  const int *ring_t, *ring_lc;         // (G, N_max)
+  const float* self_rel;               // (G, N_max)
+  const int* in_acts;                  // (G, N_max, max_in)
+  const float* total_bytes;            // (G,)
+  const int* n_nodes;                  // (G,) real nodes
+  const float* ref_latency;            // (G,)
+  int max_in, N_max, W;
 };
 
 // byte offsets of the dynamic shared memory, from the launch's shapes
@@ -237,8 +264,9 @@ __device__ __forceinline__ uint32_t step(const float4 nd, const int2 off,
   return code;
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
-    memsim_kernel(const Graph g, const Consts c, const Outs o) {
+// The block's work: mappings p0.. of group blockIdx.x on graph g
+__device__ __forceinline__ void memsim_block(const Graph& g, const Consts& c,
+                                             const Outs& o) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float4 node_s[2][TN + 4];   // + 4: the walker reads a group
   __shared__ int2 off_s[2][TN + 4];      // ahead, unused past the tile
@@ -276,7 +304,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int k = ht + u * HELPER_THREADS, p = k / (TN / 4),
                 q = k % (TN / 4);
       const int2* mp = reinterpret_cast<const int2*>(o.maps) +
-                       (size_t)(p0 + p) * N + t0 + 4 * q;
+                       (size_t)(p0 + p) * o.row + t0 + 4 * q;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         m[u][j] = (p < Mb && 4 * q + j < cnt) ? mp[j] : make_int2(0, 0);
@@ -410,7 +438,8 @@ __global__ void __launch_bounds__(THREADS, 1)
           const int p = k / TN, j = k % TN;
           if (j < cnt) {
             const uint32_t code = tier_of(rect_s, M, t0 + j, p);
-            reinterpret_cast<int2*>(o.rect)[(size_t)(p0 + p) * N + t0 + j] =
+            reinterpret_cast<int2*>(o.rect)[(size_t)(p0 + p) * o.row + t0 +
+                                            j] =
                 make_int2((int)(code & 3), (int)(code >> 2));
           }
         }
@@ -429,8 +458,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     __syncthreads();
   }
 
+  // rows past the graph's nodes (a padded graph of the zoo entry): 0
+  const int pad = o.n_rows - N;
+  if (helper && pad > 0)
+    for (int k = ht; k < Mb * pad; k += HELPER_THREADS)
+      reinterpret_cast<int2*>(o.rect)[(size_t)(p0 + k / pad) * o.row + N +
+                                      k % pad] = make_int2(0, 0);
   if (helper && h == 0 && lane < Mb) {
-    const int p = p0 + lane;
+    const int p = (p0 + lane) * o.stride;
     const float eps = moved_s[lane] / fmaxf(*g.total_bytes, 1.f);
     const bool valid = eps <= 0.f;
     const float speedup = c.ref_latency / lat;
@@ -440,6 +475,63 @@ __global__ void __launch_bounds__(THREADS, 1)
     o.speedup[p] = valid ? speedup : 0.f;
     o.valid[p] = valid ? 1 : 0;
   }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+    memsim_kernel(const Graph g, const Consts c, const Outs o) {
+  memsim_block(g, c, o);
+}
+
+// One bucket of the zoo in one launch: block (x, y) takes mapping group
+// x on graph y.  The block walks only the graph's real nodes: the steps
+// over its padded nodes (zero bytes, self-releasing) would be IEEE
+// identities (src/repro/graphs/batch.py), so walking them would change no
+// bit; the latency sum skips their terms, which the reference multiplies
+// by a 0 mask, for the same reason.  Padded rows of `rect` are written 0.
+__global__ void __launch_bounds__(THREADS, 1)
+    memsim_zoo_kernel(const Zoo z, const Consts c, const Outs o) {
+  const int gi = blockIdx.y;
+  const size_t n0 = (size_t)gi * z.N_max;
+  const Graph g{z.wb + n0, z.wf + n0, z.ab + n0, z.flops + n0,
+                z.ring_t + n0, z.ring_lc + n0, z.self_rel + n0,
+                z.in_acts + n0 * z.max_in, z.total_bytes + gi, z.max_in,
+                z.n_nodes[gi], z.W};
+  Consts cg = c;
+  cg.ref_latency = z.ref_latency[gi];
+  Outs og = o;
+  og.maps = o.maps + 2 * n0;
+  og.rect = o.rect + 2 * n0;
+  og.reward = o.reward + gi;
+  og.eps = o.eps + gi;
+  og.lat = o.lat + gi;
+  og.speedup = o.speedup + gi;
+  og.valid = o.valid + gi;
+  memsim_block(g, cg, og);
+}
+
+// static shared memory: node records, ring offsets and tier words, two
+// tiles each
+constexpr size_t STATIC_SMEM = 2 * (TN + 4) * (16 + 8) + 2 * LANES * TW * 4;
+
+// Mappings per block M, blocks over the mappings and dynamic shared
+// memory for P mappings of graphs up to (N, W, max_in); static and
+// dynamic shared memory together stay within the block's 227 KB.  Sets
+// the kernel's dynamic limit where the two pass 48 KB.  Returns a CUDA
+// error code.
+template <typename K>
+int configure(K kernel, int N, int W, int max_in, int P, int& M, int& blocks,
+              size_t& smem) {
+  const size_t max_dyn = 232448 - STATIC_SMEM;
+  blocks = (P + LANES - 1) / LANES;
+  M = (P + blocks - 1) / blocks;
+  while (M > 1 && layout(N, W, max_in, M).bytes > max_dyn) M = (M + 1) / 2;
+  smem = layout(N, W, max_in, M).bytes;
+  if (smem > max_dyn) return (int)cudaErrorInvalidValue;
+  blocks = (P + M - 1) / M;
+  if (STATIC_SMEM + smem > 48 * 1024)
+    return (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  return 0;
 }
 
 }  // namespace
@@ -454,28 +546,48 @@ extern "C" int memsim_evaluate(
     float* speedup, unsigned char* valid, int* rect, void* stream) {
   if (P < 1 || N < 1 || W < 1 || max_in < 1)
     return (int)cudaErrorInvalidValue;
-  // static shared memory: node records, ring offsets and tier words, two
-  // tiles each
-  const size_t static_smem = 2 * (TN + 4) * (16 + 8) + 2 * LANES * TW * 4;
-  const size_t max_dyn = 232448 - static_smem;
-  int blocks = (P + LANES - 1) / LANES;
-  int M = (P + blocks - 1) / blocks;
-  while (M > 1 && layout(N, W, max_in, M).bytes > max_dyn) M = (M + 1) / 2;
-  const size_t smem = layout(N, W, max_in, M).bytes;
-  if (smem > max_dyn) return (int)cudaErrorInvalidValue;
-  blocks = (P + M - 1) / M;
-  if (static_smem + smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        memsim_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  int M, blocks;
+  size_t smem;
+  const int e = configure(memsim_kernel, N, W, max_in, P, M, blocks, smem);
+  if (e) return e;
   const Graph g{wb, wf, ab, flops, ring_t, ring_lc, self_rel, in_acts,
                 total_bytes, max_in, N, W};
   const Consts c{cap0, cap1, cap2, bw0, bw1, bw2, comp_denom, overhead,
                  ref_latency, reward_scale};
-  const Outs o{mappings, P, M, reward, eps, lat, speedup, valid, rect};
+  const Outs o{mappings, P, M, (size_t)N, 1, N, reward, eps, lat, speedup,
+               valid, rect};
   memsim_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(g, c, o);
+  return (int)cudaGetLastError();
+}
+
+// One bucket of G padded graphs (N_max nodes, ring W, max_in columns
+// each; n_nodes real ones) for P mappings in one launch.  mappings and
+// rect are (P, G, N_max, 2) int32; reward, eps, lat, speedup and valid
+// (P, G).  Shared memory is sized once from (N_max, W, max_in).
+extern "C" int memsim_evaluate_zoo(
+    const float* wb, const float* wf, const float* ab, const float* flops,
+    const int* ring_t, const int* ring_lc, const float* self_rel,
+    const int* in_acts, const float* total_bytes, const int* n_nodes,
+    const float* ref_latency, int max_in, int N_max, int W, int G,
+    float cap0, float cap1, float cap2, float bw0, float bw1, float bw2,
+    float comp_denom, float overhead, float reward_scale,
+    const int* mappings, int P, float* reward, float* eps, float* lat,
+    float* speedup, unsigned char* valid, int* rect, void* stream) {
+  if (P < 1 || N_max < 1 || W < 1 || max_in < 1 || G < 1 || G > 65535)
+    return (int)cudaErrorInvalidValue;
+  int M, blocks;
+  size_t smem;
+  const int e =
+      configure(memsim_zoo_kernel, N_max, W, max_in, P, M, blocks, smem);
+  if (e) return e;
+  const Zoo z{wb, wf, ab, flops, ring_t, ring_lc, self_rel, in_acts,
+              total_bytes, n_nodes, ref_latency, max_in, N_max, W};
+  const Consts c{cap0, cap1, cap2, bw0, bw1, bw2, comp_denom, overhead,
+                 0.f, reward_scale};
+  const Outs o{mappings, P, M, (size_t)G * N_max, G, N_max, reward, eps,
+               lat, speedup, valid, rect};
+  memsim_zoo_kernel<<<dim3(blocks, G), THREADS, smem,
+                      (cudaStream_t)stream>>>(z, c, o);
   return (int)cudaGetLastError();
 }
 

@@ -32,11 +32,12 @@ def _counters():
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.gat_mp import ops as gat_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
-    from repro_torch.memsim import simulator
+    from repro_torch.memsim import batch, simulator
     flash = flash_ops.flash_attention
     return {"gat_mp": (gat_ops.gat_mp, "launches"),
             "gat_mp_bwd": (gat_ops.gat_mp_bwd, "launches"),
             "memsim": (simulator.evaluate_population, "launches"),
+            "memsim_zoo": (batch.evaluate_population_zoo, "launches"),
             "flash_attention": (flash, "launches"),
             "flash_attention_tc": (flash, "tensor_core_launches"),
             "ssd_scan": (ssd_ops.ssd_scan, "launches")}
@@ -47,7 +48,8 @@ def launch_counts() -> Dict[str, int]:
     one where it launches its CUDA kernel and nowhere else, so a run on
     CPU tensors leaves every count at 0.  "flash_attention" counts both
     attention kernels, "flash_attention_tc" those of the tensor-core
-    kernel among them."""
+    kernel among them; "memsim" the single-graph simulator entry,
+    "memsim_zoo" its zoo entry (one launch per bucket)."""
     return {name: getattr(fn, attr)
             for name, (fn, attr) in _counters().items()}
 

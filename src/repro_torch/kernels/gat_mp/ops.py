@@ -31,23 +31,38 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 KERNEL_HEAD_DIM = 32    # features per head the kernels take
 KERNEL_MAX_HEADS = 8
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                      ctypes.c_int]
              + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                          ctypes.c_int]
                  + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                  + [ctypes.c_void_p])
 
 
-def gat_mp_plain(z, e_src, e_dst, adj):
+def batch_masks(adj, B, rep=1):
+    """The bool mask of every batch element, (1 or B, N, N): element b
+    reads mask (b // rep) % G of adj (G, N, N).  Materialises B masks only
+    where G is neither 1 nor B (the plain versions' form)."""
+    mask = adj.bool()
+    G = adj.shape[0]
+    if G == 1 or (G == B and rep == 1):
+        return mask
+    idx = (torch.arange(B, device=adj.device) // rep) % G
+    return mask[idx]
+
+
+def gat_mp_plain(z, e_src, e_dst, adj, rep=1):
     """Plain PyTorch version, any device: dense (B, N, N, H) scores.
 
-    z (B, N, D) f32; e_src / e_dst (B, N, H) f32; adj (1 or B, N, N)
-    bool mask.  Returns (out (B, N, D), m (B, N, H), l (B, N, H))."""
+    z (B, N, D) f32; e_src / e_dst (B, N, H) f32; adj (G, N, N) bool
+    mask, element b reading mask (b // rep) % G.  Returns (out (B, N, D),
+    m (B, N, H), l (B, N, H))."""
     B, N, D = z.shape
     H = e_src.shape[-1]
     pre = e_src[:, :, None, :] + e_dst[:, None, :, :]          # (B, N, N, H)
     s = torch.where(pre >= 0, pre, 0.2 * pre)
-    s = torch.where(adj.bool()[..., None], s, NEG_INF)
+    s = torch.where(batch_masks(adj, B, rep)[..., None], s, NEG_INF)
     m = s.amax(dim=2)                                           # (B, N, H)
     p = torch.exp(s - m[:, :, None, :])
     l = p.sum(dim=2)
@@ -57,10 +72,10 @@ def gat_mp_plain(z, e_src, e_dst, adj):
     return out, m, l
 
 
-def _check(z, e_src, e_dst, adj):
+def _check(z, e_src, e_dst, adj, rep=1):
     if z.dim() != 3 or e_src.dim() != 3 or adj.dim() != 3:
         raise ValueError("gat_mp takes z (B, N, D), e_src/e_dst (B, N, H) "
-                         "and adj (1 or B, N, N)")
+                         "and adj (G, N, N)")
     B, N, D = z.shape
     H = e_src.shape[-1]
     if e_src.shape != (B, N, H) or e_dst.shape != (B, N, H):
@@ -68,9 +83,12 @@ def _check(z, e_src, e_dst, adj):
                          f"{tuple(e_dst.shape)} must be {(B, N, H)}")
     if D % H:
         raise ValueError(f"D={D} is not a multiple of H={H}")
-    if adj.shape[1:] != (N, N) or adj.shape[0] not in (1, B):
-        raise ValueError(f"adj {tuple(adj.shape)} must be (1 or {B}, {N}, "
-                         f"{N})")
+    G = adj.shape[0]
+    if (adj.shape[1:] != (N, N) or G < 1 or not isinstance(rep, int)
+            or rep < 1 or (G > 1 and B % (G * rep))):
+        raise ValueError(f"adj {tuple(adj.shape)} with rep={rep!r} must be "
+                         f"(G, {N}, {N}) with G = 1 or G * rep dividing "
+                         f"B = {B}")
     for name, x in (("z", z), ("e_src", e_src), ("e_dst", e_dst)):
         if x.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {x.dtype}")
@@ -102,13 +120,15 @@ def _kernel_inputs(z, e_src, named, aligned):
         raise ValueError(f"batch {B} exceeds the kernel grid")
 
 
-def _mask_args(adj):
+def _mask_args(adj, rep):
+    """(mask bytes, stride between masks, rep, count) for the kernels:
+    element b reads mask (b // rep) % count."""
     mask = adj.view(torch.uint8) if adj.dtype == torch.bool else adj
-    N = adj.shape[-1]
-    return mask, (0 if adj.shape[0] == 1 else N * N)
+    N, G = adj.shape[-1], adj.shape[0]
+    return mask, (0 if G == 1 else N * N), rep, G
 
 
-def _launch(z, e_src, e_dst, adj):
+def _launch(z, e_src, e_dst, adj, rep=1):
     B, N, D = z.shape
     H = e_src.shape[-1]
     _kernel_inputs(z, e_src, (("z", z), ("e_src", e_src), ("e_dst", e_dst),
@@ -117,10 +137,10 @@ def _launch(z, e_src, e_dst, adj):
     out = torch.empty_like(z)
     m = torch.empty_like(e_src)
     l = torch.empty_like(e_src)
-    mask, stride = _mask_args(adj)
+    mask, stride, rep, count = _mask_args(adj, rep)
     err = build.cuda_call(
         fn, z, z.data_ptr(), e_src.data_ptr(), e_dst.data_ptr(),
-        mask.data_ptr(), stride, out.data_ptr(), m.data_ptr(),
+        mask.data_ptr(), stride, rep, count, out.data_ptr(), m.data_ptr(),
         l.data_ptr(), B, N, H)
     if err:
         raise RuntimeError(f"gat_mp kernel launch failed: CUDA error {err}")
@@ -128,10 +148,10 @@ def _launch(z, e_src, e_dst, adj):
     return out, m, l
 
 
-def _forward(z, e_src, e_dst, adj):
+def _forward(z, e_src, e_dst, adj, rep):
     if z.device.type == "cpu":
-        return gat_mp_plain(z, e_src, e_dst, adj)
-    return _launch(z, e_src, e_dst, adj)
+        return gat_mp_plain(z, e_src, e_dst, adj, rep)
+    return _launch(z, e_src, e_dst, adj, rep)
 
 
 class _GatMP(torch.autograd.Function):
@@ -140,43 +160,46 @@ class _GatMP(torch.autograd.Function):
     not differentiable outputs."""
 
     @staticmethod
-    def forward(ctx, z, e_src, e_dst, adj):
-        out, m, l = _forward(z, e_src, e_dst, adj)
+    def forward(ctx, z, e_src, e_dst, adj, rep):
+        out, m, l = _forward(z, e_src, e_dst, adj, rep)
         ctx.set_materialize_grads(False)
         ctx.mark_non_differentiable(m, l)
         ctx.save_for_backward(z, e_src, e_dst, adj, out, m, l)
+        ctx.rep = rep
         return out, m, l
 
     @staticmethod
     def backward(ctx, g, _gm, _gl):
         if g is None:
-            return None, None, None, None
+            return None, None, None, None, None
         z, e_src, e_dst, adj, out, m, l = ctx.saved_tensors
         dz, de_src, de_dst = gat_mp_bwd(z, e_src, e_dst, adj, m, l, out,
-                                        g.contiguous())
-        return dz, de_src, de_dst, None
+                                        g.contiguous(), rep=ctx.rep)
+        return dz, de_src, de_dst, None, None
 
 
-def gat_mp(z, e_src, e_dst, adj):
-    """z (B, N, D) f32; e_src / e_dst (B, N, H) f32; adj (1 or B, N, N)
-    bool/uint8 mask, a leading 1 meaning one mask shared by the batch
-    (never expanded).  Returns (out (B, N, D), m (B, N, H), l (B, N, H))
-    f32.  CUDA tensors launch the kernel (contiguous inputs, 32 features
-    per head); CPU tensors run ``gat_mp_plain``.  ``out`` carries a
-    gradient when z, e_src or e_dst requires one; otherwise no autograd
-    node is made."""
-    _check(z, e_src, e_dst, adj)
+def gat_mp(z, e_src, e_dst, adj, rep=1):
+    """z (B, N, D) f32; e_src / e_dst (B, N, H) f32; adj (G, N, N)
+    bool/uint8 masks, batch element b reading mask (b // rep) % G, never
+    expanded: G = 1 is one mask shared by the batch, G = B one mask per
+    element, and a bucket's G graph masks serve P genomes (b = p G + g,
+    rep 1) or T transitions each (b = g T + t, rep T).  Returns (out
+    (B, N, D), m (B, N, H), l (B, N, H)) f32.  CUDA tensors launch the
+    kernel (contiguous inputs, 32 features per head); CPU tensors run
+    ``gat_mp_plain``.  ``out`` carries a gradient when z, e_src or e_dst
+    requires one; otherwise no autograd node is made."""
+    _check(z, e_src, e_dst, adj, rep)
     if torch.is_grad_enabled() and (z.requires_grad or e_src.requires_grad
                                     or e_dst.requires_grad):
-        return _GatMP.apply(z, e_src, e_dst, adj)
-    return _forward(z, e_src, e_dst, adj)
+        return _GatMP.apply(z, e_src, e_dst, adj, rep)
+    return _forward(z, e_src, e_dst, adj, rep)
 
 
 gat_mp.launches = 0
 
 
 # ---------------------------------------------------------------- backward
-def gat_mp_bwd_plain(z, e_src, e_dst, adj, m, l, out, g):
+def gat_mp_bwd_plain(z, e_src, e_dst, adj, m, l, out, g, rep=1):
     """Plain PyTorch backward, any device: dense (B, N, N, H) tensors.
 
     Recomputes alpha = exp(s - m) / max(l, 1e-30) from the forward's
@@ -187,7 +210,7 @@ def gat_mp_bwd_plain(z, e_src, e_dst, adj, m, l, out, g):
     1/N in ``dz`` and adds nothing to ``de_src`` / ``de_dst``."""
     B, N, D = z.shape
     H = e_src.shape[-1]
-    edge = adj.bool()[..., None]                                # (., N, N, 1)
+    edge = batch_masks(adj, B, rep)[..., None]                  # (., N, N, 1)
     pre = e_src[:, :, None, :] + e_dst[:, None, :, :]           # (B, N, N, H)
     s = torch.where(edge, torch.where(pre >= 0, pre, 0.2 * pre), NEG_INF)
     alpha = (torch.exp(s - m[:, :, None, :])
@@ -202,8 +225,8 @@ def gat_mp_bwd_plain(z, e_src, e_dst, adj, m, l, out, g):
     return dz, dpre.sum(dim=2), dpre.sum(dim=1)
 
 
-def _check_bwd(z, e_src, e_dst, adj, m, l, out, g):
-    _check(z, e_src, e_dst, adj)
+def _check_bwd(z, e_src, e_dst, adj, m, l, out, g, rep):
+    _check(z, e_src, e_dst, adj, rep)
     for name, x, like in (("m", m, e_src), ("l", l, e_src),
                           ("out", out, z), ("g", g, z)):
         if x.shape != like.shape:
@@ -215,7 +238,7 @@ def _check_bwd(z, e_src, e_dst, adj, m, l, out, g):
             raise ValueError("gat_mp_bwd inputs lie on different devices")
 
 
-def _launch_bwd(z, e_src, e_dst, adj, m, l, out, g):
+def _launch_bwd(z, e_src, e_dst, adj, m, l, out, g, rep=1):
     B, N, D = z.shape
     H = e_src.shape[-1]
     _kernel_inputs(z, e_src, (("z", z), ("e_src", e_src), ("e_dst", e_dst),
@@ -226,10 +249,10 @@ def _launch_bwd(z, e_src, e_dst, adj, m, l, out, g):
     dz = torch.empty_like(z)
     de_src = torch.empty_like(e_src)
     de_dst = torch.empty_like(e_dst)
-    mask, stride = _mask_args(adj)
+    mask, stride, rep, count = _mask_args(adj, rep)
     err = build.cuda_call(
         fn, z, z.data_ptr(), e_src.data_ptr(), e_dst.data_ptr(),
-        mask.data_ptr(), stride, m.data_ptr(), l.data_ptr(),
+        mask.data_ptr(), stride, rep, count, m.data_ptr(), l.data_ptr(),
         out.data_ptr(), g.data_ptr(), dz.data_ptr(), de_src.data_ptr(),
         de_dst.data_ptr(), B, N, H)
     if err:
@@ -239,15 +262,16 @@ def _launch_bwd(z, e_src, e_dst, adj, m, l, out, g):
     return dz, de_src, de_dst
 
 
-def gat_mp_bwd(z, e_src, e_dst, adj, m, l, out, g):
+def gat_mp_bwd(z, e_src, e_dst, adj, m, l, out, g, rep=1):
     """Gradient of ``gat_mp``'s ``out`` for the cotangent g (B, N, D):
-    returns (dz, de_src, de_dst).  m, l, out are the forward's outputs.
-    CUDA tensors launch ``csrc/gat_mp_bwd.cu`` once (contiguous inputs,
-    32 features per head); CPU tensors run ``gat_mp_bwd_plain``."""
-    _check_bwd(z, e_src, e_dst, adj, m, l, out, g)
+    returns (dz, de_src, de_dst).  m, l, out are the forward's outputs;
+    adj and rep as ``gat_mp`` takes them.  CUDA tensors launch
+    ``csrc/gat_mp_bwd.cu`` once (contiguous inputs, 32 features per
+    head); CPU tensors run ``gat_mp_bwd_plain``."""
+    _check_bwd(z, e_src, e_dst, adj, m, l, out, g, rep)
     if z.device.type == "cpu":
-        return gat_mp_bwd_plain(z, e_src, e_dst, adj, m, l, out, g)
-    return _launch_bwd(z, e_src, e_dst, adj, m, l, out, g)
+        return gat_mp_bwd_plain(z, e_src, e_dst, adj, m, l, out, g, rep)
+    return _launch_bwd(z, e_src, e_dst, adj, m, l, out, g, rep)
 
 
 gat_mp_bwd.launches = 0

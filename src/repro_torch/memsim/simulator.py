@@ -160,9 +160,12 @@ def rectify(sg: SimGraph, mappings: torch.Tensor):
     return (out[0], eps[0]) if single else (out, eps)
 
 
-def latency(sg: SimGraph, mappings: torch.Tensor) -> torch.Tensor:
+def latency(sg: SimGraph, mappings: torch.Tensor,
+            node_mask: torch.Tensor = None) -> torch.Tensor:
     """Roofline latency of (valid) mappings (P, N, 2) or (N, 2) -> (P,)
-    or ().  Plain version, any device."""
+    or ().  ``node_mask`` (N,) f32 multiplies the per-node terms: a
+    padded graph's mask makes its padded nodes add exactly 0.0 (real
+    nodes multiply by 1.0, an identity).  Plain version, any device."""
     single = mappings.dim() == 2
     maps = _batched(mappings).long()
     dev = maps.device
@@ -183,6 +186,8 @@ def latency(sg: SimGraph, mappings: torch.Tensor) -> torch.Tensor:
     mem_t = (w_t + out_t) + in_t
     comp_t = sg.flops / torch.tensor(COMP_DENOM, device=dev).expand(N)
     terms = torch.maximum(mem_t, comp_t) + torch.tensor(OVERHEAD, device=dev)
+    if node_mask is not None:
+        terms = terms * node_mask
     lat = torch.zeros(P, dtype=torch.float32, device=dev)
     for t in range(N):
         lat = lat + terms[:, t]

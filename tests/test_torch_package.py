@@ -43,6 +43,9 @@ def test_import_loads_no_jax_and_no_reference_package():
                "models.transformer", "models.zamba2", "models.zoo",
                "serving.engine", "launch.serve"}
     assert {f"repro_torch.{m}" for m in serving} <= set(MODULES)
+    zoo = {"utils.envpolicy", "graphs.batch", "graphs.bucketed",
+           "memsim.batch", "launch.train_zoo"}
+    assert {f"repro_torch.{m}" for m in zoo} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -91,7 +94,8 @@ def test_cpu_run_launches_no_kernel():
     algo.train()
     assert "critic_loss" in algo.history[-1]
     assert rdev.launch_counts() == {"gat_mp": 0, "gat_mp_bwd": 0,
-                                    "memsim": 0, "flash_attention": 0,
+                                    "memsim": 0, "memsim_zoo": 0,
+                                    "flash_attention": 0,
                                     "flash_attention_tc": 0, "ssd_scan": 0}
 
 
