@@ -74,9 +74,27 @@ Phases, each printing JSON lines:
                mamba2-780m and qwen3-0.6b, 2 requests each; serve_profile:
                device time by kernel over one 2048-token prefill and 10
                decode ticks;
-13. kernels -- per kernel: launches in its slice's main path (the BERT
-               "egrl" run, the zamba2 serve run, the zoo "egrl" run; the
-               simulator's also in Greedy-DP), error, time on the card, plain time, bound and
+14. placement -- ``launch.serve_placements.serve`` at the service's
+               defaults (pop 8, batch 4, budget "auto", neighbour cache
+               on, GNN 128 x 4 levels x 4 heads): every supported (arch,
+               shape) of the ten registry ids over the serving shapes
+               (classes 128, 256, 512 and 1024 all miss), then a Zipf
+               tail of 48 requests; every result ok, each served mapping
+               re-evaluated by the plain simulator on the CPU (latency
+               within 1e-6 rel, speedup >= 1.0), the GAT and simulator
+               launches exactly what the service's counters imply, a
+               second fresh service and a "thread:2" one giving the same
+               placements, the REPRO_OBS=jsonl trace passing
+               ``tools/trace_report.py``'s gate, and a service restarted
+               from the persisted directory answering the stream with 0
+               evaluator calls and no launch, then re-scoring a one-node
+               variant through the neighbour cache; placement_profile: device
+               busy time and idle share of one class-1024 miss batch;
+13. kernels -- (printed last) per kernel: launches in its slice's main
+               path (the BERT "egrl" run, the zamba2 serve run, the zoo
+               "egrl" run; the simulator's also in Greedy-DP; every
+               kernel's in the placement stream, ``launches_placement``),
+               error, time on the card, plain time, bound and
                library time; for the GAT kernels both per launch (a
                launch is one call of the wrapper) and over their group (4
                forward launches, 8 backward calls).
@@ -1596,6 +1614,267 @@ def phase_serve_profile(torch, np, model):
           "top_kernels": kernels[:15]})
 
 
+# ------------------------------------------------------- placement
+PLACEMENT_TAIL = 48        # Zipf-tail requests after the catalogue sweep
+
+
+def placement_stream(sp, registry):
+    """Every supported (arch, shape) of the registry over the serving
+    shapes once, so that every size class misses, then a Zipf tail of
+    ``synthetic_stream``, numbered on."""
+    from repro_torch.serving.placement_service import PlacementRequest
+    sweep = [(a, s) for a, s, ok, _ in registry.all_cells()
+             if s in sp.SERVE_SHAPES]
+    tail = sp.synthetic_stream(PLACEMENT_TAIL, seed=0)
+    return ([PlacementRequest(i, a, s) for i, (a, s) in enumerate(sweep)]
+            + [PlacementRequest(len(sweep) + r.request_id, r.arch, r.shape)
+               for r in tail]), len(sweep)
+
+
+def placement_launches(svc):
+    """The kernel launches a service's counters imply: per generation a
+    population forward (4 GAT launches) and a simulator zoo launch, per
+    warm start from a prior one forward, per neighbour re-score a zoo
+    launch, per compiler reference a single-graph launch."""
+    c = svc.metrics.snapshot()["counters"]
+    gens = sum(v for k, v in c.items() if k.startswith("generations"))
+    return {"gat_mp": 4 * (gens + c["prior_forwards"]), "gat_mp_bwd": 0,
+            "memsim": c["compiler_refs"],
+            "memsim_zoo": gens + c["nn_rescored"], "flash_attention": 0,
+            "flash_attention_tc": 0, "ssd_scan": 0}, gens
+
+
+def placement_gat_capture(ops, kept):
+    """A stand-in for the GNN's ``gat_ops`` that launches the kernel as
+    the path does and keeps, in ``kept``, a copy of the inputs of the
+    first launch of each shape (z, e_src, e_dst, mask, rep)."""
+    def gat_mp(z, es, ed, a, rep=1):
+        key = (tuple(z.shape), tuple(a.shape), rep)
+        if key not in kept:
+            kept[key] = tuple(t.detach().clone()
+                              for t in (z, es, ed, a)) + (rep,)
+        return ops.gat_mp(z, es, ed, a, rep)
+    return types.SimpleNamespace(gat_mp=gat_mp)
+
+
+def placement_gat_check(torch, ops, kept, run):
+    """Hold the kernel against its plain version at every shape the
+    service gave it in one run, at the gat phase's gates; the level-0
+    shapes must cover classes 128 to 1024."""
+    classes = {key[0][1] for key in kept}
+    check({128, 256, 512, 1024} <= classes,
+          f"placement gat ({run}): classes seen {sorted(classes)}")
+    worst, worst_l = 0.0, 0.0
+    for z, es, ed, a, rep in kept.values():
+        err, l_rel = gat_compare(torch, ops, z, es, ed, a, rep)
+        worst, worst_l = max(worst, err), max(worst_l, l_rel)
+    return {"shapes": [[list(k[0]), list(k[1]), k[2]] for k in kept],
+            "max_abs_err": worst, "l_max_rel_err": worst_l}
+
+
+def placements(results):
+    """hash -> (source, speedup, latency, mapping bytes), and the
+    (request, hit) sequence."""
+    return ({r.graph_hash: (r.source, r.speedup, r.latency_ms,
+                            r.mapping.tobytes()) for r in results},
+            sorted((r.request_id, r.cache_hit, r.nn_hit) for r in results))
+
+
+def phase_placement(torch, np, rdev):
+    """The placement service through ``serve_placements.serve`` at its
+    defaults (pop 8, batch 4, budget "auto", the neighbour cache on, the
+    GNN at 128 x 4 levels x 4 heads) on the card: the registry sweep
+    (classes 128, 256, 512 and 1024 all miss) and a Zipf tail, traced
+    (``REPRO_OBS=jsonl``) and persisted.  Checks: every result ok; every
+    served mapping re-evaluated by the plain simulator on the CPU gives
+    the reported latency (1e-6 rel) and a speedup of at least 1.0; the
+    launch counts are what the service's counters imply; a second fresh
+    service and a ``thread:2`` one give the same placements and hit/miss
+    sequence; in both, the GAT kernel, held against its plain version at
+    every shape the service gives it (B = pop x slots, shared masks,
+    classes 128 to 1024), agrees within the gat phase's gates; the trace passes ``tools/trace_report.py``'s gate; a
+    service restarted from the persisted directory answers the stream
+    with 0 evaluator calls and no kernel launch, then re-scores a
+    one-node variant of llama3-405b decode_32k through the neighbour
+    cache with the launches its counters imply.  Then the device busy
+    time and idle share of one class-1024 miss batch.  Returns the
+    launch counts of the traced run."""
+    import dataclasses
+    import tempfile
+    import trace_report
+    from repro_torch import obs
+    from repro_torch.configs import registry
+    from repro_torch.core import gnn
+    from repro_torch.graphs.extract import extract_for
+    from repro_torch.kernels.gat_mp import ops as gat_ops
+    from repro_torch.launch import serve_placements as sp
+    from repro_torch.memsim import compiler, simulator as sim
+    from repro_torch.serving import placement_service as ps
+
+    reqs, n_sweep = placement_stream(sp, registry)
+    with tempfile.TemporaryDirectory() as tmp:
+        trace, persist = os.path.join(tmp, "trace.jsonl"), \
+            os.path.join(tmp, "svc")
+        rdev.reset_launch_counts()
+        with obs.override(mode="jsonl", path=trace):
+            results, summary, svc = sp.serve(reqs, seed=0, persist=persist,
+                                             device="cuda", log=None)
+        torch.cuda.synchronize()
+        counts = rdev.launch_counts()
+        want, gens = placement_launches(svc)
+        check(counts == want, f"placement launches {counts}, the service's "
+              f"counters imply {want}")
+        check(len(results) == len(reqs) and all(r.ok for r in results),
+              f"placement: failed {[r.error for r in results if not r.ok]}")
+        graphs = {(r.arch, r.shape): extract_for(r.arch, r.shape)
+                  for r in results}
+        sweep = [r for r in results if r.request_id < n_sweep]
+        classes = sorted({ps.size_class(graphs[r.arch, r.shape].n)
+                          for r in sweep if not r.cache_hit})
+        check({128, 256, 512, 1024} <= set(classes),
+              f"placement: classes missed {classes}")
+        worst = 0.0
+        for (arch, shape), g in graphs.items():
+            r = next(x for x in results if (x.arch, x.shape) == (arch, shape))
+            _, ref = compiler.compiler_reference(g, "cpu")
+            res = sim.evaluate(sim.build_sim_graph(g, "cpu"),
+                               torch.as_tensor(r.mapping), ref)
+            lat = float(res["latency"]) * 1e3
+            err = abs(lat - r.latency_ms) / r.latency_ms
+            worst = max(worst, err)
+            check(err <= 1e-6, f"placement {arch} {shape}: latency "
+                  f"{r.latency_ms} ms, the CPU simulator gives {lat}")
+            check(ref * 1e3 / lat >= 1.0 and r.speedup >= 1.0,
+                  f"placement {arch} {shape}: speedup {ref * 1e3 / lat}")
+        mine = placements(results)
+
+        kept_off, kept_thread = {}, {}
+        try:
+            gnn.gat_ops = placement_gat_capture(gat_ops, kept_off)
+            again = sp.serve(reqs, seed=0, device="cuda", log=None)[0]
+            gnn.gat_ops = placement_gat_capture(gat_ops, kept_thread)
+            t0 = time.perf_counter()
+            threaded, _, tsvc = sp.serve(reqs, seed=0, slots="thread:2",
+                                         device="cuda", log=None)
+            thread_s = time.perf_counter() - t0
+        finally:
+            gnn.gat_ops = gat_ops
+        check(placements(again) == mine,
+              "placement: a second fresh service gave other placements")
+        gat_held = {"off": placement_gat_check(torch, gat_ops, kept_off,
+                                               "off"),
+                    "thread:2": placement_gat_check(torch, gat_ops,
+                                                    kept_thread, "thread:2")}
+        del kept_off, kept_thread
+        check(placements(threaded) == mine,
+              "placement: thread:2 gave other placements than off")
+        check(not tsvc._slots and tsvc.stats()["queued"] == 0,
+              "placement: thread:2 left work behind")
+
+        events, bad = trace_report.load_events(trace)
+        problems = trace_report.gate(trace_report.TraceIndex(events))
+        check(not problems and not bad, f"placement trace gate: {problems}")
+
+        rdev.reset_launch_counts()
+        restarted = ps.PlacementService(seed=0, persist=persist,
+                                        device="cuda")
+        replay = restarted.run(reqs)
+        torch.cuda.synchronize()
+        rcounts = rdev.launch_counts()
+        check(restarted.evaluator_calls == 0
+              and not any(rcounts.values()),
+              f"placement restart: {restarted.evaluator_calls} refinements, "
+              f"launches {rcounts}")
+        check(all(r.ok and r.cache_hit for r in replay)
+              and {r.graph_hash: r.mapping.tobytes() for r in replay}
+              == {h: v[3] for h, v in mine[0].items()},
+              "placement restart: not every request hit the cache")
+
+        # the neighbour path on the card: a one-node variant of a served
+        # graph is re-scored (one zoo launch) and served or refined
+        g = graphs["llama3-405b", "decode_32k"]
+        nodes = list(g.nodes)
+        nodes[7] = dataclasses.replace(
+            nodes[7], weight_bytes=nodes[7].weight_bytes * 2)
+        near = dataclasses.replace(g, nodes=nodes)
+        got = restarted.submit(ps.PlacementRequest(len(reqs), "near",
+                                                   "decode_32k"), graph=near)
+        got = [got] if got is not None else restarted.run_until_drained()
+        torch.cuda.synchronize()
+        ncounts = rdev.launch_counts()
+        nwant, _ = placement_launches(restarted)
+        check(restarted.metrics.counter("nn_rescored").value == 1
+              and ncounts == nwant and len(got) == 1 and got[0].ok
+              and got[0].speedup >= 1.0,
+              f"placement neighbour: launches {ncounts}, want {nwant}, "
+              f"{got}")
+        neighbour = {"nn_hit": got[0].nn_hit, "source": got[0].source,
+                     "speedup": got[0].speedup, "launches": ncounts}
+
+    # one class-1024 miss batch (llama3-405b at the serving shapes) under
+    # a padded profile, on a warmed service
+    from torch.autograd import DeviceType
+    prof_svc = ps.PlacementService(seed=1, device="cuda")
+    prof_svc.run([ps.PlacementRequest(0, "seamless-m4t-medium",
+                                      "decode_32k")])
+    for i, shape in enumerate(sp.SERVE_SHAPES):
+        check(prof_svc.submit(ps.PlacementRequest(1 + i, "llama3-405b",
+                                                  shape)) is None,
+              "placement profile: llama3-405b did not miss")
+    torch.cuda.synchronize()
+    with padded_profile() as prof:
+        t0 = time.perf_counter()
+        batch = prof_svc.run_until_drained()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    check(len(batch) == 3 and all(r.ok for r in batch),
+          "placement profile: the class-1024 batch failed")
+    kernels = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0))
+        if dev_us > 0:
+            kernels.append({"name": evt.key[:80], "calls": evt.count,
+                            "device_ms": dev_us / 1e3})
+    kernels.sort(key=lambda k: -k["device_ms"])
+    busy = sum(k["device_ms"] for k in kernels)
+    refine = {k: v for k, v in svc.metrics.snapshot()["histograms"].items()
+              if k.startswith("refine_ms")}
+    c = svc.metrics.snapshot()["counters"]
+    emit({"phase": "placement", "requests": len(reqs), "sweep": n_sweep,
+          "classes_missed": classes, "summary": summary,
+          "placements_per_s": summary["placements_per_sec"],
+          "hit_p50_ms": summary["hit_p50_ms"],
+          "hit_p99_ms": summary["hit_p99_ms"],
+          "miss_p50_ms": summary["miss_p50_ms"],
+          "miss_p99_ms": summary["miss_p99_ms"],
+          "mean_speedup": summary["mean_speedup"],
+          "egrl_frac": summary["egrl_frac"],
+          "refine_ms_per_class": {
+              k: {"count": v["count"],
+                  "mean_ms": v["sum"] / v["count"] if v["count"] else 0.0,
+                  "max_ms": v.get("max")} for k, v in refine.items()},
+          "counters": c, "generations": gens, "launches": counts,
+          "latency_max_rel_err": worst,
+          "second_service_equal": True, "thread2_equal": True,
+          "gat_held": gat_held,
+          "thread2_wall_s": thread_s, "off_wall_s": summary["wall_s"],
+          "trace_events": len(events), "trace_gate": "ok",
+          "restart_evaluator_calls": restarted.evaluator_calls,
+          "restart_launches": rcounts, "neighbour": neighbour})
+    emit({"phase": "placement_profile",
+          "window": "one class-1024 miss batch: llama3-405b at train_4k, "
+                    "prefill_32k and decode_32k, from submit to commit",
+          "wall_ms": wall_ms, "device_busy_ms": busy,
+          "device_idle_share": (1.0 - busy / wall_ms) if kernels
+          else "not measured",
+          "counters": prof_svc.metrics.snapshot()["counters"],
+          "top_kernels": kernels[:12]})
+    return counts
+
+
 def per_launch(tot):
     """A group's times over its launches (calls of the wrapper)."""
     n = tot["launches"]
@@ -1843,6 +2122,8 @@ def main(argv=None):
     serve, model = phase_serve(torch, np, rdev)            # 12
     phase_serve_profile(torch, np, model)
     del model
+    torch.cuda.empty_cache()
+    placement = phase_placement(torch, np, rdev)           # 14
 
     # 13. kernels
     f, s_ = flash["zamba2-1.2b", 2048], ssd["zamba2-1.2b", 2048]
@@ -1883,9 +2164,11 @@ def main(argv=None):
                 "B=1, H=64, hd=64, N=64, Q=256; bound_ms on the f32 cores, "
                 "bound_ms_tc in 3xTF32 on the tensor cores"}]
     for r in rows:
-        r["launches_zamba2_serve"] = serve["launches"].get(
-            {"gat_mp_fwd": "gat_mp", "memsim_evaluate": "memsim",
-             "memsim_evaluate_zoo": "memsim_zoo"}.get(r["name"], r["name"]))
+        counter = {"gat_mp_fwd": "gat_mp", "memsim_evaluate": "memsim",
+                   "memsim_evaluate_zoo": "memsim_zoo"}.get(r["name"],
+                                                            r["name"])
+        r["launches_zamba2_serve"] = serve["launches"].get(counter)
+        r["launches_placement"] = placement.get(counter)
     emit({"kernels": rows, "device": kind, "nvidia_smi": smi})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,7 +7,7 @@ Copied from ``src/repro/configs/base.py``; ``act_dtype`` returns a
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -104,6 +104,15 @@ SHAPES = {
     "decode_32k": ShapeCfg("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeCfg("long_500k", 524288, 1, "decode"),
 }
+
+# archs with an O(S^2)-only attention path skip long_500k (see DESIGN.md §6)
+SUBQUADRATIC_FAMILIES = ("ssm", "hybrid")
+
+
+def supports_shape(cfg: ModelConfig, shape: ShapeCfg) -> Tuple[bool, str]:
+    if shape.name == "long_500k" and cfg.family not in SUBQUADRATIC_FAMILIES:
+        return False, "full-attention arch: O(S^2) at 524k tokens (skip per assignment)"
+    return True, ""
 
 def smoke_config(cfg: ModelConfig) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests."""

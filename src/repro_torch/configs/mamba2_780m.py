@@ -17,5 +17,5 @@ CONFIG = ModelConfig(
     vocab_size=50280,
     ssm=SSMCfg(d_state=128, expand=2, head_dim=64, conv_width=4, chunk=256),
     tie_embeddings=True,
-    notes="vocab padded 50280->50432; sub-quadratic",
+    notes="vocab padded 50280->50432; runs long_500k (sub-quadratic)",
 )

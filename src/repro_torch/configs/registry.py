@@ -1,14 +1,15 @@
 """--arch string -> ModelConfig resolution.
 
-Copied from ``src/repro/configs/registry.py``.  The port carries the
-configs of the three architectures it serves; the other ids raise
-``NotImplementedError`` (ROADMAP.md lists them as still to port).
+Copied from ``src/repro/configs/registry.py``; every id has its config.
+Serving a model of the MoE, VLM or encdec family still raises in
+``models/zoo.py`` (ROADMAP.md lists those models as still to port).
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, smoke_config
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeCfg,
+                                      smoke_config, supports_shape)
 
 ARCH_IDS = (
     "granite-3-8b",
@@ -23,20 +24,31 @@ ARCH_IDS = (
     "seamless-m4t-medium",
 )
 
-PORTED = ("qwen3-0.6b", "mamba2-780m", "zamba2-1.2b")
-
 _MODULE = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_")
-           for a in PORTED}
+           for a in ARCH_IDS}
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch!r}; known: {', '.join(ARCH_IDS)}")
     if arch not in _MODULE:
-        raise NotImplementedError(
-            f"{arch!r} is not ported yet (ported: {', '.join(PORTED)}); "
-            f"see ROADMAP.md")
+        raise KeyError(f"unknown arch {arch!r}; known: {', '.join(ARCH_IDS)}")
     return importlib.import_module(_MODULE[arch]).CONFIG
 
 
-__all__ = ["ARCH_IDS", "PORTED", "get_config", "smoke_config"]
+def get_shape(name: str) -> ShapeCfg:
+    return SHAPES[name]
+
+
+def all_cells(include_skipped: bool = False):
+    """Yield (arch, shape, supported, reason) for the 40 assigned cells."""
+    for a in ARCH_IDS:
+        cfg = get_config(a)
+        for s in SHAPES.values():
+            ok, why = supports_shape(cfg, s)
+            if ok or include_skipped:
+                yield a, s.name, ok, why
+
+
+__all__ = [
+    "ARCH_IDS", "get_config", "get_shape", "all_cells", "smoke_config",
+    "SHAPES",
+]

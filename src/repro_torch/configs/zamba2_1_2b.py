@@ -21,5 +21,5 @@ CONFIG = ModelConfig(
     ssm=SSMCfg(d_state=64, expand=2, head_dim=64, conv_width=4, chunk=256),
     shared_attn_every=6,
     rope_theta=10_000.0,
-    notes="attention only in the shared blocks",
+    notes="runs long_500k: attention only in shared blocks (KV sharded S over data)",
 )

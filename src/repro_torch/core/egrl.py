@@ -45,6 +45,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import boltzmann as bz
 from repro_torch.core import ea as ea_mod
 from repro_torch.core import gnn
@@ -177,6 +178,62 @@ class _EvoPopulation:
             mut_prob=cfg.mut_prob, mut_frac=cfg.mut_frac,
             mut_std=cfg.mut_std)
 
+    # ------------------------------------------------------- warm start
+    def _to_device(self, x) -> torch.Tensor:
+        """An f32 copy of ``x`` (numpy or CPU tensor) on the device."""
+        return torch.tensor(np.array(x, np.float32), device=self.device)
+
+    def _prior_logits(self, vec: torch.Tensor) -> torch.Tensor:
+        """Posterior logits of the flat GNN params ``vec`` over this
+        driver's Boltzmann node grid ((N, 2, 3) for ``EGRL``, the
+        bucket-major (n_eff, 2, 3) grid for ``ZooEGRL``)."""
+        raise NotImplementedError
+
+    def prior_logits(self, vec) -> torch.Tensor:
+        """The driver's Boltzmann-grid posterior logits for flat GNN
+        params ``vec`` (numpy or CPU tensor): one population forward of one
+        genome."""
+        with torch.no_grad():
+            return self._prior_logits(self._to_device(vec))
+
+    def warm_start(self, vec, *, gnn_frac: float = 0.5,
+                   noise_std: float = 0.05, t_init: float = 0.5,
+                   logits=None, gnn_noise: Optional[torch.Tensor] = None,
+                   bz_noise: Optional[torch.Tensor] = None):
+        """Seed the population from a trained policy's flat GNN params
+        (JAX's ``_EvoPopulation.warm_start``).  GNN row 0 becomes
+        ``vec`` exactly, the next ``round(gnn_frac * n_g) - 1`` rows
+        noisy copies ``vec + noise_std * gnn_noise``, the rest keep their
+        init; every Boltzmann genome is re-seeded from ``logits``
+        (default: the prior's posterior, ``prior_logits(vec)``) by
+        ``bz.seed_from_logits`` at temperature ``t_init``.
+
+        The draws are explicit: ``gnn_noise`` (n_seed - 1, V) and
+        ``bz_noise`` (n_b, grid, 2) standard normals, drawn from the
+        driver's generator in that order when not given."""
+        vec = self._to_device(vec)
+        if self.n_g:
+            n_seed = max(1, int(round(gnn_frac * self.n_g)))
+            if gnn_noise is None:
+                gnn_noise = torch.randn((n_seed - 1, vec.shape[0]),
+                                        generator=self.gen,
+                                        device=self.device)
+            rows = torch.cat([vec[None], vec + noise_std * gnn_noise])
+            self.gnn_pop = torch.cat([rows, self.gnn_pop[n_seed:]])
+        if self.n_b:
+            if logits is None:
+                with torch.no_grad():
+                    logits = self._prior_logits(vec)
+            else:
+                logits = self._to_device(logits)
+            if bz_noise is None:
+                bz_noise = torch.randn((self.n_b,) + logits.shape[:-1],
+                                       generator=self.gen,
+                                       device=self.device)
+            self.bz_pop = torch.stack([
+                bz.to_flat(*bz.seed_from_logits(logits, noise, t_init))
+                for noise in bz_noise])
+
     def _migrate(self):
         """In "egrl" mode the actor's weights replace the last GNN genome,
         the lowest-ranked child; when every GNN slot is an elite, elitism
@@ -225,6 +282,11 @@ class EGRL(_EvoPopulation):
     def generation(self, draws: Optional[GenerationDraws] = None) -> Dict:
         """One generation; ``draws`` (default: from the driver's
         generator) fixes every random number it uses."""
+        with obs.profile_block(), obs.span("generation", driver="egrl",
+                                           mode=self.mode):
+            return self._generation(draws)
+
+    def _generation(self, draws: Optional[GenerationDraws]) -> Dict:
         cfg = self.cfg
         d = self.draw_generation() if draws is None else draws
         n, n_pop = self.g.n, self.n_g + self.n_b
@@ -287,6 +349,9 @@ class EGRL(_EvoPopulation):
         return self.history
 
     # ----------------------------------------------------- deployment API
+    def _prior_logits(self, vec: torch.Tensor) -> torch.Tensor:
+        return gnn.population_logits(vec[None], self.feats, self.adj)[0]
+
     def best_policy_logits(self) -> torch.Tensor:
         """Logits of the top-ranked policy in the population: the best
         GNN, else the SAC actor, else (Boltzmann-only "ea" mode) the best
@@ -389,6 +454,11 @@ class ZooEGRL(_EvoPopulation):
     def generation(self, draws: Optional[ZooGenerationDraws] = None) -> Dict:
         """One generation; ``draws`` (default: drawn from ``self.gen``)
         fixes every random number it uses."""
+        with obs.profile_block(), obs.span("generation", driver="zoo",
+                                           mode=self.mode):
+            return self._generation(draws)
+
+    def _generation(self, draws: Optional[ZooGenerationDraws]) -> Dict:
         cfg = self.cfg
         d = self.draw_generation() if draws is None else draws
         zoo, n_g, n_pop = self.zoo, self.n_g, self.n_g + self.n_b
@@ -464,6 +534,11 @@ class ZooEGRL(_EvoPopulation):
                     f"best fitness {rec['best_fitness']:.3f} "
                     f"valid {rec['valid_frac']:.2f}")
         return self.history
+
+    def _prior_logits(self, vec: torch.Tensor) -> torch.Tensor:
+        # bucket-major (n_eff, 2, 3) grid, matching the bz genome layout
+        return torch.cat([lg.reshape(1, -1, 2, 3) for lg in
+                          self.population_logits(vec[None])], dim=1)[0]
 
     def best_gnn_vec(self) -> Optional[np.ndarray]:
         """Flat params of the best GNN after a generation (row 0), else

@@ -515,9 +515,11 @@ constexpr size_t STATIC_SMEM = 2 * (TN + 4) * (16 + 8) + 2 * LANES * TW * 4;
 
 // Mappings per block M, blocks over the mappings and dynamic shared
 // memory for P mappings of graphs up to (N, W, max_in); static and
-// dynamic shared memory together stay within the block's 227 KB.  Sets
-// the kernel's dynamic limit where the two pass 48 KB.  Returns a CUDA
-// error code.
+// dynamic shared memory together stay within the block's 227 KB.  Where
+// the two pass 48 KB it raises the kernel's dynamic limit, always to the
+// same largest value: the limit belongs to the kernel, not the launch,
+// so a smaller value set by another thread between this thread's set and
+// its launch would fail the launch.  Returns a CUDA error code.
 template <typename K>
 int configure(K kernel, int N, int W, int max_in, int P, int& M, int& blocks,
               size_t& smem) {
@@ -530,7 +532,7 @@ int configure(K kernel, int N, int W, int max_in, int P, int& M, int& blocks,
   blocks = (P + M - 1) / M;
   if (STATIC_SMEM + smem > 48 * 1024)
     return (int)cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)max_dyn);
   return 0;
 }
 

@@ -6,11 +6,14 @@ versions of the kernels.
 """
 from __future__ import annotations
 
+import threading
 from typing import Dict, Union
 
 import torch
 
 DeviceLike = Union[str, torch.device]
+
+_COUNT_LOCK = threading.Lock()
 
 
 def resolve_device(device: DeviceLike = "cuda") -> torch.device:
@@ -24,6 +27,14 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def count_launch(fn, attr: str = "launches") -> None:
+    """Add one to wrapper ``fn``'s launch counter ``attr``, under a lock:
+    the placement service launches kernels from several threads, and
+    ``+=`` on an attribute is not atomic across them."""
+    with _COUNT_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def _counters():
@@ -55,5 +66,6 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for fn, attr in _counters().values():
-        setattr(fn, attr, 0)
+    with _COUNT_LOCK:
+        for fn, attr in _counters().values():
+            setattr(fn, attr, 0)

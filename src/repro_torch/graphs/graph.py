@@ -1,7 +1,6 @@
 """Workload-graph IR: nodes = operational layers, edges = tensor flow.
 
-Copy of ``src/repro/graphs/graph.py`` (numpy only), without
-``canonical_hash``, which belongs to the serving port.
+Copy of ``src/repro/graphs/graph.py`` (numpy only).
 
 Node features follow the paper's Table 1 (op_id, weight_size, ifm/ofm
 dims+sizes, n_ops_left, n_w_left, conv params, batch). Nodes are stored in
@@ -124,6 +123,14 @@ class WorkloadGraph:
         for s, d in self.edges:
             last[s] = max(last[s], d)
         return int((last - np.arange(self.n)).max()) + 1
+
+    def canonical_hash(self) -> str:
+        """Structure-only content hash (see ``graphs/hashing.py``):
+        identical for topologically equivalent relabelings, different
+        for any simulator-visible perturbation.  The placement cache
+        key of ``serving/placement_service.py``."""
+        from repro_torch.graphs.hashing import canonical_hash
+        return canonical_hash(self)
 
     def validate(self):
         for s, d in self.edges:

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List
@@ -35,6 +36,9 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 EXTRA_FLAGS = {"memsim": ["-fmad=false"]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# held while a library is built, loaded or has a function's types set:
+# the placement service's refinement threads may reach ``load`` together
+_LOAD_LOCK = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -68,7 +72,8 @@ def _start(name: str):
         return None, out, None
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    # per process and thread: two builders never write the same file
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [nvcc, *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -106,22 +111,24 @@ def build(names: Iterable[str]) -> Dict[str, dict]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built at first use."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LIBS[name] = lib
-    return lib
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _LIBS[name] = lib
+        return lib
 
 
 def function(lib_name: str, fn_name: str, argtypes) -> ctypes._CFuncPtr:
     """C function ``fn_name`` of ``csrc/<lib_name>.cu`` with its argument
     types declared and an int (CUDA error code) result."""
-    fn = getattr(load(lib_name), fn_name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
+    with _LOAD_LOCK:
+        fn = getattr(load(lib_name), fn_name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        return fn
 
 
 def cuda_call(fn, like, *args):

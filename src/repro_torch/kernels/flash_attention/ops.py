@@ -24,6 +24,7 @@ import functools
 
 import torch
 
+from repro_torch.device import count_launch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
@@ -138,7 +139,7 @@ def _launch_fp32cores(q, k, v, causal, q_offset):
     if err:
         raise RuntimeError(f"flash_attention fp32-core kernel launch "
                            f"failed: CUDA error {err}")
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return out
 
 
@@ -156,8 +157,8 @@ def _launch_tensor_cores(q, k, v, causal, q_offset):
         raise RuntimeError(f"flash_attention tensor-core kernel launch "
                            f"failed: error {err} (a CUDA error, or 1000 + "
                            f"the CUresult of the TMA map encoding)")
-    flash_attention.launches += 1
-    flash_attention.tensor_core_launches += 1
+    count_launch(flash_attention)
+    count_launch(flash_attention, "tensor_core_launches")
     return out
 
 

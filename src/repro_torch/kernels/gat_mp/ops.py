@@ -26,6 +26,7 @@ import ctypes
 
 import torch
 
+from repro_torch.device import count_launch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
@@ -144,7 +145,7 @@ def _launch(z, e_src, e_dst, adj, rep=1):
         l.data_ptr(), B, N, H)
     if err:
         raise RuntimeError(f"gat_mp kernel launch failed: CUDA error {err}")
-    gat_mp.launches += 1
+    count_launch(gat_mp)
     return out, m, l
 
 
@@ -258,7 +259,7 @@ def _launch_bwd(z, e_src, e_dst, adj, m, l, out, g, rep=1):
     if err:
         raise RuntimeError(f"gat_mp_bwd kernel launch failed: CUDA error "
                            f"{err}")
-    gat_mp_bwd.launches += 1
+    count_launch(gat_mp_bwd)
     return dz, de_src, de_dst
 
 

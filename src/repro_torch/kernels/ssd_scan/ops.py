@@ -17,6 +17,7 @@ import ctypes
 
 import torch
 
+from repro_torch.device import count_launch
 from repro_torch.kernels import build
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
@@ -136,7 +137,7 @@ def _launch(xd, la, B_, C_, chunk, init_state):
         final.data_ptr(), Bb, S, H, hd, N, Q)
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
-    ssd_scan.launches += 1
+    count_launch(ssd_scan)
     return y, final
 
 

@@ -1,11 +1,14 @@
-"""EGRL placement entry point on the port: --arch -> placement plan JSON.
+"""EGRL placement entry point on the port: --arch x --shape -> placement
+plan JSON.
 
 Counterpart of ``src/repro/launch/optimize_placement.py``, with the
-same plan schema (``plan_from_mapping``).  It takes the workload graphs
-of ``graphs.zoo.WORKLOADS``; the LLM architecture ids need graph
-extraction from the model configs, which comes with the config port.
+same plan schema (``plan_from_mapping``).  ``--arch`` is a registry id
+(its graph extracted at ``--shape`` by ``graphs/extract.py``) or a
+workload of ``graphs.zoo.WORKLOADS`` (which carries its own shape).
 
     python -m repro_torch.launch.optimize_placement --arch bert
+    python -m repro_torch.launch.optimize_placement --arch granite-3-8b \
+        --shape decode_32k [--device cpu]
 """
 from __future__ import annotations
 
@@ -16,20 +19,22 @@ import os
 import numpy as np
 import torch
 
+from repro_torch.configs.base import SHAPES
+from repro_torch.configs.registry import ARCH_IDS
 from repro_torch.core.egrl import EGRL, EGRLConfig
 from repro_torch.device import resolve_device
+from repro_torch.graphs.extract import extract_for
 from repro_torch.graphs.zoo import WORKLOADS
 from repro_torch.memsim import tiers as T
 from repro_torch.memsim.simulator import evaluate
 
 
-def make_graph(arch: str):
-    if arch not in WORKLOADS:
-        raise NotImplementedError(
-            f"{arch!r} is not a zoo workload ({', '.join(WORKLOADS)}); "
-            f"graph extraction for LLM architecture ids comes with the "
-            f"config port")
-    return WORKLOADS[arch]()
+def make_graph(arch: str, shape_name: str):
+    """A zoo workload by name, else ``extract_for(arch, shape_name)``
+    (raises ``KeyError`` for an unknown id or unsupported shape)."""
+    if arch in WORKLOADS:
+        return WORKLOADS[arch]()
+    return extract_for(arch, shape_name)
 
 
 def plan_from_mapping(graph, mapping: np.ndarray, meta: dict) -> dict:
@@ -52,11 +57,10 @@ def plan_from_mapping(graph, mapping: np.ndarray, meta: dict) -> dict:
 
 def optimize(arch: str, shape_name: str, steps: int, mode: str = "egrl",
              seed: int = 0, device="cuda", log=print):
-    """Search a placement for ``arch``; returns (plan dict, driver).
-    ``shape_name`` is recorded in the plan; zoo workloads carry their
-    own fixed shapes."""
+    """Search a placement for ``arch`` at ``shape_name``; returns (plan
+    dict, driver).  Zoo workloads carry their own fixed shapes."""
     dev = resolve_device(device)
-    g = make_graph(arch)
+    g = make_graph(arch, shape_name)
     algo = EGRL(g, EGRLConfig(total_steps=steps, seed=seed), mode=mode,
                 device=dev)
     algo.train(log=log)
@@ -75,8 +79,9 @@ def optimize(arch: str, shape_name: str, steps: int, mode: str = "egrl",
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=list(WORKLOADS))
-    ap.add_argument("--shape", default="decode_32k")
+    ap.add_argument("--arch", required=True,
+                    choices=list(ARCH_IDS) + list(WORKLOADS))
+    ap.add_argument("--shape", default="decode_32k", choices=list(SHAPES))
     ap.add_argument("--steps", type=int, default=2000)
     ap.add_argument("--mode", default="egrl", choices=["egrl", "ea", "pg"])
     ap.add_argument("--seed", type=int, default=0)

@@ -20,6 +20,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import count_launch
 from repro_torch.graphs.batch import GraphBatch
 from repro_torch.graphs.bucketed import BucketedZoo
 from repro_torch.kernels import build
@@ -106,7 +107,7 @@ def _launch(gb: GraphBatch, maps: torch.Tensor, reward_scale: float) -> Dict:
     if err:
         raise RuntimeError(f"memsim zoo kernel launch failed: CUDA error "
                            f"{err}")
-    evaluate_population_zoo.launches += 1
+    count_launch(evaluate_population_zoo)
     return res
 
 

@@ -28,6 +28,7 @@ from typing import Dict, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.device import count_launch
 from repro_torch.graphs.graph import WorkloadGraph
 from repro_torch.kernels import build
 from repro_torch.memsim import tiers as T
@@ -248,7 +249,7 @@ def _launch(sg: SimGraph, maps: torch.Tensor, ref_latency: float,
                  torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"memsim kernel launch failed: CUDA error {err}")
-    evaluate_population.launches += 1
+    count_launch(evaluate_population)
     return res
 
 

@@ -1,0 +1,133 @@
+"""The port's checkpoint manager against the JAX package's: a directory
+either one writes has the same keys, manifest and checksum, verifies and
+restores in the other; keep-N and corruption behave the same."""
+import json
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.checkpoint import manager as jckpt  # noqa: E402
+from repro_torch.checkpoint import manager as ckpt  # noqa: E402
+
+
+def _tree(seed=0):
+    """Nested dicts and lists of 32-bit numpy arrays (JAX holds no 64-bit
+    ones by default), as the placement service stores them: int32
+    mappings, an f32 prior."""
+    rng = np.random.default_rng(seed)
+    return {
+        "maps": {f"{h:064x}": rng.integers(0, 3, (7 + h, 2)).astype(np.int32)
+                 for h in (3, 1, 2)},
+        "prior": rng.normal(size=50).astype(np.float32),
+        "opt": [{"m": rng.normal(size=(2, 3)).astype(np.float32),
+                 "t": np.int32(5)}, rng.normal(size=4).astype(np.float32)],
+        "skip": None,
+    }
+
+
+def _as_torch(tree):
+    if isinstance(tree, dict):
+        return {k: _as_torch(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_as_torch(v) for v in tree]
+    return None if tree is None else torch.as_tensor(np.asarray(tree))
+
+
+def _as_jax(tree):
+    if isinstance(tree, dict):
+        return {k: _as_jax(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_as_jax(v) for v in tree]
+    return None if tree is None else jnp.asarray(tree)
+
+
+def _jax_to_np(tree):
+    if isinstance(tree, dict):
+        return {k: _jax_to_np(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_jax_to_np(v) for v in tree]
+    return None if tree is None else np.asarray(tree)
+
+
+def _assert_tree_equal(got, want):
+    if isinstance(want, dict):
+        assert set(got) == set(want)
+        for k in want:
+            _assert_tree_equal(got[k], want[k])
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            _assert_tree_equal(a, b)
+    elif want is None:
+        assert got is None
+    else:
+        a = got.cpu().numpy() if isinstance(got, torch.Tensor) \
+            else np.asarray(got)
+        b = np.asarray(want)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+
+
+def _manifest(path):
+    with open(os.path.join(path, "manifest.json")) as f:
+        return json.load(f)
+
+
+def test_same_layout_and_checksum(tmp_path):
+    tree = _tree()
+    mine = ckpt.save(str(tmp_path / "torch"), 3, _as_torch(tree),
+                     extra={"k": [1, 2]})
+    ref = jckpt.save(str(tmp_path / "jax"), 3, _as_jax(tree),
+                     extra={"k": [1, 2]})
+    assert _manifest(mine) == _manifest(ref)
+    assert os.path.basename(mine) == os.path.basename(ref) == "step_00000003"
+    assert sorted(np.load(os.path.join(mine, "arrays.npz")).files) == \
+        sorted(np.load(os.path.join(ref, "arrays.npz")).files)
+    assert ckpt.SEP == jckpt.SEP
+
+
+def test_jax_checkpoint_restores_in_the_port(tmp_path):
+    tree = _tree(1)
+    d = str(tmp_path)
+    path = jckpt.save(d, 7, _as_jax(tree), extra={"note": "jax"})
+    assert ckpt.verify(path)
+    assert ckpt.latest_step(d) == 7 and ckpt.all_steps(d) == [7]
+    got = ckpt.restore(d, 7, _as_torch(tree))
+    _assert_tree_equal(got, tree)
+    assert isinstance(got["prior"], torch.Tensor)
+    assert ckpt.load_manifest(d, 7)["extra"] == {"note": "jax"}
+    _assert_tree_equal(ckpt.restore(d, 7, tree), tree)     # numpy leaves
+
+
+def test_port_checkpoint_restores_in_jax(tmp_path):
+    tree = _tree(2)
+    d = str(tmp_path)
+    path = ckpt.save(d, 2, _as_torch(tree))
+    assert jckpt.verify(path)
+    got = jckpt.restore(d, 2, _as_jax(tree))
+    _assert_tree_equal(_jax_to_np(got), tree)
+
+
+def test_keep_n_and_corruption_as_in_jax(tmp_path):
+    for mod, name in ((ckpt, "torch"), (jckpt, "jax")):
+        d = str(tmp_path / name)
+        for step in range(1, 6):
+            mod.save(d, step, {"x": np.full(3, step, np.float32)}, keep=2)
+        assert mod.all_steps(d) == [4, 5]
+        path = os.path.join(d, "step_00000005", "arrays.npz")
+        with open(path, "r+b") as f:
+            f.seek(60)
+            f.write(b"\xff\xff")
+    for mod in (ckpt, jckpt):
+        for name in ("torch", "jax"):
+            d = str(tmp_path / name)
+            assert not mod.verify(os.path.join(d, "step_00000005"))
+            assert mod.verify(os.path.join(d, "step_00000004"))
+    with pytest.raises(IOError, match="checksum"):
+        ckpt.restore(str(tmp_path / "jax"), 5, {"x": np.zeros(3)})
+    assert ckpt.latest_step(str(tmp_path / "none")) is None

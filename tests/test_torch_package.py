@@ -15,7 +15,10 @@ from repro_torch import device as rdev  # noqa: E402
 from repro_torch.core.egrl import EGRL, EGRLConfig  # noqa: E402
 from repro_torch.graphs.zoo import resnet50  # noqa: E402
 from repro_torch.launch import optimize_placement  # noqa: E402
+from repro_torch.launch import serve_placements  # noqa: E402
 from repro_torch.memsim import compiler  # noqa: E402
+from repro_torch.serving.placement_service import (  # noqa: E402
+    PlacementService)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -46,6 +49,15 @@ def test_import_loads_no_jax_and_no_reference_package():
     zoo = {"utils.envpolicy", "graphs.batch", "graphs.bucketed",
            "memsim.batch", "launch.train_zoo"}
     assert {f"repro_torch.{m}" for m in zoo} <= set(MODULES)
+    service = {"configs.granite_3_8b", "configs.llama3_405b",
+               "configs.qwen2_5_14b", "configs.llama4_maverick_400b_a17b",
+               "configs.qwen3_moe_30b_a3b", "configs.chameleon_34b",
+               "configs.seamless_m4t_medium", "graphs.extract",
+               "graphs.hashing", "obs.log", "obs.metrics", "obs.trace",
+               "checkpoint.manager", "serving.placement_service",
+               "launch.serve_placements"}
+    assert {f"repro_torch.{m}" for m in service} <= set(MODULES)
+    assert (PORT / "obs" / "__init__.py").exists()
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -71,6 +83,15 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         compiler.compiler_reference(resnet50())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         compiler.greedy_dp(resnet50(), passes=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        optimize_placement.optimize("granite-3-8b", "decode_32k", steps=20)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PlacementService()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_placements.serve([], pop_size=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_placements.main(["--requests", "1"])
+    assert PlacementService(device="cpu").device == torch.device("cpu")
     assert rdev.resolve_device("cpu") == torch.device("cpu")
     algo = EGRL(resnet50(), EGRLConfig(total_steps=20), device="cpu")
     assert algo.gnn_pop.device.type == "cpu"
@@ -80,8 +101,13 @@ def test_other_modes_and_llm_archs_say_what_is_missing():
     # every mode of the reference runs; an unknown one lists them
     with pytest.raises(ValueError, match="egrl, ea, pg"):
         EGRL(resnet50(), EGRLConfig(), mode="sac", device="cpu")
-    with pytest.raises(NotImplementedError, match="config port"):
-        optimize_placement.optimize("granite-3-8b", "decode_32k", steps=20,
+    # an LLM id is extracted at its shape and searched ...
+    plan, _ = optimize_placement.optimize("granite-3-8b", "decode_32k",
+                                          steps=20, device="cpu")
+    assert plan["graph_nodes"] == 202 and len(plan["ops"]) == 202
+    # ... and a shape its family does not support raises, as in JAX
+    with pytest.raises(KeyError, match="long_500k"):
+        optimize_placement.optimize("granite-3-8b", "long_500k", steps=20,
                                     device="cpu")
 
 
@@ -134,6 +160,72 @@ def test_kernel_build_names_and_missing_toolkit(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build(["gat_mp"])
     assert not (tmp_path / "build").exists()
+
+
+def test_kernel_load_from_two_threads_builds_once(monkeypatch, tmp_path):
+    """``load`` called from two threads at once (the placement service's
+    refinement threads) runs the compiler once, each thread writing its
+    own temporary file, and both get the same library; nothing is built
+    for real (a stub stands in for nvcc and for the loader)."""
+    import threading
+    import time
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
+    started = []
+
+    class FakeProc:
+        returncode = 0
+
+        def __init__(self, cmd, **kw):
+            started.append(cmd)
+            self.tmp = cmd[cmd.index("-o") + 1]
+            time.sleep(0.2)         # both threads inside the build window
+
+        def communicate(self):
+            with open(self.tmp, "w") as f:
+                f.write("lib")
+            return "ptxas info    : Used 8 registers", None
+
+    monkeypatch.setattr(build.subprocess, "Popen", FakeProc)
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: ("lib", path))
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(
+        build.load("memsim"))) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(30)
+    assert not any(t.is_alive() for t in threads)
+    assert len(started) == 1 and got[0] == got[1]
+    tmp = started[0][started[0].index("-o") + 1]
+    assert any(tmp.endswith(f".{os.getpid()}.{t.ident}.tmp")
+               for t in threads)
+    assert build.library_path("memsim").exists()
+    assert not list((tmp_path / "build").glob("*.tmp"))
+
+
+def test_launch_counts_exact_under_threads():
+    import sys
+    import threading
+    from repro_torch.memsim import simulator
+    rdev.reset_launch_counts()
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        ts = [threading.Thread(target=lambda: [
+            rdev.count_launch(simulator.evaluate_population)
+            for _ in range(2000)]) for _ in range(8)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(60)
+        assert not any(t.is_alive() for t in ts)
+    finally:
+        sys.setswitchinterval(old)
+    assert rdev.launch_counts()["memsim"] == 16000
+    rdev.reset_launch_counts()
 
 
 def test_library_path_follows_shared_headers(monkeypatch, tmp_path):
