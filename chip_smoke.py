@@ -6,7 +6,7 @@
 Phases, each printing JSON lines:
 
 1. device   -- the card's name and power limit (nvidia-smi);
-2. build    -- the five CUDA sources of ``src/repro_torch/csrc``
+2. build    -- the six CUDA sources of ``src/repro_torch/csrc``
                compiled, one ``nvcc`` each, in parallel; each kernel's
                registers and spills printed (the SSD kernels and the
                simulator kernel must not spill);
@@ -90,6 +90,28 @@ Phases, each printing JSON lines:
                evaluator calls and no launch, then re-scoring a one-node
                variant through the neighbour cache; placement_profile: device
                busy time and idle share of one class-1024 miss batch;
+15. flash_bwd -- the attention backward kernel against its plain
+               version at the train phase's shape (qwen3-0.6b, B 4, S
+               4096, bf16, causal) and at f32 (h 16/32/64/128), bf16 h
+               64, non-causal, S = 100, Sq < Sk with an offset, G = 1
+               and B = 1, each launched twice for bit-equal gradients;
+               the forward's lse against the plain lse, and the forward
+               with lse bit-equal to the forward without; ``ms``,
+               ``device_ms``, ``plain_ms``, the bound and SDPA's backward
+               (``library_ms``); ssd_grad: the SSD scan on a CUDA input
+               that requires grad raises instead of returning an output
+               without a gradient;
+16. train_check -- qwen3-0.6b at full width in f32, cut to 2 layers: the
+               loss of a 512-token batch and every parameter's gradient
+               on the card against the CPU (plain versions);
+17. train   -- ``launch.train.TrainLoop`` at qwen3-0.6b's published config
+               (bf16 activations, f32 parameters, remat "full", AdamW) at
+               S = 4096, global batch 4: 10 steps straight, and 5 + a
+               checkpoint + 5 in a restored loop, equal; exact launch
+               counts (2 x 28 forward, 28 backward a step), step ms,
+               tokens/s, the model-FLOPs share of the bf16 peak, peak
+               memory; train_profile: device time by kernel and the idle
+               share over 2 steps;
 13. kernels -- (printed last) per kernel: launches in its slice's main
                path (the BERT "egrl" run, the zamba2 serve run, the zoo
                "egrl" run; the simulator's also in Greedy-DP; every
@@ -97,7 +119,8 @@ Phases, each printing JSON lines:
                error, time on the card, plain time, bound and
                library time; for the GAT kernels both per launch (a
                launch is one call of the wrapper) and over their group (4
-               forward launches, 8 backward calls).
+               forward launches, 8 backward calls); for attention also
+               the train run's launches (``launches_train``).
 
 Device times come from ``tools/timing.py``: up to 3 padded profiles
 (``*_tries`` on each row) are taken for one that recorded every launch;
@@ -894,7 +917,8 @@ def run_slice(torch, np, name, make, egrl, sim, compiler, rdev, mode="ea",
             + (4 * gens if mode != "ea" else 0),
             "gat_mp_bwd": 8 * sac_steps,
             "memsim": 1 + gens * (pop + (mode != "ea")), "memsim_zoo": 0,
-            "flash_attention": 0, "flash_attention_tc": 0, "ssd_scan": 0}
+            "flash_attention": 0, "flash_attention_tc": 0,
+            "flash_attention_bwd": 0, "ssd_scan": 0}
     check(counts == want, f"{name} {mode}: launches {counts}, the path "
           f"implies {want}")
     if mode != "ea":
@@ -973,7 +997,8 @@ def run_zoo(torch, np, zoo, egrl, sim, compiler, rdev, mode, gens):
     want = {"gat_mp": gens * K * 4 * (1 + pg) + sac_steps * K * 8,
             "gat_mp_bwd": sac_steps * K * 8, "memsim": len(graphs),
             "memsim_zoo": gens * K * (1 + pg), "flash_attention": 0,
-            "flash_attention_tc": 0, "ssd_scan": 0}
+            "flash_attention_tc": 0, "flash_attention_bwd": 0,
+            "ssd_scan": 0}
     check(counts == want, f"zoo {mode}: launches {counts}, the path "
           f"implies {want}")
     rows_per_gen = algo.n_g + algo.n_b + (cfg.pg_rollouts if pg else 0)
@@ -1104,6 +1129,13 @@ SERVE_RUNS = (
      {"flash_attention": 28, "flash_attention_tc": 28}),
 )
 SERVE_MAX_LEN = 2112
+
+# the train phase: qwen3-0.6b at its published config, train_4k's
+# sequence length, a global batch of 4
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 4
+TRAIN_STEPS = 10
 
 
 def served_prefills():
@@ -1269,6 +1301,242 @@ def phase_flash(torch, fops, gen):
         emit(row)
         rows[name, S] = row
     return rows
+
+
+# ------------------------------------------------ attention backward kernel
+def flash_bwd_cases():
+    """(name, B, S, Sk, K, G, h, dtype, causal, q_offset): the train
+    phase's attention (qwen3-0.6b at S = 4096, B = 4: 8 KV heads of 128
+    with 2 queries each, bf16, causal), then f32 at every head dim the
+    kernel takes, bf16 at h = 64 (zamba2's heads), without the causal
+    mask, at S = 100 (not a multiple of a tile), 512 queries at
+    positions 512.. over 1024 keys, G = 1 and B = 1."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("qwen3-0.6b")
+    K, G, h = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
+    bf = "bfloat16"
+    return [("qwen3-0.6b:train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, K, G, h,
+             cfg.dtype, True, 0)] + [
+        (f"f32:h={hd}", 2, 256, 256, 2, 2, hd, "float32", True, 0)
+        for hd in (16, 32, 64, 128)] + [
+        ("bf16:h=64", 1, 1024, 1024, 32, 1, 64, bf, True, 0),
+        ("non-causal", 1, 1024, 1024, K, G, h, bf, False, 0),
+        ("f32:non-causal", 1, 256, 256, K, G, 32, "float32", False, 0),
+        ("S=100", 1, 100, 100, K, G, h, bf, True, 0),
+        ("f32:S=100", 1, 100, 100, K, G, 64, "float32", True, 0),
+        ("offset", 1, 512, 1024, K, G, h, bf, True, 512),
+        ("G=1", 1, 1024, 1024, 2 * K, 1, h, bf, True, 0),
+        ("B=1", 1, 2048, 2048, K, G, h, bf, True, 0)]
+
+
+def flash_bwd_error(torch, got, want, bf16):
+    """A gradient of the kernel against the plain version's.  f32: within
+    1e-4 of the largest element (both sum up to S products in f32, in
+    another order; a lost or added key moves a row by O(1) of it).
+    bf16: both round p and ds to bf16 before their products, and a
+    probability one f32 ulp apart may round the other way.  A gradient
+    element sums terms that cancel (dq_i = sum_j ds_ij k_j, and the
+    ds_ij of a row sum to 0), so one such flip moves even a small element
+    by about one bf16 ulp of its largest terms, which are of the order
+    of the gradient's largest element: each element lies within 2**-6
+    of the largest element (two ulps), and the RMS error, which any
+    lost, added or misplaced key raises in every row it touches, within
+    2**-7 of the RMS."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    rms = w.square().mean().sqrt().item()
+    err = {"max_abs_err": d.max().item(), "scale": w.abs().max().item(),
+           "rel_rms_err": d.square().mean().sqrt().item() / max(rms, 1e-30)}
+    if not bf16:
+        err["within_tolerance"] = err["max_abs_err"] <= 1e-4 * err["scale"]
+        return err
+    err["within_tolerance"] = (err["max_abs_err"] <= 2 ** -6 * err["scale"]
+                               and err["rel_rms_err"] <= 2 ** -7)
+    return err
+
+
+def sdpa_backward(torch, q, k, v, g, causal, q_offset=0):
+    """SDPA's backward on the same inputs, KV expanded to every query
+    head (the yardstick's layout): one ``autograd.grad`` call of a
+    retained graph, timed as a yardstick only."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+    B, S, K, G, h = q.shape
+    Sk = k.shape[1]
+    qs = q.reshape(B, S, K * G, h).transpose(1, 2).detach().requires_grad_()
+    ks = k.repeat_interleave(G, dim=2).transpose(1, 2).detach() \
+        .requires_grad_()
+    vs = v.repeat_interleave(G, dim=2).transpose(1, 2).detach() \
+        .requires_grad_()
+    if causal and (S != Sk or q_offset):
+        check(q_offset == Sk - S, "SDPA's causal masks align at the top "
+              "left or the bottom right")
+        out = F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=causal_lower_right(S, Sk))
+    else:
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+    gs = g.reshape(B, S, K * G, h).transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qs, ks, vs), gs,
+                                       retain_graph=True)
+
+
+def flash_bwd_autograd(torch, fops, q, k, v, g, causal, off, chunk,
+                       plain_out, plain_lse, bf16):
+    """The route training takes: ``flash_attention`` on q, k, v that
+    require grad, then ``torch.autograd.grad`` of its output for g (the
+    forward kernel with its lse buffer, ``_FlashAttention`` saving out
+    and lse, the backward kernel).  Its output against
+    ``flash_attention_plain`` and its three gradients against
+    ``flash_attention_bwd_plain`` on the plain forward's out and lse,
+    held as ``flash_error`` and ``flash_bwd_error`` say."""
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = fops.flash_attention(*leaves, causal=causal, q_offset=off)
+    grads = torch.autograd.grad(out, leaves, g)
+    want = fops.flash_attention_bwd_plain(q, k, v, plain_out, plain_lse, g,
+                                          chunk=chunk, causal=causal,
+                                          q_offset=off)
+    torch.cuda.synchronize()
+    errs = {"out": flash_error(torch, out.detach(), plain_out, bf16)}
+    for what, a, c in zip(("dq", "dk", "dv"), grads, want):
+        check(a.dtype == c.dtype and a.shape == c.shape,
+              f"flash_bwd autograd: {what} dtype/shape")
+        errs[what] = flash_bwd_error(torch, a, c, bf16)
+    for what, err in errs.items():
+        check(err["within_tolerance"],
+              f"flash_bwd autograd: {what} error {err}")
+    return errs
+
+
+def phase_flash_bwd(torch, fops, gen):
+    """The backward kernel (``csrc/flash_attention_bwd.cu``) against
+    ``flash_attention_bwd_plain`` (chunks of attn_chunk keys, as the
+    models call it) on the same q, k, v, cotangent and the forward
+    kernel's out and lse, held as ``flash_bwd_error`` says; launched
+    twice for bit-equal gradients.  The forward kernel, called through
+    ``flash_attention(..., return_lse=True)``, gives an output held
+    against ``flash_attention_plain``'s as ``flash_error`` says, bit-equal
+    to its output without lse, and an lse within 1e-5 (1 + |lse|) of the
+    plain version's (both f32).  At the train shape the route training
+    takes is also held end to end (``flash_bwd_autograd``).  Each
+    row: ``ms`` (CUDA events), ``device_ms`` (profiler, both CUDA
+    kernels), ``plain_ms``, ``library_ms`` (SDPA's backward), and
+    ``bound_ms``: the larger of the bytes (q, k, v, out, do, lse read;
+    dq, dk, dv written) over 3.35 TB/s and the five products' operations
+    on the unmasked pairs over the bf16 or f32 peak."""
+    rows = {}
+    for name, B, S, Sk, K, G, h, dtype, causal, off in flash_bwd_cases():
+        dt = getattr(torch, dtype)
+        bf16 = dt == torch.bfloat16
+        q = torch.randn((B, S, K, G, h), generator=gen, device="cuda").to(dt)
+        k = torch.randn((B, Sk, K, h), generator=gen, device="cuda").to(dt)
+        v = torch.randn((B, Sk, K, h), generator=gen, device="cuda").to(dt)
+        g = torch.randn((B, S, K, G, h), generator=gen, device="cuda").to(dt)
+        chunk = min(ATTN_CHUNK, Sk)
+        out, lse = fops.flash_attention(q, k, v, causal=causal, q_offset=off,
+                                        return_lse=True)
+        out_without_lse = fops.flash_attention(q, k, v, causal=causal,
+                                               q_offset=off)
+        plain_out, plain_lse = fops.flash_attention_plain(
+            q, k, v, chunk=chunk, causal=causal, q_offset=off,
+            return_lse=True)
+        grads = fops.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
+                                         q_offset=off)
+        again = fops.flash_attention_bwd(q, k, v, out, lse, g,
+                                         causal=causal, q_offset=off)
+        want = fops.flash_attention_bwd_plain(q, k, v, out, lse, g,
+                                               chunk=chunk, causal=causal,
+                                               q_offset=off)
+        torch.cuda.synchronize()
+        check(torch.equal(out, out_without_lse),
+              f"flash_bwd {name}: the forward with lse is not bit-equal to "
+              f"the forward without")
+        out_err = flash_error(torch, out, plain_out, bf16)
+        check(out_err["within_tolerance"],
+              f"flash_bwd {name}: forward error {out_err}")
+        lse_err = (lse - plain_lse).abs()
+        check(bool((lse_err <= 1e-5 * (1 + plain_lse.abs())).all()),
+              f"flash_bwd {name}: lse error {lse_err.max().item()}")
+        errs = {}
+        for what, a, b, c in zip(("dq", "dk", "dv"), grads, again, want):
+            check(a.dtype == dt and a.shape == c.shape,
+                  f"flash_bwd {name}: {what} dtype/shape")
+            check(bool(torch.isfinite(a).all()), f"flash_bwd {name}: {what} "
+                  f"not finite")
+            check(torch.equal(a, b), f"flash_bwd {name}: {what} differs "
+                  f"between two launches")
+            errs[what] = flash_bwd_error(torch, a, c, bf16)
+            check(errs[what]["within_tolerance"],
+                  f"flash_bwd {name}: {what} error {errs[what]}")
+        H = K * G
+        flops = 10 * B * H * h * attention_pairs(S, Sk, causal, off)
+        nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+            + lse.numel() * 4
+        b_ms, b_by = bound(nbytes, flops, PEAK_BF16 if bf16 else PEAK_F32)
+
+        def call():
+            fops.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
+                                     q_offset=off)
+        lib = sdpa_backward(torch, q, k, v, g, causal, off)
+        row = {"phase": "flash_bwd", "case": name, "B": B, "S": S, "Sk": Sk,
+               "q_offset": off, "K": K, "G": G, "h": h, "dtype": dtype,
+               "causal": causal, "err": errs,
+               "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+               "lse_max_abs_err": lse_err.max().item(),
+               "out_max_abs_err": out_err["max_abs_err"],
+               "ms": event_ms(torch, call, 5 if S >= 4096 else 20),
+               **profiled(torch, call, reps=5 if S >= 4096 else 20),
+               "plain_ms": event_ms(torch, lambda: fops
+                                    .flash_attention_bwd_plain(
+                                        q, k, v, out, lse, g, chunk=chunk,
+                                        causal=causal, q_offset=off), 2,
+                                    warmup=1),
+               "library_ms": event_ms(torch, lib, 10),
+               "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+               "bytes": nbytes}
+        if name == "qwen3-0.6b:train":
+            row["autograd_err"] = flash_bwd_autograd(
+                torch, fops, q, k, v, g, causal, off, chunk, plain_out,
+                plain_lse, bf16)
+        row["tflops"] = flops / row["ms"] / 1e9
+        row["bound_share"] = b_ms / row["ms"]
+        emit(row)
+        rows[name] = row
+        del lib
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_ssd_grad(torch, sops, gen):
+    """``ssd_scan`` on CUDA inputs of which one requires grad, in grad
+    mode, raises naming ROADMAP.md (the SSD-scan backward is not ported),
+    and launches nothing: it never returns an output without a gradient.
+    Under ``torch.no_grad()`` the same call runs the kernel."""
+    B, S, H, hd, N = 1, 128, 4, 16, 16
+    x = torch.randn((B, S, H, hd), generator=gen, device="cuda")
+    dt = torch.rand((B, S, H), generator=gen, device="cuda") * 0.1
+    A_log = torch.zeros((H,), device="cuda")
+    Bm = torch.randn((B, S, N), generator=gen, device="cuda")
+    Cm = torch.randn((B, S, N), generator=gen, device="cuda")
+    raised = {}
+    for name in ("x", "dt", "A_log", "B", "C"):
+        args = [t.clone() for t in (x, dt, A_log, Bm, Cm)]
+        args[("x", "dt", "A_log", "B", "C").index(name)].requires_grad_()
+        n0 = sops.ssd_scan.launches
+        try:
+            sops.ssd_scan(*args, chunk=64)
+        except RuntimeError as e:
+            raised[name] = str(e)
+        check(name in raised and "ROADMAP" in raised[name],
+              f"ssd_grad: an input {name} that requires grad did not raise")
+        check(sops.ssd_scan.launches == n0,
+              f"ssd_grad: the kernel launched for a grad input {name}")
+        with torch.no_grad():
+            y, _ = sops.ssd_scan(*args, chunk=64)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(y).all()) and not y.requires_grad,
+              f"ssd_grad: the no_grad call on {name}")
+    emit({"phase": "ssd_grad", "raised_for": sorted(raised),
+          "message": raised["x"][:100], "no_grad_calls_run": True})
 
 
 # --------------------------------------------------------- SSD scan kernel
@@ -1446,6 +1714,221 @@ def phase_serve_check(torch, rdev):
           == int(tok[0])})
 
 
+# ------------------------------------------------------------ LM training
+def train_flops(cfg, B, S):
+    """Model FLOPs of one training step, without recompute: 6 per
+    parameter of every matrix product (the layers' projections and MLP,
+    and the unembedding at the padded vocab) per token, and the two
+    attention products, 2 h FLOPs per unmasked (query head, key) pair
+    each, times 3 for forward and backward."""
+    D, H, K, h, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                     cfg.head_dim, cfg.d_ff)
+    layer = D * H * h * 2 + 2 * D * K * h + 3 * D * F
+    matmul = cfg.n_layers * layer + D * cfg.vocab_padded
+    attn = 12 * B * H * h * attention_pairs(S, S, True, 0) * cfg.n_layers
+    return 6 * matmul * B * S + attn
+
+
+def phase_train_check(torch, rdev):
+    """qwen3-0.6b at full width in f32, cut to 2 layers: the loss of one
+    batch (B 1, S 512) and every parameter's gradient on the card
+    (kernels: the attention forward twice a layer under remat "full", its
+    backward once, on the fp32 cores) against the same on the CPU (plain
+    versions), the same parameters.  Tolerance, stated before the first
+    run: the loss within 1e-5 of its value, each gradient within 1e-3 of
+    its largest element (f32 both, sums in another order; a lost
+    attention gradient or a wrong mask moves them by O(1))."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLM, device_batch
+    from repro_torch.models.zoo import get_model
+    from repro_torch.utils.params import tree_leaves, tree_map
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=2, dtype="float32")
+    gpu = get_model(cfg)
+    gpu.init(torch.Generator("cuda").manual_seed(1))
+    cpu = get_model(cfg)
+    cpu.load(tree_map(lambda t: t.detach().cpu(), gpu.params))
+    hb = SyntheticLM(cfg.vocab_size, 512, 1, seed=2).batch_at(0)
+
+    def loss_and_grads(model, device):
+        leaves = tree_leaves(model.params)
+        for _, p in leaves:
+            p.requires_grad_(True)
+        loss, _ = model.loss(model.params, device_batch(hb, device))
+        return loss, torch.autograd.grad(loss, [p for _, p in leaves])
+
+    rdev.reset_launch_counts()
+    g_loss, g_grads = loss_and_grads(gpu, "cuda")
+    torch.cuda.synchronize()
+    counts = rdev.launch_counts()
+    t0 = time.perf_counter()
+    c_loss, c_grads = loss_and_grads(cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    check(counts["flash_attention"] == 4 and counts["flash_attention_tc"] == 0
+          and counts["flash_attention_bwd"] == 2,
+          f"train_check launches {counts}")
+    loss_err = abs(g_loss.item() - c_loss.item())
+    check(loss_err <= 1e-5 * abs(c_loss.item()),
+          f"train_check loss {g_loss.item()} against {c_loss.item()}")
+    errs = {}
+    for (name, _), a, b in zip(tree_leaves(cpu.params), g_grads, c_grads):
+        scale = b.abs().max().item()
+        errs[name] = (a.cpu() - b).abs().max().item() / max(scale, 1e-30)
+        check(bool(torch.isfinite(a).all()), f"train_check {name}: not "
+              f"finite")
+        check(errs[name] <= 1e-3, f"train_check {name}: error "
+              f"{errs[name]} of the largest element")
+    emit({"phase": "train_check", "arch": cfg.name, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "dtype": cfg.dtype, "remat": cfg.remat,
+          "batch": 1, "seq": 512, "launches": counts,
+          "loss": g_loss.item(), "loss_cpu": c_loss.item(),
+          "loss_abs_err": loss_err,
+          "worst_grad_rel_err": max(errs.values()),
+          "worst_grad": max(errs, key=errs.get), "grad_rel_err": errs,
+          "cpu_s": cpu_s})
+
+
+def phase_train(torch, np, rdev):
+    """``TrainLoop`` at qwen3-0.6b's published config (28 layers, d_model
+    1024, bf16 activations, f32 parameters, remat "full", AdamW) on
+    train_4k's sequence length, global batch 4, random weights from seed
+    0.  Run A: 10 steps straight.  Run B: 5 steps and a checkpoint, then
+    a new ``TrainLoop`` restored from it for 5 more.  Gates: every loss
+    finite; per step 2 x 28 attention forward launches (the forward and
+    its recompute), all on the tensor cores, and 28 backward launches;
+    run B's losses, final parameters and optimizer state within 1e-6 of
+    run A's (relative to each loss, to each leaf's largest element: the
+    same deterministic kernels on the same inputs; a restore that lost
+    the moments or the step would move them by ~lr, 1e-3 of them).
+    Prints the median step ms (host clock, steps 2-10 of run A; a step
+    ends in the host reading its loss), tokens/s, the model-FLOPs share
+    of the bf16 peak, peak device memory; train_profile: device time by
+    kernel and the idle share over 2 more steps."""
+    import shutil
+    from torch.autograd import DeviceType
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import device_batch
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.utils.params import tree_leaves
+    cfg = get_config(TRAIN_ARCH)
+    B, S, n = TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS
+    L = cfg.n_layers
+    per_step = {"flash_attention": 2 * L, "flash_attention_tc": 2 * L,
+                "flash_attention_bwd": L}
+    none = {k: 0 for k in rdev.launch_counts()}
+    quiet = lambda _: None      # noqa: E731
+
+    def run(loop, steps, **kw):
+        rdev.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = loop.run(steps, log=quiet, **kw)
+        torch.cuda.synchronize()
+        return out, rdev.launch_counts(), time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    a = TrainLoop(cfg, global_batch=B, seq=S, device="cuda")
+    (pa, sa, _), counts, a_s = run(a, n)
+    peak = torch.cuda.max_memory_allocated()
+    want = {**none, **{k: n * v for k, v in per_step.items()}}
+    check(counts == want, f"train launches {counts}, want {want}")
+    losses = [h["loss"] for h in a.history]
+    check(len(losses) == n and all(math.isfinite(x) for x in losses),
+          f"train losses {losses}")
+
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_train_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        b1 = TrainLoop(cfg, global_batch=B, seq=S, device="cuda",
+                       ckpt_dir=ckpt_dir)
+        _, counts_b1, b1_s = run(b1, n // 2, save_every=n // 2)
+        b1_losses = [h["loss"] for h in b1.history]
+        del b1
+        torch.cuda.empty_cache()
+        b2 = TrainLoop(cfg, global_batch=B, seq=S, device="cuda",
+                       ckpt_dir=ckpt_dir)
+        (pb, sb, _), counts_b2, b2_s = run(b2, n)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    half = {**none, **{k: n // 2 * v for k, v in per_step.items()}}
+    check(counts_b1 == half and counts_b2 == half,
+          f"train restart launches {counts_b1}, {counts_b2}")
+    b_losses = [h["loss"] for h in b2.history]
+    check([h["step"] for h in b2.history] == list(range(n // 2 + 1, n + 1)),
+          f"train restart steps {[h['step'] for h in b2.history]}")
+    loss_err = max(abs(x - y) / abs(y) for x, y in
+                   zip(b1_losses + b_losses, losses))
+    check(loss_err <= 1e-6, f"train restart losses {b1_losses} + "
+          f"{b_losses} against {losses}")
+    state_err, bit_equal = 0.0, True
+    for tree_a, tree_b in ((pa, pb), (sa, sb)):
+        for (name, x), (_, y) in zip(tree_leaves(tree_a), tree_leaves(tree_b)):
+            bit_equal &= torch.equal(x, y)
+            if x.is_floating_point():
+                e = ((x - y).abs().max() / x.abs().max().clamp(min=1e-30)
+                     ).item()
+                state_err = max(state_err, e)
+                check(e <= 1e-6, f"train restart {name}: error {e}")
+    del pb, sb, b2
+
+    # train_profile: 2 more steps of run A's state under the profiler
+    batches = [device_batch(a.data.batch_at(n + i), "cuda") for i in range(2)]
+    torch.cuda.synchronize()
+    with padded_profile() as prof:
+        t0 = time.perf_counter()
+        for i, hb in enumerate(batches):
+            pa, sa, met = a.step_fn(pa, sa, hb, n + i)
+        final_loss = float(met["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0.0))
+        if us > 0:
+            name = evt.key[:80]
+            ms, calls = kernels.get(name, (0.0, 0))
+            kernels[name] = (ms + us / 1e3, calls + evt.count)
+    busy = sum(ms for ms, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
+    mine = {tag: sum(ms for k, (ms, _) in kernels.items() if tag in k)
+            for tag in ("flash_fwd_wgmma", "flash_bwd_dq", "flash_bwd_dkdv")}
+    gemm = sum(ms for k, (ms, _) in kernels.items()
+               if "gemm" in k.lower() or "cutlass" in k.lower())
+
+    step_ms = [h["ms"] for h in a.history]
+    med = float(np.median(step_ms[1:]))
+    flops = train_flops(cfg, B, S)
+    row = {"phase": "train", "arch": cfg.name, "layers": L,
+           "d_model": cfg.d_model, "dtype": cfg.dtype,
+           "param_dtype": cfg.param_dtype, "remat": cfg.remat,
+           "optimizer": cfg.optimizer, "global_batch": B, "seq": S,
+           "params": sum(p.numel() for _, p in tree_leaves(pa)),
+           "steps": n, "losses": losses, "launches": counts,
+           "launches_per_step": per_step, "step_ms": step_ms,
+           "median_step_ms": med, "tokens_per_s": B * S / med * 1e3,
+           "model_flops_per_step": flops,
+           "mfu_bf16_peak": flops / (med / 1e3) / PEAK_BF16,
+           "max_memory_allocated_bytes": peak, "run_a_s": a_s,
+           "restart": {"run_b1_s": b1_s, "run_b2_s": b2_s,
+                       "losses": b_losses, "max_rel_loss_err": loss_err,
+                       "max_state_err": state_err, "bit_equal": bit_equal}}
+    emit(row)
+    emit({"phase": "train_profile", "arch": cfg.name,
+          "window": "2 train steps of run A's state (steps 11-12)",
+          "wall_ms": wall_ms, "device_busy_ms": busy,
+          "device_idle_share": (1.0 - busy / wall_ms) if kernels
+          else "not measured", "final_loss": final_loss,
+          "kernel_device_ms": mine, "gemm_device_ms": gemm,
+          "top_kernels": [{"name": k, "device_ms": ms, "calls": c}
+                          for k, (ms, c) in top[:15]]})
+    del pa, sa, a
+    torch.cuda.empty_cache()
+    return row
+
+
 class WatchLogits:
     """Records whether every prefill and decode step of the served model
     classes returns finite logits (a device flag, read once at the end)."""
@@ -1531,7 +2014,8 @@ def phase_serve(torch, np, rdev):
     qwen3-0.6b (28 attention launches per request), 2 requests each.
     Every attention launch takes the tensor-core route (bf16)."""
     none = {"gat_mp": 0, "gat_mp_bwd": 0, "memsim": 0, "memsim_zoo": 0,
-            "flash_attention": 0, "flash_attention_tc": 0, "ssd_scan": 0}
+            "flash_attention": 0, "flash_attention_tc": 0,
+            "flash_attention_bwd": 0, "ssd_scan": 0}
     first = None
     for arch, requests, slots, max_new, lens, per in SERVE_RUNS:
         out, counts, finite, peak = run_serve(
@@ -1641,7 +2125,8 @@ def placement_launches(svc):
     return {"gat_mp": 4 * (gens + c["prior_forwards"]), "gat_mp_bwd": 0,
             "memsim": c["compiler_refs"],
             "memsim_zoo": gens + c["nn_rescored"], "flash_attention": 0,
-            "flash_attention_tc": 0, "ssd_scan": 0}, gens
+            "flash_attention_tc": 0, "flash_attention_bwd": 0,
+            "ssd_scan": 0}, gens
 
 
 def placement_gat_capture(ops, kept):
@@ -2094,7 +2579,7 @@ def main(argv=None):
     # 2. build, every source in parallel
     t0 = time.perf_counter()
     rep = build.build(["gat_mp", "gat_mp_bwd", "memsim", "flash_attention",
-                       "ssd_scan"])
+                       "flash_attention_bwd", "ssd_scan"])
     regs = ptxas_kernels(rep)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source": {k: {"seconds": v["seconds"], "cached": v["cached"],
@@ -2113,17 +2598,24 @@ def main(argv=None):
           f"memsim: no compiler report for its two kernels: {regs}")
     for entry, info in regs["memsim"].items():
         check(info["spill_bytes"] == 0, f"{entry} spills {info}")
+    check(len(regs.get("flash_attention_bwd", {})) == 16,
+          f"flash_attention_bwd: no compiler report for its 16 kernels "
+          f"(2 kernels x 4 head dims x 2 dtypes): {regs}")
 
     gen = torch.Generator("cuda").manual_seed(0)
     rows = run_egrl(torch, np, rdev, gen, regs["memsim"])  # 3-8
     flash = phase_flash(torch, fops, gen)                  # 9
     ssd = phase_ssd(torch, sops, gen)                      # 10
+    flash_bwd = phase_flash_bwd(torch, fops, gen)          # 15
+    phase_ssd_grad(torch, sops, gen)
     phase_serve_check(torch, rdev)                         # 11
     serve, model = phase_serve(torch, np, rdev)            # 12
     phase_serve_profile(torch, np, model)
     del model
     torch.cuda.empty_cache()
     placement = phase_placement(torch, np, rdev)           # 14
+    phase_train_check(torch, rdev)                         # 16
+    train = phase_train(torch, np, rdev)                   # 17
 
     # 13. kernels
     f, s_ = flash["zamba2-1.2b", 2048], ssd["zamba2-1.2b", 2048]
@@ -2163,6 +2655,26 @@ def main(argv=None):
          "per": "one call (3 CUDA kernels) at zamba2's 2048-token prefill: "
                 "B=1, H=64, hd=64, N=64, Q=256; bound_ms on the f32 cores, "
                 "bound_ms_tc in 3xTF32 on the tensor cores"}]
+    fb = flash_bwd["qwen3-0.6b:train"]
+    rows.append(
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/models/attention.py:113",
+         "launches": train["launches"]["flash_attention_bwd"],
+         "launches_from": f"the {TRAIN_ARCH} train run ({TRAIN_STEPS} steps, "
+                          f"B={TRAIN_BATCH}, S={TRAIN_SEQ})",
+         "max_abs_err": fb["max_abs_err"], "ms": fb["ms"],
+         "plain_ms": fb["plain_ms"], "bound_ms": fb["bound_ms"],
+         "bound_by": fb["bound_by"], "library_ms": fb["library_ms"],
+         "device_ms": fb["device_ms"], "tflops": fb["tflops"],
+         "bound_share": fb["bound_share"],
+         "cuda_kernels": ["flash_bwd_dq", "flash_bwd_dkdv"],
+         "per": f"one call at the train shape: B={TRAIN_BATCH}, "
+                f"S={TRAIN_SEQ}, 8 KV heads x 2 queries of 128, bf16, "
+                f"causal; library_ms: SDPA's backward, KV expanded"})
+    for r in rows:
+        if r["name"].startswith("flash_attention"):
+            r["launches_train"] = train["launches"][r["name"]]
     for r in rows:
         counter = {"gat_mp_fwd": "gat_mp", "memsim_evaluate": "memsim",
                    "memsim_evaluate_zoo": "memsim_zoo"}.get(r["name"],

@@ -49,6 +49,17 @@ def _flatten(tree) -> Dict[str, np.ndarray]:
     return {k: _numpy(leaf) for k, leaf in _leaves(tree)}
 
 
+def _checksum(arrays: Dict[str, np.ndarray]) -> str:
+    """sha256 over (key, array bytes in C order) in sorted key order, the
+    JAX manager's checksum; hashed from the arrays' buffers, without the
+    copy ``tobytes`` makes (a training state is gigabytes)."""
+    h = hashlib.sha256()
+    for k in sorted(arrays):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(arrays[k]).reshape(-1).view(np.uint8))
+    return h.hexdigest()
+
+
 def save(ckpt_dir: str, step: int, tree, extra: Optional[dict] = None,
          keep: int = 3) -> str:
     arrays = _flatten(tree)
@@ -56,14 +67,10 @@ def save(ckpt_dir: str, step: int, tree, extra: Optional[dict] = None,
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
-    h = hashlib.sha256()
-    for k in sorted(arrays):
-        h.update(k.encode())
-        h.update(arrays[k].tobytes())
     manifest = {
         "step": step,
         "keys": sorted(arrays),
-        "checksum": h.hexdigest(),
+        "checksum": _checksum(arrays),
         "extra": extra or {},
     }
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -100,18 +107,22 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def verify(path: str) -> bool:
+def _load_checked(path: str):
+    """The arrays of checkpoint ``path`` read once, with whether their
+    checksum matches the manifest (False for a truncated zip, a missing
+    manifest, a bad array...)."""
     try:
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
-        data = np.load(os.path.join(path, "arrays.npz"))
-        h = hashlib.sha256()
-        for k in sorted(data.files):
-            h.update(k.encode())
-            h.update(data[k].tobytes())
-        return h.hexdigest() == manifest["checksum"]
+        with np.load(os.path.join(path, "arrays.npz")) as data:
+            arrays = {k: data[k] for k in data.files}
+        return arrays, _checksum(arrays) == manifest["checksum"]
     except Exception:  # truncated zip, missing manifest, bad array...
-        return False
+        return None, False
+
+
+def verify(path: str) -> bool:
+    return _load_checked(path)[1]
 
 
 def _rebuild(template, data, path: Tuple[str, ...] = ()):
@@ -135,10 +146,14 @@ def restore(ckpt_dir: str, step: int, template, check: bool = True):
     comes back as a tensor on that leaf's device, any other leaf as a
     numpy array."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
-    if check and not verify(path):
-        raise IOError(f"checksum mismatch in {path}")
-    data = np.load(os.path.join(path, "arrays.npz"))
-    return _rebuild(template, data)
+    if check:
+        arrays, ok = _load_checked(path)
+        if not ok:
+            raise IOError(f"checksum mismatch in {path}")
+    else:
+        with np.load(os.path.join(path, "arrays.npz")) as data:
+            arrays = {k: data[k] for k in data.files}
+    return _rebuild(template, arrays)
 
 
 def load_manifest(ckpt_dir: str, step: int) -> dict:

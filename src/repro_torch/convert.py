@@ -174,6 +174,19 @@ def lm_params_to_jax(params: Mapping) -> Dict:
     return tree_map(_numpy, params)
 
 
+def opt_state_from_jax(state: Mapping, device="cpu") -> Dict:
+    """A JAX optimizer state (``adamw_init`` {"m", "v", "step"} or
+    ``adafactor_init`` {"f": {... {"vr", "vc"} or {"v"}}, "step"}; numpy
+    arrays) as the port's: the same nested dicts of tensors, ``step`` an
+    int32 scalar tensor."""
+    return tree_map(lambda a: _tensor(a, device), state)
+
+
+def opt_state_to_jax(state: Mapping) -> Dict:
+    """The port's optimizer state as the JAX pytree of numpy arrays."""
+    return tree_map(_numpy, state)
+
+
 def lm_cache_from_jax(cache: Mapping, device="cpu") -> Dict:
     """A JAX model's cache dict (``init_cache`` / ``prefill`` layout) as
     the port's cache: the same keys and shapes, as tensors."""

@@ -1,4 +1,4 @@
-// Attention softmax(q k^T * scale) v over grouped KV heads, forward only.
+// Attention softmax(q k^T * scale) v over grouped KV heads, forward.
 //
 // Replaces the Pallas TPU kernel `_kernel` / `flash_attention_pallas` in
 // src/repro/kernels/flash_attention/flash_attention.py (wrapped there by
@@ -10,7 +10,11 @@
 //                                          scales q in that dtype)
 //   s_ij = -1e30 where causal and j > i + q_offset
 //   o_i  = sum_j bf(exp(s_ij - m)) v_j / max(sum_j exp(s_ij - m), 1e-30)
-// with m the running row max of an online softmax over KV tiles.
+// with m the running row max of an online softmax over KV tiles.  Given
+// an lse pointer, both kernels also write each row's log-sum-exp
+//   lse_i = m + log(max(sum_j exp(s_ij - m), 1e-30))   (f32, (B, K*G, Sq))
+// as `_flash_fwd_impl` returns it for the backward
+// (csrc/flash_attention_bwd.cu); with a null pointer nothing else changes.
 //
 // Layout: q and out (B, Sq, K*G, h), k and v (B, Sk, K, h), read in
 // place: the KV head of query head n is n / G, so grouped-query
@@ -119,9 +123,9 @@ __device__ __forceinline__ int out_col(int tx, int t) {
 template <int HD, typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_fp32cores(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int Sq,
-                 int Sk, int K, int G, int causal, int q_offset,
-                 float scale) {
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int Sq, int Sk, int K, int G,
+                 int causal, int q_offset, float scale) {
   constexpr int LD = HD + 4;     // row stride of the q and k tiles
   constexpr int DPT = HD / 8;    // output columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -269,13 +273,16 @@ flash_fwd_fp32cores(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int t = 0; t < DPT; ++t)
       orow[out_col<HD>(tx, t)] = from_f<T>(acc[i][t] * inv);
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * H + head) * Sq + row] =
+          m[i] + logf(fmaxf(l[i], 1e-30f));
   }
 }
 
 template <int HD, typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int K, int G, int causal, int q_offset,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Sq, int Sk, int K, int G, int causal,
+           int q_offset, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_fp32cores<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -284,28 +291,28 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((Sq + BQ - 1) / BQ, K * G, B);
   flash_fwd_fp32cores<HD, T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, K, G, causal,
-      q_offset, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Sk, K, G,
+      causal, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_h(int h, const void* q, const void* k, const void* v, void* out,
-               int B, int Sq, int Sk, int K, int G, int causal, int q_offset,
-               float scale, cudaStream_t st) {
+               float* lse, int B, int Sq, int Sk, int K, int G, int causal,
+               int q_offset, float scale, cudaStream_t st) {
   switch (h) {
     case 16:
-      return launch<16, T>(q, k, v, out, B, Sq, Sk, K, G, causal, q_offset,
-                           scale, st);
+      return launch<16, T>(q, k, v, out, lse, B, Sq, Sk, K, G, causal,
+                           q_offset, scale, st);
     case 32:
-      return launch<32, T>(q, k, v, out, B, Sq, Sk, K, G, causal, q_offset,
-                           scale, st);
+      return launch<32, T>(q, k, v, out, lse, B, Sq, Sk, K, G, causal,
+                           q_offset, scale, st);
     case 64:
-      return launch<64, T>(q, k, v, out, B, Sq, Sk, K, G, causal, q_offset,
-                           scale, st);
+      return launch<64, T>(q, k, v, out, lse, B, Sq, Sk, K, G, causal,
+                           q_offset, scale, st);
     case 128:
-      return launch<128, T>(q, k, v, out, B, Sq, Sk, K, G, causal, q_offset,
-                            scale, st);
+      return launch<128, T>(q, k, v, out, lse, B, Sq, Sk, K, G, causal,
+                            q_offset, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -388,8 +395,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap,
-                __nv_bfloat16* __restrict__ out, int Sq, int Sk, int G,
-                int causal, int q_offset, float scale) {
+                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                int Sq, int Sk, int G, int causal, int q_offset,
+                float scale) {
   using C = Cfg<HD>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -555,13 +563,16 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                                    o[4 * j + 2 * h + 1] * inv);
       *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * (lane & 3)) = v;
     }
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[((size_t)b * H + head) * Sq + row] =
+          m[h] + logf(fmaxf(l[h], 1e-30f));
   }
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int K, int G, int causal, int q_offset,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Sq, int Sk, int K, int G, int causal,
+           int q_offset, float scale, cudaStream_t stream) {
   using C = Cfg<HD>;
   const cuuint64_t H = (cuuint64_t)K * G, e = 2;
   CUtensorMap maps[3];
@@ -582,17 +593,19 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(K * G, (Sq + BQ - 1) / BQ, B);
   flash_fwd_wgmma<HD><<<grid, THREADS, C::SMEM, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), Sq, Sk, G,
-      causal, q_offset, scale);
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), lse, Sq,
+      Sk, G, causal, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace tc
 }  // namespace
 
-// the fp32-core kernel; dtype: 0 float32, 1 bfloat16
+// the fp32-core kernel; dtype: 0 float32, 1 bfloat16.  lse: null, or
+// (B, K*G, Sq) f32 for each row's log-sum-exp (the backward's input)
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* out, int B, int Sq,
+                                   const void* v, void* out, void* lse,
+                                   int B, int Sq,
                                    int Sk, int K, int G, int h, int dtype,
                                    int causal, int q_offset, float scale,
                                    void* stream) {
@@ -601,17 +614,22 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return fp32c::dispatch_h<float>(h, q, k, v, out, B, Sq, Sk, K, G,
-                                    causal, q_offset, scale, st);
+    return fp32c::dispatch_h<float>(h, q, k, v, out,
+                                    static_cast<float*>(lse), B, Sq, Sk, K,
+                                    G, causal, q_offset, scale, st);
   if (dtype == 1)
-    return fp32c::dispatch_h<__nv_bfloat16>(h, q, k, v, out, B, Sq, Sk, K,
-                                            G, causal, q_offset, scale, st);
+    return fp32c::dispatch_h<__nv_bfloat16>(h, q, k, v, out,
+                                            static_cast<float*>(lse), B, Sq,
+                                            Sk, K, G, causal, q_offset, scale,
+                                            st);
   return (int)cudaErrorInvalidValue;
 }
 
-// bf16 only, h = 64 or 128; q, k, v and out 16-byte aligned (TMA)
+// bf16 only, h = 64 or 128; q, k, v and out 16-byte aligned (TMA); lse
+// as for flash_attention_fwd
 extern "C" int flash_attention_fwd_tc(const void* q, const void* k,
-                                      const void* v, void* out, int B,
+                                      const void* v, void* out, void* lse,
+                                      int B,
                                       int Sq, int Sk, int K, int G, int h,
                                       int causal, int q_offset, float scale,
                                       void* stream) {
@@ -624,10 +642,10 @@ extern "C" int flash_attention_fwd_tc(const void* q, const void* k,
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = (cudaStream_t)stream;
   if (h == 64)
-    return tc::launch<64>(q, k, v, out, B, Sq, Sk, K, G, causal, q_offset,
-                          scale, st);
+    return tc::launch<64>(q, k, v, out, static_cast<float*>(lse), B, Sq,
+                          Sk, K, G, causal, q_offset, scale, st);
   if (h == 128)
-    return tc::launch<128>(q, k, v, out, B, Sq, Sk, K, G, causal, q_offset,
-                           scale, st);
+    return tc::launch<128>(q, k, v, out, static_cast<float*>(lse), B, Sq,
+                           Sk, K, G, causal, q_offset, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -16,6 +16,14 @@ fallback: a launch that fails raises.  On CPU tensors it runs
 ``flash_attention_plain``, the forward of ``blocked_attention`` in torch
 ops.  Query i sits at position i + q_offset; with ``causal`` it sees the
 keys at positions <= its own.
+
+The gradient is the counterpart of ``_flash_bwd`` in
+``src/repro/models/attention.py`` (an XLA custom VJP, no Pallas kernel):
+when an input requires grad, ``flash_attention`` goes through
+``_FlashAttention``, whose forward also keeps each row's log-sum-exp and
+whose backward is ``flash_attention_bwd``: on CUDA tensors the two
+kernels of ``csrc/flash_attention_bwd.cu`` (one wrapper launch), on CPU
+tensors ``flash_attention_bwd_plain``.
 """
 from __future__ import annotations
 
@@ -32,10 +40,12 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TENSOR_CORE_HEAD_DIMS = (64, 128)   # whole 64-column (128-byte) TMA boxes
 TMA_ALIGN = 16                      # bytes: base address and strides
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float]
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float]
              + [ctypes.c_void_p])
-_TC_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+_TC_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                 + [ctypes.c_float] + [ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -46,11 +56,13 @@ def softmax_scale(h: int, dtype: torch.dtype) -> float:
 
 
 def flash_attention_plain(q, k, v, *, chunk: int, causal: bool,
-                          q_offset: int = 0):
+                          q_offset: int = 0, return_lse: bool = False):
     """Plain PyTorch version, any device: an online softmax over KV
     chunks of ``chunk`` keys, with the JAX code's roundings (q * scale
     and the probabilities fed to the second product in q's dtype, the
-    products and sums in f32).  Returns (B, Sq, K, G, h) in q's dtype."""
+    products and sums in f32).  Returns (B, Sq, K, G, h) in q's dtype;
+    with ``return_lse`` also each row's log-sum-exp (B, K, G, Sq) f32,
+    as ``_flash_fwd_impl`` returns it."""
     B, Sq, K, G, h = q.shape
     Sk = k.shape[1]
     n = Sk // chunk
@@ -74,8 +86,11 @@ def flash_attention_plain(q, k, v, *, chunk: int, causal: bool,
         acc = acc * alpha[..., None] + torch.einsum(
             "bkgqc,bckh->bkgqh", pe.to(q.dtype).float(), vc)
         m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+    l = torch.clamp(l, min=1e-30)
+    out = (acc / l[..., None]).permute(0, 3, 1, 2, 4).to(q.dtype)
+    if return_lse:
+        return out, m + torch.log(l)
+    return out
 
 
 def _check(q, k, v):
@@ -99,6 +114,25 @@ def kernel_route(q, k, v) -> str:
     not on the device.  Raises ``ValueError`` for inputs neither kernel
     takes, among them a tensor-core input whose base address or row
     stride is not a multiple of 16 bytes (TMA reads neither)."""
+    _kernel_inputs(q, k, v)
+    h = q.shape[-1]
+    if q.dtype != torch.bfloat16 or h not in TENSOR_CORE_HEAD_DIMS:
+        return "fp32_cores"
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        row = x.stride(1) * x.element_size()
+        if x.data_ptr() % TMA_ALIGN or row % TMA_ALIGN:
+            raise ValueError(
+                f"{name}: TMA needs a base address and row stride that are "
+                f"multiples of {TMA_ALIGN} bytes, got address "
+                f"{x.data_ptr():#x} (storage offset {x.storage_offset()}) "
+                f"and stride {row} bytes")
+    return "tensor_cores"
+
+
+def _kernel_inputs(q, k, v):
+    """Raises ``ValueError`` for inputs no CUDA kernel of this module
+    takes: head dims other than 16, 32, 64, 128, dtypes other than f32
+    and bf16, non-contiguous or empty tensors, grids too large."""
     B, Sq, K, G, h = q.shape
     Sk = k.shape[1]
     if h not in KERNEL_HEAD_DIMS:
@@ -114,43 +148,49 @@ def kernel_route(q, k, v) -> str:
         raise ValueError("empty input")
     if B > 65535 or K * G > 65535:
         raise ValueError("batch or head count exceeds the kernel grid")
-    if q.dtype != torch.bfloat16 or h not in TENSOR_CORE_HEAD_DIMS:
-        return "fp32_cores"
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        row = x.stride(1) * x.element_size()
-        if x.data_ptr() % TMA_ALIGN or row % TMA_ALIGN:
-            raise ValueError(
-                f"{name}: TMA needs a base address and row stride that are "
-                f"multiples of {TMA_ALIGN} bytes, got address "
-                f"{x.data_ptr():#x} (storage offset {x.storage_offset()}) "
-                f"and stride {row} bytes")
-    return "tensor_cores"
 
 
-def _launch_fp32cores(q, k, v, causal, q_offset):
-    """The fp32-core kernel on checked inputs (any dtype and h it takes)."""
+def _lse_buffer(q, with_lse):
+    """The (B, K, G, Sq) f32 log-sum-exp output, or None."""
+    if not with_lse:
+        return None
+    B, Sq, K, G, _ = q.shape
+    return torch.empty((B, K, G, Sq), dtype=torch.float32, device=q.device)
+
+
+def _result(out, lse):
+    return out if lse is None else (out, lse)
+
+
+def _launch_fp32cores(q, k, v, causal, q_offset, with_lse=False):
+    """The fp32-core kernel on checked inputs (any dtype and h it takes).
+    Returns out, or (out, lse) with ``with_lse``."""
     B, Sq, K, G, h = q.shape
     fn = build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     out = torch.empty_like(q)
+    lse = _lse_buffer(q, with_lse)
     err = build.cuda_call(
         fn, q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         B, Sq, k.shape[1], K, G, h, KERNEL_DTYPES[q.dtype], int(causal),
         q_offset, softmax_scale(h, q.dtype))
     if err:
         raise RuntimeError(f"flash_attention fp32-core kernel launch "
                            f"failed: CUDA error {err}")
     count_launch(flash_attention)
-    return out
+    return _result(out, lse)
 
 
-def _launch_tensor_cores(q, k, v, causal, q_offset):
+def _launch_tensor_cores(q, k, v, causal, q_offset, with_lse=False):
     """The tensor-core kernel on inputs ``kernel_route`` sent there."""
     B, Sq, K, G, h = q.shape
     fn = build.function("flash_attention", "flash_attention_fwd_tc",
                         _TC_ARGTYPES)
     out = torch.empty_like(q)
+    lse = _lse_buffer(q, with_lse)
     err = build.cuda_call(
         fn, q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         B, Sq, k.shape[1], K, G, h, int(causal), q_offset,
         softmax_scale(h, q.dtype))
     if err:
@@ -159,35 +199,170 @@ def _launch_tensor_cores(q, k, v, causal, q_offset):
                            f"the CUresult of the TMA map encoding)")
     count_launch(flash_attention)
     count_launch(flash_attention, "tensor_core_launches")
-    return out
+    return _result(out, lse)
 
 
-def _launch(q, k, v, causal, q_offset):
+def _launch(q, k, v, causal, q_offset, with_lse=False):
     if q_offset < 0:
         raise ValueError("negative q_offset")
     if kernel_route(q, k, v) == "tensor_cores":
-        return _launch_tensor_cores(q, k, v, causal, q_offset)
-    return _launch_fp32cores(q, k, v, causal, q_offset)
+        return _launch_tensor_cores(q, k, v, causal, q_offset, with_lse)
+    return _launch_fp32cores(q, k, v, causal, q_offset, with_lse)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
-                    chunk: int = 0):
-    """q (B, Sq, K, G, h); k, v (B, Sk, K, h), f32 or bf16 -> (B, Sq, K,
-    G, h) in the inputs' dtype.  CUDA tensors launch the kernel that
-    ``kernel_route`` names (contiguous inputs, h in 16, 32, 64, 128);
-    CPU tensors run ``flash_attention_plain`` over KV chunks of
-    ``chunk`` keys (0: one chunk of all Sk keys), which must divide
-    Sk."""
-    _check(q, k, v)
+def _forward(q, k, v, causal, q_offset, chunk, with_lse=False):
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
     if q.device.type == "cpu":
         Sk = k.shape[1]
         chunk = chunk or Sk
         if Sk % chunk:
             raise ValueError(f"chunk {chunk} does not divide Sk={Sk}")
         return flash_attention_plain(q, k, v, chunk=chunk, causal=causal,
-                                     q_offset=q_offset)
-    return _launch(q, k, v, causal, q_offset)
+                                     q_offset=q_offset, return_lse=with_lse)
+    return _launch(q, k, v, causal, q_offset, with_lse)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with a gradient for q, k and v: the
+    counterpart of the JAX ``custom_vjp`` pair ``_flash_fwd`` /
+    ``_flash_bwd``.  The forward keeps out and the rows' log-sum-exp;
+    the backward recomputes the probabilities from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, chunk):
+        out, lse = _forward(q, k, v, causal, q_offset, chunk, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mark_non_differentiable(lse)
+        ctx.args = (causal, q_offset, chunk)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, q_offset, chunk = ctx.args
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g.contiguous(),
+                                         causal=causal, q_offset=q_offset,
+                                         chunk=chunk)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                    chunk: int = 0, return_lse: bool = False):
+    """q (B, Sq, K, G, h); k, v (B, Sk, K, h), f32 or bf16 -> (B, Sq, K,
+    G, h) in the inputs' dtype; with ``return_lse`` also the rows'
+    log-sum-exp (B, K, G, Sq) f32, which carries no gradient.  CUDA
+    tensors launch the kernel that ``kernel_route`` names (contiguous
+    inputs, h in 16, 32, 64, 128); CPU tensors run
+    ``flash_attention_plain`` over KV chunks of ``chunk`` keys (0: one
+    chunk of all Sk keys), which must divide Sk.  The output carries a
+    gradient when q, k or v requires one and grad mode is on
+    (``_FlashAttention``); otherwise no autograd node is made."""
+    _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out, lse = _FlashAttention.apply(q, k, v, causal, q_offset, chunk)
+        return (out, lse) if return_lse else out
+    return _forward(q, k, v, causal, q_offset, chunk, with_lse=return_lse)
 
 
 flash_attention.launches = 0               # every kernel launch
 flash_attention.tensor_core_launches = 0   # those of the tensor-core kernel
+
+
+# ---------------------------------------------------------------- backward
+def flash_attention_bwd_plain(q, k, v, out, lse, g, *, chunk: int,
+                              causal: bool, q_offset: int = 0):
+    """Plain PyTorch backward, any device: ``_flash_bwd`` over KV chunks
+    of ``chunk`` keys, with its roundings (q * scale, p fed to dv and ds
+    in q's dtype; the products and sums in f32; dq scaled by h^-0.5 in
+    f32).  out (B, Sq, K, G, h) is the forward's output, lse (B, K, G,
+    Sq) f32 its log-sum-exp, g the cotangent of out.  Returns (dq, dk,
+    dv) in the inputs' dtype."""
+    B, Sq, K, G, h = q.shape
+    Sk = k.shape[1]
+    dt = q.dtype
+    qf = (q * torch.tensor(softmax_scale(h, dt), dtype=dt)).float()
+    do = g.permute(0, 2, 3, 1, 4).float()                   # (B,K,G,Sq,h)
+    D = (do * out.permute(0, 2, 3, 1, 4).float()).sum(-1)   # (B,K,G,Sq)
+    q_pos = torch.arange(Sq, device=q.device) + q_offset
+    dq = torch.zeros((B, Sq, K, G, h), device=q.device)
+    dks, dvs = [], []
+    for idx in range(Sk // chunk):
+        kc = k[:, idx * chunk:(idx + 1) * chunk].float()
+        vc = v[:, idx * chunk:(idx + 1) * chunk].float()
+        s = torch.einsum("bqkgh,bckh->bkgqc", qf, kc)
+        p = torch.exp(s - lse[..., None])
+        if causal:
+            kv_pos = idx * chunk + torch.arange(chunk, device=q.device)
+            p = torch.where(q_pos[:, None] >= kv_pos[None, :], p, 0.0)
+        dvs.append(torch.einsum("bkgqc,bkgqh->bckh", p.to(dt).float(), do))
+        dp = torch.einsum("bkgqh,bckh->bkgqc", do, vc)
+        ds = (p * (dp - D[..., None])).to(dt).float()
+        dq = dq + torch.einsum("bkgqc,bckh->bqkgh", ds, kc)
+        dks.append(torch.einsum("bkgqc,bqkgh->bckh", ds, qf))
+    return ((dq * h ** -0.5).to(dt), torch.cat(dks, 1).to(k.dtype),
+            torch.cat(dvs, 1).to(v.dtype))
+
+
+def _check_bwd(q, k, v, out, lse, g):
+    _check(q, k, v)
+    B, Sq, K, G, _ = q.shape
+    for name, x in (("out", out), ("g", g)):
+        if x.shape != q.shape or x.dtype != q.dtype:
+            raise ValueError(f"{name} must match q: {tuple(x.shape)} "
+                             f"{x.dtype}")
+    if lse.shape != (B, K, G, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be ({B}, {K}, {G}, {Sq}) float32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    if len({x.device for x in (q, out, lse, g)}) != 1:
+        raise ValueError("flash_attention_bwd inputs lie on different "
+                         "devices")
+
+
+def _launch_bwd(q, k, v, out, lse, g, causal, q_offset):
+    B, Sq, K, G, h = q.shape
+    if q_offset < 0:
+        raise ValueError("negative q_offset")
+    _kernel_inputs(q, k, v)
+    for name, x in (("out", out), ("lse", lse), ("g", g)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    fn = build.function("flash_attention_bwd", "flash_attention_bwd",
+                        _BWD_ARGTYPES)
+    dsum = torch.empty_like(lse)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = build.cuda_call(
+        fn, q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        g.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, Sq, k.shape[1], K, G, h,
+        KERNEL_DTYPES[q.dtype], int(causal), q_offset,
+        softmax_scale(h, q.dtype), h ** -0.5)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    count_launch(flash_attention_bwd)
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True,
+                        q_offset: int = 0, chunk: int = 0):
+    """Gradient of ``flash_attention``'s output for the cotangent g
+    (B, Sq, K, G, h): returns (dq, dk, dv).  out and lse are the
+    forward's (``flash_attention_plain(..., return_lse=True)`` or the
+    kernels with an lse buffer).  CUDA tensors launch
+    ``csrc/flash_attention_bwd.cu`` (contiguous inputs, f32 or bf16, h
+    in 16, 32, 64, 128; its two kernels count as one launch); CPU
+    tensors run ``flash_attention_bwd_plain`` over KV chunks of
+    ``chunk`` keys (0: all Sk)."""
+    _check_bwd(q, k, v, out, lse, g)
+    if q.device.type == "cpu":
+        Sk = k.shape[1]
+        chunk = chunk or Sk
+        if Sk % chunk:
+            raise ValueError(f"chunk {chunk} does not divide Sk={Sk}")
+        return flash_attention_bwd_plain(q, k, v, out, lse, g, chunk=chunk,
+                                         causal=causal, q_offset=q_offset)
+    return _launch_bwd(q, k, v, out, lse, g, causal, q_offset)
+
+
+flash_attention_bwd.launches = 0

@@ -141,13 +141,30 @@ def _launch(xd, la, B_, C_, chunk, init_state):
     return y, final
 
 
+def refuse_grad(*tensors):
+    """Raises ``RuntimeError`` when grad mode is on and one of
+    ``tensors`` requires grad: the CUDA kernel has no backward yet (the
+    SSD-scan backward, ROADMAP.md), and its output would carry none."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "ssd_scan on CUDA has no backward yet (the SSD-scan backward "
+            "kernel, see ROADMAP.md): its output would carry no gradient. "
+            "Call it under torch.no_grad() or on inputs that do not "
+            "require grad")
+
+
 def ssd_scan(x, dt, A_log, B_, C_, *, chunk: int, init_state=None):
     """x (B, S, H, hd); dt (B, S, H) post-softplus; A_log (H,); B_ / C_
     (B, S, N) shared by the heads; optional init_state (B, H, N, hd).
     Returns (y (B, S, H, hd), final state (B, H, N, hd)), f32.  The chunk
     Q = min(chunk, S) must divide S.  CUDA tensors launch the kernel (hd
-    in 16, 32, 64, 128); CPU tensors run ``ssd_scan_plain``."""
+    in 16, 32, 64, 128), and raise (``refuse_grad``) when an input
+    requires grad in grad mode; CPU tensors run ``ssd_scan_plain``,
+    which autograd differentiates."""
     _check(x, dt, A_log, B_, C_, chunk, init_state)
+    if x.device.type != "cpu":
+        refuse_grad(x, dt, A_log, B_, C_, init_state)
     xd, la = _operands(x, dt, A_log)
     if x.device.type == "cpu":
         return ssd_scan_plain(xd, la, B_.float(), C_.float(), chunk,

@@ -1,10 +1,12 @@
 """GQA attention: the blocked (flash) prefill path, the single-step
 decode path, optional qk-norm / qkv-bias, RoPE.
 
-Copied from ``src/repro/models/attention.py``, forward only.
-``blocked_attention`` runs the flash kernel (``kernels.flash_attention``)
-on CUDA tensors and its plain version on CPU tensors; ``decode_attention``
-is plain torch ops, as in the JAX package.
+Copied from ``src/repro/models/attention.py``.  ``blocked_attention``
+runs the flash kernel (``kernels.flash_attention``) on CUDA tensors and
+its plain version on CPU tensors, and is differentiable: its gradient is
+the backward kernel (or its plain version), the counterpart of the JAX
+custom VJP ``_flash``.  ``decode_attention`` is plain torch ops, as in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -60,11 +62,13 @@ def project_qkv(p, x, cfg: ModelConfig, positions):
 
 def blocked_attention(q, k, v, *, chunk: int, causal: bool,
                       q_positions=None, kv_offset: int = 0):
-    """Flash attention, forward.  q: (B,Sq,K,G,h); k,v: (B,Sk,K,h).
-    Returns (B,Sq,K,G,h).  ``q_positions`` may only be
-    ``arange(Sq) + kv_offset`` (every call the JAX models make); the CUDA
-    kernel takes the first position as an offset.  Checking them reads
-    them on the host, so the port's models pass ``kv_offset`` alone."""
+    """Flash attention.  q: (B,Sq,K,G,h); k,v: (B,Sk,K,h).
+    Returns (B,Sq,K,G,h), with a gradient for q, k and v when they
+    require one.  ``q_positions`` may only be ``arange(Sq) + kv_offset``
+    (every call the JAX models make, the training forward's ``arange(S)``
+    among them); the CUDA kernels, forward and backward, take the first
+    position as an offset.  Checking them reads them on the host, so the
+    port's models pass ``kv_offset`` alone."""
     Sq = q.shape[1]
     Sk = k.shape[1]
     chunk = min(chunk, Sk)

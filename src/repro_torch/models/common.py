@@ -1,8 +1,12 @@
-"""Shared model pieces: norms, rope, embeddings, MLP, and the base of
-the port's language models.
+"""Shared model pieces: norms, rope, embeddings, chunked losses, MLP,
+and the base of the port's language models.
 
-Copied from ``src/repro/models/common.py``: forward only (the training
-pieces, ``chunked_xent`` and the hand-written VJPs, are not ported).
+Copied from ``src/repro/models/common.py``.  Its hand-written VJP of
+``rms_norm`` is a ``torch.autograd.Function`` with the same arithmetic
+and roundings (``grad_dtype_barrier`` needs none: autograd keeps each
+gradient in its tensor's dtype); ``chunked_xent`` recomputes each
+chunk's logits in the backward with ``torch.utils.checkpoint``, as the
+JAX code does with ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -11,6 +15,7 @@ import collections
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.utils.params import (ParamDef, init_params, is_node,
@@ -21,13 +26,42 @@ NEG_INF = -1e30
 CacheSpec = collections.namedtuple("CacheSpec", ["shape", "dtype"])
 
 
-def rms_norm(x, scale, eps: float):
-    """x * rsqrt(mean(x^2) + eps) * scale: the mean of squares in f32,
-    the products in x's dtype."""
+def _rms_inv(x, eps):
+    """rsqrt(mean(x^2) + eps) over the last axis, (..., 1) f32: the sum
+    of squares in f32 (the JAX code's bf16 x bf16 -> f32 einsum)."""
     xf = x.float()
     var = (xf * xf).sum(-1) / x.shape[-1]
-    inv = torch.rsqrt(var + eps)[..., None]
-    return x * inv.to(x.dtype) * scale.to(x.dtype)
+    return torch.rsqrt(var + eps)[..., None]
+
+
+class _RMSNorm(torch.autograd.Function):
+    """``rms_norm`` with ``_rms_bwd``'s gradient: the cotangent path
+    stays in x's dtype, the row sums and the scale's gradient are f32."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        inv = _rms_inv(x, eps)
+        return x * inv.to(x.dtype) * scale.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        inv = _rms_inv(x, ctx.eps)                  # recompute: (..., 1) f32
+        gs = g * scale.to(x.dtype)
+        t = (gs.float() * x.float()).sum(-1, keepdim=True)
+        coeff = inv ** 3 * (t / x.shape[-1])
+        dx = gs * inv.to(x.dtype) - x * coeff.to(x.dtype)
+        xin = x * inv.to(x.dtype)
+        dscale = (g.float() * xin.float()).reshape(-1, g.shape[-1]).sum(0)
+        return dx, dscale.to(scale.dtype), None
+
+
+def rms_norm(x, scale, eps: float):
+    """x * rsqrt(mean(x^2) + eps) * scale: the mean of squares in f32,
+    the products in x's dtype; differentiable in x and scale."""
+    return _RMSNorm.apply(x, scale, eps)
 
 
 def rope(x, positions, theta: float):
@@ -40,6 +74,12 @@ def rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def grad_dtype_barrier(x):
+    """Identity: autograd already gives every tensor a gradient of its
+    own dtype, which the JAX model's custom VJP of this name enforces."""
+    return x
 
 
 # ------------------------------------------------------------------ embedding
@@ -58,6 +98,45 @@ def unembed_matrix(p, cfg: ModelConfig):
     if cfg.tie_embeddings:
         return p["table"].T
     return p["unembed"]
+
+
+def chunked_xent(p, h, targets, cfg: ModelConfig, mask=None):
+    """Next-token cross-entropy in sequence chunks of ``cfg.logit_chunk``
+    so (B, S, V) never materialises; each chunk's logits are recomputed
+    in the backward (``torch.utils.checkpoint``).
+
+    h: (B, S, D) final hidden states; targets: (B, S) integer; mask:
+    optional (B, S), 1 for the tokens that count.  The logits are f32
+    (the product of h and the unembedding rounded to h's dtype, summed in
+    f32), the padded vocab masked.  Returns (mean loss over unmasked
+    tokens, token count), f32."""
+    w = unembed_matrix(p, cfg).to(h.dtype).float()     # (D, Vp)
+    B, S, D = h.shape
+    c = min(cfg.logit_chunk, S)
+    if S % c:
+        raise ValueError(f"logit_chunk {c} does not divide S={S}")
+    pad = None
+    if cfg.vocab_padded != cfg.vocab_size:
+        pad = torch.arange(cfg.vocab_padded, device=h.device) >= cfg.vocab_size
+
+    def chunk_nll(hc, tc, mc):
+        logits = torch.matmul(hc.float(), w)
+        if pad is not None:
+            logits = torch.where(pad, NEG_INF, logits)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, tc[..., None].long())[..., 0]
+        return ((lse - gold) * mc).sum(), mc.sum()
+
+    tot = torch.zeros((), device=h.device)
+    cnt = torch.zeros((), device=h.device)
+    for i in range(S // c):
+        sl = slice(i * c, (i + 1) * c)
+        mc = (torch.ones((B, c), device=h.device) if mask is None
+              else mask[:, sl].float())
+        s_, c_ = checkpoint(chunk_nll, h[:, sl], targets[:, sl], mc,
+                            use_reentrant=False)
+        tot, cnt = tot + s_, cnt + c_
+    return tot / torch.clamp(cnt, min=1.0), cnt
 
 
 def logits_last(p, h_last, cfg: ModelConfig):
@@ -124,6 +203,14 @@ class LMBase(nn.Module):
         self.params = (params if isinstance(params, nn.ParameterDict)
                        else to_parameter_dict(params))
         return self.params
+
+    def ssm_loss_not_ported(self):
+        """What ``loss`` raises for the SSM families: on the card the SSD
+        scan has no backward kernel yet, and a loss without gradients
+        upstream of the scan would train silently wrong."""
+        raise NotImplementedError(
+            f"{self.cfg.name}: training the {self.cfg.family!r} family needs "
+            f"the SSD-scan backward kernel, still to port (ROADMAP.md)")
 
     @property
     def device(self) -> torch.device:

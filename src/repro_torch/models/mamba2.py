@@ -1,7 +1,8 @@
 """Mamba2 (SSD, state-space duality) LM, forward for serving.
 
 Copied from ``src/repro/models/mamba2.py`` (prefill and decode; the
-training forward and loss are not ported).  The SSD forward is the
+training forward is not ported, and ``loss`` raises until the SSD scan
+has a backward kernel, ROADMAP.md).  The SSD forward is the
 chunked matmul form (arXiv:2405.21060 §6): quadratic attention-like
 products within chunks and a sequential scan over chunk states; on CUDA
 tensors ``ssd_chunked`` runs the kernel of ``kernels.ssd_scan``.
@@ -182,6 +183,10 @@ class Mamba2LM(cm.LMBase):
             "layers": _stack_defs(mamba_defs(cfg), cfg.n_layers),
             "final_norm": cm.norm_defs(cfg),
         }
+
+    def loss(self, params, batch):
+        """Not ported: raises (``LMBase.ssm_loss_not_ported``)."""
+        self.ssm_loss_not_ported()
 
     # ----------------------------------------------------------- serving
     def cache_struct(self, batch: int, max_len: int):

@@ -1,12 +1,21 @@
-"""Decoder-only transformer LM (the dense family), prefill and decode.
+"""Decoder-only transformer LM (the dense family): training forward and
+loss, prefill and decode.
 
-Copied from ``src/repro/models/transformer.py`` without sharding, the
-MoE units and training (``forward`` / ``loss``).  Layers are stacked on
-a leading axis, as in the JAX pytree, and run in a Python loop.
+Copied from ``src/repro/models/transformer.py`` without sharding and the
+MoE units.  Layers are stacked on a leading axis, as in the JAX pytree,
+and run in a Python loop over ``layer_slice`` views, so a layer's
+gradients land in the stacked leaves.  ``cfg.remat`` maps onto
+``torch.utils.checkpoint`` (non-reentrant): "none" saves everything,
+"full" recomputes each layer in the backward, "dots" saves only the
+outputs of matrix products without batch dimensions (JAX's
+``dots_with_no_batch_dims_saveable``), and ``scan_block`` > 0 wraps
+groups of that many layers in one more checkpoint, as the JAX two-level
+scan does.  Every setting gives the same numbers.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as att
@@ -19,6 +28,33 @@ def _stack_defs(defs, n: int):
         lambda d: ParamDef((n,) + d.shape, ("layer",) + d.axes, d.init,
                            d.dtype, tuple(a + 1 for a in d.fan_in_axes)),
         defs)
+
+
+def _dots_context():
+    """Selective-checkpoint contexts that save the outputs of matrix
+    products without batch dimensions (x @ W folds to mm; attention's
+    einsums are bmm) and recompute everything else."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    dots = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in dots
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return create_selective_checkpoint_contexts(policy)
+
+
+def remat(fn, cfg: ModelConfig):
+    """``fn`` under the recompute policy ``cfg.remat`` ("none", "dots",
+    "full")."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    if cfg.remat == "dots":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=_dots_context)
+    raise ValueError(f"unknown remat {cfg.remat!r}: none, dots, full")
 
 
 class TransformerLM(cm.LMBase):
@@ -68,6 +104,46 @@ class TransformerLM(cm.LMBase):
         cfg = self.cfg
         h = cm.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
         return x + cm.mlp(p["mlp"], h), 0.0
+
+    def _layer(self, params, i, x, positions):
+        """Layer i of the stack on x (B,S,D): attention and MLP blocks."""
+        p = cm.layer_slice(params["layers"], i)
+        x, _, _ = self._attn_block(p, x, positions)
+        x, _ = self._ffn_block(p, x)
+        return x
+
+    # ------------------------------------------------------------- train
+    def forward(self, params, tokens):
+        """tokens (B,S) -> (final hidden states (B,S,D), aux loss 0.0)."""
+        cfg = self.cfg
+        x = cm.embed(params["embed"], tokens, cfg)
+        positions = torch.arange(tokens.shape[1], device=x.device)
+        body = remat(lambda i, h: self._layer(params, i, h, positions), cfg)
+        n, blk = cfg.n_layers, cfg.scan_block
+        if cfg.scan_layers and blk and n % blk == 0:
+            # two-level (sqrt) remat: the outer checkpoint keeps only each
+            # group's input; the group's layers are recomputed in backward
+            def group(g, h):
+                for i in range(g * blk, (g + 1) * blk):
+                    h = body(i, h)
+                return h
+            group_body = remat(group, cfg)
+            for g in range(n // blk):
+                x = group_body(g, x)
+        else:
+            for i in range(n):
+                x = body(i, x)
+        x = cm.grad_dtype_barrier(x)
+        x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+        return x, torch.zeros((), device=x.device)
+
+    def loss(self, params, batch):
+        """batch: {tokens (B,S), labels (B,S)[, mask (B,S)]} -> (loss,
+        metrics {ce, aux, tokens})."""
+        h, aux = self.forward(params, batch["tokens"])
+        ce, cnt = cm.chunked_xent(params["embed"], h, batch["labels"],
+                                  self.cfg, mask=batch.get("mask"))
+        return ce + aux, {"ce": ce, "aux": aux, "tokens": cnt}
 
     def _decode_layer(self, p, x, kc, vc, pos):
         """x (B,1,D); kc/vc (B,Smax,K,h) single-layer cache, written in

@@ -60,6 +60,10 @@ class Zamba2LM(cm.LMBase):
         for j in range(self.tail):
             yield self.G * self.k + j, cm.layer_slice(params["tail"], j)
 
+    def loss(self, params, batch):
+        """Not ported: raises (``LMBase.ssm_loss_not_ported``)."""
+        self.ssm_loss_not_ported()
+
     # ----------------------------------------------------------- serving
     def cache_struct(self, batch: int, max_len: int):
         cfg = self.cfg

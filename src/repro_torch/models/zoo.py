@@ -2,6 +2,8 @@
 
 Copied from ``src/repro/models/zoo.py``.  API (all models):
   param_defs() / init(generator) / load(params) / params
+  loss(params, batch) -> (loss, metrics)   (the dense family; Mamba2 and
+      Zamba2 raise until the SSD scan has a backward kernel)
   prefill(params, tokens, max_len) -> (cache, logits)
   decode_step(params, cache, token, pos) -> (logits, cache)
   cache_struct(batch, max_len) / init_cache(batch, max_len)

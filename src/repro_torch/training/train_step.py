@@ -1,0 +1,90 @@
+"""train_step: microbatched gradient accumulation, optional int8 gradient
+compression, and the optimizer, assembled for one model.
+
+Copied from ``src/repro/training/train_step.py`` without the sharding
+plan (one card; ROADMAP.md item 8).  The step is a plain function
+(params, opt_state, batch, step) -> (params, opt_state, metrics): the
+gradients come from ``torch.autograd.grad`` of the model's loss, and the
+optimizer updates the parameters and its state in place under
+``torch.no_grad()`` (``training/optimizers.py``), so the returned trees
+are the ones passed in.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.compression import compress_decompress
+from repro_torch.training import optimizers as opt
+from repro_torch.utils.params import tree_from_flat, tree_leaves, tree_map
+
+
+def _value_and_grad(loss_fn, params, batch):
+    """(loss, metrics, grads) of ``loss_fn(params, batch)``; grads is a
+    nested dict shaped like params.  Every parameter is set to require
+    grad."""
+    leaves = tree_leaves(params)
+    for _, p in leaves:
+        p.requires_grad_(True)
+    with torch.enable_grad():
+        loss, metrics = loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, [p for _, p in leaves])
+    flat = {name: g for (name, _), g in zip(leaves, grads)}
+    return loss.detach(), metrics, tree_from_flat(params, flat)
+
+
+def _microbatch_grads(loss_fn, params, batch, n_micro: int,
+                      accum_dtype=torch.float32):
+    """Mean grads over ``n_micro`` sequential microbatches of the batch's
+    leading axis, summed in ``accum_dtype``.  Returns (grads, loss,
+    metrics); metrics are the loss function's for one microbatch, {} for
+    several, as in JAX."""
+    if n_micro == 1:
+        loss, metrics, grads = _value_and_grad(loss_fn, params, batch)
+        return grads, loss, metrics
+    B = next(iter(batch.values())).shape[0]
+    if B % n_micro:
+        raise ValueError(f"batch {B} does not split into {n_micro} "
+                         f"microbatches")
+    acc = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype,
+                                         device=p.device), params)
+    loss_sum = None
+    for i in range(n_micro):
+        sl = slice(i * (B // n_micro), (i + 1) * (B // n_micro))
+        loss, _, g = _value_and_grad(loss_fn, params,
+                                     {k: v[sl] for k, v in batch.items()})
+        tree_map(lambda a, b: a.add_(b.to(a.dtype)), acc, g)
+        loss_sum = loss if loss_sum is None else loss_sum + loss
+    return tree_map(lambda g: g / n_micro, acc), loss_sum / n_micro, {}
+
+
+def make_train_step(model, cfg: ModelConfig, opt_name: str = None,
+                    grad_compression: bool = False,
+                    opt_cfg: opt.OptConfig = None):
+    """(train_step, opt_init, opt config) for ``model`` (its ``loss``) and
+    ``cfg`` (optimizer, microbatches, accumulation dtype)."""
+    opt_name = opt_name or cfg.optimizer
+    ocfg, opt_init, opt_update = opt.make_optimizer(opt_name, opt_cfg)
+
+    def loss_fn(params, batch):
+        return model.loss(params, batch)
+
+    def train_step(params, opt_state, batch, step):
+        grads, loss, _ = _microbatch_grads(
+            loss_fn, params, batch, cfg.grad_accum_microbatches,
+            getattr(torch, cfg.grad_accum_dtype))
+        if grad_compression:
+            grads = tree_map(compress_decompress, grads)
+        params, opt_state, om = opt_update(grads, opt_state, params)
+        metrics = {"loss": loss, **om, "step": step + 1}
+        return params, opt_state, metrics
+
+    return train_step, opt_init, ocfg
+
+
+def make_eval_step(model):
+    def eval_step(params, batch):
+        with torch.no_grad():
+            loss, metrics = model.loss(params, batch)
+        return {"loss": loss, **metrics}
+    return eval_step

@@ -37,11 +37,13 @@ def is_node(x) -> bool:
     return isinstance(x, (Mapping, nn.ParameterDict))
 
 
-def tree_map(fn, tree):
-    """``fn`` on every leaf of a nested mapping, keys kept."""
+def tree_map(fn, tree, *rest):
+    """``fn`` on every leaf of a nested mapping, keys kept; with ``rest``,
+    trees of the same keys whose leaves are passed alongside."""
     if is_node(tree):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree, prefix: str = ""):
@@ -53,6 +55,15 @@ def tree_leaves(tree, prefix: str = ""):
             out += tree_leaves(tree[k], f"{prefix}{k}.")
         return out
     return [(prefix[:-1], tree)]
+
+
+def tree_from_flat(like, flat, prefix: str = ""):
+    """The nested dict of ``flat`` (dotted name -> value, as
+    ``tree_leaves`` names the leaves) shaped like the tree ``like``."""
+    if is_node(like):
+        return {k: tree_from_flat(v, flat, f"{prefix}{k}.")
+                for k, v in like.items()}
+    return flat[prefix[:-1]]
 
 
 def _draw(d: ParamDef, gen: torch.Generator) -> torch.Tensor:
@@ -96,9 +107,14 @@ def with_dtype(defs, dtype):
     return tree_map(one, defs)
 
 
+def param_count(tree) -> int:
+    """Number of elements over the leaves of a parameter tree."""
+    return sum(math.prod(x.shape) for _, x in tree_leaves(tree))
+
+
 def to_parameter_dict(tree) -> nn.ParameterDict:
     """A nested mapping of tensors as a nested ``nn.ParameterDict``
-    (same keys, no gradient: the port serves, it does not train)."""
+    (same keys; no gradient until a trainer asks for one)."""
     return nn.ParameterDict({
         k: (to_parameter_dict(v) if is_node(v)
             else nn.Parameter(v, requires_grad=False))

@@ -131,3 +131,21 @@ def test_keep_n_and_corruption_as_in_jax(tmp_path):
     with pytest.raises(IOError, match="checksum"):
         ckpt.restore(str(tmp_path / "jax"), 5, {"x": np.zeros(3)})
     assert ckpt.latest_step(str(tmp_path / "none")) is None
+
+
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_bfloat16_leaf_verifies_and_restores(tmp_path, writer):
+    """A bfloat16 leaf (ml_dtypes; ``np.load`` gives it back as 2-byte
+    void, a dtype with no buffer format) checksums as its bytes: the
+    checkpoint either package writes verifies in both, and the port
+    restores it with the check on."""
+    x = jnp.asarray(np.arange(12, dtype=np.float32).reshape(3, 4) / 7,
+                    jnp.bfloat16)
+    tree = {"w": np.asarray(x), "step": np.int32(3)}
+    d = str(tmp_path)
+    mod = jckpt if writer == "jax" else ckpt
+    path = mod.save(d, 1, tree)
+    assert ckpt.verify(path) and jckpt.verify(path)
+    got = ckpt.restore(d, 1, tree)
+    assert got["w"].tobytes() == tree["w"].tobytes()
+    assert int(got["step"]) == 3

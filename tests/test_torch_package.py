@@ -16,6 +16,7 @@ from repro_torch.core.egrl import EGRL, EGRLConfig  # noqa: E402
 from repro_torch.graphs.zoo import resnet50  # noqa: E402
 from repro_torch.launch import optimize_placement  # noqa: E402
 from repro_torch.launch import serve_placements  # noqa: E402
+from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.memsim import compiler  # noqa: E402
 from repro_torch.serving.placement_service import (  # noqa: E402
     PlacementService)
@@ -58,6 +59,10 @@ def test_import_loads_no_jax_and_no_reference_package():
                "launch.serve_placements"}
     assert {f"repro_torch.{m}" for m in service} <= set(MODULES)
     assert (PORT / "obs" / "__init__.py").exists()
+    training = {"training.optimizers", "training.train_step",
+                "training.remat", "data.pipeline",
+                "distributed.compression", "launch.train"}
+    assert {f"repro_torch.{m}" for m in training} <= set(MODULES)
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -91,6 +96,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         serve_placements.serve([], pop_size=4)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_placements.main(["--requests", "1"])
+    from repro_torch.configs.registry import get_config, smoke_config
+    small = smoke_config(get_config("qwen3-0.6b"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_launch.TrainLoop(small)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_launch.main(["--arch", "qwen3-0.6b", "--smoke", "--steps", "1"])
+    assert train_launch.TrainLoop(small, device="cpu").device.type == "cpu"
     assert PlacementService(device="cpu").device == torch.device("cpu")
     assert rdev.resolve_device("cpu") == torch.device("cpu")
     algo = EGRL(resnet50(), EGRLConfig(total_steps=20), device="cpu")
@@ -122,7 +134,8 @@ def test_cpu_run_launches_no_kernel():
     assert rdev.launch_counts() == {"gat_mp": 0, "gat_mp_bwd": 0,
                                     "memsim": 0, "memsim_zoo": 0,
                                     "flash_attention": 0,
-                                    "flash_attention_tc": 0, "ssd_scan": 0}
+                                    "flash_attention_tc": 0,
+                                    "flash_attention_bwd": 0, "ssd_scan": 0}
 
 
 def test_optimize_writes_the_reference_plan_schema():
@@ -143,7 +156,7 @@ def test_kernel_build_names_and_missing_toolkit(monkeypatch, tmp_path):
     from repro_torch.kernels import build
     paths = {name: build.library_path(name)
              for name in ("gat_mp", "gat_mp_bwd", "memsim", "flash_attention",
-                          "ssd_scan")}
+                          "flash_attention_bwd", "ssd_scan")}
     for name, path in paths.items():
         assert path.parent == ROOT / "build" / "repro_torch"
         assert path.name.startswith(f"{name}-") and path.suffix == ".so"
@@ -246,3 +259,32 @@ def test_library_path_follows_shared_headers(monkeypatch, tmp_path):
     assert build.library_path("k") not in (first, second)
     (tmp_path / "k.cu").write_text('#include "common.cuh"\n// edited\n')
     assert build.library_path("k") not in (first, second)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b"])
+def test_ssm_loss_raises_naming_roadmap(arch):
+    """The SSD scan has no backward kernel yet: the SSM families' loss
+    raises instead of returning a loss whose gradients stop at the scan."""
+    from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.models.zoo import get_model
+    model = get_model(smoke_config(get_config(arch)))
+    model.init(torch.Generator().manual_seed(0))
+    tokens = torch.zeros((1, 16), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model.loss(model.params, {"tokens": tokens, "labels": tokens})
+
+
+def test_ssd_scan_grad_guard_raises():
+    """On CUDA, ``ssd_scan`` calls ``refuse_grad`` before launching: an
+    input that requires grad in grad mode raises naming ROADMAP; under
+    ``no_grad``, or with no such input, it passes.  The CPU path never
+    reaches the guard (its plain version differentiates), so the guard
+    is driven directly."""
+    from repro_torch.kernels.ssd_scan import ops as sops
+    x = torch.zeros(2, requires_grad=True)
+    y = torch.zeros(2)
+    with pytest.raises(RuntimeError, match="ROADMAP"):
+        sops.refuse_grad(y, x, None)
+    sops.refuse_grad(y, None)
+    with torch.no_grad():
+        sops.refuse_grad(x, y)

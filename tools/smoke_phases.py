@@ -1,0 +1,66 @@
+#!/usr/bin/env python3
+"""Run some phases of ``chip_smoke.py`` on the card, without the rest.
+
+    python3 tools/smoke_phases.py flash_bwd [flash] [ssd_grad] [train_check] [train]
+
+Builds the attention and SSD sources (one ``nvcc`` each, in parallel),
+prints each kernel's registers and spills, then runs the named phases
+in the order given, each printing the JSON lines it prints in the whole
+script.  For quick checks of one path; ``chip_smoke.py`` stays the
+proof of the whole port.  Exits non-zero without CUDA or when a phase
+fails.
+"""
+import argparse
+import json
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import chip_smoke as cs  # noqa: E402
+
+PHASES = ("flash", "flash_bwd", "ssd_grad", "train_check", "train")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("phases", nargs="+", choices=PHASES)
+    args = ap.parse_args(argv)
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("smoke_phases: no CUDA device")
+    from repro_torch import device as rdev
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cs.emit({"phase": "device", "nvidia_smi": cs.nvidia_smi(),
+             "torch": torch.__version__, "cuda": torch.version.cuda})
+    t0 = time.perf_counter()
+    rep = build.build(["flash_attention", "flash_attention_bwd", "ssd_scan"])
+    cs.emit({"phase": "build", "seconds": time.perf_counter() - t0,
+             "kernels": cs.ptxas_kernels(rep)})
+    gen = torch.Generator("cuda").manual_seed(0)
+    for name in args.phases:
+        t0 = time.perf_counter()
+        if name == "flash":
+            cs.phase_flash(torch, fops, gen)
+        elif name == "flash_bwd":
+            cs.phase_flash_bwd(torch, fops, gen)
+        elif name == "ssd_grad":
+            cs.phase_ssd_grad(torch, sops, gen)
+        elif name == "train_check":
+            cs.phase_train_check(torch, rdev)
+        else:
+            cs.phase_train(torch, np, rdev)
+        print(json.dumps({"phase_done": name,
+                          "seconds": time.perf_counter() - t0}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
