@@ -8,8 +8,9 @@ Phases, each printing JSON lines:
 1. device   -- the card's name and power limit (nvidia-smi);
 2. build    -- the six CUDA sources of ``src/repro_torch/csrc``
                compiled, one ``nvcc`` each, in parallel; each kernel's
-               registers and spills printed (the SSD kernels and the
-               simulator kernel must not spill);
+               registers and spills printed (the SSD kernels, the
+               simulator kernel and the attention backward's tensor-core
+               kernels must not spill);
 3. gat      -- the GAT forward kernel against its plain PyTorch version,
                at the main path's shapes and on edge-case masks (a
                column no row reaches, a row with every column set or
@@ -90,14 +91,18 @@ Phases, each printing JSON lines:
                evaluator calls and no launch, then re-scoring a one-node
                variant through the neighbour cache; placement_profile: device
                busy time and idle share of one class-1024 miss batch;
-15. flash_bwd -- the attention backward kernel against its plain
+15. flash_bwd -- the attention backward kernels against their plain
                version at the train phase's shape (qwen3-0.6b, B 4, S
                4096, bf16, causal) and at f32 (h 16/32/64/128), bf16 h
-               64, non-causal, S = 100, Sq < Sk with an offset, G = 1
-               and B = 1, each launched twice for bit-equal gradients;
+               64, non-causal, S = 100, Sq < Sk with an offset, G = 1,
+               B = 1, zamba2's heads at S = 4096 and a ragged Sq = 300
+               over Sk = 1000, each launched twice for bit-equal
+               gradients; bf16 on the tensor-core route, checked and
+               timed on the fp32-core route too (``ms_fp32_cores``);
                the forward's lse against the plain lse, and the forward
                with lse bit-equal to the forward without; ``ms``,
-               ``device_ms``, ``plain_ms``, the bound and SDPA's backward
+               ``device_ms`` (at S = 4096 from windows of one call),
+               ``plain_ms``, the bound and SDPA's backward
                (``library_ms``); ssd_grad: the SSD scan on a CUDA input
                that requires grad raises instead of returning an output
                without a gradient;
@@ -108,7 +113,8 @@ Phases, each printing JSON lines:
                (bf16 activations, f32 parameters, remat "full", AdamW) at
                S = 4096, global batch 4: 10 steps straight, and 5 + a
                checkpoint + 5 in a restored loop, equal; exact launch
-               counts (2 x 28 forward, 28 backward a step), step ms,
+               counts (2 x 28 forward, 28 backward a step, all on the
+               tensor cores), step ms,
                tokens/s, the model-FLOPs share of the bf16 peak, peak
                memory; train_profile: device time by kernel and the idle
                share over 2 steps;
@@ -186,6 +192,40 @@ def profiled(torch, fn, key="device_ms", reps=20):
     if isinstance(ms, str) or any(n % reps for n in counts.values()):
         out[f"{key}_records"] = counts
     return out
+
+
+# host idle time on each side of a one-call window: late in this
+# process, windows of one 2 ms call padded by tools/timing.py's 0.05 s
+# recorded no kernel at all (PERF.md §7), while the train phase's 2 s
+# window recorded every launch
+ONE_CALL_PAD_S = 0.5
+
+
+def one_call_windows(torch, fn, n_kernels, windows=PROFILE_TRIES + 2,
+                     pad=ONE_CALL_PAD_S):
+    """Device ms of one call of ``fn`` (after a warm-up call), from
+    ``windows`` profiler windows of one call each, padded by ``pad``
+    seconds.  A window counts only if it recorded each of the call's
+    ``n_kernels`` CUDA kernels exactly once; the mean over those, or
+    "not measured" if none did.  Also which windows counted and what
+    each recorded."""
+    fn()
+    torch.cuda.synchronize()
+    kept, records, by_kernel = [], [], {}
+    for _ in range(windows):
+        rec = profile_kernels(torch, fn, 1, pad)
+        records.append({name: n for name, (_, n) in rec.items()})
+        if len(rec) == n_kernels and all(n == 1 for _, n in rec.values()):
+            kept.append(sum(ms for ms, _ in rec.values()))
+            for name, (ms, _) in rec.items():
+                by_kernel[name] = by_kernel.get(name, 0.0) + ms
+    return {"device_ms": sum(kept) / len(kept) if kept else "not measured",
+            "device_ms_from": f"profiler, one call a window: {len(kept)} of "
+                              f"{windows} windows recorded all {n_kernels} "
+                              f"kernels once",
+            "device_ms_windows": kept, "device_ms_records": records,
+            "device_ms_by_kernel": {name: ms / len(kept)
+                                    for name, ms in by_kernel.items()}}
 
 
 def plus(a, b):
@@ -918,7 +958,8 @@ def run_slice(torch, np, name, make, egrl, sim, compiler, rdev, mode="ea",
             "gat_mp_bwd": 8 * sac_steps,
             "memsim": 1 + gens * (pop + (mode != "ea")), "memsim_zoo": 0,
             "flash_attention": 0, "flash_attention_tc": 0,
-            "flash_attention_bwd": 0, "ssd_scan": 0}
+            "flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
+            "ssd_scan": 0}
     check(counts == want, f"{name} {mode}: launches {counts}, the path "
           f"implies {want}")
     if mode != "ea":
@@ -998,7 +1039,7 @@ def run_zoo(torch, np, zoo, egrl, sim, compiler, rdev, mode, gens):
             "gat_mp_bwd": sac_steps * K * 8, "memsim": len(graphs),
             "memsim_zoo": gens * K * (1 + pg), "flash_attention": 0,
             "flash_attention_tc": 0, "flash_attention_bwd": 0,
-            "ssd_scan": 0}
+            "flash_attention_bwd_tc": 0, "ssd_scan": 0}
     check(counts == want, f"zoo {mode}: launches {counts}, the path "
           f"implies {want}")
     rows_per_gen = algo.n_g + algo.n_b + (cfg.pg_rollouts if pg else 0)
@@ -1146,6 +1187,10 @@ def served_prefills():
 
 # ------------------------------------------------------ attention kernel
 FLASH_TILE = 64            # BK of the fp32-core kernel: keys per tile
+# the attention backward's CUDA kernels, by route
+BWD_TC_KERNELS = ("flash_bwd_prep", "flash_bwd_dq_wgmma",
+                  "flash_bwd_dkdv_wgmma")
+BWD_FP32_KERNELS = ("flash_bwd_dq", "flash_bwd_dkdv")
 ATTN_CHUNK = 1024          # ModelConfig.attn_chunk of the served configs
 
 
@@ -1310,7 +1355,11 @@ def flash_bwd_cases():
     with 2 queries each, bf16, causal), then f32 at every head dim the
     kernel takes, bf16 at h = 64 (zamba2's heads), without the causal
     mask, at S = 100 (not a multiple of a tile), 512 queries at
-    positions 512.. over 1024 keys, G = 1 and B = 1."""
+    positions 512.. over 1024 keys, G = 1 and B = 1; zamba2's heads at
+    S = 4096; and 300 queries at positions 700.. over 1000 keys, so that
+    the ragged last key tile and key tiles whose first visible query
+    row is not a multiple of a tile are both crossed.  Every bf16 case
+    takes the tensor-core route (h = 64 or 128)."""
     from repro_torch.configs.registry import get_config
     cfg = get_config("qwen3-0.6b")
     K, G, h = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
@@ -1326,7 +1375,9 @@ def flash_bwd_cases():
         ("f32:S=100", 1, 100, 100, K, G, 64, "float32", True, 0),
         ("offset", 1, 512, 1024, K, G, h, bf, True, 512),
         ("G=1", 1, 1024, 1024, 2 * K, 1, h, bf, True, 0),
-        ("B=1", 1, 2048, 2048, K, G, h, bf, True, 0)]
+        ("B=1", 1, 2048, 2048, K, G, h, bf, True, 0),
+        ("bf16:h=64:S=4096", 1, 4096, 4096, 32, 1, 64, bf, True, 0),
+        ("ragged:Sq=300,Sk=1000", 1, 300, 1000, K, G, h, bf, True, 700)]
 
 
 def flash_bwd_error(torch, got, want, bf16):
@@ -1417,12 +1468,17 @@ def phase_flash_bwd(torch, fops, gen):
     against ``flash_attention_plain``'s as ``flash_error`` says, bit-equal
     to its output without lse, and an lse within 1e-5 (1 + |lse|) of the
     plain version's (both f32).  At the train shape the route training
-    takes is also held end to end (``flash_bwd_autograd``).  Each
-    row: ``ms`` (CUDA events), ``device_ms`` (profiler, both CUDA
-    kernels), ``plain_ms``, ``library_ms`` (SDPA's backward), and
-    ``bound_ms``: the larger of the bytes (q, k, v, out, do, lse read;
-    dq, dk, dv written) over 3.35 TB/s and the five products' operations
-    on the unmasked pairs over the bf16 or f32 peak."""
+    takes is also held end to end (``flash_bwd_autograd``).  The route
+    (``bwd_route``) must be the tensor cores for every bf16 case and the
+    fp32 cores for f32, and its counter must count it; each bf16 case
+    also runs the fp32-core kernels on the same inputs, held and timed
+    the same way (``fp32_cores_err``, ``ms_fp32_cores``).  Each row:
+    ``ms`` (CUDA events), ``device_ms`` (profiler, every CUDA kernel of a
+    call; at S = 4096 from windows of one call, ``one_call_windows``),
+    ``plain_ms``, ``library_ms`` (SDPA's backward), and ``bound_ms``: the
+    larger of the bytes (q, k, v, out, do, lse read; dq, dk, dv written)
+    over 3.35 TB/s and the five products' operations on the unmasked
+    pairs over the bf16 or f32 peak."""
     rows = {}
     for name, B, S, Sk, K, G, h, dtype, causal, off in flash_bwd_cases():
         dt = getattr(torch, dtype)
@@ -1439,10 +1495,17 @@ def phase_flash_bwd(torch, fops, gen):
         plain_out, plain_lse = fops.flash_attention_plain(
             q, k, v, chunk=chunk, causal=causal, q_offset=off,
             return_lse=True)
+        route = fops.bwd_route(q, k, v, out, g)
+        check(route == ("tensor_cores" if bf16 else "fp32_cores"),
+              f"flash_bwd {name}: route {route}")
+        tc0 = fops.flash_attention_bwd.tensor_core_launches
         grads = fops.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
                                          q_offset=off)
         again = fops.flash_attention_bwd(q, k, v, out, lse, g,
                                          causal=causal, q_offset=off)
+        check(fops.flash_attention_bwd.tensor_core_launches - tc0
+              == 2 * (route == "tensor_cores"),
+              f"flash_bwd {name}: route counter")
         want = fops.flash_attention_bwd_plain(q, k, v, out, lse, g,
                                                chunk=chunk, causal=causal,
                                                q_offset=off)
@@ -1477,14 +1540,18 @@ def phase_flash_bwd(torch, fops, gen):
             fops.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
                                      q_offset=off)
         lib = sdpa_backward(torch, q, k, v, g, causal, off)
+        # at S = 4096 one call a window: windows of 5 calls lost launches
+        device = (one_call_windows(torch, call, 3 if route == "tensor_cores"
+                                   else 2) if S >= 4096
+                  else profiled(torch, call, reps=20))
         row = {"phase": "flash_bwd", "case": name, "B": B, "S": S, "Sk": Sk,
                "q_offset": off, "K": K, "G": G, "h": h, "dtype": dtype,
-               "causal": causal, "err": errs,
+               "causal": causal, "route": route, "err": errs,
                "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
                "lse_max_abs_err": lse_err.max().item(),
                "out_max_abs_err": out_err["max_abs_err"],
                "ms": event_ms(torch, call, 5 if S >= 4096 else 20),
-               **profiled(torch, call, reps=5 if S >= 4096 else 20),
+               **device,
                "plain_ms": event_ms(torch, lambda: fops
                                     .flash_attention_bwd_plain(
                                         q, k, v, out, lse, g, chunk=chunk,
@@ -1497,6 +1564,22 @@ def phase_flash_bwd(torch, fops, gen):
             row["autograd_err"] = flash_bwd_autograd(
                 torch, fops, q, k, v, g, causal, off, chunk, plain_out,
                 plain_lse, bf16)
+        if bf16:
+            # the fp32-core kernels on the same inputs: checked, and timed
+            # as the yardstick of the tensor-core route
+            old = fops._launch_bwd_fp32cores(q, k, v, out, lse, g, causal, off)
+            torch.cuda.synchronize()
+            row["fp32_cores_err"] = {
+                what: flash_bwd_error(torch, a, c, True)
+                for what, a, c in zip(("dq", "dk", "dv"), old, want)}
+            for what, err in row["fp32_cores_err"].items():
+                check(err["within_tolerance"], f"flash_bwd {name}, fp32-core "
+                      f"route: {what} error {err}")
+            del old
+            row["ms_fp32_cores"] = event_ms(
+                torch, lambda: fops._launch_bwd_fp32cores(
+                    q, k, v, out, lse, g, causal, off),
+                3 if S >= 4096 else 10, warmup=1)
         row["tflops"] = flops / row["ms"] / 1e9
         row["bound_share"] = b_ms / row["ms"]
         emit(row)
@@ -1794,7 +1877,7 @@ def phase_train(torch, np, rdev):
     0.  Run A: 10 steps straight.  Run B: 5 steps and a checkpoint, then
     a new ``TrainLoop`` restored from it for 5 more.  Gates: every loss
     finite; per step 2 x 28 attention forward launches (the forward and
-    its recompute), all on the tensor cores, and 28 backward launches;
+    its recompute) and 28 backward launches, all on the tensor cores;
     run B's losses, final parameters and optimizer state within 1e-6 of
     run A's (relative to each loss, to each leaf's largest element: the
     same deterministic kernels on the same inputs; a restore that lost
@@ -1813,7 +1896,7 @@ def phase_train(torch, np, rdev):
     B, S, n = TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS
     L = cfg.n_layers
     per_step = {"flash_attention": 2 * L, "flash_attention_tc": 2 * L,
-                "flash_attention_bwd": L}
+                "flash_attention_bwd": L, "flash_attention_bwd_tc": L}
     none = {k: 0 for k in rdev.launch_counts()}
     quiet = lambda _: None      # noqa: E731
 
@@ -1893,8 +1976,18 @@ def phase_train(torch, np, rdev):
             kernels[name] = (ms + us / 1e3, calls + evt.count)
     busy = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
-    mine = {tag: sum(ms for k, (ms, _) in kernels.items() if tag in k)
-            for tag in ("flash_fwd_wgmma", "flash_bwd_dq", "flash_bwd_dkdv")}
+    # by name up to its template arguments: "flash_bwd_dq<" is not
+    # "flash_bwd_dq_wgmma<"
+    mine = {tag: sum(ms for k, (ms, _) in kernels.items() if tag + "<" in k)
+            for tag in ("flash_fwd_wgmma",) + BWD_FP32_KERNELS
+            + BWD_TC_KERNELS}
+    # the backward's device ms a call, if the window recorded each of its
+    # kernels once for each of the 2 steps' L calls
+    bwd_calls = {t: sum(c for k, (_, c) in kernels.items() if t + "<" in k)
+                 for t in BWD_TC_KERNELS}
+    bwd_ms = (sum(mine[t] for t in BWD_TC_KERNELS) / (2 * L)
+              if all(c == 2 * L for c in bwd_calls.values())
+              else "not measured")
     gemm = sum(ms for k, (ms, _) in kernels.items()
                if "gemm" in k.lower() or "cutlass" in k.lower())
 
@@ -1922,10 +2015,13 @@ def phase_train(torch, np, rdev):
           "device_idle_share": (1.0 - busy / wall_ms) if kernels
           else "not measured", "final_loss": final_loss,
           "kernel_device_ms": mine, "gemm_device_ms": gemm,
+          "attention_bwd_calls": bwd_calls,
+          "attention_bwd_device_ms_per_call": bwd_ms,
           "top_kernels": [{"name": k, "device_ms": ms, "calls": c}
                           for k, (ms, c) in top[:15]]})
     del pa, sa, a
     torch.cuda.empty_cache()
+    row["bwd_device_ms_per_call"] = bwd_ms
     return row
 
 
@@ -2015,7 +2111,8 @@ def phase_serve(torch, np, rdev):
     Every attention launch takes the tensor-core route (bf16)."""
     none = {"gat_mp": 0, "gat_mp_bwd": 0, "memsim": 0, "memsim_zoo": 0,
             "flash_attention": 0, "flash_attention_tc": 0,
-            "flash_attention_bwd": 0, "ssd_scan": 0}
+            "flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
+            "ssd_scan": 0}
     first = None
     for arch, requests, slots, max_new, lens, per in SERVE_RUNS:
         out, counts, finite, peak = run_serve(
@@ -2126,7 +2223,7 @@ def placement_launches(svc):
             "memsim": c["compiler_refs"],
             "memsim_zoo": gens + c["nn_rescored"], "flash_attention": 0,
             "flash_attention_tc": 0, "flash_attention_bwd": 0,
-            "ssd_scan": 0}, gens
+            "flash_attention_bwd_tc": 0, "ssd_scan": 0}, gens
 
 
 def placement_gat_capture(ops, kept):
@@ -2598,9 +2695,16 @@ def main(argv=None):
           f"memsim: no compiler report for its two kernels: {regs}")
     for entry, info in regs["memsim"].items():
         check(info["spill_bytes"] == 0, f"{entry} spills {info}")
-    check(len(regs.get("flash_attention_bwd", {})) == 16,
-          f"flash_attention_bwd: no compiler report for its 16 kernels "
-          f"(2 kernels x 4 head dims x 2 dtypes): {regs}")
+    check(len(regs.get("flash_attention_bwd", {})) == 22,
+          f"flash_attention_bwd: no compiler report for its 22 kernels "
+          f"(fp32 cores: 2 kernels x 4 head dims x 2 dtypes; tensor cores: "
+          f"3 kernels x 2 head dims): {regs}")
+    bwd_tc = {e: info for e, info in regs["flash_attention_bwd"].items()
+              if any(n in e for n in BWD_TC_KERNELS)}
+    check(len(bwd_tc) == 6, f"flash_attention_bwd: {len(bwd_tc)} "
+          f"tensor-core kernels in the compiler report, want 6")
+    for entry, info in bwd_tc.items():
+        check(info["spill_bytes"] == 0, f"{entry} spills {info}")
 
     gen = torch.Generator("cuda").manual_seed(0)
     rows = run_egrl(torch, np, rdev, gen, regs["memsim"])  # 3-8
@@ -2656,6 +2760,14 @@ def main(argv=None):
                 "B=1, H=64, hd=64, N=64, Q=256; bound_ms on the f32 cores, "
                 "bound_ms_tc in 3xTF32 on the tensor cores"}]
     fb = flash_bwd["qwen3-0.6b:train"]
+    # device ms from a profile that recorded every launch of its window:
+    # the flash_bwd row's one-call windows, else train_profile's
+    bwd_dev, bwd_from = fb["device_ms"], fb["device_ms_from"]
+    if isinstance(bwd_dev, str):
+        bwd_dev = train["bwd_device_ms_per_call"]
+        bwd_from = (f"train_profile: the tensor-core kernels over the "
+                    f"{2 * train['layers']} calls of 2 steps (the "
+                    f"flash_bwd row: {fb['device_ms_from']})")
     rows.append(
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
@@ -2666,12 +2778,22 @@ def main(argv=None):
          "max_abs_err": fb["max_abs_err"], "ms": fb["ms"],
          "plain_ms": fb["plain_ms"], "bound_ms": fb["bound_ms"],
          "bound_by": fb["bound_by"], "library_ms": fb["library_ms"],
-         "device_ms": fb["device_ms"], "tflops": fb["tflops"],
-         "bound_share": fb["bound_share"],
-         "cuda_kernels": ["flash_bwd_dq", "flash_bwd_dkdv"],
+         "device_ms": bwd_dev, "device_ms_from": bwd_from,
+         "device_ms_train_profile": train["bwd_device_ms_per_call"],
+         "tflops": fb["tflops"], "bound_share": fb["bound_share"],
+         "kernel_route": fb["route"], "ms_fp32_cores": fb["ms_fp32_cores"],
+         "launches_tensor_cores":
+             train["launches"]["flash_attention_bwd_tc"],
+         "cuda_kernels": list(BWD_TC_KERNELS),
+         "cuda_kernels_fp32_cores": list(BWD_FP32_KERNELS),
+         "zamba2_heads_4096": {k: flash_bwd["bf16:h=64:S=4096"][k] for k in (
+             "ms", "device_ms", "ms_fp32_cores", "library_ms", "bound_ms",
+             "tflops")},
          "per": f"one call at the train shape: B={TRAIN_BATCH}, "
                 f"S={TRAIN_SEQ}, 8 KV heads x 2 queries of 128, bf16, "
-                f"causal; library_ms: SDPA's backward, KV expanded"})
+                f"causal; library_ms: SDPA's backward, KV expanded; "
+                f"device_ms_train_profile: the tensor-core kernels' device "
+                f"time in train_profile over its calls"})
     for r in rows:
         if r["name"].startswith("flash_attention"):
             r["launches_train"] = train["launches"][r["name"]]

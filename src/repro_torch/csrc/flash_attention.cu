@@ -345,11 +345,6 @@ struct Cfg {
       1024 + Q_BYTES + STAGES * STAGE_BYTES + 8 * (1 + 2 * STAGES);
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // s (64 x BK) = q_wg (64 x HD) k_tile^T: HD / 16 steps of k16; step kk
 // reads box kk / 4 at byte 32 (kk % 4) of each row
 template <int HD>

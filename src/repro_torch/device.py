@@ -53,6 +53,8 @@ def _counters():
             "flash_attention_tc": (flash, "tensor_core_launches"),
             "flash_attention_bwd": (flash_ops.flash_attention_bwd,
                                     "launches"),
+            "flash_attention_bwd_tc": (flash_ops.flash_attention_bwd,
+                                       "tensor_core_launches"),
             "ssd_scan": (ssd_ops.ssd_scan, "launches")}
 
 
@@ -61,10 +63,10 @@ def launch_counts() -> Dict[str, int]:
     one where it launches its CUDA kernel and nowhere else, so a run on
     CPU tensors leaves every count at 0.  "flash_attention" counts both
     attention kernels, "flash_attention_tc" those of the tensor-core
-    kernel among them, "flash_attention_bwd" the attention backward (its
-    two CUDA kernels count as one); "memsim" the single-graph simulator
-    entry,
-    "memsim_zoo" its zoo entry (one launch per bucket)."""
+    kernel among them, "flash_attention_bwd" the attention backward (the
+    CUDA kernels of one call count as one), "flash_attention_bwd_tc"
+    those on its tensor-core route; "memsim" the single-graph simulator
+    entry, "memsim_zoo" its zoo entry (one launch per bucket)."""
     return {name: getattr(fn, attr)
             for name, (fn, attr) in _counters().items()}
 

@@ -21,8 +21,10 @@ The gradient is the counterpart of ``_flash_bwd`` in
 ``src/repro/models/attention.py`` (an XLA custom VJP, no Pallas kernel):
 when an input requires grad, ``flash_attention`` goes through
 ``_FlashAttention``, whose forward also keeps each row's log-sum-exp and
-whose backward is ``flash_attention_bwd``: on CUDA tensors the two
-kernels of ``csrc/flash_attention_bwd.cu`` (one wrapper launch), on CPU
+whose backward is ``flash_attention_bwd``: on CUDA tensors one route of
+``csrc/flash_attention_bwd.cu`` (one wrapper launch), chosen by
+``bwd_route`` with the forward's rule: the tensor-core kernels (wgmma,
+TMA) for bf16 at h = 64 or 128, the fp32-core kernels otherwise; on CPU
 tensors ``flash_attention_bwd_plain``.
 """
 from __future__ import annotations
@@ -46,6 +48,8 @@ _TC_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                 + [ctypes.c_float] + [ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                  + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+_BWD_TC_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                    + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -119,14 +123,18 @@ def kernel_route(q, k, v) -> str:
     if q.dtype != torch.bfloat16 or h not in TENSOR_CORE_HEAD_DIMS:
         return "fp32_cores"
     for name, x in (("q", q), ("k", k), ("v", v)):
-        row = x.stride(1) * x.element_size()
-        if x.data_ptr() % TMA_ALIGN or row % TMA_ALIGN:
-            raise ValueError(
-                f"{name}: TMA needs a base address and row stride that are "
-                f"multiples of {TMA_ALIGN} bytes, got address "
-                f"{x.data_ptr():#x} (storage offset {x.storage_offset()}) "
-                f"and stride {row} bytes")
+        _check_tma(name, x)
     return "tensor_cores"
+
+
+def _check_tma(name, x):
+    row = x.stride(1) * x.element_size()
+    if x.data_ptr() % TMA_ALIGN or row % TMA_ALIGN:
+        raise ValueError(
+            f"{name}: TMA needs a base address and row stride that are "
+            f"multiples of {TMA_ALIGN} bytes, got address "
+            f"{x.data_ptr():#x} (storage offset {x.storage_offset()}) "
+            f"and stride {row} bytes")
 
 
 def _kernel_inputs(q, k, v):
@@ -319,18 +327,32 @@ def _check_bwd(q, k, v, out, lse, g):
                          "devices")
 
 
-def _launch_bwd(q, k, v, out, lse, g, causal, q_offset):
+def bwd_route(q, k, v, out, g) -> str:
+    """The CUDA route ``flash_attention_bwd`` launches for these inputs,
+    by ``kernel_route``'s rule: "tensor_cores" for bf16 at h = 64 or 128,
+    where out and g, read by the same kernels, must also be aligned to
+    16 bytes; "fp32_cores" for f32 and for bf16 at h = 16 or 32.  Raises
+    ``ValueError`` for inputs neither route takes."""
+    route = kernel_route(q, k, v)
+    if route == "tensor_cores":
+        for name, x in (("out", out), ("g", g)):
+            _check_tma(name, x)
+    return route
+
+
+def _bwd_buffers(q, k, v, lse):
+    """D (the rows' sums of do * out, f32 like lse) and dq, dk, dv."""
+    return (torch.empty_like(lse), torch.empty_like(q), torch.empty_like(k),
+            torch.empty_like(v))
+
+
+def _launch_bwd_fp32cores(q, k, v, out, lse, g, causal, q_offset):
+    """The fp32-core kernels on checked inputs (any dtype and h they
+    take)."""
     B, Sq, K, G, h = q.shape
-    if q_offset < 0:
-        raise ValueError("negative q_offset")
-    _kernel_inputs(q, k, v)
-    for name, x in (("out", out), ("lse", lse), ("g", g)):
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     fn = build.function("flash_attention_bwd", "flash_attention_bwd",
                         _BWD_ARGTYPES)
-    dsum = torch.empty_like(lse)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dsum, dq, dk, dv = _bwd_buffers(q, k, v, lse)
     err = build.cuda_call(
         fn, q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         g.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
@@ -338,10 +360,44 @@ def _launch_bwd(q, k, v, out, lse, g, causal, q_offset):
         KERNEL_DTYPES[q.dtype], int(causal), q_offset,
         softmax_scale(h, q.dtype), h ** -0.5)
     if err:
-        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash_attention_bwd fp32-core kernel launch "
+                           f"failed: CUDA error {err}")
     count_launch(flash_attention_bwd)
     return dq, dk, dv
+
+
+def _launch_bwd_tensor_cores(q, k, v, out, lse, g, causal, q_offset):
+    """The tensor-core kernels on inputs ``bwd_route`` sent there; qs, a
+    scratch of q's shape, takes bf(q * scale) from the first kernel."""
+    B, Sq, K, G, h = q.shape
+    fn = build.function("flash_attention_bwd", "flash_attention_bwd_tc",
+                        _BWD_TC_ARGTYPES)
+    dsum, dq, dk, dv = _bwd_buffers(q, k, v, lse)
+    qs = torch.empty_like(q)
+    err = build.cuda_call(
+        fn, q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        g.data_ptr(), lse.data_ptr(), dsum.data_ptr(), qs.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, k.shape[1], K, G,
+        h, int(causal), q_offset, softmax_scale(h, q.dtype), h ** -0.5)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd tensor-core kernel launch "
+                           f"failed: error {err} (a CUDA error, or 1000 + "
+                           f"the CUresult of the TMA map encoding)")
+    count_launch(flash_attention_bwd)
+    count_launch(flash_attention_bwd, "tensor_core_launches")
+    return dq, dk, dv
+
+
+def _launch_bwd(q, k, v, out, lse, g, causal, q_offset):
+    if q_offset < 0:
+        raise ValueError("negative q_offset")
+    for name, x in (("out", out), ("lse", lse), ("g", g)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if bwd_route(q, k, v, out, g) == "tensor_cores":
+        return _launch_bwd_tensor_cores(q, k, v, out, lse, g, causal,
+                                        q_offset)
+    return _launch_bwd_fp32cores(q, k, v, out, lse, g, causal, q_offset)
 
 
 def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True,
@@ -349,11 +405,11 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True,
     """Gradient of ``flash_attention``'s output for the cotangent g
     (B, Sq, K, G, h): returns (dq, dk, dv).  out and lse are the
     forward's (``flash_attention_plain(..., return_lse=True)`` or the
-    kernels with an lse buffer).  CUDA tensors launch
-    ``csrc/flash_attention_bwd.cu`` (contiguous inputs, f32 or bf16, h
-    in 16, 32, 64, 128; its two kernels count as one launch); CPU
-    tensors run ``flash_attention_bwd_plain`` over KV chunks of
-    ``chunk`` keys (0: all Sk)."""
+    kernels with an lse buffer).  CUDA tensors launch the route of
+    ``csrc/flash_attention_bwd.cu`` that ``bwd_route`` names (contiguous
+    inputs, f32 or bf16, h in 16, 32, 64, 128; the route's CUDA kernels
+    count as one launch); CPU tensors run ``flash_attention_bwd_plain``
+    over KV chunks of ``chunk`` keys (0: all Sk)."""
     _check_bwd(q, k, v, out, lse, g)
     if q.device.type == "cpu":
         Sk = k.shape[1]
@@ -365,4 +421,5 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True,
     return _launch_bwd(q, k, v, out, lse, g, causal, q_offset)
 
 
-flash_attention_bwd.launches = 0
+flash_attention_bwd.launches = 0               # every call's launch
+flash_attention_bwd.tensor_core_launches = 0   # those of the tensor cores

@@ -135,7 +135,9 @@ def test_cpu_run_launches_no_kernel():
                                     "memsim": 0, "memsim_zoo": 0,
                                     "flash_attention": 0,
                                     "flash_attention_tc": 0,
-                                    "flash_attention_bwd": 0, "ssd_scan": 0}
+                                    "flash_attention_bwd": 0,
+                                    "flash_attention_bwd_tc": 0,
+                                    "ssd_scan": 0}
 
 
 def test_optimize_writes_the_reference_plan_schema():

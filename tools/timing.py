@@ -14,9 +14,9 @@ PROFILE_TRIES = 3
 PROFILE_PAD_S = 0.05
 
 
-def padded_profile():
+def padded_profile(pad=PROFILE_PAD_S):
     """A torch.profiler window (CPU and CUDA activities) that idles the
-    host PROFILE_PAD_S after it opens and before it closes; the caller
+    host ``pad`` seconds after it opens and before it closes; the caller
     synchronizes the card before leaving the ``with``."""
     import contextlib
     from torch.profiler import ProfilerActivity, profile
@@ -25,18 +25,18 @@ def padded_profile():
     def window():
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            time.sleep(PROFILE_PAD_S)
+            time.sleep(pad)
             yield prof
-            time.sleep(PROFILE_PAD_S)
+            time.sleep(pad)
     return window()
 
 
-def profile_kernels(torch, fn, reps):
-    """One padded profiler window around ``reps`` calls of ``fn`` and a
-    synchronize.  Returns per kernel name (device-side events only) its
+def profile_kernels(torch, fn, reps, pad=PROFILE_PAD_S):
+    """One padded profiler window (``pad`` seconds each side) around
+    ``reps`` calls of ``fn`` and a synchronize.  Returns per kernel name (device-side events only) its
     total device ms and its number of recorded launches."""
     from torch.autograd import DeviceType
-    with padded_profile() as prof:
+    with padded_profile(pad) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
