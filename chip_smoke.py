@@ -6,11 +6,11 @@
 Phases, each printing JSON lines:
 
 1. device   -- the card's name and power limit (nvidia-smi);
-2. build    -- the six CUDA sources of ``src/repro_torch/csrc``
+2. build    -- the seven CUDA sources of ``src/repro_torch/csrc``
                compiled, one ``nvcc`` each, in parallel; each kernel's
-               registers and spills printed (the SSD kernels, the
-               simulator kernel and the attention backward's tensor-core
-               kernels must not spill);
+               registers and spills printed (the SSD kernels, forward
+               and backward, the simulator kernel and the attention
+               backward's tensor-core kernels must not spill);
 3. gat      -- the GAT forward kernel against its plain PyTorch version,
                at the main path's shapes and on edge-case masks (a
                column no row reaches, a row with every column set or
@@ -103,30 +103,46 @@ Phases, each printing JSON lines:
                with lse bit-equal to the forward without; ``ms``,
                ``device_ms`` (at S = 4096 from windows of one call),
                ``plain_ms``, the bound and SDPA's backward
-               (``library_ms``); ssd_grad: the SSD scan on a CUDA input
-               that requires grad raises instead of returning an output
-               without a gradient;
-16. train_check -- qwen3-0.6b at full width in f32, cut to 2 layers: the
-               loss of a 512-token batch and every parameter's gradient
-               on the card against the CPU (plain versions);
-17. train   -- ``launch.train.TrainLoop`` at qwen3-0.6b's published config
-               (bf16 activations, f32 parameters, remat "full", AdamW) at
+               (``library_ms``); ssd_bwd: the SSD scan's backward
+               kernels (kernel F) against their plain version on every
+               ssd case and at the train phase's two shapes (zamba2 and
+               mamba2-780m, B 4, S 4096), with and without a final-state
+               cotangent, within 1e-4 of each output's largest element,
+               two launches bit-equal, ``ms``, ``device_ms``, the 3xTF32
+               bound and ``plain_ms``; ssd_bwd_autograd: ``autograd.grad``
+               through ``ssd_scan`` on CUDA inputs that require grad, one
+               forward and one backward launch, against the plain
+               version;
+16. train_check -- qwen3-0.6b (2 layers), mamba2-780m (2 layers) and
+               zamba2-1.2b (7: a group and a tail layer) at full width in
+               f32: the loss of a 512-token batch and every parameter's
+               gradient on the card against the CPU (plain versions),
+               exact launch counts;
+17. train   -- ``launch.train.TrainLoop`` at the published configs of
+               qwen3-0.6b, mamba2-780m and zamba2-1.2b (bf16
+               activations, f32 parameters, remat "full", AdamW) at
                S = 4096, global batch 4: 10 steps straight, and 5 + a
                checkpoint + 5 in a restored loop, equal; exact launch
-               counts (2 x 28 forward, 28 backward a step, all on the
-               tensor cores), step ms,
-               tokens/s, the model-FLOPs share of the bf16 peak, peak
-               memory; train_profile: device time by kernel and the idle
-               share over 2 steps;
+               counts a step (``step_launches``: qwen3 2 x 28 attention
+               forward and 28 backward; mamba2 96 SSD forward and 48
+               backward; zamba2 74 and 38, and 12 attention forward and
+               6 backward; every attention launch on the tensor cores),
+               step ms, tokens/s, the model-FLOPs share of the bf16 peak,
+               peak memory; train_profile: device time by kernel and the
+               idle share over 2 steps;
 13. kernels -- (printed last) per kernel: launches in its slice's main
                path (the BERT "egrl" run, the zamba2 serve run, the zoo
-               "egrl" run; the simulator's also in Greedy-DP; every
+               "egrl" run, the attention backward's the qwen3 train run,
+               the SSD backward's the zamba2 train run; the simulator's
+               also in Greedy-DP; every
                kernel's in the placement stream, ``launches_placement``),
                error, time on the card, plain time, bound and
                library time; for the GAT kernels both per launch (a
                launch is one call of the wrapper) and over their group (4
                forward launches, 8 backward calls); for attention also
-               the train run's launches (``launches_train``).
+               the qwen3 train run's launches (``launches_train``); for
+               attention and the SSD scan, forward and backward, the SSM
+               train runs' (``launches_train_ssm``).
 
 Device times come from ``tools/timing.py``: up to 3 padded profiles
 (``*_tries`` on each row) are taken for one that recorded every launch;
@@ -959,7 +975,7 @@ def run_slice(torch, np, name, make, egrl, sim, compiler, rdev, mode="ea",
             "memsim": 1 + gens * (pop + (mode != "ea")), "memsim_zoo": 0,
             "flash_attention": 0, "flash_attention_tc": 0,
             "flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
-            "ssd_scan": 0}
+            "ssd_scan": 0, "ssd_scan_bwd": 0}
     check(counts == want, f"{name} {mode}: launches {counts}, the path "
           f"implies {want}")
     if mode != "ea":
@@ -1039,7 +1055,7 @@ def run_zoo(torch, np, zoo, egrl, sim, compiler, rdev, mode, gens):
             "gat_mp_bwd": sac_steps * K * 8, "memsim": len(graphs),
             "memsim_zoo": gens * K * (1 + pg), "flash_attention": 0,
             "flash_attention_tc": 0, "flash_attention_bwd": 0,
-            "flash_attention_bwd_tc": 0, "ssd_scan": 0}
+            "flash_attention_bwd_tc": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
     check(counts == want, f"zoo {mode}: launches {counts}, the path "
           f"implies {want}")
     rows_per_gen = algo.n_g + algo.n_b + (cfg.pg_rollouts if pg else 0)
@@ -1589,39 +1605,6 @@ def phase_flash_bwd(torch, fops, gen):
     return rows
 
 
-def phase_ssd_grad(torch, sops, gen):
-    """``ssd_scan`` on CUDA inputs of which one requires grad, in grad
-    mode, raises naming ROADMAP.md (the SSD-scan backward is not ported),
-    and launches nothing: it never returns an output without a gradient.
-    Under ``torch.no_grad()`` the same call runs the kernel."""
-    B, S, H, hd, N = 1, 128, 4, 16, 16
-    x = torch.randn((B, S, H, hd), generator=gen, device="cuda")
-    dt = torch.rand((B, S, H), generator=gen, device="cuda") * 0.1
-    A_log = torch.zeros((H,), device="cuda")
-    Bm = torch.randn((B, S, N), generator=gen, device="cuda")
-    Cm = torch.randn((B, S, N), generator=gen, device="cuda")
-    raised = {}
-    for name in ("x", "dt", "A_log", "B", "C"):
-        args = [t.clone() for t in (x, dt, A_log, Bm, Cm)]
-        args[("x", "dt", "A_log", "B", "C").index(name)].requires_grad_()
-        n0 = sops.ssd_scan.launches
-        try:
-            sops.ssd_scan(*args, chunk=64)
-        except RuntimeError as e:
-            raised[name] = str(e)
-        check(name in raised and "ROADMAP" in raised[name],
-              f"ssd_grad: an input {name} that requires grad did not raise")
-        check(sops.ssd_scan.launches == n0,
-              f"ssd_grad: the kernel launched for a grad input {name}")
-        with torch.no_grad():
-            y, _ = sops.ssd_scan(*args, chunk=64)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(y).all()) and not y.requires_grad,
-              f"ssd_grad: the no_grad call on {name}")
-    emit({"phase": "ssd_grad", "raised_for": sorted(raised),
-          "message": raised["x"][:100], "no_grad_calls_run": True})
-
-
 # --------------------------------------------------------- SSD scan kernel
 def ssd_cases():
     """(name, B, S, H, hd, N, chunk, dtype, init_state, decay): every
@@ -1657,6 +1640,30 @@ def ssd_cases():
          "fast")]
 
 
+def ssd_inputs(torch, gen, B, S, H, hd, N, dtype, init, decay):
+    """x, dt, A_log, B, C and the initial state (or None) of an ssd case,
+    on the card: x, B and C in the activation dtype; dt and A_log drawn
+    as ``ssd_cases`` says for ``decay``."""
+    act = getattr(torch, dtype)
+    x = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(act)
+    if decay == "slow":
+        dt_h = torch.empty((H,), device="cuda").uniform_(
+            math.log(1e-3), math.log(0.1), generator=gen).exp()
+        dt = dt_h * torch.exp(0.5 * torch.randn(
+            (B, S, H), generator=gen, device="cuda"))
+        A_log = torch.empty((H,), device="cuda").uniform_(
+            1.0, 16.0, generator=gen).log()
+    else:
+        dt = torch.nn.functional.softplus(
+            torch.randn((B, S, H), generator=gen, device="cuda"))
+        A_log = torch.randn((H,), generator=gen, device="cuda") * 0.3
+    Bm = torch.randn((B, S, N), generator=gen, device="cuda").to(act)
+    Cm = torch.randn((B, S, N), generator=gen, device="cuda").to(act)
+    st0 = (torch.randn((B, H, N, hd), generator=gen, device="cuda")
+           if init else None)
+    return x, dt, A_log, Bm, Cm, st0
+
+
 def ssd_ops_split(B, S, H, hd, N, Q):
     """f32 operations of the chunked form on these shapes, as (matrix
     products, the rest): per chunk the lower triangle of C B^T (shared by
@@ -1683,23 +1690,8 @@ def phase_ssd(torch, sops, gen):
     ``bound_share`` = bound_ms_tc / device_ms."""
     rows = {}
     for name, B, S, H, hd, N, chunk, dtype, init, decay in ssd_cases():
-        act = getattr(torch, dtype)
-        x = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(act)
-        if decay == "slow":
-            dt_h = torch.empty((H,), device="cuda").uniform_(
-                math.log(1e-3), math.log(0.1), generator=gen).exp()
-            dt = dt_h * torch.exp(0.5 * torch.randn(
-                (B, S, H), generator=gen, device="cuda"))
-            A_log = torch.empty((H,), device="cuda").uniform_(
-                1.0, 16.0, generator=gen).log()
-        else:
-            dt = torch.nn.functional.softplus(
-                torch.randn((B, S, H), generator=gen, device="cuda"))
-            A_log = torch.randn((H,), generator=gen, device="cuda") * 0.3
-        Bm = torch.randn((B, S, N), generator=gen, device="cuda").to(act)
-        Cm = torch.randn((B, S, N), generator=gen, device="cuda").to(act)
-        st0 = (torch.randn((B, H, N, hd), generator=gen, device="cuda")
-               if init else None)
+        x, dt, A_log, Bm, Cm, st0 = ssd_inputs(torch, gen, B, S, H, hd, N,
+                                               dtype, init, decay)
         y, fs = sops.ssd_scan(x, dt, A_log, Bm, Cm, chunk=chunk,
                               init_state=st0)
         xd, la = sops._operands(x, dt, A_log)
@@ -1742,6 +1734,171 @@ def phase_ssd(torch, sops, gen):
                               else "not measured")
         emit(row)
         rows[name, S] = row
+    return rows
+
+
+# the train phase's SSD shapes (B 4, S 4096, chunk 256): (name, B, S, H,
+# hd, N, chunk, dtype, init_state, decay); zamba2 with Mamba2's slow decay
+# (the state carried over 16 chunks), mamba2-780m with fast decay (dt ~
+# 0.7 and A ~ -e at random weights, |cum| far past 88 in a chunk)
+SSD_TRAIN_CASES = (
+    ("zamba2-1.2b:train", 4, 4096, 64, 64, 64, 256, "float32", False,
+     "slow"),
+    ("mamba2-780m:train", 4, 4096, 48, 64, 128, 256, "float32", False,
+     "fast"))
+SSD_BWD_KERNELS = ("ssd_bwd_state_kernel", "ssd_bwd_pass_kernel",
+                   "ssd_bwd_chunk_kernel", "ssd_bwd_dla_kernel",
+                   "ssd_bwd_heads_kernel")
+
+
+def ssd_bwd_ops_split(B, S, H, hd, N, Q):
+    """f32 operations of the chunked form's backward, as (matrix
+    products, the rest), with C B^T kept from the forward and the
+    triangle's dS = sum over heads of (dy xd^T) o L formed once a chunk:
+    per chunk and head, on the lower triangle, dy xd^T and (C B^T o L)^T
+    dy; per chunk and head, B G, C^T diag(exp(cum)) dy, dy prev^T and xd
+    G^T (Q x N x hd each); per chunk dS B and dS^T C on the triangle.
+    The rest: per (chunk, head) the decays (subtract, exp), W and W o C
+    B^T, their row and column sums, the sum over heads (6 a triangle
+    entry), the dy . (C prev) and xd . (B G) terms (2 Q hd each), the
+    pass (2 N hd) and <prev, G> (2 N hd)."""
+    nc, tri = S // Q, Q * (Q + 1) // 2
+    products = B * nc * (H * (tri * 4 * hd + 8 * Q * N * hd) + tri * 4 * N)
+    rest = B * nc * H * (6 * tri + 4 * Q * hd + 4 * N * hd)
+    return products, rest
+
+
+def ssd_bwd_error(torch, got, want, tol=1e-4):
+    """{output: max abs error} and {output: largest element} of kernel
+    F's outputs against the plain version's; each within ``tol`` of its
+    largest element."""
+    errs, scales = {}, {}
+    for what, a, b in zip(("dxd", "dla", "dB", "dC", "dinit"), got, want):
+        if b is None:
+            check(a is None, f"ssd_bwd: {what} returned without a state")
+            continue
+        scales[what] = b.abs().max().item()
+        errs[what] = (a - b).abs().max().item()
+        check(bool(torch.isfinite(a).all()), f"ssd_bwd {what} not finite")
+        check(errs[what] <= tol * scales[what], f"ssd_bwd {what}: error "
+              f"{errs[what]} > {tol} x {scales[what]}")
+    return errs, scales
+
+
+def ssd_bwd_autograd(torch, sops, rdev, gen):
+    """``torch.autograd.grad`` through ``ssd_scan`` on CUDA x, dt, A_log,
+    B, C and an initial state that require grad (zamba2's heads, S 1024,
+    4 chunks, slow decay), against the same through the plain version:
+    exactly one forward and one backward launch, and every gradient
+    within 1e-4 of its largest element."""
+    x, dt, A_log, Bm, Cm, st0 = ssd_inputs(torch, gen, 1, 1024, 64, 64, 64,
+                                           "float32", True, "slow")
+    dy = torch.randn_like(x)
+    dfinal = torch.randn_like(st0)
+
+    def grads(fn):
+        ins = [t.clone().requires_grad_() for t in (x, dt, A_log, Bm, Cm,
+                                                    st0)]
+        y, fs = fn(*ins)
+        return torch.autograd.grad((y * dy).sum() + (fs * dfinal).sum(),
+                                   ins)
+
+    rdev.reset_launch_counts()
+    got = grads(lambda *a: sops.ssd_scan(*a[:5], chunk=256, init_state=a[5]))
+    torch.cuda.synchronize()
+    counts = rdev.launch_counts()
+    want_counts = {k: 0 for k in counts}
+    want_counts.update(ssd_scan=1, ssd_scan_bwd=1)
+    check(counts == want_counts, f"ssd_bwd autograd launches {counts}")
+
+    def plain(x, dt, A_log, Bm, Cm, st):
+        xd, la = sops._operands(x, dt, A_log)
+        return sops.ssd_scan_plain(xd, la, Bm, Cm, 256, st)
+    want = grads(plain)
+    errs = {}
+    for what, a, b in zip(("x", "dt", "A_log", "B", "C", "init_state"), got,
+                          want):
+        scale = b.abs().max().item()
+        errs[what] = (a - b).abs().max().item()
+        check(bool(torch.isfinite(a).all()) and errs[what] <= 1e-4 * scale,
+              f"ssd_bwd autograd {what}: error {errs[what]} of {scale}")
+    return {"launches": {k: v for k, v in counts.items() if v},
+            "max_abs_err": errs}
+
+
+def phase_ssd_bwd(torch, sops, rdev, gen):
+    """Kernel F (``csrc/ssd_scan_bwd.cu``) against ``ssd_scan_bwd_plain``
+    on every ssd case and at the train phase's two shapes, with a random
+    dy and a random final-state cotangent, then none (zero): dxd, dla,
+    dB, dC and dinit each within 1e-4 of its largest element (the
+    forward's gate, stated before the first run), and a second launch
+    bit-equal.  Each row (the first cotangent): ``ms`` (CUDA events),
+    ``device_ms`` (the profiler's, the five CUDA kernels summed),
+    ``bound_ms`` (products in 3xTF32 on the tensor cores, the rest on the
+    f32 cores, or the bytes of the function's inputs and outputs),
+    ``bound_share`` = bound_ms / device_ms, ``plain_ms``; no single
+    PyTorch call computes this function (``library_ms`` null).  Then the
+    autograd route (``ssd_bwd_autograd``)."""
+    rows = {}
+    for name, B, S, H, hd, N, chunk, dtype, init, decay in (
+            ssd_cases() + list(SSD_TRAIN_CASES)):
+        x, dt, A_log, Bm, Cm, st0 = ssd_inputs(torch, gen, B, S, H, hd, N,
+                                               dtype, init, decay)
+        xd, la = sops._operands(x, dt, A_log)
+        Bf, Cf = Bm.float().contiguous(), Cm.float().contiguous()
+        xd, la = xd.contiguous(), la.contiguous()
+        _, _, saved = sops._launch(xd, la, Bf, Cf, chunk, st0, keep=True)
+        dy = torch.randn(xd.shape, generator=gen, device="cuda")
+        row = {"phase": "ssd_bwd", "case": name, "B": B, "S": S, "H": H,
+               "hd": hd, "N": N, "Q": min(chunk, S), "init_state": init,
+               "decay": decay}
+        for tag, dfinal in (("", torch.randn((B, H, N, hd), generator=gen,
+                                             device="cuda")),
+                            ("_no_dfinal", None)):
+            def call():
+                return sops.ssd_scan_bwd(xd, la, Bf, Cf, st0, dy, dfinal,
+                                         chunk=chunk, saved=saved)
+            got, again = call(), call()
+            want = sops.ssd_scan_bwd_plain(xd, la, Bf, Cf, st0, dy, dfinal,
+                                           chunk=chunk)
+            torch.cuda.synchronize()
+            errs, scales = ssd_bwd_error(torch, got, want)
+            check(all(a is None and b is None or torch.equal(a, b)
+                      for a, b in zip(got, again)),
+                  f"ssd_bwd {name}{tag}: two launches differ")
+            row[f"max_abs_err{tag}"] = errs
+            row[f"scale{tag}"] = scales
+            del got, again, want
+            if tag:
+                continue
+            Q = min(chunk, S)
+            # read: xd, la, B, C, dy, dfinal (and the initial state);
+            # written: a gradient of each operand's shape
+            ops_in = [xd, la, Bf, Cf] + ([] if st0 is None else [st0])
+            nbytes = 4 * sum(t.numel() for t in ops_in + ops_in
+                             + [dy, dfinal])
+            products, rest = ssd_bwd_ops_split(B, S, H, hd, N, Q)
+            t_ops = 3 * products / PEAK_TF32 + rest / PEAK_F32
+            t_bytes = nbytes / PEAK_BYTES
+            row.update({
+                "bit_equal": True, "ms": event_ms(torch, call, 10),
+                **profiled(torch, call, reps=10),
+                "plain_ms": event_ms(torch, lambda: sops.ssd_scan_bwd_plain(
+                    xd, la, Bf, Cf, st0, dy, dfinal, chunk=chunk), 2,
+                    warmup=1),
+                "library_ms": None, "bound_ms": max(t_ops, t_bytes) * 1e3,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "flops": products + rest, "flops_products": products,
+                "bytes": nbytes})
+            row["bound_share"] = (row["bound_ms"] / row["device_ms"]
+                                  if not isinstance(row["device_ms"], str)
+                                  else "not measured")
+        emit(row)
+        rows[name] = row
+        del saved, x, xd, la, dy
+        torch.cuda.empty_cache()
+    auto = ssd_bwd_autograd(torch, sops, rdev, gen)
+    emit({"phase": "ssd_bwd_autograd", **auto})
     return rows
 
 
@@ -1800,103 +1957,169 @@ def phase_serve_check(torch, rdev):
 # ------------------------------------------------------------ LM training
 def train_flops(cfg, B, S):
     """Model FLOPs of one training step, without recompute: 6 per
-    parameter of every matrix product (the layers' projections and MLP,
-    and the unembedding at the padded vocab) per token, and the two
+    parameter of every matrix product per token (the unembedding at the
+    padded vocab; per attention block, dense layers or zamba2's shared
+    block at each of its G uses, the projections and the MLP; per mamba
+    layer the z, x, B, C and dt projections and out_proj), the two
     attention products, 2 h FLOPs per unmasked (query head, key) pair
-    each, times 3 for forward and backward."""
-    D, H, K, h, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                     cfg.head_dim, cfg.d_ff)
-    layer = D * H * h * 2 + 2 * D * K * h + 3 * D * F
-    matmul = cfg.n_layers * layer + D * cfg.vocab_padded
-    attn = 12 * B * H * h * attention_pairs(S, S, True, 0) * cfg.n_layers
-    return 6 * matmul * B * S + attn
+    each, times 3 for forward and backward, and per mamba layer the SSD
+    chunked form's matrix products (``ssd_ops_split``) times 3.  The
+    depthwise convolutions and the elementwise work are not counted."""
+    D, L = cfg.d_model, cfg.n_layers
+    matmul = D * cfg.vocab_padded
+    flops = 0
+    if cfg.ssm is None:
+        blocks = L
+    else:
+        blocks = L // cfg.shared_attn_every if cfg.shared_attn_every else 0
+        s = cfg.ssm
+        d_in = D * s.expand
+        Hs = d_in // s.head_dim
+        matmul += L * (3 * D * d_in + 2 * D * s.d_state + D * Hs)
+        flops += 3 * L * ssd_ops_split(B, S, Hs, s.head_dim, s.d_state,
+                                       min(s.chunk, S))[0]
+    if blocks:
+        H, K, h, F = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+        matmul += blocks * (D * H * h * 2 + 2 * D * K * h + 3 * D * F)
+        flops += 12 * B * H * h * attention_pairs(S, S, True, 0) * blocks
+    return 6 * matmul * B * S + flops
+
+
+def step_launches(cfg, tensor_cores):
+    """Kernel launches of one training step under remat "full": each
+    attention block's forward twice (the forward and its recompute) and
+    its backward once; each mamba layer's scan twice inside a checkpoint
+    (every mamba2 layer; zamba2's grouped layers), once outside (zamba2's
+    tail), and its backward once.  ``tensor_cores``: bf16 at h 64 / 128,
+    where every attention launch takes the tensor-core route."""
+    L = cfg.n_layers
+    out = {}
+    if cfg.ssm is None:
+        blocks = L
+    else:
+        k = cfg.shared_attn_every
+        blocks = L // k if k else 0
+        grouped = blocks * k if k else L
+        out.update(ssd_scan=2 * grouped + (L - grouped), ssd_scan_bwd=L)
+    if blocks:
+        tc = blocks if tensor_cores else 0
+        out.update(flash_attention=2 * blocks, flash_attention_tc=2 * tc,
+                   flash_attention_bwd=blocks, flash_attention_bwd_tc=tc)
+    return out
+
+
+# train_check's models: (arch, layers kept) at full width in f32; zamba2
+# keeps one group of 6 and a tail layer, as serve_check cuts it
+TRAIN_CHECKS = ((TRAIN_ARCH, 2), ("mamba2-780m", 2), ("zamba2-1.2b", 7))
+TRAIN_SSM = ("mamba2-780m", "zamba2-1.2b")
 
 
 def phase_train_check(torch, rdev):
-    """qwen3-0.6b at full width in f32, cut to 2 layers: the loss of one
-    batch (B 1, S 512) and every parameter's gradient on the card
-    (kernels: the attention forward twice a layer under remat "full", its
-    backward once, on the fp32 cores) against the same on the CPU (plain
-    versions), the same parameters.  Tolerance, stated before the first
-    run: the loss within 1e-5 of its value, each gradient within 1e-3 of
-    its largest element (f32 both, sums in another order; a lost
-    attention gradient or a wrong mask moves them by O(1))."""
+    """Each of ``TRAIN_CHECKS`` at full width in f32, cut in depth: the
+    loss of one batch (B 1, S 512: 2 chunks of 256, so the state carried
+    between them counts) and every parameter's gradient on the card
+    (kernels: exactly ``step_launches``, the attention on the fp32 cores)
+    against the same on the CPU (plain versions), the same parameters.
+    Tolerance, stated before the first run: the loss within 1e-5 of its
+    value, each gradient within 1e-3 of its largest element (f32 both,
+    sums in another order; a lost attention or SSD gradient, a wrong
+    mask or a dropped carry moves them by O(1))."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import SyntheticLM, device_batch
     from repro_torch.models.zoo import get_model
     from repro_torch.utils.params import tree_leaves, tree_map
-    cfg = get_config(TRAIN_ARCH).replace(n_layers=2, dtype="float32")
-    gpu = get_model(cfg)
-    gpu.init(torch.Generator("cuda").manual_seed(1))
-    cpu = get_model(cfg)
-    cpu.load(tree_map(lambda t: t.detach().cpu(), gpu.params))
-    hb = SyntheticLM(cfg.vocab_size, 512, 1, seed=2).batch_at(0)
+    for arch, layers in TRAIN_CHECKS:
+        cfg = get_config(arch).replace(n_layers=layers, dtype="float32")
+        gpu = get_model(cfg)
+        gpu.init(torch.Generator("cuda").manual_seed(1))
+        cpu = get_model(cfg)
+        cpu.load(tree_map(lambda t: t.detach().cpu(), gpu.params))
+        hb = SyntheticLM(cfg.vocab_size, 512, 1, seed=2).batch_at(0)
 
-    def loss_and_grads(model, device):
-        leaves = tree_leaves(model.params)
-        for _, p in leaves:
-            p.requires_grad_(True)
-        loss, _ = model.loss(model.params, device_batch(hb, device))
-        return loss, torch.autograd.grad(loss, [p for _, p in leaves])
+        def loss_and_grads(model, device):
+            leaves = tree_leaves(model.params)
+            for _, p in leaves:
+                p.requires_grad_(True)
+            loss, _ = model.loss(model.params, device_batch(hb, device))
+            return loss, torch.autograd.grad(loss, [p for _, p in leaves])
 
-    rdev.reset_launch_counts()
-    g_loss, g_grads = loss_and_grads(gpu, "cuda")
-    torch.cuda.synchronize()
-    counts = rdev.launch_counts()
-    t0 = time.perf_counter()
-    c_loss, c_grads = loss_and_grads(cpu, "cpu")
-    cpu_s = time.perf_counter() - t0
-    check(counts["flash_attention"] == 4 and counts["flash_attention_tc"] == 0
-          and counts["flash_attention_bwd"] == 2,
-          f"train_check launches {counts}")
-    loss_err = abs(g_loss.item() - c_loss.item())
-    check(loss_err <= 1e-5 * abs(c_loss.item()),
-          f"train_check loss {g_loss.item()} against {c_loss.item()}")
-    errs = {}
-    for (name, _), a, b in zip(tree_leaves(cpu.params), g_grads, c_grads):
-        scale = b.abs().max().item()
-        errs[name] = (a.cpu() - b).abs().max().item() / max(scale, 1e-30)
-        check(bool(torch.isfinite(a).all()), f"train_check {name}: not "
-              f"finite")
-        check(errs[name] <= 1e-3, f"train_check {name}: error "
-              f"{errs[name]} of the largest element")
-    emit({"phase": "train_check", "arch": cfg.name, "layers": cfg.n_layers,
-          "d_model": cfg.d_model, "dtype": cfg.dtype, "remat": cfg.remat,
-          "batch": 1, "seq": 512, "launches": counts,
-          "loss": g_loss.item(), "loss_cpu": c_loss.item(),
-          "loss_abs_err": loss_err,
-          "worst_grad_rel_err": max(errs.values()),
-          "worst_grad": max(errs, key=errs.get), "grad_rel_err": errs,
-          "cpu_s": cpu_s})
+        rdev.reset_launch_counts()
+        g_loss, g_grads = loss_and_grads(gpu, "cuda")
+        torch.cuda.synchronize()
+        counts = rdev.launch_counts()
+        t0 = time.perf_counter()
+        c_loss, c_grads = loss_and_grads(cpu, "cpu")
+        cpu_s = time.perf_counter() - t0
+        want = {**{k: 0 for k in counts}, **step_launches(cfg, False)}
+        check(counts == want, f"train_check {arch} launches {counts}, "
+              f"want {want}")
+        loss_err = abs(g_loss.item() - c_loss.item())
+        check(loss_err <= 1e-5 * abs(c_loss.item()),
+              f"train_check {arch} loss {g_loss.item()} against "
+              f"{c_loss.item()}")
+        errs = {}
+        for (name, _), a, b in zip(tree_leaves(cpu.params), g_grads,
+                                   c_grads):
+            scale = b.abs().max().item()
+            errs[name] = (a.cpu() - b).abs().max().item() / max(scale,
+                                                                 1e-30)
+            check(bool(torch.isfinite(a).all()), f"train_check {arch} "
+                  f"{name}: not finite")
+            check(errs[name] <= 1e-3, f"train_check {arch} {name}: error "
+                  f"{errs[name]} of the largest element")
+        emit({"phase": "train_check", "arch": cfg.name,
+              "layers": cfg.n_layers, "d_model": cfg.d_model,
+              "dtype": cfg.dtype, "remat": cfg.remat, "batch": 1,
+              "seq": 512, "launches": counts,
+              "loss": g_loss.item(), "loss_cpu": c_loss.item(),
+              "loss_abs_err": loss_err,
+              "worst_grad_rel_err": max(errs.values()),
+              "worst_grad": max(errs, key=errs.get), "grad_rel_err": errs,
+              "cpu_s": cpu_s})
+        del gpu, cpu, g_grads, c_grads
+        torch.cuda.empty_cache()
 
 
-def phase_train(torch, np, rdev):
-    """``TrainLoop`` at qwen3-0.6b's published config (28 layers, d_model
-    1024, bf16 activations, f32 parameters, remat "full", AdamW) on
-    train_4k's sequence length, global batch 4, random weights from seed
-    0.  Run A: 10 steps straight.  Run B: 5 steps and a checkpoint, then
-    a new ``TrainLoop`` restored from it for 5 more.  Gates: every loss
-    finite; per step 2 x 28 attention forward launches (the forward and
-    its recompute) and 28 backward launches, all on the tensor cores;
-    run B's losses, final parameters and optimizer state within 1e-6 of
-    run A's (relative to each loss, to each leaf's largest element: the
-    same deterministic kernels on the same inputs; a restore that lost
-    the moments or the step would move them by ~lr, 1e-3 of them).
-    Prints the median step ms (host clock, steps 2-10 of run A; a step
-    ends in the host reading its loss), tokens/s, the model-FLOPs share
-    of the bf16 peak, peak device memory; train_profile: device time by
-    kernel and the idle share over 2 more steps."""
+def kernel_tag(tag, name):
+    """Whether profiler kernel ``name`` is the CUDA kernel ``tag`` (by its
+    name up to its template or argument list: "flash_bwd_dq<" is not
+    "flash_bwd_dq_wgmma<")."""
+    return tag + "<" in name or tag + "(" in name
+
+
+# kernels of the train phase's step whose device time train_profile sums
+TRAIN_KERNELS = (("flash_fwd_wgmma",) + BWD_FP32_KERNELS + BWD_TC_KERNELS
+                 + ("ssd_state_kernel", "ssd_pass_kernel", "ssd_out_kernel")
+                 + SSD_BWD_KERNELS)
+
+
+def phase_train(torch, np, rdev, arch=TRAIN_ARCH, n=TRAIN_STEPS):
+    """``TrainLoop`` at ``arch``'s published config (bf16 activations,
+    f32 parameters, remat "full", AdamW) on train_4k's sequence length,
+    global batch 4, random weights from seed 0: qwen3-0.6b (28 layers,
+    d_model 1024), mamba2-780m (48 layers, d_model 1536) or zamba2-1.2b
+    (38 layers, d_model 2048).  Run A: ``n`` steps straight.  Run B: n / 2
+    steps and a checkpoint, then a new ``TrainLoop`` restored from it for
+    n / 2 more.  Gates: every loss finite; exactly ``step_launches`` per
+    step, every attention launch on the tensor cores; run B's losses,
+    final parameters and optimizer state within 1e-6 of run A's
+    (relative to each loss, to each leaf's largest element: the same
+    deterministic kernels on the same inputs; a restore that lost the
+    moments or the step would move them by ~lr, 1e-3 of them).  Prints
+    the median step ms (host clock, steps 2-n of run A; a step ends in
+    the host reading its loss), tokens/s, the model-FLOPs share of the
+    bf16 peak, peak device memory; train_profile: device time by kernel
+    and the idle share over 2 more steps."""
     import shutil
     from torch.autograd import DeviceType
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import device_batch
     from repro_torch.launch.train import TrainLoop
     from repro_torch.utils.params import tree_leaves
-    cfg = get_config(TRAIN_ARCH)
-    B, S, n = TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS
+    cfg = get_config(arch)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
     L = cfg.n_layers
-    per_step = {"flash_attention": 2 * L, "flash_attention_tc": 2 * L,
-                "flash_attention_bwd": L, "flash_attention_bwd_tc": L}
+    per_step = step_launches(cfg, True)
     none = {k: 0 for k in rdev.launch_counts()}
     quiet = lambda _: None      # noqa: E731
 
@@ -1914,10 +2137,10 @@ def phase_train(torch, np, rdev):
     (pa, sa, _), counts, a_s = run(a, n)
     peak = torch.cuda.max_memory_allocated()
     want = {**none, **{k: n * v for k, v in per_step.items()}}
-    check(counts == want, f"train launches {counts}, want {want}")
+    check(counts == want, f"train {arch} launches {counts}, want {want}")
     losses = [h["loss"] for h in a.history]
     check(len(losses) == n and all(math.isfinite(x) for x in losses),
-          f"train losses {losses}")
+          f"train {arch} losses {losses}")
 
     ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_train_ckpt")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -1935,13 +2158,13 @@ def phase_train(torch, np, rdev):
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     half = {**none, **{k: n // 2 * v for k, v in per_step.items()}}
     check(counts_b1 == half and counts_b2 == half,
-          f"train restart launches {counts_b1}, {counts_b2}")
+          f"train {arch} restart launches {counts_b1}, {counts_b2}")
     b_losses = [h["loss"] for h in b2.history]
     check([h["step"] for h in b2.history] == list(range(n // 2 + 1, n + 1)),
-          f"train restart steps {[h['step'] for h in b2.history]}")
+          f"train {arch} restart steps {[h['step'] for h in b2.history]}")
     loss_err = max(abs(x - y) / abs(y) for x, y in
                    zip(b1_losses + b_losses, losses))
-    check(loss_err <= 1e-6, f"train restart losses {b1_losses} + "
+    check(loss_err <= 1e-6, f"train {arch} restart losses {b1_losses} + "
           f"{b_losses} against {losses}")
     state_err, bit_equal = 0.0, True
     for tree_a, tree_b in ((pa, pb), (sa, sb)):
@@ -1951,7 +2174,7 @@ def phase_train(torch, np, rdev):
                 e = ((x - y).abs().max() / x.abs().max().clamp(min=1e-30)
                      ).item()
                 state_err = max(state_err, e)
-                check(e <= 1e-6, f"train restart {name}: error {e}")
+                check(e <= 1e-6, f"train {arch} restart {name}: error {e}")
     del pb, sb, b2
 
     # train_profile: 2 more steps of run A's state under the profiler
@@ -1976,18 +2199,22 @@ def phase_train(torch, np, rdev):
             kernels[name] = (ms + us / 1e3, calls + evt.count)
     busy = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
-    # by name up to its template arguments: "flash_bwd_dq<" is not
-    # "flash_bwd_dq_wgmma<"
-    mine = {tag: sum(ms for k, (ms, _) in kernels.items() if tag + "<" in k)
-            for tag in ("flash_fwd_wgmma",) + BWD_FP32_KERNELS
-            + BWD_TC_KERNELS}
-    # the backward's device ms a call, if the window recorded each of its
-    # kernels once for each of the 2 steps' L calls
-    bwd_calls = {t: sum(c for k, (_, c) in kernels.items() if t + "<" in k)
-                 for t in BWD_TC_KERNELS}
-    bwd_ms = (sum(mine[t] for t in BWD_TC_KERNELS) / (2 * L)
-              if all(c == 2 * L for c in bwd_calls.values())
-              else "not measured")
+    mine = {tag: sum(ms for k, (ms, _) in kernels.items() if kernel_tag(tag, k))
+            for tag in TRAIN_KERNELS}
+    mine = {k: v for k, v in mine.items() if v}
+    calls = {tag: sum(c for k, (_, c) in kernels.items() if kernel_tag(tag, k))
+             for tag in TRAIN_KERNELS}
+
+    def per_call(tags, n_calls):
+        """Device ms a call of a wrapper whose CUDA kernels are ``tags``,
+        if the window recorded each of them once for each of its
+        ``n_calls`` calls."""
+        if not n_calls or any(calls[t] != n_calls for t in tags):
+            return "not measured"
+        return sum(mine.get(t, 0.0) for t in tags) / n_calls
+    bwd_ms = per_call(BWD_TC_KERNELS,
+                      2 * per_step.get("flash_attention_bwd_tc", 0))
+    ssd_bwd_ms = per_call(SSD_BWD_KERNELS, 2 * per_step.get("ssd_scan_bwd", 0))
     gemm = sum(ms for k, (ms, _) in kernels.items()
                if "gemm" in k.lower() or "cutlass" in k.lower())
 
@@ -2010,18 +2237,20 @@ def phase_train(torch, np, rdev):
                        "max_state_err": state_err, "bit_equal": bit_equal}}
     emit(row)
     emit({"phase": "train_profile", "arch": cfg.name,
-          "window": "2 train steps of run A's state (steps 11-12)",
+          "window": f"2 train steps of run A's state (steps {n + 1}-{n + 2})",
           "wall_ms": wall_ms, "device_busy_ms": busy,
           "device_idle_share": (1.0 - busy / wall_ms) if kernels
           else "not measured", "final_loss": final_loss,
-          "kernel_device_ms": mine, "gemm_device_ms": gemm,
-          "attention_bwd_calls": bwd_calls,
+          "kernel_device_ms": mine, "kernel_calls": calls,
+          "gemm_device_ms": gemm,
           "attention_bwd_device_ms_per_call": bwd_ms,
+          "ssd_bwd_device_ms_per_call": ssd_bwd_ms,
           "top_kernels": [{"name": k, "device_ms": ms, "calls": c}
                           for k, (ms, c) in top[:15]]})
     del pa, sa, a
     torch.cuda.empty_cache()
     row["bwd_device_ms_per_call"] = bwd_ms
+    row["ssd_bwd_device_ms_per_call"] = ssd_bwd_ms
     return row
 
 
@@ -2112,7 +2341,7 @@ def phase_serve(torch, np, rdev):
     none = {"gat_mp": 0, "gat_mp_bwd": 0, "memsim": 0, "memsim_zoo": 0,
             "flash_attention": 0, "flash_attention_tc": 0,
             "flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
-            "ssd_scan": 0}
+            "ssd_scan": 0, "ssd_scan_bwd": 0}
     first = None
     for arch, requests, slots, max_new, lens, per in SERVE_RUNS:
         out, counts, finite, peak = run_serve(
@@ -2223,7 +2452,7 @@ def placement_launches(svc):
             "memsim": c["compiler_refs"],
             "memsim_zoo": gens + c["nn_rescored"], "flash_attention": 0,
             "flash_attention_tc": 0, "flash_attention_bwd": 0,
-            "flash_attention_bwd_tc": 0, "ssd_scan": 0}, gens
+            "flash_attention_bwd_tc": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}, gens
 
 
 def placement_gat_capture(ops, kept):
@@ -2676,7 +2905,7 @@ def main(argv=None):
     # 2. build, every source in parallel
     t0 = time.perf_counter()
     rep = build.build(["gat_mp", "gat_mp_bwd", "memsim", "flash_attention",
-                       "flash_attention_bwd", "ssd_scan"])
+                       "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd"])
     regs = ptxas_kernels(rep)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source": {k: {"seconds": v["seconds"], "cached": v["cached"],
@@ -2690,6 +2919,11 @@ def main(argv=None):
           f"ssd_scan: no compiler report for its 9 kernels: {regs}")
     for entry, info in regs["ssd_scan"].items():
         check(info["spill_bytes"] == 0, f"ssd_scan {entry} spills {info}")
+    check(len(regs.get("ssd_scan_bwd", {})) == 11,
+          f"ssd_scan_bwd: no compiler report for its 11 kernels (state and "
+          f"chunk kernels x 4 head dims, pass, dla, heads): {regs}")
+    for entry, info in regs["ssd_scan_bwd"].items():
+        check(info["spill_bytes"] == 0, f"ssd_scan_bwd {entry} spills {info}")
     check(sorted(regs.get("memsim", {})) == ["memsim_kernel",
                                              "memsim_zoo_kernel"],
           f"memsim: no compiler report for its two kernels: {regs}")
@@ -2711,7 +2945,7 @@ def main(argv=None):
     flash = phase_flash(torch, fops, gen)                  # 9
     ssd = phase_ssd(torch, sops, gen)                      # 10
     flash_bwd = phase_flash_bwd(torch, fops, gen)          # 15
-    phase_ssd_grad(torch, sops, gen)
+    ssd_bwd = phase_ssd_bwd(torch, sops, rdev, gen)
     phase_serve_check(torch, rdev)                         # 11
     serve, model = phase_serve(torch, np, rdev)            # 12
     phase_serve_profile(torch, np, model)
@@ -2720,6 +2954,8 @@ def main(argv=None):
     placement = phase_placement(torch, np, rdev)           # 14
     phase_train_check(torch, rdev)                         # 16
     train = phase_train(torch, np, rdev)                   # 17
+    train_ssm = {arch: phase_train(torch, np, rdev, arch) for arch in
+                 TRAIN_SSM}
 
     # 13. kernels
     f, s_ = flash["zamba2-1.2b", 2048], ssd["zamba2-1.2b", 2048]
@@ -2794,9 +3030,36 @@ def main(argv=None):
                 f"causal; library_ms: SDPA's backward, KV expanded; "
                 f"device_ms_train_profile: the tensor-core kernels' device "
                 f"time in train_profile over its calls"})
+    fz, fm = ssd_bwd["zamba2-1.2b:train"], ssd_bwd["mamba2-780m:train"]
+    z_train = train_ssm["zamba2-1.2b"]
+    rows.append(
+        {"name": "ssd_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+         "replaces": "src/repro/models/mamba2.py:77",
+         "launches": z_train["launches"]["ssd_scan_bwd"],
+         "launches_from": f"the zamba2-1.2b train run ({TRAIN_STEPS} steps, "
+                          f"B={TRAIN_BATCH}, S={TRAIN_SEQ})",
+         "max_abs_err": max(max(r["max_abs_err"].values()) for r in
+                            ssd_bwd.values()),
+         "ms": fz["ms"], "plain_ms": fz["plain_ms"],
+         "bound_ms": fz["bound_ms"], "bound_by": fz["bound_by"],
+         "library_ms": None, "device_ms": fz["device_ms"],
+         "device_ms_train_profile": z_train["ssd_bwd_device_ms_per_call"],
+         "bound_share": fz["bound_share"],
+         "cuda_kernels": list(SSD_BWD_KERNELS),
+         "mamba2_780m_train": {k: fm[k] for k in (
+             "ms", "device_ms", "plain_ms", "bound_ms", "bound_share")},
+         "per": "one call at zamba2's train shape: B=4, S=4096, H=64, "
+                "hd=64, N=64, Q=256; bound_ms in 3xTF32 on the tensor "
+                "cores; max_abs_err: the largest over every ssd_bwd case "
+                "(each held to 1e-4 of its own largest element)"})
     for r in rows:
         if r["name"].startswith("flash_attention"):
             r["launches_train"] = train["launches"][r["name"]]
+        if r["name"].startswith("ssd_scan") or r["name"].startswith(
+                "flash_attention"):
+            r["launches_train_ssm"] = {a: t["launches"].get(r["name"])
+                                       for a, t in train_ssm.items()}
     for r in rows:
         counter = {"gat_mp_fwd": "gat_mp", "memsim_evaluate": "memsim",
                    "memsim_evaluate_zoo": "memsim_zoo"}.get(r["name"],

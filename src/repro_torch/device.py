@@ -55,7 +55,8 @@ def _counters():
                                     "launches"),
             "flash_attention_bwd_tc": (flash_ops.flash_attention_bwd,
                                        "tensor_core_launches"),
-            "ssd_scan": (ssd_ops.ssd_scan, "launches")}
+            "ssd_scan": (ssd_ops.ssd_scan, "launches"),
+            "ssd_scan_bwd": (ssd_ops.ssd_scan_bwd, "launches")}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -65,8 +66,10 @@ def launch_counts() -> Dict[str, int]:
     attention kernels, "flash_attention_tc" those of the tensor-core
     kernel among them, "flash_attention_bwd" the attention backward (the
     CUDA kernels of one call count as one), "flash_attention_bwd_tc"
-    those on its tensor-core route; "memsim" the single-graph simulator
-    entry, "memsim_zoo" its zoo entry (one launch per bucket)."""
+    those on its tensor-core route; "ssd_scan" the SSD scan's forward,
+    "ssd_scan_bwd" its backward (each call's CUDA kernels count as one);
+    "memsim" the single-graph simulator entry, "memsim_zoo" its zoo entry
+    (one launch per bucket)."""
     return {name: getattr(fn, attr)
             for name, (fn, attr) in _counters().items()}
 

@@ -6,10 +6,14 @@ Counterpart of ``src/repro/kernels/ssd_scan/ops.py`` ``ssd_scan`` (the
 Pallas kernel ``_kernel`` / ``ssd_scan_pallas`` in ``ssd_scan.py``),
 the same math as ``repro.models.mamba2.ssd_chunked``.  ``ssd_scan`` is
 the public entry: it forms the kernel's operands xd = x * dt and
-la = dt * -exp(A_log) in f32, then launches ``csrc/ssd_scan.cu`` on
-CUDA tensors (three CUDA kernels, counted as one launch of the wrapper:
-chunk states and C B^T, the pass over the states, chunk outputs) or runs
-``ssd_scan_plain`` on CPU tensors.
+la = dt * -exp(A_log) in f32 (plain autograd, as JAX differentiates
+them), then on CUDA tensors runs ``_SSDScan``: its forward launches
+``csrc/ssd_scan.cu`` (three CUDA kernels, counted as one launch of the
+wrapper: chunk states and C B^T, the pass over the states, chunk
+outputs), its backward ``csrc/ssd_scan_bwd.cu`` (five CUDA kernels,
+counted as one launch of ``ssd_scan_bwd``), which JAX's autodiff of
+``ssd_chunked`` computes in XLA.  CPU tensors run ``ssd_scan_plain``,
+which autograd differentiates.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ from repro_torch.kernels import build
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 6
+                 + [ctypes.c_void_p])
 # the C B^T scratch's rows and columns are Q rounded up to this: the
 # square tile of C B^T that the CUDA source forms at a time (its RT)
 ROW_TILE = 64
@@ -46,12 +52,16 @@ def ssd_scan_plain(xd, la, B_, C_, chunk: int, init_state=None):
     cum = torch.cumsum(la_c, dim=2)                            # (B,c,Q,H)
     total = cum[:, :, -1, :]                                   # (B,c,H)
 
-    # intra-chunk: y_i += sum_{j<=i} (C_i.B_j) exp(cum_i-cum_j) x_j
+    # intra-chunk: y_i += sum_{j<=i} (C_i.B_j) exp(cum_i-cum_j) x_j; the
+    # entries j > i are masked before the exp (exp(-inf) = 0): masked
+    # after it, exp(diff) overflows once diff > 88 and its gradient
+    # 0 * inf is NaN, as in JAX's autodiff of ``ssd_chunked``
     CB = torch.einsum("bcin,bcjn->bcij", C_c, B_c)
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]       # (B,c,i,j,H)
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                  device=xd.device))
-    decay = torch.where(mask[None, None, :, :, None], torch.exp(diff), 0.0)
+    decay = torch.exp(torch.where(mask[None, None, :, :, None], diff,
+                                  float("-inf")))
     y_intra = torch.einsum("bcij,bcijh,bcjhp->bcihp", CB, decay, x_c)
 
     # end-of-chunk states: sum_j exp(total-cum_j) B_j (x) x_j
@@ -104,7 +114,10 @@ def _check(x, dt, A_log, B_, C_, chunk, init_state):
         raise ValueError("ssd_scan inputs lie on different devices")
 
 
-def _launch(xd, la, B_, C_, chunk, init_state):
+def _launch(xd, la, B_, C_, chunk, init_state, keep=False):
+    """The forward kernel on xd, la (B, S, H), B_, C_ (B, S, N).  Returns
+    (y, final state), and with ``keep`` also the scratch the backward
+    takes: (states, the state entering each chunk; totals; C B^T)."""
     Bb, S, H, hd = xd.shape
     N = B_.shape[-1]
     if hd not in KERNEL_HEAD_DIMS:
@@ -138,39 +151,134 @@ def _launch(xd, la, B_, C_, chunk, init_state):
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     count_launch(ssd_scan)
+    if keep:
+        return y, final, (states, totals, cb)
     return y, final
 
 
-def refuse_grad(*tensors):
-    """Raises ``RuntimeError`` when grad mode is on and one of
-    ``tensors`` requires grad: the CUDA kernel has no backward yet (the
-    SSD-scan backward, ROADMAP.md), and its output would carry none."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+def _launch_bwd(xd, la, B_, C_, saved, dy, dfinal, chunk, need_dinit):
+    """Kernel F on the forward's operands and ``saved`` scratch (states,
+    totals, C B^T from ``_launch(..., keep=True)``), the cotangents dy
+    (B, S, H, hd) and dfinal (B, H, N, hd; None: zero, its work skipped).
+    Returns (dxd, dla, dB, dC, dinit or None)."""
+    states, totals, cb = saved
+    Bb, S, H, hd = xd.shape
+    N = B_.shape[-1]
+    Q = min(chunk, S)
+    dev = xd.device
+    dy = dy.float().contiguous()
+    if dfinal is not None:
+        dfinal = dfinal.float().contiguous()
+    fn = build.function("ssd_scan_bwd", "ssd_scan_bwd", _BWD_ARGTYPES)
+    # scratch: each chunk's own dprev part, then (in place) the cotangent
+    # of the state leaving it; each head's part of dB and dC; the three
+    # per-step parts of dcum
+    dst = torch.empty_like(states)
+    dBh = torch.empty((Bb, S, H, N), dtype=torch.float32, device=dev)
+    dCh = torch.empty_like(dBh)
+    parts = torch.empty((3, Bb, S, H), dtype=torch.float32, device=dev)
+    dxd, dla = torch.empty_like(xd), torch.empty_like(la)
+    dB, dC = torch.empty_like(B_), torch.empty_like(C_)
+    dinit = (torch.empty((Bb, H, N, hd), dtype=torch.float32, device=dev)
+             if need_dinit else None)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = build.cuda_call(
+        fn, xd, *map(ptr, (xd, la, B_, C_, states, totals, cb, dy, dfinal,
+                           dst, dBh, dCh, parts, dxd, dla, dB, dC, dinit)),
+        Bb, S, H, hd, N, Q)
+    if err:
         raise RuntimeError(
-            "ssd_scan on CUDA has no backward yet (the SSD-scan backward "
-            "kernel, see ROADMAP.md): its output would carry no gradient. "
-            "Call it under torch.no_grad() or on inputs that do not "
-            "require grad")
+            f"ssd_scan_bwd kernel launch failed: CUDA error {err}")
+    count_launch(ssd_scan_bwd)
+    return dxd, dla, dB, dC, dinit
+
+
+class _SSDScan(torch.autograd.Function):
+    """The scan over the kernel's operands (xd, la, B_, C_ f32 and
+    contiguous, init_state or None): the forward kernel, and kernel F
+    for the gradients.  The forward's scratch (the state entering each
+    chunk, the chunk totals, C B^T) is saved, so the backward does not
+    rerun the pass over the chunks."""
+
+    @staticmethod
+    def forward(ctx, xd, la, B_, C_, init_state, chunk):
+        y, final, saved = _launch(xd, la, B_, C_, chunk, init_state,
+                                  keep=True)
+        ctx.save_for_backward(xd, la, B_, C_, *saved)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        xd, la, B_, C_, *saved = ctx.saved_tensors
+        if dy is None and dfinal is None:
+            return None, None, None, None, None, None
+        if dy is None:
+            dy = torch.zeros_like(xd)
+        dxd, dla, dB, dC, dinit = _launch_bwd(
+            xd, la, B_, C_, saved, dy, dfinal, ctx.chunk,
+            ctx.needs_input_grad[4])
+        return dxd, dla, dB, dC, dinit, None
 
 
 def ssd_scan(x, dt, A_log, B_, C_, *, chunk: int, init_state=None):
     """x (B, S, H, hd); dt (B, S, H) post-softplus; A_log (H,); B_ / C_
     (B, S, N) shared by the heads; optional init_state (B, H, N, hd).
     Returns (y (B, S, H, hd), final state (B, H, N, hd)), f32.  The chunk
-    Q = min(chunk, S) must divide S.  CUDA tensors launch the kernel (hd
-    in 16, 32, 64, 128), and raise (``refuse_grad``) when an input
-    requires grad in grad mode; CPU tensors run ``ssd_scan_plain``,
-    which autograd differentiates."""
+    Q = min(chunk, S) must divide S.  CUDA tensors launch the kernels (hd
+    in 16, 32, 64, 128; d_state <= 256), forward and backward
+    (``_SSDScan``); CPU tensors run ``ssd_scan_plain``, which autograd
+    differentiates."""
     _check(x, dt, A_log, B_, C_, chunk, init_state)
-    if x.device.type != "cpu":
-        refuse_grad(x, dt, A_log, B_, C_, init_state)
     xd, la = _operands(x, dt, A_log)
+    B_, C_ = B_.float(), C_.float()
     if x.device.type == "cpu":
-        return ssd_scan_plain(xd, la, B_.float(), C_.float(), chunk,
-                              init_state)
-    return _launch(xd.contiguous(), la.contiguous(), B_, C_, chunk,
-                   init_state)
+        return ssd_scan_plain(xd, la, B_, C_, chunk, init_state)
+    st0 = None if init_state is None else init_state.float().contiguous()
+    return _SSDScan.apply(xd.contiguous(), la.contiguous(), B_.contiguous(),
+                          C_.contiguous(), st0, chunk)
 
 
 ssd_scan.launches = 0
+
+
+def ssd_scan_bwd_plain(xd, la, B_, C_, init_state, dy, dfinal, *,
+                       chunk: int):
+    """Plain version of kernel F, any device: the gradients of
+    ``ssd_scan_plain``'s (y, final state) for the cotangents dy and
+    dfinal (None: zero) by ``torch.autograd.grad``.  Returns (dxd, dla,
+    dB, dC, dinit or None, without init_state), f32."""
+    with torch.enable_grad():
+        ins = [t.detach().float().requires_grad_()
+               for t in (xd, la, B_, C_)]
+        st0 = (None if init_state is None
+               else init_state.detach().float().requires_grad_())
+        y, final = ssd_scan_plain(*ins, chunk, st0)
+        outs, cots = [y], [dy.float()]
+        if dfinal is not None:
+            outs.append(final)
+            cots.append(dfinal.float())
+        grads = torch.autograd.grad(outs, ins + ([] if st0 is None
+                                                 else [st0]), cots)
+    return tuple(grads) + ((None,) if st0 is None else ())
+
+
+def ssd_scan_bwd(xd, la, B_, C_, init_state, dy, dfinal, *, chunk: int,
+                 saved=None):
+    """Kernel F's wrapper: the gradients (dxd, dla, dB, dC, dinit or
+    None) of the scan over its operands for the cotangents dy and dfinal
+    (None: zero).  CPU tensors run ``ssd_scan_bwd_plain``; CUDA tensors
+    launch ``csrc/ssd_scan_bwd.cu`` on ``saved``, the forward's scratch
+    from ``_launch(..., keep=True)``, and raise without it."""
+    if xd.device.type == "cpu":
+        return ssd_scan_bwd_plain(xd, la, B_, C_, init_state, dy, dfinal,
+                                  chunk=chunk)
+    if saved is None:
+        raise ValueError("ssd_scan_bwd on CUDA takes the forward's scratch "
+                         "(saved=...) from _launch(..., keep=True)")
+    return _launch_bwd(xd, la, B_, C_, saved, dy, dfinal, chunk,
+                       init_state is not None)
+
+
+ssd_scan_bwd.launches = 0

@@ -181,9 +181,9 @@ class LMBase(nn.Module):
     """What the port's language models share: their parameters live in
     ``self.params``, a nested ``nn.ParameterDict`` in the JAX pytree's
     layout (same keys, same stacked leading axes), and their cache
-    tensors are made from ``cache_struct``.  ``prefill`` and
-    ``decode_step`` take the parameters as their first argument, as the
-    JAX models do."""
+    tensors are made from ``cache_struct``.  ``forward``, ``loss``,
+    ``prefill`` and ``decode_step`` take the parameters as their first
+    argument, as the JAX models do."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -204,13 +204,22 @@ class LMBase(nn.Module):
                        else to_parameter_dict(params))
         return self.params
 
-    def ssm_loss_not_ported(self):
-        """What ``loss`` raises for the SSM families: on the card the SSD
-        scan has no backward kernel yet, and a loss without gradients
-        upstream of the scan would train silently wrong."""
-        raise NotImplementedError(
-            f"{self.cfg.name}: training the {self.cfg.family!r} family needs "
-            f"the SSD-scan backward kernel, still to port (ROADMAP.md)")
+    def _final(self, params, x):
+        """(final hidden states, aux loss 0.0) from the last layer's x:
+        JAX's dtype barrier and the final norm, as every ``forward``
+        ends."""
+        x = grad_dtype_barrier(x)
+        x = rms_norm(x, params["final_norm"]["scale"], self.cfg.norm_eps)
+        return x, torch.zeros((), device=x.device)
+
+    def loss(self, params, batch):
+        """batch: {tokens (B,S), labels (B,S)[, mask (B,S)]} -> (loss,
+        metrics {ce, aux, tokens}): ``forward``'s final hidden states
+        through ``chunked_xent``, as every JAX model's ``loss``."""
+        h, aux = self.forward(params, batch["tokens"])
+        ce, cnt = chunked_xent(params["embed"], h, batch["labels"],
+                               self.cfg, mask=batch.get("mask"))
+        return ce + aux, {"ce": ce, "aux": aux, "tokens": cnt}
 
     @property
     def device(self) -> torch.device:

@@ -1,11 +1,13 @@
-"""Mamba2 (SSD, state-space duality) LM, forward for serving.
+"""Mamba2 (SSD, state-space duality) LM: training forward and loss,
+prefill and decode.
 
-Copied from ``src/repro/models/mamba2.py`` (prefill and decode; the
-training forward is not ported, and ``loss`` raises until the SSD scan
-has a backward kernel, ROADMAP.md).  The SSD forward is the
+Copied from ``src/repro/models/mamba2.py``.  The SSD forward is the
 chunked matmul form (arXiv:2405.21060 §6): quadratic attention-like
 products within chunks and a sequential scan over chunk states; on CUDA
-tensors ``ssd_chunked`` runs the kernel of ``kernels.ssd_scan``.
+tensors ``ssd_chunked`` runs the kernels of ``kernels.ssd_scan``, whose
+backward is a kernel too.  The training forward runs the layers in a
+Python loop over ``layer_slice`` views, each under ``remat`` (one
+checkpoint per layer, as JAX's ``_remat`` body).
 Decode is the O(1) recurrent step on (H, N, hd) states.  n_groups = 1
 (B/C shared across heads), as in the published 780m config.  z, x, B, C
 and dt have separate projection and conv parameters, as in the JAX
@@ -20,7 +22,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models import common as cm
-from repro_torch.models.transformer import _stack_defs
+from repro_torch.models.transformer import _stack_defs, remat
 from repro_torch.utils.params import ParamDef
 
 
@@ -184,9 +186,16 @@ class Mamba2LM(cm.LMBase):
             "final_norm": cm.norm_defs(cfg),
         }
 
-    def loss(self, params, batch):
-        """Not ported: raises (``LMBase.ssm_loss_not_ported``)."""
-        self.ssm_loss_not_ported()
+    # ------------------------------------------------------------- train
+    def forward(self, params, tokens):
+        """tokens (B,S) -> (final hidden states (B,S,D), aux loss 0.0)."""
+        cfg = self.cfg
+        x = cm.embed(params["embed"], tokens, cfg)
+        body = remat(lambda i, h: mamba_block(
+            cm.layer_slice(params["layers"], i), h, cfg)[0], cfg)
+        for i in range(cfg.n_layers):
+            x = body(i, x)
+        return self._final(params, x)
 
     # ----------------------------------------------------------- serving
     def cache_struct(self, batch: int, max_len: int):

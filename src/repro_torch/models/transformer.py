@@ -133,17 +133,7 @@ class TransformerLM(cm.LMBase):
         else:
             for i in range(n):
                 x = body(i, x)
-        x = cm.grad_dtype_barrier(x)
-        x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-        return x, torch.zeros((), device=x.device)
-
-    def loss(self, params, batch):
-        """batch: {tokens (B,S), labels (B,S)[, mask (B,S)]} -> (loss,
-        metrics {ce, aux, tokens})."""
-        h, aux = self.forward(params, batch["tokens"])
-        ce, cnt = cm.chunked_xent(params["embed"], h, batch["labels"],
-                                  self.cfg, mask=batch.get("mask"))
-        return ce + aux, {"ce": ce, "aux": aux, "tokens": cnt}
+        return self._final(params, x)
 
     def _decode_layer(self, p, x, kc, vc, pos):
         """x (B,1,D); kc/vc (B,Smax,K,h) single-layer cache, written in

@@ -1,17 +1,23 @@
 """Zamba2-style hybrid: Mamba2 backbone + one weight-TIED transformer
 block applied after every `shared_attn_every` mamba layers.
 
-Copied from ``src/repro/models/zamba2.py`` (prefill and decode).  Layers
-are grouped as (G groups of [k mamba layers + shared attn/mlp block]) +
-a tail of (n_layers % k) mamba layers; the parameters keep the JAX
-layout, ``groups`` stacked (G, k, ...) and ``tail`` (tail, ...), and
-each shared-block application has its own KV-cache slice.
+Copied from ``src/repro/models/zamba2.py`` (training forward and loss,
+prefill and decode).  Layers are grouped as (G groups of [k mamba
+layers + shared attn/mlp block]) + a tail of (n_layers % k) mamba
+layers; the parameters keep the JAX layout, ``groups`` stacked (G, k,
+...) and ``tail`` (tail, ...), and each shared-block application has its
+own KV-cache slice.  The training forward checkpoints each group (its k
+mamba layers and the shared block, as JAX's ``_remat`` of
+``_group_fwd``) and runs the tail outside any checkpoint; the shared
+block's gradients sum over its G uses.
 
 Simplification vs the released checkpoints, as in the JAX package: the
 shared block consumes the residual stream directly (no
 concat-with-embedding re-projection, no per-invocation LoRA deltas).
 """
 from __future__ import annotations
+
+import itertools
 
 import torch
 
@@ -20,7 +26,8 @@ from repro_torch.models import attention as att
 from repro_torch.models import common as cm
 from repro_torch.models.mamba2 import (decode_layer, mamba_block, mamba_defs,
                                        ssm_cache_struct)
-from repro_torch.models.transformer import TransformerLM, _stack_defs
+from repro_torch.models.transformer import (TransformerLM, _stack_defs,
+                                           remat)
 
 
 class Zamba2LM(cm.LMBase):
@@ -60,9 +67,31 @@ class Zamba2LM(cm.LMBase):
         for j in range(self.tail):
             yield self.G * self.k + j, cm.layer_slice(params["tail"], j)
 
-    def loss(self, params, batch):
-        """Not ported: raises (``LMBase.ssm_loss_not_ported``)."""
-        self.ssm_loss_not_ported()
+    # ------------------------------------------------------------- train
+    def _group_fwd(self, params, g, x, positions):
+        """Group g on x (B,S,D): its k mamba layers, then the shared
+        attention and MLP block."""
+        cfg, shared = self.cfg, params["shared"]
+        for _, p_l in itertools.islice(self._mamba_layers(params),
+                                       g * self.k, (g + 1) * self.k):
+            x, _ = mamba_block(p_l, x, cfg)
+        x, _, _ = self._tf._attn_block(shared, x, positions)
+        x, _ = self._tf._ffn_block(shared, x)
+        return x
+
+    def forward(self, params, tokens):
+        """tokens (B,S) -> (final hidden states (B,S,D), aux loss 0.0)."""
+        cfg = self.cfg
+        x = cm.embed(params["embed"], tokens, cfg)
+        positions = torch.arange(tokens.shape[1], device=x.device)
+        body = remat(lambda g, h: self._group_fwd(params, g, h, positions),
+                     cfg)
+        for g in range(self.G):
+            x = body(g, x)
+        for _, p_l in itertools.islice(self._mamba_layers(params),
+                                       self.G * self.k, None):
+            x, _ = mamba_block(p_l, x, cfg)
+        return self._final(params, x)
 
     # ----------------------------------------------------------- serving
     def cache_struct(self, batch: int, max_len: int):

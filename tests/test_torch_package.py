@@ -137,7 +137,7 @@ def test_cpu_run_launches_no_kernel():
                                     "flash_attention_tc": 0,
                                     "flash_attention_bwd": 0,
                                     "flash_attention_bwd_tc": 0,
-                                    "ssd_scan": 0}
+                                    "ssd_scan": 0, "ssd_scan_bwd": 0}
 
 
 def test_optimize_writes_the_reference_plan_schema():
@@ -261,32 +261,3 @@ def test_library_path_follows_shared_headers(monkeypatch, tmp_path):
     assert build.library_path("k") not in (first, second)
     (tmp_path / "k.cu").write_text('#include "common.cuh"\n// edited\n')
     assert build.library_path("k") not in (first, second)
-
-
-@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-1.2b"])
-def test_ssm_loss_raises_naming_roadmap(arch):
-    """The SSD scan has no backward kernel yet: the SSM families' loss
-    raises instead of returning a loss whose gradients stop at the scan."""
-    from repro_torch.configs.registry import get_config, smoke_config
-    from repro_torch.models.zoo import get_model
-    model = get_model(smoke_config(get_config(arch)))
-    model.init(torch.Generator().manual_seed(0))
-    tokens = torch.zeros((1, 16), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.loss(model.params, {"tokens": tokens, "labels": tokens})
-
-
-def test_ssd_scan_grad_guard_raises():
-    """On CUDA, ``ssd_scan`` calls ``refuse_grad`` before launching: an
-    input that requires grad in grad mode raises naming ROADMAP; under
-    ``no_grad``, or with no such input, it passes.  The CPU path never
-    reaches the guard (its plain version differentiates), so the guard
-    is driven directly."""
-    from repro_torch.kernels.ssd_scan import ops as sops
-    x = torch.zeros(2, requires_grad=True)
-    y = torch.zeros(2)
-    with pytest.raises(RuntimeError, match="ROADMAP"):
-        sops.refuse_grad(y, x, None)
-    sops.refuse_grad(y, None)
-    with torch.no_grad():
-        sops.refuse_grad(x, y)

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Run some phases of ``chip_smoke.py`` on the card, without the rest.
 
-    python3 tools/smoke_phases.py flash_bwd [flash] [ssd_grad] [train_check] [train]
+    python3 tools/smoke_phases.py ssd_bwd [flash] [flash_bwd] [ssd] [train_check] [train] [train_ssm]
 
-Builds the attention and SSD sources (one ``nvcc`` each, in parallel),
-prints each kernel's registers and spills, then runs the named phases
+Builds the attention and SSD sources, forward and backward (one ``nvcc``
+each, in parallel), prints each kernel's registers and spills, then runs
+the named phases (``train_ssm``: the train phase of mamba2-780m, then of
+zamba2-1.2b)
 in the order given, each printing the JSON lines it prints in the whole
 script.  For quick checks of one path; ``chip_smoke.py`` stays the
 proof of the whole port.  Exits non-zero without CUDA or when a phase
@@ -22,7 +24,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import chip_smoke as cs  # noqa: E402
 
-PHASES = ("flash", "flash_bwd", "ssd_grad", "train_check", "train")
+PHASES = ("flash", "flash_bwd", "ssd", "ssd_bwd", "train_check", "train",
+          "train_ssm")
 
 
 def main(argv=None):
@@ -42,7 +45,8 @@ def main(argv=None):
     cs.emit({"phase": "device", "nvidia_smi": cs.nvidia_smi(),
              "torch": torch.__version__, "cuda": torch.version.cuda})
     t0 = time.perf_counter()
-    rep = build.build(["flash_attention", "flash_attention_bwd", "ssd_scan"])
+    rep = build.build(["flash_attention", "flash_attention_bwd", "ssd_scan",
+                       "ssd_scan_bwd"])
     cs.emit({"phase": "build", "seconds": time.perf_counter() - t0,
              "kernels": cs.ptxas_kernels(rep)})
     gen = torch.Generator("cuda").manual_seed(0)
@@ -52,12 +56,17 @@ def main(argv=None):
             cs.phase_flash(torch, fops, gen)
         elif name == "flash_bwd":
             cs.phase_flash_bwd(torch, fops, gen)
-        elif name == "ssd_grad":
-            cs.phase_ssd_grad(torch, sops, gen)
+        elif name == "ssd":
+            cs.phase_ssd(torch, sops, gen)
+        elif name == "ssd_bwd":
+            cs.phase_ssd_bwd(torch, sops, rdev, gen)
         elif name == "train_check":
             cs.phase_train_check(torch, rdev)
-        else:
+        elif name == "train":
             cs.phase_train(torch, np, rdev)
+        else:
+            for arch in cs.TRAIN_SSM:
+                cs.phase_train(torch, np, rdev, arch)
         print(json.dumps({"phase_done": name,
                           "seconds": time.perf_counter() - t0}), flush=True)
 
