@@ -108,8 +108,9 @@ Phases, each printing JSON lines:
                ssd case and at the train phase's two shapes (zamba2 and
                mamba2-780m, B 4, S 4096), with and without a final-state
                cotangent, within 1e-4 of each output's largest element,
-               two launches bit-equal, ``ms``, ``device_ms``, the 3xTF32
-               bound and ``plain_ms``; ssd_bwd_autograd: ``autograd.grad``
+               two launches bit-equal, ``ms``, ``device_ms`` (also by
+               CUDA kernel), the 3xTF32 bound and ``plain_ms``;
+               ssd_bwd_autograd: ``autograd.grad``
                through ``ssd_scan`` on CUDA inputs that require grad, one
                forward and one backward launch, against the plain
                version;
@@ -165,7 +166,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 
-from timing import (PROFILE_TRIES, device_ms, event_ms,  # noqa: E402
+from timing import (PROFILE_TRIES, event_ms, kernel_ms,  # noqa: E402
                     padded_profile, profile_kernels, sm_clock_mhz)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, fp32
@@ -200,11 +201,13 @@ def check(cond, msg):
 
 def profiled(torch, fn, key="device_ms", reps=20):
     """{key: the profiler's device ms per call of ``fn`` over ``reps``
-    calls (or "not measured"), key_tries: the profiles it took; where no
-    profile recorded every launch, key_records: the launches per kernel
-    the last one recorded, of ``reps`` calls}."""
-    ms, tries, counts = device_ms(torch, fn, reps)
-    out = {key: ms, f"{key}_tries": tries}
+    calls (or "not measured"), key_by_kernel: that of each CUDA kernel,
+    key_tries: the profiles it took; where no profile recorded every
+    launch, key_records: the launches per kernel the last one recorded,
+    of ``reps`` calls}."""
+    per, tries, counts = kernel_ms(torch, fn, reps)
+    ms = sum(per.values()) if per else "not measured"
+    out = {key: ms, f"{key}_by_kernel": per, f"{key}_tries": tries}
     if isinstance(ms, str) or any(n % reps for n in counts.values()):
         out[f"{key}_records"] = counts
     return out
@@ -1747,8 +1750,8 @@ SSD_TRAIN_CASES = (
     ("mamba2-780m:train", 4, 4096, 48, 64, 128, 256, "float32", False,
      "fast"))
 SSD_BWD_KERNELS = ("ssd_bwd_state_kernel", "ssd_bwd_pass_kernel",
-                   "ssd_bwd_chunk_kernel", "ssd_bwd_dla_kernel",
-                   "ssd_bwd_heads_kernel")
+                   "ssd_bwd_w_kernel", "ssd_bwd_dxd_kernel",
+                   "ssd_bwd_ds_kernel", "ssd_bwd_dla_kernel")
 
 
 def ssd_bwd_ops_split(B, S, H, hd, N, Q):
@@ -1833,7 +1836,9 @@ def phase_ssd_bwd(torch, sops, rdev, gen):
     dB, dC and dinit each within 1e-4 of its largest element (the
     forward's gate, stated before the first run), and a second launch
     bit-equal.  Each row (the first cotangent): ``ms`` (CUDA events),
-    ``device_ms`` (the profiler's, the five CUDA kernels summed),
+    ``device_ms`` (the profiler's, the six CUDA kernels summed, and
+    ``device_ms_by_kernel``, so that the kernel that sets the pace
+    shows),
     ``bound_ms`` (products in 3xTF32 on the tensor cores, the rest on the
     f32 cores, or the bytes of the function's inputs and outputs),
     ``bound_share`` = bound_ms / device_ms, ``plain_ms``; no single
@@ -2919,9 +2924,9 @@ def main(argv=None):
           f"ssd_scan: no compiler report for its 9 kernels: {regs}")
     for entry, info in regs["ssd_scan"].items():
         check(info["spill_bytes"] == 0, f"ssd_scan {entry} spills {info}")
-    check(len(regs.get("ssd_scan_bwd", {})) == 11,
-          f"ssd_scan_bwd: no compiler report for its 11 kernels (state and "
-          f"chunk kernels x 4 head dims, pass, dla, heads): {regs}")
+    check(len(regs.get("ssd_scan_bwd", {})) == 18,
+          f"ssd_scan_bwd: no compiler report for its 18 kernels (state, w, "
+          f"dxd and ds kernels x 4 head dims, pass, dla): {regs}")
     for entry, info in regs["ssd_scan_bwd"].items():
         check(info["spill_bytes"] == 0, f"ssd_scan_bwd {entry} spills {info}")
     check(sorted(regs.get("memsim", {})) == ["memsim_kernel",
@@ -3047,8 +3052,10 @@ def main(argv=None):
          "device_ms_train_profile": z_train["ssd_bwd_device_ms_per_call"],
          "bound_share": fz["bound_share"],
          "cuda_kernels": list(SSD_BWD_KERNELS),
+         "device_ms_by_kernel": fz["device_ms_by_kernel"],
          "mamba2_780m_train": {k: fm[k] for k in (
-             "ms", "device_ms", "plain_ms", "bound_ms", "bound_share")},
+             "ms", "device_ms", "device_ms_by_kernel", "plain_ms",
+             "bound_ms", "bound_share")},
          "per": "one call at zamba2's train shape: B=4, S=4096, H=64, "
                 "hd=64, N=64, Q=256; bound_ms in 3xTF32 on the tensor "
                 "cores; max_abs_err: the largest over every ssd_bwd case "

@@ -10,7 +10,7 @@ la = dt * -exp(A_log) in f32 (plain autograd, as JAX differentiates
 them), then on CUDA tensors runs ``_SSDScan``: its forward launches
 ``csrc/ssd_scan.cu`` (three CUDA kernels, counted as one launch of the
 wrapper: chunk states and C B^T, the pass over the states, chunk
-outputs), its backward ``csrc/ssd_scan_bwd.cu`` (five CUDA kernels,
+outputs), its backward ``csrc/ssd_scan_bwd.cu`` (six CUDA kernels,
 counted as one launch of ``ssd_scan_bwd``), which JAX's autodiff of
 ``ssd_chunked`` computes in XLA.  CPU tensors run ``ssd_scan_plain``,
 which autograd differentiates.
@@ -26,11 +26,14 @@ from repro_torch.kernels import build
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 6
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
                  + [ctypes.c_void_p])
 # the C B^T scratch's rows and columns are Q rounded up to this: the
 # square tile of C B^T that the CUDA source forms at a time (its RT)
 ROW_TILE = 64
+# heads a block of kernel F's W kernel sums into its group's dS (the
+# CUDA source's HG)
+HEAD_GROUP = 8
 
 
 def ssd_scan_plain(xd, la, B_, C_, chunk: int, init_state=None):
@@ -160,7 +163,17 @@ def _launch_bwd(xd, la, B_, C_, saved, dy, dfinal, chunk, need_dinit):
     """Kernel F on the forward's operands and ``saved`` scratch (states,
     totals, C B^T from ``_launch(..., keep=True)``), the cotangents dy
     (B, S, H, hd) and dfinal (B, H, N, hd; None: zero, its work skipped).
-    Returns (dxd, dla, dB, dC, dinit or None)."""
+    Returns (dxd, dla, dB, dC, dinit or None).
+
+    Scratch, f32: ``dst`` (B, S/Q, H, N, hd), each chunk's own part of
+    dprev, then (in place) the cotangent of the state leaving it; ``dsg``
+    (NG, B, S/Q, QP, QP), NG = ceil(H / 8), each group of 8 heads' sum of
+    W = (dy xd^T) o L over its heads, QP = Q rounded up to 64; ``parts``
+    (3 + QP/64 + ceil(N/64), B, S, H), per step and head: cum, the row
+    sums, the xd . (B G) terms, the column sums per 64-row tile, the
+    dy . (C prev) terms per 64 columns of N.  At mamba2-780m's train shape
+    (B 4, S 4096, H 48, hd 64, N 128, Q 256) that is 100.7 + 100.7 + 28.3
+    MB; nothing of shape (B, S, H, N)."""
     states, totals, cb = saved
     Bb, S, H, hd = xd.shape
     N = B_.shape[-1]
@@ -170,13 +183,13 @@ def _launch_bwd(xd, la, B_, C_, saved, dy, dfinal, chunk, need_dinit):
     if dfinal is not None:
         dfinal = dfinal.float().contiguous()
     fn = build.function("ssd_scan_bwd", "ssd_scan_bwd", _BWD_ARGTYPES)
-    # scratch: each chunk's own dprev part, then (in place) the cotangent
-    # of the state leaving it; each head's part of dB and dC; the three
-    # per-step parts of dcum
+    QP = -(-Q // ROW_TILE) * ROW_TILE
+    groups = -(-H // HEAD_GROUP)
+    planes = 3 + QP // ROW_TILE + -(-N // ROW_TILE)
     dst = torch.empty_like(states)
-    dBh = torch.empty((Bb, S, H, N), dtype=torch.float32, device=dev)
-    dCh = torch.empty_like(dBh)
-    parts = torch.empty((3, Bb, S, H), dtype=torch.float32, device=dev)
+    dsg = torch.empty((groups, Bb, S // Q, QP, QP), dtype=torch.float32,
+                      device=dev)
+    parts = torch.empty((planes, Bb, S, H), dtype=torch.float32, device=dev)
     dxd, dla = torch.empty_like(xd), torch.empty_like(la)
     dB, dC = torch.empty_like(B_), torch.empty_like(C_)
     dinit = (torch.empty((Bb, H, N, hd), dtype=torch.float32, device=dev)
@@ -184,7 +197,7 @@ def _launch_bwd(xd, la, B_, C_, saved, dy, dfinal, chunk, need_dinit):
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = build.cuda_call(
         fn, xd, *map(ptr, (xd, la, B_, C_, states, totals, cb, dy, dfinal,
-                           dst, dBh, dCh, parts, dxd, dla, dB, dC, dinit)),
+                           dst, dsg, parts, dxd, dla, dB, dC, dinit)),
         Bb, S, H, hd, N, Q)
     if err:
         raise RuntimeError(

@@ -2,10 +2,13 @@
 dt, A_log, B, C and the initial state (autograd through the plain
 version, what kernel F is held against on the card) against ``jax.vjp``
 of ``repro.models.mamba2.ssd_chunked``; ``ssd_scan_bwd_plain`` against
-autograd of ``ssd_scan_plain``; then kernel F's launch path with a fake
-library standing in for the built one (one C call a backward, counted
-once, the forward's scratch passed on, no plain fallback, the C
-declaration's arguments).  Inputs come from a numpy seed."""
+autograd of ``ssd_scan_plain``; the heads-first decomposition that
+kernel F computes (each head's W once, dS summed over heads by groups
+before the dB and dC products) against ``ssd_scan_bwd_plain``; then
+kernel F's launch path with a fake library standing in for the built
+one (one C call a backward, counted once, the forward's scratch passed
+on, no plain fallback, the scratch it allocates, the C declaration's
+arguments).  Inputs come from a numpy seed."""
 import numpy as np
 import pytest
 
@@ -217,8 +220,8 @@ def test_backward_is_one_c_call_on_the_forward_scratch(fake_lib, init,
     assert bwd[0:4] == fwd[0:4]                   # xd, la, B, C
     assert bwd[4:7] == fwd[5:8]                   # states, totals, cb
     assert bwd[7] is not None and (bwd[8] is None) == (not use_final)
-    assert (bwd[17] is None) == (not init)        # dinit
-    assert bwd[18:24] == (1, 192, 2, 32, 16, 64) and bwd[24] == 0
+    assert (bwd[16] is None) == (not init)        # dinit
+    assert bwd[17:23] == (1, 192, 2, 32, 16, 64) and bwd[23] == 0
     assert len(grads) == 4 + init
     assert grads[0].shape == ins[0].shape and grads[1].shape == ins[1].shape
     counts = rdev.launch_counts()
@@ -287,8 +290,182 @@ def test_bwd_argtypes_match_c_declaration():
     found = re.search(r'extern "C" int ssd_scan_bwd\(([^)]*)\)', text)
     assert found
     params = [" ".join(p.split()) for p in found.group(1).split(",")]
-    assert len(params) == len(ops._BWD_ARGTYPES) == 25
+    assert len(params) == len(ops._BWD_ARGTYPES) == 24
     for param, t in zip(params, ops._BWD_ARGTYPES):
         want = ctypes.c_void_p if "*" in param else ctypes.c_int
         assert param.startswith("int ") or "*" in param
         assert t is want, (param, t)
+
+
+def test_head_group_matches_the_cuda_source():
+    """The wrapper sizes the dS scratch by the CUDA source's head group."""
+    import pathlib
+    import re
+    text = (pathlib.Path(ops.__file__).resolve().parents[2] / "csrc"
+            / "ssd_scan_bwd.cu").read_text()
+    found = re.search(r"constexpr int HG = (\d+);", text)
+    assert found and int(found.group(1)) == ops.HEAD_GROUP
+
+
+def test_bwd_scratch_at_mamba2_train_shape(fake_lib, monkeypatch):
+    """The scratch ``_launch_bwd`` allocates at mamba2-780m's train shape
+    (B 4, S 4096, H 48, hd 64, N 128, Q 256), on the meta device: no
+    (B, S, H, N) tensor, at most 0.35 GB beside the outputs, and every
+    scratch pointer handed to the C call."""
+    fake_lib()
+    Bb, S, H, hd, N, Q = 4, 4096, 48, 64, 128, 256
+    meta = dict(dtype=torch.float32, device="meta")
+    xd = torch.zeros((Bb, S, H, hd), **meta)
+    la = torch.zeros((Bb, S, H), **meta)
+    Bm, Cm = torch.zeros((Bb, S, N), **meta), torch.zeros((Bb, S, N), **meta)
+    saved = (torch.zeros((Bb, S // Q, H, N, hd), **meta),
+             torch.zeros((Bb, S // Q, H), **meta),
+             torch.zeros((Bb, S // Q, Q, Q), **meta))
+    dy = torch.zeros_like(xd)
+    dfinal = torch.zeros((Bb, H, N, hd), **meta)
+
+    made = []
+
+    class Recording:
+        """``torch`` as the ops module sees it, recording what its
+        ``empty`` and ``empty_like`` allocate."""
+
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+        @staticmethod
+        def empty(*args, **kwargs):
+            made.append(torch.empty(*args, **kwargs))
+            return made[-1]
+
+        @staticmethod
+        def empty_like(*args, **kwargs):
+            made.append(torch.empty_like(*args, **kwargs))
+            return made[-1]
+    monkeypatch.setattr(ops, "torch", Recording())
+    out = ops._launch_bwd(xd, la, Bm, Cm, saved, dy, dfinal, Q, True)
+    outs = {id(t) for t in out if t is not None}
+    scratch = [t for t in made if id(t) not in outs]
+    assert len(out) == 5 and len(scratch) == 3       # dst, dsg, parts
+    assert all(tuple(t.shape) != (Bb, S, H, N) for t in made)
+    total = sum(t.numel() * t.element_size() for t in scratch)
+    assert total <= 0.35e9, total
+    assert total == 4 * (Bb * S // Q * H * N * hd            # dst
+                         + 6 * Bb * S // Q * Q * Q           # dsg: 6 groups
+                         + 9 * Bb * S * H)                   # parts
+
+
+def _heads_first(xd, la, Bm, Cm, st0, dy, dfinal, chunk, tile=64, group=8):
+    """Kernel F's decomposition in torch (f32): per chunk, each head's
+    W = (dy xd^T) o L once; dS = sum over groups of `group` heads (in
+    group order) of the group's heads' W (in head order); dC = dS B +
+    sum_h diag(exp(cum_h)) dy_h prev_h^T, dB = dS^T C + sum_h
+    diag(exp(total_h - cum_h)) xd_h G_h^T (heads in order); dxd per head;
+    dcum from each head's row sums of W o C B^T, its column sums split by
+    `tile`-row tiles and added in tile order, the dy . (C prev) terms
+    split by `tile` columns of N and added in order, and the
+    xd . (B G) terms; G from the reverse pass over the chunks."""
+    Bb, S, H, hd = xd.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    nc = S // Q
+    x = xd.reshape(Bb, nc, Q, H, hd)
+    y = dy.reshape(Bb, nc, Q, H, hd)
+    Bc, Cc = Bm.reshape(Bb, nc, Q, N), Cm.reshape(Bb, nc, Q, N)
+    cum = torch.cumsum(la.reshape(Bb, nc, Q, H), dim=2)         # (B,c,Q,H)
+    total = cum[:, :, -1]                                       # (B,c,H)
+    ecum = torch.exp(cum)
+    erev = torch.exp(total[:, :, None] - cum)
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # (B,c,i,j,H)
+    L = torch.exp(torch.where(mask[None, None, :, :, None], diff,
+                              float("-inf")))
+    CB = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+
+    # the forward's states entering each chunk
+    cstate = torch.einsum("bcjh,bcjn,bcjhp->bchnp", erev, Bc, x)
+    st = (torch.zeros((Bb, H, N, hd)) if st0 is None else st0)
+    prev = []
+    for c in range(nc):
+        prev.append(st)
+        st = st * torch.exp(total[:, c])[:, :, None, None] + cstate[:, c]
+    prev = torch.stack(prev, dim=1)                             # (B,c,H,N,hd)
+
+    # the reverse pass: G_c, dinit
+    u = torch.einsum("bcin,bcih,bcihp->bchnp", Cc, ecum, y)
+    g = torch.zeros((Bb, H, N, hd)) if dfinal is None else dfinal
+    G = [None] * nc
+    for c in reversed(range(nc)):
+        G[c] = g
+        g = g * torch.exp(total[:, c])[:, :, None, None] + u[:, c]
+    G = torch.stack(G, dim=1)
+
+    W = torch.einsum("bcihp,bcjhp->bcijh", y, x) * L            # per head
+    dS = torch.zeros((Bb, nc, Q, Q))
+    for g0 in range(0, H, group):
+        part = torch.zeros((Bb, nc, Q, Q))
+        for h in range(g0, min(H, g0 + group)):
+            part = part + W[..., h]
+        dS = dS + part
+    dC = torch.einsum("bcij,bcjn->bcin", dS, Bc)
+    dB = torch.einsum("bcij,bcin->bcjn", dS, Cc)
+    hC = torch.zeros_like(dC)
+    hB = torch.zeros_like(dB)
+    for h in range(H):
+        hC = hC + ecum[..., h, None] * torch.einsum(
+            "bcip,bcnp->bcin", y[:, :, :, h], prev[:, :, h])
+        hB = hB + erev[..., h, None] * torch.einsum(
+            "bcjp,bcnp->bcjn", x[:, :, :, h], G[:, :, h])
+    dC, dB = dC + hC, dB + hB
+
+    BG = torch.einsum("bcjn,bchnp->bcjhp", Bc, G)
+    dxd = (torch.einsum("bcij,bcijh,bcihp->bcjhp", CB, L, y)
+           + erev[..., None] * BG)
+    P = W * CB[..., None]                                       # (B,c,i,j,H)
+    rows = P.sum(dim=3)
+    cols = torch.zeros_like(rows)
+    for i0 in range(0, Q, tile):
+        cols = cols + P[:, :, i0:i0 + tile].sum(dim=2)
+    Cprev = torch.einsum("bcin,bchnp->bcihnp", Cc, prev)
+    rterm = torch.zeros_like(rows)
+    for n0 in range(0, N, tile):
+        rterm = rterm + ecum * torch.einsum(
+            "bcihp,bcihnp->bcih", y, Cprev[:, :, :, :, n0:n0 + tile])
+    sterm = erev * (x * BG).sum(-1)
+    dcum = rows + rterm - cols - sterm
+    dtotal = torch.exp(total) * (prev * G).sum((-2, -1)) + sterm.sum(2)
+    dcum[:, :, -1] += dtotal
+    dla = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
+    return (dxd.reshape(Bb, S, H, hd), dla.reshape(Bb, S, H),
+            dB.reshape(Bb, S, N), dC.reshape(Bb, S, N),
+            None if st0 is None else g)
+
+
+@pytest.mark.parametrize("S,H,hd,N,chunk,init,decay,with_dfinal", [
+    (256, 3, 16, 16, 128, False, "slow", True),     # 2 chunks, 2 row tiles
+    (256, 2, 16, 8, 256, False, "fast", True),      # |cum| past 88
+    (100, 2, 16, 8, 256, False, "slow", True),      # Q 100 < chunk
+    (192, 2, 32, 16, 64, True, "slow", True),       # an initial state
+    (128, 2, 16, 128, 64, True, "slow", True),      # N 128: 2 state tiles
+    (128, 10, 16, 8, 64, False, "slow", False),     # 2 head groups, no dfinal
+])
+def test_heads_first_decomposition_matches_plain(S, H, hd, N, chunk, init,
+                                                 decay, with_dfinal):
+    """The algebra kernel F computes, written out in torch
+    (``_heads_first``), gives ``ssd_scan_bwd_plain``'s gradients within
+    1e-5 of each output's largest element (f32 both, sums in another
+    order)."""
+    x, dt, A_log, Bm, Cm, st0, dy, dfinal = _inputs(S, H, hd, N, init,
+                                                    decay, B=1, seed=S + H)
+    xd, la = ops._operands(*map(torch.tensor, (x, dt, A_log)))
+    if decay == "fast":
+        assert torch.cumsum(la, 1).min() < -88
+    Bt, Ct, dyt = map(torch.tensor, (Bm, Cm, dy))
+    st = None if st0 is None else torch.tensor(st0)
+    df = torch.tensor(dfinal) if with_dfinal else None
+    got = _heads_first(xd, la, Bt, Ct, st, dyt, df, chunk)
+    want = ops.ssd_scan_bwd_plain(xd, la, Bt, Ct, st, dyt, df, chunk=chunk)
+    assert (got[4] is None) == (want[4] is None) == (not init)
+    for name, g, w in zip(("dxd", "dla", "dB", "dC", "dinit"), got, want):
+        if w is not None:
+            _close(g.numpy(), w.numpy(), 1e-5, name)
