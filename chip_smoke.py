@@ -52,11 +52,15 @@ Phases, each printing JSON lines:
                7-graph zoo;
 9. flash    -- the attention kernels against their plain version at
                every attention prefill shape of the serve phase
-               (zamba2, qwen3-0.6b; bf16), in f32, without the causal
-               mask, at S = 100 (both heads) and with a causal offset
-               (Sq = 512, Sk = 1024); every bf16 case through both the
-               tensor-core route and the fp32-core route, timed beside
-               SDPA as a yardstick;
+               (zamba2, qwen3-0.6b, qwen3-moe: G = 8, chameleon: G = 8;
+               bf16) and serve_encdec's (seamless's encoder, B = 4,
+               non-causal), in f32, without the causal mask, at S = 100
+               (both heads), with a causal offset (Sq = 512, Sk =
+               1024), cross-attention (non-causal, Sq = 4096 over Sk =
+               2048 and Sq = 300 over Sk = 1024) and llama4's heads (G
+               = 5); every bf16 case through both the tensor-core route
+               and the fp32-core route, timed beside SDPA as a
+               yardstick;
 10. ssd     -- the SSD scan kernels against their plain version at every
                Mamba2 prefill shape of the serve phase (zamba2,
                mamba2-780m), at B = 2, at S < chunk, from an initial
@@ -66,15 +70,26 @@ Phases, each printing JSON lines:
                once with fast decay (|cum| > 88 inside a chunk);
                ``ms`` (CUDA events), ``device_ms`` (profiler), the f32
                bound and the 3xTF32 tensor-core bound;
-11. serve_check -- zamba2 at full width in f32, cut to 7 layers: a
-               512-token prefill and one decode step on the card
-               (kernels) against the same on the CPU (plain versions);
+11. serve_check -- at full width in f32: zamba2 cut to 7 layers and
+               qwen3-moe-30b-a3b cut to 2, a 512-token prefill and one
+               decode step; seamless-m4t-medium cut to 2 + 2 layers, a
+               prefill on 512 frames and 8 greedy decode steps; on the
+               card (kernels) against the same on the CPU (plain
+               versions), the MoE's CPU runs on the card's routes
+               (``moe_block``'s routes seam; how many tokens' top-k
+               sets the CPU picks differently on its own is printed);
 12. serve   -- ``launch.serve.serve`` of zamba2-1.2b at its published
                config: 8 requests of 256 to 2048 tokens, 32 new tokens
                each, exact launch counts, run twice for equal tokens; then
-               mamba2-780m and qwen3-0.6b, 2 requests each; serve_profile:
-               device time by kernel over one 2048-token prefill and 10
-               decode ticks;
+               mamba2-780m and qwen3-0.6b, and, at full width cut in
+               depth to fit f32 parameters, qwen3-moe-30b-a3b (16 of 48
+               layers) and chameleon-34b (8 of 48), 2 requests each;
+               serve_profile: device time by kernel over one 2048-token
+               zamba2 prefill and 10 decode ticks; serve_encdec:
+               seamless-m4t-medium at its published config, a prefill
+               of 4 sequences of 2048 frames and 32 greedy decode
+               steps, twice: exactly 6 attention launches a prefill and
+               none a step, equal tokens, prefill and step ms;
 14. placement -- ``launch.serve_placements.serve`` at the service's
                defaults (pop 8, batch 4, budget "auto", neighbour cache
                on, GNN 128 x 4 levels x 4 heads): every supported (arch,
@@ -95,8 +110,13 @@ Phases, each printing JSON lines:
                version at the train phase's shape (qwen3-0.6b, B 4, S
                4096, bf16, causal) and at f32 (h 16/32/64/128), bf16 h
                64, non-causal, S = 100, Sq < Sk with an offset, G = 1,
-               B = 1, zamba2's heads at S = 4096 and a ragged Sq = 300
-               over Sk = 1000, each launched twice for bit-equal
+               B = 1, zamba2's heads at S = 4096, a ragged Sq = 300
+               over Sk = 1000, the MoE and encdec train phases'
+               attentions (qwen3-moe's row at S = 4096; seamless's
+               encoder, decoder and cross-attention, Sq = 4096 over Sk
+               = 2048), Sq = 300 over Sk = 1024 non-causal, and
+               llama4's and chameleon's heads, each launched twice for
+               bit-equal
                gradients; bf16 on the tensor-core route, checked and
                timed on the fp32-core route too (``ms_fp32_cores``);
                the forward's lse against the plain lse, and the forward
@@ -114,11 +134,13 @@ Phases, each printing JSON lines:
                through ``ssd_scan`` on CUDA inputs that require grad, one
                forward and one backward launch, against the plain
                version;
-16. train_check -- qwen3-0.6b (2 layers), mamba2-780m (2 layers) and
-               zamba2-1.2b (7: a group and a tail layer) at full width in
-               f32: the loss of a 512-token batch and every parameter's
-               gradient on the card against the CPU (plain versions),
-               exact launch counts;
+16. train_check -- qwen3-0.6b (2 layers), mamba2-780m (2 layers),
+               zamba2-1.2b (7: a group and a tail layer),
+               qwen3-moe-30b-a3b (2, the CPU on the card's routes) and
+               seamless-m4t-medium (2 + 2, 512 frames) at full width
+               in f32: the loss of a 512-token batch and every
+               parameter's gradient on the card against the CPU (plain
+               versions), exact launch counts;
 17. train   -- ``launch.train.TrainLoop`` at the published configs of
                qwen3-0.6b, mamba2-780m and zamba2-1.2b (bf16
                activations, f32 parameters, remat "full", AdamW) at
@@ -130,7 +152,15 @@ Phases, each printing JSON lines:
                6 backward; every attention launch on the tensor cores),
                step ms, tokens/s, the model-FLOPs share of the bf16 peak,
                peak memory; train_profile: device time by kernel and the
-               idle share over 2 steps;
+               idle share over 2 steps; then qwen3-moe-30b-a3b at full
+               width cut to 4 layers (``TrainLoop``, 4 microbatches of
+               one row: 8 + 4 attention launches each) and
+               seamless-m4t-medium at its published config
+               (``make_train_step`` on tokens (4, 4096) and frames (4,
+               2048, 1024): 36 + 18), 10 steps each, and a second run
+               of 5 steps from the same seed bit-equal to the first
+               (losses and parameter checksums) in place of the
+               restart;
 13. kernels -- (printed last) per kernel: launches in its slice's main
                path (the BERT "egrl" run, the zamba2 serve run, the zoo
                "egrl" run, the attention backward's the qwen3 train run,
@@ -143,8 +173,13 @@ Phases, each printing JSON lines:
                forward launches, 8 backward calls); for attention also
                the qwen3 train run's launches (``launches_train``); for
                attention and the SSD scan, forward and backward, the SSM
-               train runs' (``launches_train_ssm``).
+               train runs' (``launches_train_ssm``); for attention the
+               serve runs of qwen3-moe and chameleon, one serve_encdec
+               prefill and the MoE and encdec train runs'
+               (``launches_new_paths``).
 
+Each phase's seconds are printed as it ends (``phase_done``) and
+together before the kernels line (``phase_seconds``, ``total_s``).
 Device times come from ``tools/timing.py``: up to 3 padded profiles
 (``*_tries`` on each row) are taken for one that recorded every launch;
 failing that, the last one's mean per recorded launch is printed, with
@@ -1181,14 +1216,31 @@ def phase_profile(torch, egrl, zoo, mode="ea", generations=3, multi=False):
 # lengths, kernel launches per request).  Each prefill runs at B = 1, and
 # the flash and ssd phases check the kernels at every (arch, prompt
 # length) pair here, so the shapes checked are the shapes served.
+# (arch, requests, slots, new tokens, prompt lengths, launches per
+# request, layers kept: None for the published depth).  qwen3-moe and
+# chameleon keep their widths and are cut in depth to fit f32 parameters
+# on the card: qwen3-moe 623 M a layer (its 128 experts' three (2048,
+# 768) matrices) and 622 M of embeddings, 16 of 48 layers ~42 GB;
+# chameleon 692 M a layer and 1.07 B of embeddings, 8 of 48 ~26.5 GB
 SERVE_RUNS = (
     ("zamba2-1.2b", 8, 4, 32, (256, 512, 1024, 2048),
-     {"flash_attention": 6, "flash_attention_tc": 6, "ssd_scan": 38}),
-    ("mamba2-780m", 2, 2, 16, (1024, 2048), {"ssd_scan": 48}),
+     {"flash_attention": 6, "flash_attention_tc": 6, "ssd_scan": 38}, None),
+    ("mamba2-780m", 2, 2, 16, (1024, 2048), {"ssd_scan": 48}, None),
     ("qwen3-0.6b", 2, 2, 16, (1024, 2048),
-     {"flash_attention": 28, "flash_attention_tc": 28}),
+     {"flash_attention": 28, "flash_attention_tc": 28}, None),
+    ("qwen3-moe-30b-a3b", 2, 2, 16, (1024, 2048),
+     {"flash_attention": 16, "flash_attention_tc": 16}, 16),
+    ("chameleon-34b", 2, 2, 16, (1024, 2048),
+     {"flash_attention": 8, "flash_attention_tc": 8}, 8),
 )
 SERVE_MAX_LEN = 2112
+
+# serve_encdec: seamless-m4t-medium at its published config (6 + 6
+# layers), a batch of 4 frame sequences, greedy decode steps
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_BATCH = 4
+ENCDEC_FRAMES = 2048
+ENCDEC_STEPS = 32
 
 # the train phase: qwen3-0.6b at its published config, train_4k's
 # sequence length, a global batch of 4
@@ -1196,12 +1248,32 @@ TRAIN_ARCH = "qwen3-0.6b"
 TRAIN_SEQ = 4096
 TRAIN_BATCH = 4
 TRAIN_STEPS = 10
+# the MoE train phase: (arch, layers kept, microbatches).  qwen3-moe at
+# full width, 4 of 48 layers (3.1 B parameters, f32, with AdamW's two
+# moments and the f32 gradient accumulator ~50 GB); its config's 16
+# microbatches of train_4k's batch 256 cut to 4 of one row each:
+# routing and capacity are per row, so the rows' numbers do not change
+MOE_TRAIN = ("qwen3-moe-30b-a3b", 4, 4)
+# the repeat run of the MoE and encdec train phases: this many steps
+# from the same seed, bit-equal to the first run's
+REPEAT_STEPS = 5
 
 
 def served_prefills():
     """(config, prompt length) of every prefill shape the serve runs give."""
     from repro_torch.configs.registry import get_config
     return [(get_config(run[0]), S) for run in SERVE_RUNS for S in run[4]]
+
+
+def encdec_attention(cfg, B, Se, St):
+    """(name, B, Sq, Sk, K, G, h, causal) of the encdec model's three
+    attentions: the encoder's self-attention over Se frames, the
+    decoder's causal self-attention over St tokens and its
+    cross-attention of St queries over the Se frames."""
+    K, G, h = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
+    return [(f"{cfg.name}:enc", B, Se, Se, K, G, h, False),
+            (f"{cfg.name}:dec", B, St, St, K, G, h, True),
+            (f"{cfg.name}:cross", B, St, Se, K, G, h, False)]
 
 
 # ------------------------------------------------------ attention kernel
@@ -1215,11 +1287,11 @@ ATTN_CHUNK = 1024          # ModelConfig.attn_chunk of the served configs
 
 def flash_cases():
     """(name, B, S, Sk, K, G, h, dtype, causal, q_offset): every attention
-    prefill of the serve runs (zamba2's shared block, 32 heads of 64;
-    qwen3-0.6b, 8 KV heads of 128 with 2 queries each), then zamba2's
-    heads in f32, without the causal mask, at S = 100 (not a multiple
-    of a tile) and 512 queries at positions 512.. over 1024 keys, and
-    qwen3's heads at S = 100."""
+    prefill of the serve runs of the dense and hybrid families (zamba2's
+    shared block, 32 heads of 64; qwen3-0.6b, 8 KV heads of 128 with 2
+    queries each), then zamba2's heads in f32, without the causal mask,
+    at S = 100 (not a multiple of a tile) and 512 queries at positions
+    512.. over 1024 keys, and qwen3's heads at S = 100."""
     cases = [(cfg.name, 1, S, S, cfg.n_kv_heads, cfg.q_per_kv,
               cfg.head_dim, cfg.dtype, True, 0)
              for cfg, S in served_prefills()
@@ -1233,6 +1305,39 @@ def flash_cases():
         ("zamba2-1.2b:S=100", 1, 100, 100, K, G, h, dtype, True, 0),
         ("zamba2-1.2b:offset", 1, 512, 1024, K, G, h, dtype, True, 512),
         ("qwen3-0.6b:S=100", 1, 100, 100, *qwen[4:8], True, 0)]
+
+
+# the MoE, VLM and encdec families' attention cases draw their inputs
+# from a generator of their own, so that the cases before them (and the
+# phases after the flash phase) keep the inputs they had without them
+FAMILY_SEED = 1
+
+
+def flash_family_cases():
+    """``flash_cases`` of the MoE, VLM and encdec families: the serve
+    runs' prefills of qwen3-moe (4 KV heads with 8 queries each, h 128)
+    and chameleon (8 with 8), seamless's encoder over serve_encdec's
+    frames (16 heads of 64, non-causal), cross-attention (non-causal, Sq
+    != Sk): seamless's heads at 4096 queries over 2048 frames and
+    qwen3-0.6b's at 300 over 1024, and llama4's heads (8 KV heads with
+    5 queries each, h 128)."""
+    from repro_torch.configs.registry import get_config
+    cases = [(cfg.name, 1, S, S, cfg.n_kv_heads, cfg.q_per_kv,
+              cfg.head_dim, cfg.dtype, True, 0)
+             for cfg, S in served_prefills()
+             if cfg.family in ("moe", "vlm")]
+    ed = get_config(ENCDEC_ARCH)
+    enc = encdec_attention(ed, ENCDEC_BATCH, ENCDEC_FRAMES, 1)[0]
+    qwen = get_config("qwen3-0.6b")
+    ll4 = get_config("llama4-maverick-400b-a17b")
+    heads = lambda c: (c.n_kv_heads, c.q_per_kv, c.head_dim)  # noqa: E731
+    return cases + [
+        enc[:7] + (ed.dtype, False, 0),
+        ("cross:Sq=4096,Sk=2048", 1, 4096, 2048, *heads(ed), ed.dtype,
+         False, 0),
+        ("cross:Sq=300,Sk=1024", 1, 300, 1024, *heads(qwen), qwen.dtype,
+         False, 0),
+        ("llama4-heads", 1, 2048, 2048, *heads(ll4), ll4.dtype, True, 0)]
 
 
 def flash_error(torch, got, want, bf16):
@@ -1303,14 +1408,19 @@ def phase_flash(torch, fops, gen):
     for every bf16 case (h = 64 and 128) and the fp32 cores for f32;
     each bf16 case also runs the fp32-core kernel on the same tensors
     (behind the wrapper: its counter still counts), checked and timed
-    in the same way."""
+    in the same way.  ``flash_family_cases`` draw from a generator of
+    their own (``FAMILY_SEED``)."""
     rows = {}
-    for name, B, S, Sk, K, G, h, dtype, causal, off in flash_cases():
+    family_gen = torch.Generator("cuda").manual_seed(FAMILY_SEED)
+    for (name, B, S, Sk, K, G, h, dtype, causal, off), case_gen in (
+            [(c, gen) for c in flash_cases()]
+            + [(c, family_gen) for c in flash_family_cases()]):
         dt = getattr(torch, dtype)
         bf16 = dt == torch.bfloat16
-        q = torch.randn((B, S, K, G, h), generator=gen, device="cuda").to(dt)
-        k = torch.randn((B, Sk, K, h), generator=gen, device="cuda").to(dt)
-        v = torch.randn((B, Sk, K, h), generator=gen, device="cuda").to(dt)
+        def draw(*shape):
+            return torch.randn(shape, generator=case_gen,
+                               device="cuda").to(dt)
+        q, k, v = draw(B, S, K, G, h), draw(B, Sk, K, h), draw(B, Sk, K, h)
         chunk = min(ATTN_CHUNK, Sk)
         route = fops.kernel_route(q, k, v)
         check(route == ("tensor_cores" if bf16 else "fp32_cores"),
@@ -1397,6 +1507,33 @@ def flash_bwd_cases():
         ("B=1", 1, 2048, 2048, K, G, h, bf, True, 0),
         ("bf16:h=64:S=4096", 1, 4096, 4096, 32, 1, 64, bf, True, 0),
         ("ragged:Sq=300,Sk=1000", 1, 300, 1000, K, G, h, bf, True, 700)]
+
+
+def flash_bwd_family_cases():
+    """``flash_bwd_cases`` of the MoE and encdec train phases' attentions:
+    qwen3-moe's (4 KV heads with 8 queries each, h 128) at one
+    microbatch's row, S = 4096; seamless's encoder (2048 frames,
+    non-causal), decoder (4096 tokens, causal) and cross-attention
+    (4096 queries over 2048 frames, non-causal) at B = 4, 16 heads of
+    64; then 300 queries over 1024 keys without the causal mask
+    (qwen3-0.6b's heads), llama4's heads (8 KV heads with 5 queries
+    each) and chameleon's (8 with 8); bf16, on the tensor cores."""
+    from repro_torch.configs.registry import get_config
+    bf = "bfloat16"
+    heads = lambda c: (c.n_kv_heads, c.q_per_kv, c.head_dim)  # noqa: E731
+    moe, ed = get_config(MOE_TRAIN[0]), get_config(ENCDEC_ARCH)
+    cases = [(f"{MOE_TRAIN[0]}:train", TRAIN_BATCH // MOE_TRAIN[2],
+              TRAIN_SEQ, TRAIN_SEQ, *heads(moe), bf, True, 0)]
+    cases += [(f"{n}:train", B, Sq, Sk, Kc, Gc, hc, bf, causal, 0)
+              for n, B, Sq, Sk, Kc, Gc, hc, causal in encdec_attention(
+                  ed, TRAIN_BATCH, ENCDEC_FRAMES, TRAIN_SEQ)]
+    return cases + [
+        ("cross:Sq=300,Sk=1024", 1, 300, 1024,
+         *heads(get_config("qwen3-0.6b")), bf, False, 0),
+        ("llama4-heads", 1, 1024, 1024,
+         *heads(get_config("llama4-maverick-400b-a17b")), bf, True, 0),
+        ("chameleon-heads", 1, 1024, 1024,
+         *heads(get_config("chameleon-34b")), bf, True, 0)]
 
 
 def flash_bwd_error(torch, got, want, bf16):
@@ -1497,15 +1634,20 @@ def phase_flash_bwd(torch, fops, gen):
     ``plain_ms``, ``library_ms`` (SDPA's backward), and ``bound_ms``: the
     larger of the bytes (q, k, v, out, do, lse read; dq, dk, dv written)
     over 3.35 TB/s and the five products' operations on the unmasked
-    pairs over the bf16 or f32 peak."""
+    pairs over the bf16 or f32 peak.  ``flash_bwd_family_cases`` draw
+    from a generator of their own (``FAMILY_SEED``)."""
     rows = {}
-    for name, B, S, Sk, K, G, h, dtype, causal, off in flash_bwd_cases():
+    family_gen = torch.Generator("cuda").manual_seed(FAMILY_SEED)
+    for (name, B, S, Sk, K, G, h, dtype, causal, off), case_gen in (
+            [(c, gen) for c in flash_bwd_cases()]
+            + [(c, family_gen) for c in flash_bwd_family_cases()]):
         dt = getattr(torch, dtype)
         bf16 = dt == torch.bfloat16
-        q = torch.randn((B, S, K, G, h), generator=gen, device="cuda").to(dt)
-        k = torch.randn((B, Sk, K, h), generator=gen, device="cuda").to(dt)
-        v = torch.randn((B, Sk, K, h), generator=gen, device="cuda").to(dt)
-        g = torch.randn((B, S, K, G, h), generator=gen, device="cuda").to(dt)
+        def draw(*shape):
+            return torch.randn(shape, generator=case_gen,
+                               device="cuda").to(dt)
+        q, k = draw(B, S, K, G, h), draw(B, Sk, K, h)
+        v, g = draw(B, Sk, K, h), draw(B, S, K, G, h)
         chunk = min(ATTN_CHUNK, Sk)
         out, lse = fops.flash_attention(q, k, v, causal=causal, q_offset=off,
                                         return_lse=True)
@@ -1908,71 +2050,172 @@ def phase_ssd_bwd(torch, sops, rdev, gen):
 
 
 # ------------------------------------------------------------- LM serving
+# serve_check's models: (arch, depth cut) at full width in f32.  zamba2
+# keeps one group of 6 and a tail layer; seamless 2 encoder and 2
+# decoder layers
+SERVE_CHECKS = (("zamba2-1.2b", {"n_layers": 7}),
+                ("qwen3-moe-30b-a3b", {"n_layers": 2}),
+                (ENCDEC_ARCH, {"enc_layers": 2, "dec_layers": 2,
+                               "n_layers": 4}))
+SERVE_CHECK_LEN = 512
+ENCDEC_CHECK_STEPS = 8
+
+
+def routes_to(model, routes, device):
+    """Hand recorded MoE routes to ``model`` (its ``routes`` seam)."""
+    model.routes = {d: r.to(device) for d, r in routes.items()}
+
+
+def differing_sets(a, b):
+    """Tokens whose top-k expert sets differ, per depth: a, b {depth:
+    (B, S, k)}."""
+    return {d: int((a[d].cpu().sort(-1).values
+                    != b[d].cpu().sort(-1).values).any(-1).sum())
+            for d in a}
+
+
 def phase_serve_check(torch, rdev):
-    """zamba2 at full width in f32, cut to 7 layers (one group of 6 and a
-    tail layer): the same parameters prefill a 512-token prompt and take
-    one decode step on the card (kernels) and on the CPU (plain
-    versions).  Last-token logits and every cache entry agree within
-    1e-3 of their largest element."""
+    """Each of ``SERVE_CHECKS`` at full width in f32, cut in depth: the
+    same parameters prefill a 512-token prompt (seamless: 512 random
+    frames, then BOS) and decode on the card (kernels) and on the CPU
+    (plain versions): one decode step (zamba2, qwen3-moe), or 8 greedy
+    steps each fed the CPU's token (seamless).  Last-token logits after
+    the prefill and after each decode step, and every cache entry,
+    agree within 1e-3 of their largest element.  qwen3-moe's CPU runs
+    take the card's routes through ``moe_block``'s routes seam: a
+    near-tie in the router's top-k would otherwise send a token to
+    other experts; a first CPU prefill on its own routes prints how many
+    tokens' top-k sets it picked differently (``top_k_sets_differing``,
+    per layer).  Exact launches: one attention launch a prefill layer
+    (zamba2: a shared block; seamless: an encoder layer), all on the
+    fp32 cores (f32), zamba2 also 7 SSD launches; none in decode."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.zoo import get_model
     from repro_torch.utils.params import tree_map
-    cfg = get_config("zamba2-1.2b").replace(n_layers=7, dtype="float32")
-    gpu = get_model(cfg)
-    gpu.init(torch.Generator("cuda").manual_seed(1))
-    cpu = get_model(cfg)
-    cpu.load(tree_map(lambda t: t.detach().cpu(), gpu.params))
-    S, max_len = 512, 520
-    tokens = torch.randint(0, cfg.vocab_size, (1, S),
-                           generator=torch.Generator().manual_seed(2))
+    for arch, cut in SERVE_CHECKS:
+        cfg = get_config(arch).replace(dtype="float32", **cut)
+        encdec, moe = cfg.family == "encdec", cfg.moe is not None
+        gpu = get_model(cfg)
+        gpu.init(torch.Generator("cuda").manual_seed(1))
+        cpu = get_model(cfg)
+        cpu.load(tree_map(lambda t: t.detach().cpu(), gpu.params))
+        S = SERVE_CHECK_LEN
+        g = torch.Generator().manual_seed(2)
+        if encdec:
+            inputs, max_len = torch.randn((1, S, cfg.d_model),
+                                          generator=g), 16
+        else:
+            inputs, max_len = torch.randint(0, cfg.vocab_size, (1, S),
+                                            generator=g), S + 8
 
-    def compare(what, a, b):
-        scale = b.abs().max().item()
-        err = (a.cpu().float() - b.float()).abs().max().item()
-        check(err <= 1e-3 * max(scale, 1e-30),
-              f"serve_check {what}: error {err} > 1e-3 x {scale}")
-        return err
+        def compare(what, a, b):
+            scale = b.abs().max().item()
+            err = (a.cpu().float() - b.float()).abs().max().item()
+            check(err <= 1e-3 * max(scale, 1e-30),
+                  f"serve_check {arch} {what}: error {err} > 1e-3 x {scale}")
+            return err
 
-    errs = {}
-    with torch.no_grad():
-        rdev.reset_launch_counts()
-        g_cache, g_logits = gpu.prefill(gpu.params, tokens.cuda(), max_len)
-        torch.cuda.synchronize()
-        counts = rdev.launch_counts()
-        t0 = time.perf_counter()
-        c_cache, c_logits = cpu.prefill(cpu.params, tokens, max_len)
-        cpu_s = time.perf_counter() - t0
-        errs["logits"] = compare("logits", g_logits, c_logits)
-        for name in c_cache:
-            errs[name] = compare(f"cache {name}", g_cache[name], c_cache[name])
-        tok = torch.argmax(c_logits[:, :cfg.vocab_size], dim=-1)
-        g2, _ = gpu.decode_step(gpu.params, g_cache, tok.cuda(), S)
-        c2, _ = cpu.decode_step(cpu.params, c_cache, tok, S)
-        errs["decode_logits"] = compare("decode logits", g2, c2)
-    # the f32 prefill's one attention launch takes the fp32-core route
-    check(counts["flash_attention"] == 1 and counts["flash_attention_tc"] == 0
-          and counts["ssd_scan"] == 7, f"serve_check launches {counts}")
-    emit({"phase": "serve_check", "arch": cfg.name, "layers": cfg.n_layers,
-          "d_model": cfg.d_model, "dtype": cfg.dtype, "prompt": S,
-          "launches": counts, "max_abs_err": errs, "cpu_prefill_s": cpu_s,
-          "top_token_agrees": int(torch.argmax(g_logits[0, :cfg.vocab_size]))
-          == int(tok[0])})
+        errs, row = {}, {}
+        with torch.no_grad():
+            gpu.seen_routes = {} if moe else None
+            rdev.reset_launch_counts()
+            g_cache, g_logits = gpu.prefill(gpu.params, inputs.cuda(),
+                                            max_len)
+            torch.cuda.synchronize()
+            counts = rdev.launch_counts()
+            if moe:
+                g_routes, gpu.seen_routes = gpu.seen_routes, None
+                cpu.seen_routes = {}
+                cpu.prefill(cpu.params, inputs, max_len)
+                row["top_k_sets_differing"] = differing_sets(
+                    g_routes, cpu.seen_routes)
+                row["tokens_per_layer"] = S
+                cpu.seen_routes = None
+                routes_to(cpu, g_routes, "cpu")
+            t0 = time.perf_counter()
+            c_cache, c_logits = cpu.prefill(cpu.params, inputs, max_len)
+            cpu_s = time.perf_counter() - t0
+            errs["logits"] = compare("logits", g_logits, c_logits)
+            for name in c_cache:
+                errs[name] = compare(f"cache {name}", g_cache[name],
+                                     c_cache[name])
+            tok = torch.argmax(c_logits[:, :cfg.vocab_size], dim=-1)
+            row["top_token_agrees"] = int(torch.argmax(
+                g_logits[0, :cfg.vocab_size])) == int(tok[0])
+            pos = 1 if encdec else S
+            before = rdev.launch_counts()
+            for step in range(ENCDEC_CHECK_STEPS if encdec else 1):
+                gpu.seen_routes = {} if moe else None
+                g2, _ = gpu.decode_step(gpu.params, g_cache, tok.cuda(), pos)
+                if moe:
+                    routes_to(cpu, gpu.seen_routes, "cpu")
+                c2, _ = cpu.decode_step(cpu.params, c_cache, tok, pos)
+                errs[f"decode_logits_{step}" if encdec else
+                     "decode_logits"] = compare(f"decode logits {step}", g2,
+                                                c2)
+                tok = torch.argmax(c2[:, :cfg.vocab_size], dim=-1)
+                pos += 1
+            if encdec:
+                for name in ("k", "v"):
+                    errs[f"decoded_{name}"] = compare(
+                        f"decoded cache {name}", g_cache[name], c_cache[name])
+            torch.cuda.synchronize()
+            check(rdev.launch_counts() == before,
+                  f"serve_check {arch}: a decode step launched a kernel")
+        # an f32 prefill's attention launches take the fp32-core route
+        blocks = {"hybrid": 1, "encdec": cfg.enc_layers}.get(
+            cfg.family, cfg.n_layers)
+        want = {**{k: 0 for k in counts}, "flash_attention": blocks}
+        if cfg.family == "hybrid":
+            want["ssd_scan"] = cfg.n_layers
+        check(counts == want, f"serve_check {arch} launches {counts}, "
+              f"want {want}")
+        emit({"phase": "serve_check", "arch": cfg.name,
+              "layers": cfg.n_layers, "d_model": cfg.d_model,
+              "dtype": cfg.dtype, "prompt": S, "launches": counts,
+              "max_abs_err": errs, "cpu_prefill_s": cpu_s, **row})
+        del gpu, cpu, g_cache, c_cache
+        torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------ LM training
-def train_flops(cfg, B, S):
+def train_flops(cfg, B, S, Se=0):
     """Model FLOPs of one training step, without recompute: 6 per
     parameter of every matrix product per token (the unembedding at the
     padded vocab; per attention block, dense layers or zamba2's shared
-    block at each of its G uses, the projections and the MLP; per mamba
-    layer the z, x, B, C and dt projections and out_proj), the two
-    attention products, 2 h FLOPs per unmasked (query head, key) pair
-    each, times 3 for forward and backward, and per mamba layer the SSD
-    chunked form's matrix products (``ssd_ops_split``) times 3.  The
-    depthwise convolutions and the elementwise work are not counted."""
+    block at each of its G uses, the projections and the MLP; per MoE
+    layer the router and the top_k experts' three products a token, the
+    active parameters, not the capacity's slots, and a shared expert;
+    per mamba layer the z, x, B, C and dt projections and out_proj; for
+    encdec the encoder's layers on Se frames, the decoder's on S tokens,
+    and each decoder layer's cross keys and values on the Se frames),
+    the two attention products, 2 h FLOPs per unmasked (query head,
+    key) pair each (encdec: Se x Se in the encoder, causal S in the
+    decoder, S x Se across), times 3 for forward and backward, and per
+    mamba layer the SSD chunked form's matrix products
+    (``ssd_ops_split``) times 3.  The depthwise convolutions and the
+    elementwise work are not counted."""
     D, L = cfg.d_model, cfg.n_layers
+    H, K, h, F = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    proj = D * H * h * 2 + 2 * D * K * h
     matmul = D * cfg.vocab_padded
     flops = 0
+    if cfg.family == "encdec":
+        enc = cfg.enc_layers * (proj + 3 * D * F) * B * Se
+        dec = cfg.dec_layers * (proj + D * H * h * 2 + 3 * D * F) * B * S
+        cross_kv = cfg.dec_layers * 2 * D * K * h * B * Se
+        pairs = (cfg.enc_layers * Se * Se + cfg.dec_layers * (
+            attention_pairs(S, S, True, 0) + S * Se))
+        return 6 * (matmul * B * S + enc + dec + cross_kv) \
+            + 12 * B * H * h * pairs
+    if cfg.moe is not None:
+        m = cfg.moe
+        n_moe = L // m.every
+        matmul += L * proj + (L - n_moe) * 3 * D * F + n_moe * (
+            D * m.n_experts + m.top_k * 3 * D * m.d_ff_expert
+            + 3 * D * m.shared_expert_ff)
+        flops += 12 * B * H * h * attention_pairs(S, S, True, 0) * L
+        return 6 * matmul * B * S + flops
     if cfg.ssm is None:
         blocks = L
     else:
@@ -1984,8 +2227,7 @@ def train_flops(cfg, B, S):
         flops += 3 * L * ssd_ops_split(B, S, Hs, s.head_dim, s.d_state,
                                        min(s.chunk, S))[0]
     if blocks:
-        H, K, h, F = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
-        matmul += blocks * (D * H * h * 2 + 2 * D * K * h + 3 * D * F)
+        matmul += blocks * (proj + 3 * D * F)
         flops += 12 * B * H * h * attention_pairs(S, S, True, 0) * blocks
     return 6 * matmul * B * S + flops
 
@@ -1995,11 +2237,16 @@ def step_launches(cfg, tensor_cores):
     attention block's forward twice (the forward and its recompute) and
     its backward once; each mamba layer's scan twice inside a checkpoint
     (every mamba2 layer; zamba2's grouped layers), once outside (zamba2's
-    tail), and its backward once.  ``tensor_cores``: bf16 at h 64 / 128,
-    where every attention launch takes the tensor-core route."""
+    tail), and its backward once; all of it once per microbatch.  An
+    encdec model's attention blocks: each encoder layer's, and each
+    decoder layer's self- and cross-attention.  ``tensor_cores``: bf16
+    at h 64 / 128, where every attention launch takes the tensor-core
+    route."""
     L = cfg.n_layers
     out = {}
-    if cfg.ssm is None:
+    if cfg.family == "encdec":
+        blocks = cfg.enc_layers + 2 * cfg.dec_layers
+    elif cfg.ssm is None:
         blocks = L
     else:
         k = cfg.shared_attn_every
@@ -2010,21 +2257,29 @@ def step_launches(cfg, tensor_cores):
         tc = blocks if tensor_cores else 0
         out.update(flash_attention=2 * blocks, flash_attention_tc=2 * tc,
                    flash_attention_bwd=blocks, flash_attention_bwd_tc=tc)
-    return out
+    return {k: v * cfg.grad_accum_microbatches for k, v in out.items()}
 
 
-# train_check's models: (arch, layers kept) at full width in f32; zamba2
+# train_check's models: (arch, depth cut) at full width in f32; zamba2
 # keeps one group of 6 and a tail layer, as serve_check cuts it
-TRAIN_CHECKS = ((TRAIN_ARCH, 2), ("mamba2-780m", 2), ("zamba2-1.2b", 7))
+TRAIN_CHECKS = ((TRAIN_ARCH, {"n_layers": 2}),
+                ("mamba2-780m", {"n_layers": 2}),
+                ("zamba2-1.2b", {"n_layers": 7}),
+                ("qwen3-moe-30b-a3b", {"n_layers": 2}),
+                (ENCDEC_ARCH, {"enc_layers": 2, "dec_layers": 2,
+                               "n_layers": 4}))
 TRAIN_SSM = ("mamba2-780m", "zamba2-1.2b")
 
 
 def phase_train_check(torch, rdev):
     """Each of ``TRAIN_CHECKS`` at full width in f32, cut in depth: the
     loss of one batch (B 1, S 512: 2 chunks of 256, so the state carried
-    between them counts) and every parameter's gradient on the card
-    (kernels: exactly ``step_launches``, the attention on the fp32 cores)
-    against the same on the CPU (plain versions), the same parameters.
+    between them counts; seamless also 512 random frames) and every
+    parameter's gradient on the card (kernels: exactly
+    ``step_launches``, the attention on the fp32 cores) against the
+    same on the CPU (plain versions), the same parameters; qwen3-moe's
+    CPU run takes the card's routes (``moe_block``'s routes seam), so a
+    near-tie in the router's top-k cannot send a token elsewhere.
     Tolerance, stated before the first run: the loss within 1e-5 of its
     value, each gradient within 1e-3 of its largest element (f32 both,
     sums in another order; a lost attention or SSD gradient, a wrong
@@ -2033,13 +2288,19 @@ def phase_train_check(torch, rdev):
     from repro_torch.data.pipeline import SyntheticLM, device_batch
     from repro_torch.models.zoo import get_model
     from repro_torch.utils.params import tree_leaves, tree_map
-    for arch, layers in TRAIN_CHECKS:
-        cfg = get_config(arch).replace(n_layers=layers, dtype="float32")
+    for arch, cut in TRAIN_CHECKS:
+        cfg = get_config(arch).replace(dtype="float32",
+                                       grad_accum_microbatches=1, **cut)
+        moe = cfg.moe is not None
         gpu = get_model(cfg)
         gpu.init(torch.Generator("cuda").manual_seed(1))
         cpu = get_model(cfg)
         cpu.load(tree_map(lambda t: t.detach().cpu(), gpu.params))
-        hb = SyntheticLM(cfg.vocab_size, 512, 1, seed=2).batch_at(0)
+        hb = dict(SyntheticLM(cfg.vocab_size, 512, 1, seed=2).batch_at(0))
+        if cfg.family == "encdec":
+            hb["enc_emb"] = torch.randn(
+                (1, 512, cfg.d_model),
+                generator=torch.Generator().manual_seed(2)).numpy()
 
         def loss_and_grads(model, device):
             leaves = tree_leaves(model.params)
@@ -2048,10 +2309,13 @@ def phase_train_check(torch, rdev):
             loss, _ = model.loss(model.params, device_batch(hb, device))
             return loss, torch.autograd.grad(loss, [p for _, p in leaves])
 
+        gpu.seen_routes = {} if moe else None
         rdev.reset_launch_counts()
         g_loss, g_grads = loss_and_grads(gpu, "cuda")
         torch.cuda.synchronize()
         counts = rdev.launch_counts()
+        if moe:
+            routes_to(cpu, gpu.seen_routes, "cpu")
         t0 = time.perf_counter()
         c_loss, c_grads = loss_and_grads(cpu, "cpu")
         cpu_s = time.perf_counter() - t0
@@ -2067,7 +2331,7 @@ def phase_train_check(torch, rdev):
                                    c_grads):
             scale = b.abs().max().item()
             errs[name] = (a.cpu() - b).abs().max().item() / max(scale,
-                                                                 1e-30)
+                                                                1e-30)
             check(bool(torch.isfinite(a).all()), f"train_check {arch} "
                   f"{name}: not finite")
             check(errs[name] <= 1e-3, f"train_check {arch} {name}: error "
@@ -2098,6 +2362,67 @@ TRAIN_KERNELS = (("flash_fwd_wgmma",) + BWD_FP32_KERNELS + BWD_TC_KERNELS
                  + SSD_BWD_KERNELS)
 
 
+def profile_steps(torch, cfg, step_fn, pa, sa, batches, n, per_step):
+    """train_profile: ``len(batches)`` more steps of a run's state (pa,
+    sa after ``n`` steps) under the profiler.  Returns (the row to emit,
+    pa, sa, device ms a call of the attention backward and of the SSD
+    backward, or "not measured")."""
+    from torch.autograd import DeviceType
+    torch.cuda.synchronize()
+    with padded_profile() as prof:
+        t0 = time.perf_counter()
+        for i, hb in enumerate(batches):
+            pa, sa, met = step_fn(pa, sa, hb, n + i)
+        final_loss = float(met["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0.0))
+        if us > 0:
+            name = evt.key[:80]
+            ms, calls = kernels.get(name, (0.0, 0))
+            kernels[name] = (ms + us / 1e3, calls + evt.count)
+    busy = sum(ms for ms, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
+    mine = {tag: sum(ms for k, (ms, _) in kernels.items() if kernel_tag(tag, k))
+            for tag in TRAIN_KERNELS}
+    mine = {k: v for k, v in mine.items() if v}
+    calls = {tag: sum(c for k, (_, c) in kernels.items() if kernel_tag(tag, k))
+             for tag in TRAIN_KERNELS}
+    steps = len(batches)
+
+    def per_call(tags, n_calls):
+        """Device ms a call of a wrapper whose CUDA kernels are ``tags``,
+        if the window recorded each of them once for each of its
+        ``n_calls`` calls."""
+        if not n_calls or any(calls[t] != n_calls for t in tags):
+            return "not measured"
+        return sum(mine.get(t, 0.0) for t in tags) / n_calls
+    bwd_ms = per_call(BWD_TC_KERNELS,
+                      steps * per_step.get("flash_attention_bwd_tc", 0))
+    ssd_bwd_ms = per_call(SSD_BWD_KERNELS,
+                          steps * per_step.get("ssd_scan_bwd", 0))
+    gemm = sum(ms for k, (ms, _) in kernels.items()
+               if "gemm" in k.lower() or "cutlass" in k.lower())
+    row = {"phase": "train_profile", "arch": cfg.name,
+           "window": f"{steps} train steps of run A's state (steps "
+                     f"{n + 1}-{n + steps})",
+           "wall_ms": wall_ms, "device_busy_ms": busy,
+           "device_idle_share": (1.0 - busy / wall_ms) if kernels
+           else "not measured", "final_loss": final_loss,
+           "kernel_device_ms": mine, "kernel_calls": calls,
+           "gemm_device_ms": gemm,
+           "attention_bwd_device_ms_per_call": bwd_ms,
+           "ssd_bwd_device_ms_per_call": ssd_bwd_ms,
+           "top_kernels": [{"name": k, "device_ms": ms, "calls": c}
+                           for k, (ms, c) in top[:15]]}
+    return row, pa, sa, bwd_ms, ssd_bwd_ms
+
+
 def phase_train(torch, np, rdev, arch=TRAIN_ARCH, n=TRAIN_STEPS):
     """``TrainLoop`` at ``arch``'s published config (bf16 activations,
     f32 parameters, remat "full", AdamW) on train_4k's sequence length,
@@ -2116,7 +2441,6 @@ def phase_train(torch, np, rdev, arch=TRAIN_ARCH, n=TRAIN_STEPS):
     bf16 peak, peak device memory; train_profile: device time by kernel
     and the idle share over 2 more steps."""
     import shutil
-    from torch.autograd import DeviceType
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import device_batch
     from repro_torch.launch.train import TrainLoop
@@ -2184,45 +2508,8 @@ def phase_train(torch, np, rdev, arch=TRAIN_ARCH, n=TRAIN_STEPS):
 
     # train_profile: 2 more steps of run A's state under the profiler
     batches = [device_batch(a.data.batch_at(n + i), "cuda") for i in range(2)]
-    torch.cuda.synchronize()
-    with padded_profile() as prof:
-        t0 = time.perf_counter()
-        for i, hb in enumerate(batches):
-            pa, sa, met = a.step_fn(pa, sa, hb, n + i)
-        final_loss = float(met["loss"])
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total",
-                     getattr(evt, "self_cuda_time_total", 0.0))
-        if us > 0:
-            name = evt.key[:80]
-            ms, calls = kernels.get(name, (0.0, 0))
-            kernels[name] = (ms + us / 1e3, calls + evt.count)
-    busy = sum(ms for ms, _ in kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
-    mine = {tag: sum(ms for k, (ms, _) in kernels.items() if kernel_tag(tag, k))
-            for tag in TRAIN_KERNELS}
-    mine = {k: v for k, v in mine.items() if v}
-    calls = {tag: sum(c for k, (_, c) in kernels.items() if kernel_tag(tag, k))
-             for tag in TRAIN_KERNELS}
-
-    def per_call(tags, n_calls):
-        """Device ms a call of a wrapper whose CUDA kernels are ``tags``,
-        if the window recorded each of them once for each of its
-        ``n_calls`` calls."""
-        if not n_calls or any(calls[t] != n_calls for t in tags):
-            return "not measured"
-        return sum(mine.get(t, 0.0) for t in tags) / n_calls
-    bwd_ms = per_call(BWD_TC_KERNELS,
-                      2 * per_step.get("flash_attention_bwd_tc", 0))
-    ssd_bwd_ms = per_call(SSD_BWD_KERNELS, 2 * per_step.get("ssd_scan_bwd", 0))
-    gemm = sum(ms for k, (ms, _) in kernels.items()
-               if "gemm" in k.lower() or "cutlass" in k.lower())
-
+    prof_row, pa, sa, bwd_ms, ssd_bwd_ms = profile_steps(
+        torch, cfg, a.step_fn, pa, sa, batches, n, per_step)
     step_ms = [h["ms"] for h in a.history]
     med = float(np.median(step_ms[1:]))
     flops = train_flops(cfg, B, S)
@@ -2241,21 +2528,166 @@ def phase_train(torch, np, rdev, arch=TRAIN_ARCH, n=TRAIN_STEPS):
                        "losses": b_losses, "max_rel_loss_err": loss_err,
                        "max_state_err": state_err, "bit_equal": bit_equal}}
     emit(row)
-    emit({"phase": "train_profile", "arch": cfg.name,
-          "window": f"2 train steps of run A's state (steps {n + 1}-{n + 2})",
-          "wall_ms": wall_ms, "device_busy_ms": busy,
-          "device_idle_share": (1.0 - busy / wall_ms) if kernels
-          else "not measured", "final_loss": final_loss,
-          "kernel_device_ms": mine, "kernel_calls": calls,
-          "gemm_device_ms": gemm,
-          "attention_bwd_device_ms_per_call": bwd_ms,
-          "ssd_bwd_device_ms_per_call": ssd_bwd_ms,
-          "top_kernels": [{"name": k, "device_ms": ms, "calls": c}
-                          for k, (ms, c) in top[:15]]})
+    emit(prof_row)
     del pa, sa, a
     torch.cuda.empty_cache()
     row["bwd_device_ms_per_call"] = bwd_ms
     row["ssd_bwd_device_ms_per_call"] = ssd_bwd_ms
+    return row
+
+
+def checksum(torch, tree):
+    """{leaf: the sum of its 32-bit words as an int64} (16-bit words for
+    bf16 leaves): one bit changed anywhere changes its leaf's sum."""
+    from repro_torch.utils.params import tree_leaves
+    out = {}
+    for name, x in tree_leaves(tree):
+        word = torch.int32 if x.element_size() == 4 else torch.int16
+        out[name] = int(x.detach().contiguous().view(word).sum(
+            dtype=torch.int64))
+    return out
+
+
+def encdec_batch(torch, cfg, step):
+    """The encdec train phase's batch of a step: SyntheticLM tokens
+    (TRAIN_BATCH, TRAIN_SEQ) and standard normal frame embeddings
+    (TRAIN_BATCH, ENCDEC_FRAMES, D) drawn on the card, both from seed 0
+    and the step."""
+    from repro_torch.data.pipeline import SyntheticLM, device_batch
+    hb = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0
+                     ).batch_at(step)
+    batch = device_batch(hb, "cuda")
+    batch["enc_emb"] = torch.randn(
+        (TRAIN_BATCH, ENCDEC_FRAMES, cfg.d_model), device="cuda",
+        generator=torch.Generator("cuda").manual_seed(step))
+    return batch
+
+
+def train_runner(torch, cfg):
+    """(run(steps, at) -> (state, losses, step ms, checksum of the
+    parameters after step ``at``), batch_at(step)) for the MoE and
+    encdec train phases.  qwen3-moe runs through ``TrainLoop`` (the
+    checksum taken from its model's parameters, which the optimizer
+    updates in place, by its per-step log hook); seamless through
+    ``make_train_step`` on ``encdec_batch``es, as ``TrainLoop`` takes no
+    frame embeddings.  Random weights from seed 0 either way."""
+    from repro_torch.data.pipeline import SyntheticLM, device_batch
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.models.zoo import get_model
+    from repro_torch.training.train_step import make_train_step
+
+    if cfg.family == "encdec":
+        def run(steps, at):
+            model = get_model(cfg)
+            params = model.init(torch.Generator("cuda").manual_seed(0))
+            step_fn, opt_init, _ = make_train_step(model, cfg)
+            state, losses, ms, sums = opt_init(params), [], [], None
+            for step in range(steps):
+                t0 = time.monotonic()
+                params, state, met = step_fn(params, state,
+                                             encdec_batch(torch, cfg, step),
+                                             step)
+                losses.append(float(met["loss"]))
+                ms.append((time.monotonic() - t0) * 1e3)
+                if step + 1 == at:
+                    sums = checksum(torch, params)
+            return (step_fn, params, state), losses, ms, sums
+        return run, lambda step: encdec_batch(torch, cfg, step)
+
+    def run(steps, at):
+        a = TrainLoop(cfg, global_batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                      device="cuda")
+        sums = {}
+
+        def hook(line):
+            if line.startswith(f"step {at} "):
+                sums.update(checksum(torch, a.model.params))
+        pa, sa, _ = a.run(steps, log=hook)
+        return ((a.step_fn, pa, sa), [h["loss"] for h in a.history],
+                [h["ms"] for h in a.history], sums)
+    # TrainLoop's own stream (seed 0)
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    return run, lambda step: device_batch(data.batch_at(step), "cuda")
+
+
+def phase_train_repeat(torch, np, rdev, arch, n=TRAIN_STEPS):
+    """The MoE and encdec families' train phase, bf16 activations, f32
+    parameters, remat "full", AdamW, S 4096, global batch 4, random
+    weights from seed 0: qwen3-moe-30b-a3b at full width cut to
+    ``MOE_TRAIN``'s 4 layers, 4 microbatches of one row (``TrainLoop``);
+    seamless-m4t-medium at its published 6 + 6 layers on tokens (4,
+    4096) and frames (4, 2048, 1024) (``make_train_step``).  Run A:
+    ``n`` steps.  Gates: every loss finite; exactly ``step_launches``
+    per step, every attention launch on the tensor cores; a second run
+    of ``REPEAT_STEPS`` steps from the same seed gives bit-equal losses
+    and parameter checksums (``checksum``) after its last step to run
+    A's after the same step (the restart through a checkpoint stays on
+    qwen3-0.6b: qwen3-moe's would hold 37 GB).  Prints the median step
+    ms (host clock, steps 2-n), tokens/s (the decoder's), the
+    model-FLOPs share of the bf16 peak, peak memory; train_profile:
+    device time by kernel and the idle share over 2 more steps."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.utils.params import tree_leaves
+    cfg = get_config(arch)
+    if cfg.moe is not None:
+        cfg = cfg.replace(n_layers=MOE_TRAIN[1],
+                          grad_accum_microbatches=MOE_TRAIN[2])
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    Se = ENCDEC_FRAMES if cfg.family == "encdec" else 0
+    per_step = step_launches(cfg, True)
+    none = {k: 0 for k in rdev.launch_counts()}
+    run, batch_at = train_runner(torch, cfg)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rdev.reset_launch_counts()
+    t0 = time.perf_counter()
+    (step_fn, pa, sa), losses, step_ms, sums_a = run(n, REPEAT_STEPS)
+    torch.cuda.synchronize()
+    a_s = time.perf_counter() - t0
+    counts = rdev.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {**none, **{k: n * v for k, v in per_step.items()}}
+    check(counts == want, f"train {arch} launches {counts}, want {want}")
+    check(len(losses) == n and all(math.isfinite(x) for x in losses),
+          f"train {arch} losses {losses}")
+    n_params = sum(p.numel() for _, p in tree_leaves(pa))
+    prof_row, pa, sa, bwd_ms, _ = profile_steps(
+        torch, cfg, step_fn, pa, sa, [batch_at(n + i) for i in range(2)], n,
+        per_step)
+    del step_fn, pa, sa
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    _, losses_b, _, sums_b = run(REPEAT_STEPS, REPEAT_STEPS)
+    b_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    check(losses_b == losses[:REPEAT_STEPS], f"train {arch} repeat losses "
+          f"{losses_b} against {losses[:REPEAT_STEPS]}")
+    check(sums_a and sums_b == sums_a, f"train {arch}: the repeat run's "
+          f"parameters differ after step {REPEAT_STEPS}")
+    med = float(np.median(step_ms[1:]))
+    flops = train_flops(cfg, B, S, Se)
+    row = {"phase": "train", "arch": cfg.name, "layers": cfg.n_layers,
+           "enc_layers": cfg.enc_layers, "dec_layers": cfg.dec_layers,
+           "d_model": cfg.d_model, "dtype": cfg.dtype,
+           "param_dtype": cfg.param_dtype, "remat": cfg.remat,
+           "optimizer": cfg.optimizer, "global_batch": B, "seq": S,
+           "frames": Se, "microbatches": cfg.grad_accum_microbatches,
+           "params": n_params, "steps": n, "losses": losses,
+           "launches": counts, "launches_per_step": per_step,
+           "step_ms": step_ms, "median_step_ms": med,
+           "tokens_per_s": B * S / med * 1e3,
+           "model_flops_per_step": flops,
+           "mfu_bf16_peak": flops / (med / 1e3) / PEAK_BF16,
+           "max_memory_allocated_bytes": peak, "run_a_s": a_s,
+           "repeat": {"steps": REPEAT_STEPS, "run_s": b_s,
+                      "losses_bit_equal": True,
+                      "param_checksums_equal": True}}
+    emit(row)
+    emit(prof_row)
+    row["bwd_device_ms_per_call"] = bwd_ms
     return row
 
 
@@ -2294,23 +2726,30 @@ class WatchLogits:
 
 
 def run_serve(torch, rdev, arch, requests, slots, max_len, max_new,
-              prompt_lens):
+              prompt_lens, layers=None):
     """``serve(..., smoke=False)`` between a reset and a read of the
-    launch counters; returns (serve's result, counts, all logits finite,
-    peak device bytes)."""
+    launch counters; returns (serve's result, with the device bytes
+    allocated before it, ``allocated_before_bytes``, counts, all logits
+    finite, peak device bytes)."""
+    import gc
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import mamba2, transformer, zamba2
+    gc.collect()
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     with WatchLogits(torch, (zamba2.Zamba2LM, mamba2.Mamba2LM,
                              transformer.TransformerLM)) as watch:
         rdev.reset_launch_counts()
         out = serve_mod.serve(arch, smoke=False, requests=requests,
                               slots=slots, max_len=max_len, max_new=max_new,
-                              seed=0, device="cuda", prompt_lens=prompt_lens)
+                              seed=0, device="cuda", prompt_lens=prompt_lens,
+                              layers=layers)
         torch.cuda.synchronize()
         counts = rdev.launch_counts()
         finite = watch.all_finite()
+    out["allocated_before_bytes"] = before
     return out, counts, finite, torch.cuda.max_memory_allocated()
 
 
@@ -2331,26 +2770,33 @@ def serve_row(np, arch, out, counts, finite, peak):
             "decode_ticks": len(ticks),
             "decode_tick_ms_mean": float(ticks.mean()),
             "decode_tick_ms_median": float(np.median(ticks)),
-            "max_memory_allocated_bytes": peak}
+            "max_memory_allocated_bytes": peak,
+            "allocated_before_bytes": out["allocated_before_bytes"]}
 
 
-def phase_serve(torch, np, rdev):
+def phase_serve(torch, np, rdev, runs=SERVE_RUNS, rerun_first=True):
     """The runs of ``SERVE_RUNS`` at published configs, through ``serve``.
     zamba2-1.2b first: 8 requests (prompts of 256, 512, 1024 and 2048
     tokens, twice each), 32 new tokens each, 4 slots; each prefill
     launches the attention kernel once per shared block (6) and the SSD
     kernel once per mamba layer (38), decode neither; a second run gives
-    the same tokens.  Then mamba2-780m (48 SSD launches per request) and
-    qwen3-0.6b (28 attention launches per request), 2 requests each.
-    Every attention launch takes the tensor-core route (bf16)."""
+    the same tokens.  Then mamba2-780m (48 SSD launches per request),
+    qwen3-0.6b (28 attention launches per request), qwen3-moe-30b-a3b
+    cut to 16 layers (16) and chameleon-34b cut to 8 (8), 2 requests
+    each.  Every attention launch takes the tensor-core route (bf16).
+    ``runs`` and ``rerun_first`` let ``tools/smoke_phases.py`` serve a
+    few of the runs alone."""
     none = {"gat_mp": 0, "gat_mp_bwd": 0, "memsim": 0, "memsim_zoo": 0,
             "flash_attention": 0, "flash_attention_tc": 0,
             "flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
             "ssd_scan": 0, "ssd_scan_bwd": 0}
-    first = None
-    for arch, requests, slots, max_new, lens, per in SERVE_RUNS:
+    first, rows = None, {}
+    model = None
+    for arch, requests, slots, max_new, lens, per, layers in runs:
+        t0 = time.perf_counter()
         out, counts, finite, peak = run_serve(
-            torch, rdev, arch, requests, slots, SERVE_MAX_LEN, max_new, lens)
+            torch, rdev, arch, requests, slots, SERVE_MAX_LEN, max_new, lens,
+            layers)
         want = {**none, **{k: requests * v for k, v in per.items()}}
         check(counts == want, f"{arch} serve launches {counts}, want {want}")
         check(counts["flash_attention_tc"] == counts["flash_attention"],
@@ -2363,7 +2809,8 @@ def phase_serve(torch, np, rdev):
               == sorted([lens[i % len(lens)] for i in range(requests)]),
               f"{arch} serve: prompt lengths")
         row = serve_row(np, arch, out, counts, finite, peak)
-        if first is None:
+        row["seconds"] = time.perf_counter() - t0
+        if first is None and rerun_first:
             tokens = {r.rid: r.tokens for r in out["done"]}
             model = out["model"]
             out = None          # frees the engine's caches before the rerun
@@ -2379,8 +2826,9 @@ def phase_serve(torch, np, rdev):
             first = row
         del out
         emit(row)
-    torch.cuda.empty_cache()
-    return first, model
+        rows[arch] = row
+        torch.cuda.empty_cache()
+    return first, model, rows
 
 
 def phase_serve_profile(torch, np, model):
@@ -2427,6 +2875,88 @@ def phase_serve_profile(torch, np, model):
           "device_idle_share": (1.0 - busy / wall_ms) if kernels
           else "not measured", "kernel_device_ms": mine,
           "top_kernels": kernels[:15]})
+
+
+def phase_serve_encdec(torch, np, rdev):
+    """seamless-m4t-medium at its published config (6 encoder and 6
+    decoder layers, d_model 1024, 16 heads of 64, d_ff 4096, vocab
+    256,206; bf16 activations, f32 parameters, random weights from seed
+    0), through the model's own entry points (the engine takes token
+    prompts): ``prefill`` of B = 4 sequences of 2048 random frames (the
+    frontend stub's input, seed 0), then 32 greedy ``decode_step``s, the
+    whole run twice.  Gates: exactly 6 attention launches a prefill (one
+    an encoder layer, non-causal, all on the tensor cores) and none a
+    decode step (decode attends over the self and cross caches in plain
+    torch ops); every logit finite; the second run gives the same
+    tokens.  Prints prefill ms, decode step ms, decode tokens/s and peak
+    memory (host clock; each decode step ends in a device sync)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.zoo import get_model
+    cfg = get_config(ENCDEC_ARCH)
+    B, F, n = ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = get_model(cfg)
+    model.init(torch.Generator("cuda").manual_seed(0))
+    frames = torch.randn((B, F, cfg.d_model), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(0))
+    none = {k: 0 for k in rdev.launch_counts()}
+
+    def run():
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            rdev.reset_launch_counts()
+            t0 = time.perf_counter()
+            cache, logits = model.prefill(model.params, frames, n + 8)
+            tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
+            torch.cuda.synchronize()
+            pre_ms = (time.perf_counter() - t0) * 1e3
+            pre = rdev.launch_counts()
+            flags, toks, step_ms = [torch.isfinite(logits).all()], [tok], []
+            for i in range(n):
+                t0 = time.perf_counter()
+                logits, cache = model.decode_step(model.params, cache, tok,
+                                                  i + 1)
+                tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                flags.append(torch.isfinite(logits).all())
+                toks.append(tok)
+            counts = rdev.launch_counts()
+        return (pre_ms, step_ms, pre, counts, bool(torch.stack(flags).all()),
+                torch.stack(toks, 1).cpu())
+
+    pre_ms, step_ms, pre, counts, finite, tokens = run()
+    peak = torch.cuda.max_memory_allocated()
+    want = {**none, "flash_attention": cfg.enc_layers,
+            "flash_attention_tc": cfg.enc_layers}
+    check(pre == want, f"serve_encdec prefill launches {pre}, want {want}")
+    check(counts == pre, f"serve_encdec decode launched {counts} - {pre}")
+    check(finite, "serve_encdec: non-finite logits")
+    again = run()
+    check(torch.equal(again[5], tokens), "serve_encdec: a second run gave "
+          "other tokens")
+    check(again[3] == counts, f"serve_encdec second run launches {again[3]}")
+    med = float(np.median(step_ms))
+    row = {"phase": "serve_encdec", "arch": cfg.name,
+           "enc_layers": cfg.enc_layers, "dec_layers": cfg.dec_layers,
+           "d_model": cfg.d_model, "dtype": cfg.dtype,
+           "param_dtype": cfg.param_dtype,
+           "params": sum(p.numel() for p in model.parameters()),
+           "batch": B, "frames": F, "decode_steps": n,
+           "launches_prefill": pre, "logits_finite": finite,
+           "second_run_same_tokens": True, "prefill_ms": pre_ms,
+           "prefill_ms_second_run": again[0],
+           "decode_step_ms": step_ms, "decode_step_ms_median": med,
+           "decode_tokens_per_s": B * n / (sum(step_ms) / 1e3),
+           "tokens_per_s": B * (n + 1) / ((pre_ms + sum(step_ms)) / 1e3),
+           "max_memory_allocated_bytes": peak,
+           "first_tokens": tokens[:, :8].tolist()}
+    emit(row)
+    del model
+    torch.cuda.empty_cache()
+    return row
 
 
 # ------------------------------------------------------- placement
@@ -2884,6 +3414,7 @@ def ptxas_kernels(rep):
 def main(argv=None):
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args(
         argv)
+    t_all = time.perf_counter()
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -2946,21 +3477,37 @@ def main(argv=None):
         check(info["spill_bytes"] == 0, f"{entry} spills {info}")
 
     gen = torch.Generator("cuda").manual_seed(0)
-    rows = run_egrl(torch, np, rdev, gen, regs["memsim"])  # 3-8
-    flash = phase_flash(torch, fops, gen)                  # 9
-    ssd = phase_ssd(torch, sops, gen)                      # 10
-    flash_bwd = phase_flash_bwd(torch, fops, gen)          # 15
-    ssd_bwd = phase_ssd_bwd(torch, sops, rdev, gen)
-    phase_serve_check(torch, rdev)                         # 11
-    serve, model = phase_serve(torch, np, rdev)            # 12
-    phase_serve_profile(torch, np, model)
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        emit({"phase_done": name, "seconds": seconds[name]})
+        return out
+
+    rows = timed("egrl", run_egrl, torch, np, rdev, gen,
+                 regs["memsim"])                           # 3-8
+    flash = timed("flash", phase_flash, torch, fops, gen)  # 9
+    ssd = timed("ssd", phase_ssd, torch, sops, gen)        # 10
+    flash_bwd = timed("flash_bwd", phase_flash_bwd, torch, fops,
+                      gen)                                 # 15
+    ssd_bwd = timed("ssd_bwd", phase_ssd_bwd, torch, sops, rdev, gen)
+    timed("serve_check", phase_serve_check, torch, rdev)   # 11
+    serve, model, serve_rows = timed("serve", phase_serve, torch, np,
+                                     rdev)                 # 12
+    timed("serve_profile", phase_serve_profile, torch, np, model)
     del model
     torch.cuda.empty_cache()
-    placement = phase_placement(torch, np, rdev)           # 14
-    phase_train_check(torch, rdev)                         # 16
-    train = phase_train(torch, np, rdev)                   # 17
-    train_ssm = {arch: phase_train(torch, np, rdev, arch) for arch in
-                 TRAIN_SSM}
+    encdec = timed("serve_encdec", phase_serve_encdec, torch, np, rdev)
+    placement = timed("placement", phase_placement, torch, np, rdev)  # 14
+    timed("train_check", phase_train_check, torch, rdev)   # 16
+    train = timed("train", phase_train, torch, np, rdev)   # 17
+    train_ssm = {arch: timed(f"train:{arch}", phase_train, torch, np, rdev,
+                             arch) for arch in TRAIN_SSM}
+    train_new = {arch: timed(f"train:{arch}", phase_train_repeat, torch, np,
+                             rdev, arch)
+                 for arch in (MOE_TRAIN[0], ENCDEC_ARCH)}
 
     # 13. kernels
     f, s_ = flash["zamba2-1.2b", 2048], ssd["zamba2-1.2b", 2048]
@@ -3063,6 +3610,14 @@ def main(argv=None):
     for r in rows:
         if r["name"].startswith("flash_attention"):
             r["launches_train"] = train["launches"][r["name"]]
+            # the paths of the MoE, VLM and encdec families
+            r["launches_new_paths"] = {
+                **{f"serve:{a}": serve_rows[a]["launches"][r["name"]]
+                   for a in (MOE_TRAIN[0], "chameleon-34b")},
+                f"serve_encdec:{ENCDEC_ARCH} (one prefill)":
+                    encdec["launches_prefill"][r["name"]],
+                **{f"train:{a}": t["launches"][r["name"]]
+                   for a, t in train_new.items()}}
         if r["name"].startswith("ssd_scan") or r["name"].startswith(
                 "flash_attention"):
             r["launches_train_ssm"] = {a: t["launches"].get(r["name"])
@@ -3073,6 +3628,7 @@ def main(argv=None):
                                                             r["name"])
         r["launches_zamba2_serve"] = serve["launches"].get(counter)
         r["launches_placement"] = placement.get(counter)
+    emit({"phase_seconds": seconds, "total_s": time.perf_counter() - t_all})
     emit({"kernels": rows, "device": kind, "nvidia_smi": smi})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

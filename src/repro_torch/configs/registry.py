@@ -1,8 +1,7 @@
 """--arch string -> ModelConfig resolution.
 
-Copied from ``src/repro/configs/registry.py``; every id has its config.
-Serving a model of the MoE, VLM or encdec family still raises in
-``models/zoo.py`` (ROADMAP.md lists those models as still to port).
+Copied from ``src/repro/configs/registry.py``; every id has its config
+and its model (``models/zoo.py``).
 """
 from __future__ import annotations
 

@@ -27,18 +27,29 @@ from repro_torch.serving.engine import Engine, Request
 def serve(arch: str, *, smoke: bool = True, requests: int = 8,
           slots: int = 4, max_len: int = 96, max_new: int = 16,
           seed: int = 0, device="cuda",
-          prompt_lens: Optional[Sequence[int]] = None):
+          prompt_lens: Optional[Sequence[int]] = None,
+          layers: Optional[int] = None):
     """Serve ``requests`` synthetic requests and return a dict with the
     engine, the finished requests, ``stats()`` and the wall seconds.
     Prompts are drawn from ``np.random.default_rng(seed)`` as the JAX
     launcher draws them (lengths 4..15), unless ``prompt_lens`` gives
     the length of request i as ``prompt_lens[i % len(prompt_lens)]``.
     Parameters are drawn from ``torch.Generator(device)`` seeded with
-    ``seed``."""
+    ``seed``.  ``layers`` cuts the depth (widths stay), for a model
+    whose parameters do not fit on the card at full depth.  The encdec
+    family raises ``NotImplementedError``: the engine takes token
+    prompts, as the JAX engine does, and it takes frame embeddings."""
     dev = resolve_device(device)
     cfg = get_config(arch)
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{arch}: the engine takes token prompts and the encdec family "
+            f"takes frame embeddings (as in the JAX engine); drive its "
+            f"prefill / decode_step directly")
     if smoke:
         cfg = smoke_config(cfg)
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
     model = get_model(cfg)
     model.init(torch.Generator(dev).manual_seed(seed))
     eng = Engine(model, model.params, slots=slots, max_len=max_len)

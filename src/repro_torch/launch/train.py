@@ -30,6 +30,9 @@ from repro_torch.utils.params import param_count, tree_leaves, tree_map
 
 _log = get_logger("train")
 _MULTI_GPU = "needs the multi-GPU port (ROADMAP.md item 8)"
+_ENCDEC = ("the encdec family trains on frame embeddings (enc_emb), which "
+           "SyntheticLM's token batches lack, as in the JAX launcher; drive "
+           "it through training.train_step.make_train_step")
 
 
 class TrainLoop:
@@ -40,6 +43,8 @@ class TrainLoop:
                  mesh=None, seed=0, grad_compression=False, device="cuda"):
         if mesh is not None:
             raise NotImplementedError(f"a device mesh {_MULTI_GPU}")
+        if cfg.family == "encdec":
+            raise NotImplementedError(_ENCDEC)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = get_model(cfg)

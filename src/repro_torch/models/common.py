@@ -204,13 +204,13 @@ class LMBase(nn.Module):
                        else to_parameter_dict(params))
         return self.params
 
-    def _final(self, params, x):
-        """(final hidden states, aux loss 0.0) from the last layer's x:
-        JAX's dtype barrier and the final norm, as every ``forward``
-        ends."""
+    def _final(self, params, x, aux=None):
+        """(final hidden states, aux loss: ``aux``, or 0.0) from the last
+        layer's x: JAX's dtype barrier and the final norm, as every
+        ``forward`` ends."""
         x = grad_dtype_barrier(x)
         x = rms_norm(x, params["final_norm"]["scale"], self.cfg.norm_eps)
-        return x, torch.zeros((), device=x.device)
+        return x, torch.zeros((), device=x.device) if aux is None else aux
 
     def loss(self, params, batch):
         """batch: {tokens (B,S), labels (B,S)[, mask (B,S)]} -> (loss,

@@ -1,0 +1,177 @@
+"""Encoder-decoder transformer (the seamless-m4t backbone): training
+forward and loss, prefill and decode.
+
+Copied from ``src/repro/models/encdec.py`` without sharding.  The
+speech frontend is a stub, as in the JAX package: the encoder takes
+precomputed frame embeddings (B, Se, D).  Encoder layers: non-causal
+self-attention with RoPE, SwiGLU MLP.  Decoder layers: causal
+self-attention with RoPE, non-causal cross-attention over the encoder
+memory (no RoPE, Sq != Sk), SwiGLU MLP.  Every prefill and training
+attention goes through ``blocked_attention`` (the flash kernels on
+CUDA); decode is ``decode_attention`` over the self cache and over the
+cross cache, plain torch ops as in the JAX package.  Each encoder and
+decoder layer is one ``remat`` unit, as JAX's ``_remat`` body.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as att
+from repro_torch.models import common as cm
+from repro_torch.models.transformer import TransformerLM, _stack_defs, remat
+
+
+class EncDecLM(cm.LMBase):
+    def __init__(self, cfg: ModelConfig):
+        assert cfg.enc_layers and cfg.dec_layers
+        super().__init__(cfg)
+        self._tf = TransformerLM(cfg)
+
+    def _enc_layer_defs(self):
+        cfg = self.cfg
+        return {"ln1": cm.norm_defs(cfg), "attn": att.attn_defs(cfg),
+                "ln2": cm.norm_defs(cfg), "mlp": cm.mlp_defs(cfg)}
+
+    def _dec_layer_defs(self):
+        cfg = self.cfg
+        return {"ln1": cm.norm_defs(cfg), "attn": att.attn_defs(cfg),
+                "lnx": cm.norm_defs(cfg), "xattn": att.attn_defs(cfg),
+                "ln2": cm.norm_defs(cfg), "mlp": cm.mlp_defs(cfg)}
+
+    def _param_defs_raw(self):
+        cfg = self.cfg
+        return {
+            "embed": cm.embed_defs(cfg),
+            "enc": _stack_defs(self._enc_layer_defs(), cfg.enc_layers),
+            "dec": _stack_defs(self._dec_layer_defs(), cfg.dec_layers),
+            "enc_norm": cm.norm_defs(cfg),
+            "final_norm": cm.norm_defs(cfg),
+        }
+
+    # ----------------------------------------------------------- encoder
+    def _enc_layer(self, p, h, positions):
+        cfg = self.cfg
+        hh = cm.rms_norm(h, p["ln1"]["scale"], cfg.norm_eps)
+        q, k, v = att.project_qkv(p["attn"], hh, cfg, positions)
+        ctx = att.blocked_attention(q, k, v, chunk=cfg.attn_chunk,
+                                    causal=False)
+        h = h + att.attn_out(p["attn"], ctx, cfg)
+        hh = cm.rms_norm(h, p["ln2"]["scale"], cfg.norm_eps)
+        return h + cm.mlp(p["mlp"], hh)
+
+    def encode(self, params, enc_emb):
+        """enc_emb (B,Se,D) precomputed frame embeddings (frontend stub)
+        -> encoder memory (B,Se,D) in the activation dtype."""
+        cfg = self.cfg
+        x = enc_emb.to(cfg.act_dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        body = remat(lambda i, h: self._enc_layer(
+            cm.layer_slice(params["enc"], i), h, positions), cfg)
+        for i in range(cfg.enc_layers):
+            x = body(i, x)
+        return cm.rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
+
+    # ----------------------------------------------------- cross-attention
+    def _cross_kv(self, p_x, enc_out):
+        """Cross-attention keys and values (B,Se,K,h) of the memory."""
+        return att._proj(enc_out, p_x["wk"]), att._proj(enc_out, p_x["wv"])
+
+    def _cross_q(self, p_x, h):
+        cfg = self.cfg
+        B, St = h.shape[:2]
+        return att._proj(h, p_x["wq"]).reshape(B, St, cfg.n_kv_heads,
+                                               cfg.q_per_kv, cfg.head_dim)
+
+    def _cross_attend(self, p_x, h, k, v):
+        """h (B,St,D) over the memory's k, v: non-causal, no RoPE."""
+        cfg = self.cfg
+        ctx = att.blocked_attention(self._cross_q(p_x, h), k, v,
+                                    chunk=cfg.attn_chunk, causal=False)
+        return att.attn_out(p_x, ctx, cfg)
+
+    # ------------------------------------------------------------- train
+    def _dec_layer(self, p, h, enc_out, positions):
+        cfg = self.cfg
+        h, _, _ = self._tf._attn_block(p, h, positions)
+        hh = cm.rms_norm(h, p["lnx"]["scale"], cfg.norm_eps)
+        xk, xv = self._cross_kv(p["xattn"], enc_out)
+        h = h + self._cross_attend(p["xattn"], hh, xk, xv)
+        hh = cm.rms_norm(h, p["ln2"]["scale"], cfg.norm_eps)
+        return h + cm.mlp(p["mlp"], hh)
+
+    def forward(self, params, batch):
+        """batch {tokens (B,St), enc_emb (B,Se,D)} -> (final hidden
+        states (B,St,D), aux loss 0.0)."""
+        cfg = self.cfg
+        enc_out = self.encode(params, batch["enc_emb"])
+        tokens = batch["tokens"]
+        x = cm.embed(params["embed"], tokens, cfg)
+        positions = torch.arange(tokens.shape[1], device=x.device)
+        body = remat(lambda i, h, mem: self._dec_layer(
+            cm.layer_slice(params["dec"], i), h, mem, positions), cfg)
+        for i in range(cfg.dec_layers):
+            x = body(i, x, enc_out)
+        return self._final(params, x)
+
+    def loss(self, params, batch):
+        """batch: {tokens, labels (B,St)[, mask], enc_emb (B,Se,D)} ->
+        (loss, metrics {ce, aux, tokens})."""
+        h, aux = self.forward(params, batch)
+        ce, cnt = cm.chunked_xent(params["embed"], h, batch["labels"],
+                                  self.cfg, mask=batch.get("mask"))
+        return ce + aux, {"ce": ce, "aux": aux, "tokens": cnt}
+
+    # ----------------------------------------------------------- serving
+    def cache_struct(self, batch: int, max_len: int, enc_len: int = None):
+        cfg = self.cfg
+        enc_len = enc_len or max_len
+        sh_self = (cfg.dec_layers, batch, max_len, cfg.n_kv_heads,
+                   cfg.head_dim)
+        sh_cross = (cfg.dec_layers, batch, enc_len, cfg.n_kv_heads,
+                    cfg.head_dim)
+        f = lambda sh: cm.CacheSpec(sh, cfg.act_dtype)  # noqa: E731
+        return {"k": f(sh_self), "v": f(sh_self),
+                "xk": f(sh_cross), "xv": f(sh_cross)}
+
+    def init_cache(self, batch: int, max_len: int, enc_len: int = None):
+        return {k: torch.zeros(s.shape, dtype=s.dtype, device=self.device)
+                for k, s in self.cache_struct(batch, max_len,
+                                              enc_len).items()}
+
+    def decode_step(self, params, cache, token, pos):
+        """token (B,), pos int -> (logits (B,Vp), cache: the self cache
+        updated in place at pos, the cross cache as it was)."""
+        cfg = self.cfg
+        x = cm.embed(params["embed"], token[:, None], cfg)
+        Se = cache["xk"].shape[2]
+        for i in range(cfg.dec_layers):
+            p = cm.layer_slice(params["dec"], i)
+            x = self._tf._decode_attn(p, x, cache["k"][i], cache["v"][i],
+                                      pos)
+            # cross-attention over the full encoder memory
+            hh = cm.rms_norm(x, p["lnx"]["scale"], cfg.norm_eps)
+            cx = att.decode_attention(self._cross_q(p["xattn"], hh),
+                                      cache["xk"][i], cache["xv"][i], Se - 1)
+            x = x + att.attn_out(p["xattn"], cx, cfg)
+            hh = cm.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
+            x = x + cm.mlp(p["mlp"], hh)
+        x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+        logits = cm.logits_last(params["embed"], x[:, 0], cfg)
+        return logits, cache
+
+    def prefill(self, params, enc_emb, max_len: int):
+        """enc_emb (B,Se,D) -> (cache: the cross keys and values of each
+        decoder layer, the self cache empty but for BOS at 0; BOS
+        logits (B,Vp))."""
+        cfg = self.cfg
+        enc_out = self.encode(params, enc_emb)
+        B = enc_out.shape[0]
+        cache = self.init_cache(B, max_len, enc_out.shape[1])
+        for i in range(cfg.dec_layers):
+            xk, xv = self._cross_kv(
+                cm.layer_slice(params["dec"], i)["xattn"], enc_out)
+            cache["xk"][i], cache["xv"][i] = xk, xv
+        bos = torch.zeros((B,), dtype=torch.long, device=enc_out.device)
+        logits, cache = self.decode_step(params, cache, bos, 0)
+        return cache, logits

@@ -1,15 +1,18 @@
-"""Decoder-only transformer LM (the dense family): training forward and
-loss, prefill and decode.
+"""Decoder-only transformer LM (the dense, MoE and VLM families):
+training forward and loss, prefill and decode.
 
-Copied from ``src/repro/models/transformer.py`` without sharding and the
-MoE units.  Layers are stacked on a leading axis, as in the JAX pytree,
-and run in a Python loop over ``layer_slice`` views, so a layer's
-gradients land in the stacked leaves.  ``cfg.remat`` maps onto
+Copied from ``src/repro/models/transformer.py`` without sharding.
+Layers are stacked on a leading axis, as in the JAX pytree, and run in a
+Python loop over ``layer_slice`` views, so a layer's gradients land in
+the stacked leaves.  A unit is one layer, or for MoE configs with
+``moe.every`` = e > 1 the e layers {"dense0", ..., "moe_layer"} that
+JAX's scan stacks together; the MoE layers' aux losses are summed in
+f32 over units and added to the loss.  ``cfg.remat`` maps onto
 ``torch.utils.checkpoint`` (non-reentrant): "none" saves everything,
-"full" recomputes each layer in the backward, "dots" saves only the
+"full" recomputes each unit in the backward, "dots" saves only the
 outputs of matrix products without batch dimensions (JAX's
 ``dots_with_no_batch_dims_saveable``), and ``scan_block`` > 0 wraps
-groups of that many layers in one more checkpoint, as the JAX two-level
+groups of that many units in one more checkpoint, as the JAX two-level
 scan does.  Every setting gives the same numbers.
 """
 from __future__ import annotations
@@ -20,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as att
 from repro_torch.models import common as cm
+from repro_torch.models.moe import moe_block, moe_defs
 from repro_torch.utils.params import ParamDef, tree_map
 
 
@@ -59,11 +63,13 @@ def remat(fn, cfg: ModelConfig):
 
 class TransformerLM(cm.LMBase):
     def __init__(self, cfg: ModelConfig):
-        if cfg.moe is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: the MoE layers are not ported yet; see "
-                f"ROADMAP.md")
         super().__init__(cfg)
+        # {depth: (B, S, k) expert ids} replacing the router's top-k in
+        # the MoE layer at that depth (``moe_block``'s ``routes``); None
+        # on every normal path
+        self.routes = None
+        # when a dict, each MoE layer writes the routes it took there
+        self.seen_routes = None
 
     # ------------------------------------------------------------ params
     def _dense_layer_defs(self):
@@ -73,13 +79,50 @@ class TransformerLM(cm.LMBase):
             "ln2": cm.norm_defs(cfg), "mlp": cm.mlp_defs(cfg),
         }
 
-    def _param_defs_raw(self):
+    def _moe_layer_defs(self):
         cfg = self.cfg
         return {
+            "ln1": cm.norm_defs(cfg), "attn": att.attn_defs(cfg),
+            "ln2": cm.norm_defs(cfg), "moe": moe_defs(cfg),
+        }
+
+    def _unit_defs(self):
+        """One stacked unit: (n_units, defs)."""
+        cfg = self.cfg
+        if cfg.moe is None:
+            return cfg.n_layers, self._dense_layer_defs()
+        e = cfg.moe.every
+        if e == 1:
+            return cfg.n_layers, self._moe_layer_defs()
+        assert cfg.n_layers % e == 0
+        unit = {"moe_layer": self._moe_layer_defs()}
+        for i in range(e - 1):
+            unit[f"dense{i}"] = self._dense_layer_defs()
+        return cfg.n_layers // e, unit
+
+    def _param_defs_raw(self):
+        cfg = self.cfg
+        n_units, unit = self._unit_defs()
+        return {
             "embed": cm.embed_defs(cfg),
-            "layers": _stack_defs(self._dense_layer_defs(), cfg.n_layers),
+            "layers": _stack_defs(unit, n_units),
             "final_norm": cm.norm_defs(cfg),
         }
+
+    def _unit_layers(self, params, u):
+        """(depth, layer params) of unit u's layers in depth order."""
+        per = self.cfg.moe.every if self.cfg.moe else 1
+        p_u = cm.layer_slice(params["layers"], u)
+        if per == 1:
+            return [(u, p_u)]
+        names = [f"dense{i}" for i in range(per - 1)] + ["moe_layer"]
+        return [(u * per + j, p_u[nm]) for j, nm in enumerate(names)]
+
+    def _layers(self, params):
+        """(depth, layer params) over every layer in depth order."""
+        n_units, _ = self._unit_defs()
+        return [dp for u in range(n_units)
+                for dp in self._unit_layers(params, u)]
 
     def _constrain_qkv(self, q, k, v):
         """The sharding constraint of the JAX model: the identity on one
@@ -100,44 +143,63 @@ class TransformerLM(cm.LMBase):
             qc, kc, vc, chunk=cfg.attn_chunk, causal=True)
         return x + att.attn_out(p["attn"], ctx, cfg), k, v
 
-    def _ffn_block(self, p, x):
+    def _ffn_block(self, p, x, depth=None):
+        """Pre-norm MLP or MoE block with residual -> (x + out, aux):
+        the MoE layer's aux loss (f32), 0.0 for an MLP."""
         cfg = self.cfg
         h = cm.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
-        return x + cm.mlp(p["mlp"], h), 0.0
+        if "moe" not in p:
+            return x + cm.mlp(p["mlp"], h), 0.0
+        routes = None if self.routes is None else self.routes.get(depth)
+        rec = None if self.seen_routes is None else {}
+        out, aux = moe_block(p["moe"], h, cfg, routes=routes, record=rec)
+        if rec is not None:
+            self.seen_routes[depth] = rec["experts"].view(
+                *h.shape[:2], cfg.moe.top_k).detach()
+        return x + out, aux
 
-    def _layer(self, params, i, x, positions):
-        """Layer i of the stack on x (B,S,D): attention and MLP blocks."""
-        p = cm.layer_slice(params["layers"], i)
-        x, _, _ = self._attn_block(p, x, positions)
-        x, _ = self._ffn_block(p, x)
-        return x
+    def _unit(self, params, u, x, positions):
+        """Unit u on x (B,S,D): each layer's attention and FFN blocks ->
+        (x, the unit's aux loss, f32)."""
+        aux = torch.zeros((), device=x.device)
+        for depth, p in self._unit_layers(params, u):
+            x, _, _ = self._attn_block(p, x, positions)
+            x, a = self._ffn_block(p, x, depth)
+            aux = aux + a
+        return x, aux
 
     # ------------------------------------------------------------- train
     def forward(self, params, tokens):
-        """tokens (B,S) -> (final hidden states (B,S,D), aux loss 0.0)."""
+        """tokens (B,S) -> (final hidden states (B,S,D), aux loss: the
+        MoE layers' summed, f32; 0.0 without MoE)."""
         cfg = self.cfg
         x = cm.embed(params["embed"], tokens, cfg)
         positions = torch.arange(tokens.shape[1], device=x.device)
-        body = remat(lambda i, h: self._layer(params, i, h, positions), cfg)
-        n, blk = cfg.n_layers, cfg.scan_block
+        body = remat(lambda u, h: self._unit(params, u, h, positions), cfg)
+        n, blk = self._unit_defs()[0], cfg.scan_block
+        aux = torch.zeros((), device=x.device)
         if cfg.scan_layers and blk and n % blk == 0:
             # two-level (sqrt) remat: the outer checkpoint keeps only each
-            # group's input; the group's layers are recomputed in backward
+            # group's input; the group's units are recomputed in backward
             def group(g, h):
-                for i in range(g * blk, (g + 1) * blk):
-                    h = body(i, h)
-                return h
+                a_g = torch.zeros((), device=h.device)
+                for u in range(g * blk, (g + 1) * blk):
+                    h, a = body(u, h)
+                    a_g = a_g + a
+                return h, a_g
             group_body = remat(group, cfg)
             for g in range(n // blk):
-                x = group_body(g, x)
+                x, a = group_body(g, x)
+                aux = aux + a
         else:
-            for i in range(n):
-                x = body(i, x)
-        return self._final(params, x)
+            for u in range(n):
+                x, a = body(u, x)
+                aux = aux + a
+        return self._final(params, x, aux)
 
-    def _decode_layer(self, p, x, kc, vc, pos):
-        """x (B,1,D); kc/vc (B,Smax,K,h) single-layer cache, written in
-        place at pos."""
+    def _decode_attn(self, p, x, kc, vc, pos):
+        """Self-attention of one decode step with residual: x (B,1,D);
+        kc/vc (B,Smax,K,h) single-layer cache, written in place at pos."""
         cfg = self.cfg
         h = cm.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
         positions = torch.full((1,), pos, device=x.device)
@@ -145,14 +207,20 @@ class TransformerLM(cm.LMBase):
         att.update_cache(kc, k, pos, cfg.cache_update)
         att.update_cache(vc, v, pos, cfg.cache_update)
         ctx = att.decode_attention(q, kc, vc, pos)
-        x = x + att.attn_out(p["attn"], ctx, cfg)
-        x, _ = self._ffn_block(p, x)
+        return x + att.attn_out(p["attn"], ctx, cfg)
+
+    def _decode_layer(self, p, x, kc, vc, pos, depth=None):
+        """One layer of a decode step: ``_decode_attn``, then the FFN."""
+        x = self._decode_attn(p, x, kc, vc, pos)
+        x, _ = self._ffn_block(p, x, depth)
         return x
 
     # ----------------------------------------------------------- serving
     def cache_struct(self, batch: int, max_len: int):
         cfg = self.cfg
-        sh = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        n_units, _ = self._unit_defs()
+        L = n_units * (cfg.moe.every if cfg.moe else 1)
+        sh = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
         return {"k": cm.CacheSpec(sh, cfg.act_dtype),
                 "v": cm.CacheSpec(sh, cfg.act_dtype)}
 
@@ -160,9 +228,9 @@ class TransformerLM(cm.LMBase):
         """token (B,), pos int -> (logits (B,Vp), cache updated in place)."""
         cfg = self.cfg
         x = cm.embed(params["embed"], token[:, None], cfg)  # (B,1,D)
-        for i in range(cfg.n_layers):
-            x = self._decode_layer(cm.layer_slice(params["layers"], i), x,
-                                   cache["k"][i], cache["v"][i], pos)
+        for d, p_l in self._layers(params):
+            x = self._decode_layer(p_l, x, cache["k"][d], cache["v"][d], pos,
+                                   d)
         x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
         logits = cm.logits_last(params["embed"], x[:, 0], cfg)
         return logits, cache
@@ -174,12 +242,11 @@ class TransformerLM(cm.LMBase):
         x = cm.embed(params["embed"], tokens, cfg)
         positions = torch.arange(S, device=x.device)
         cache = self.init_cache(B, max(max_len, S))
-        for i in range(cfg.n_layers):
-            p_l = cm.layer_slice(params["layers"], i)
+        for d, p_l in self._layers(params):
             x, k, v = self._attn_block(p_l, x, positions)
-            x, _ = self._ffn_block(p_l, x)
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
+            x, _ = self._ffn_block(p_l, x, d)
+            cache["k"][d, :, :S] = k
+            cache["v"][d, :, :S] = v
         x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
         logits = cm.logits_last(params["embed"], x[:, -1], cfg)
         return cache, logits

@@ -3,9 +3,10 @@
 Copied from ``src/repro/training/optimizers.py`` without ``state_specs``
 (sharding; ROADMAP.md item 8).  The arithmetic is the JAX code's, op for
 op in f32.  Where JAX returns new trees, the port updates in place, under
-``torch.no_grad()``: the parameters (``Parameter.copy_``) and the moment
-tensors, so a step holds no second copy of either; each update function
-returns the same trees it was given, with a new ``step`` tensor.
+``torch.no_grad()``: the parameters (``Parameter.copy_``), the moment
+tensors and the clipped gradients, so a step holds no second copy of
+any; each update function returns the same trees it was given, with a
+new ``step`` tensor.
 Adafactor keeps factored second moments (row / column) for >= 2-D
 parameters whose last two dims are both >= ``min_dim_factored``.
 """
@@ -48,10 +49,11 @@ def global_norm(tree):
 
 def clip_by_global_norm(grads, max_norm):
     """(grads scaled so their global norm is at most ``max_norm``, the
-    norm before).  Each leaf keeps its dtype."""
+    norm before).  Each leaf keeps its dtype and is scaled in place (the
+    JAX code's products, without a second copy of every gradient)."""
     g = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(g, min=1e-9), max=1.0)
-    return tree_map(lambda x: x * scale.to(x.dtype), grads), g
+    return tree_map(lambda x: x.mul_(scale.to(x.dtype)), grads), g
 
 
 def _pairs(grads, *trees):
@@ -71,7 +73,8 @@ def adamw_init(params):
 
 @torch.no_grad()
 def adamw_update(cfg: OptConfig, grads, state, params):
-    """One AdamW step, in place; returns (params, state, {grad_norm, lr})."""
+    """One AdamW step, in place (``grads`` are clipped in place too);
+    returns (params, state, {grad_norm, lr})."""
     step = state["step"] + 1
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
     lr = schedule(cfg, state["step"])
@@ -110,8 +113,8 @@ def adafactor_init(cfg: OptConfig, params):
 
 @torch.no_grad()
 def adafactor_update(cfg: OptConfig, grads, state, params):
-    """One Adafactor step, in place; returns (params, state, {grad_norm,
-    lr})."""
+    """One Adafactor step, in place (``grads`` are clipped in place too);
+    returns (params, state, {grad_norm, lr})."""
     step = state["step"] + 1
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
     lr = schedule(cfg, state["step"])

@@ -36,7 +36,8 @@ def _value_and_grad(loss_fn, params, batch):
 def _microbatch_grads(loss_fn, params, batch, n_micro: int,
                       accum_dtype=torch.float32):
     """Mean grads over ``n_micro`` sequential microbatches of the batch's
-    leading axis, summed in ``accum_dtype``.  Returns (grads, loss,
+    leading axis (every entry of the batch, ``enc_emb`` too), summed in
+    ``accum_dtype``.  Returns (grads, loss,
     metrics); metrics are the loss function's for one microbatch, {} for
     several, as in JAX."""
     if n_micro == 1:
@@ -54,8 +55,11 @@ def _microbatch_grads(loss_fn, params, batch, n_micro: int,
         loss, _, g = _value_and_grad(loss_fn, params,
                                      {k: v[sl] for k, v in batch.items()})
         tree_map(lambda a, b: a.add_(b.to(a.dtype)), acc, g)
+        del g
         loss_sum = loss if loss_sum is None else loss_sum + loss
-    return tree_map(lambda g: g / n_micro, acc), loss_sum / n_micro, {}
+    # in place: the same quotients as a new tree, without a second copy
+    tree_map(lambda a: a.div_(n_micro), acc)
+    return acc, loss_sum / n_micro, {}
 
 
 def make_train_step(model, cfg: ModelConfig, opt_name: str = None,

@@ -149,3 +149,37 @@ def test_bfloat16_leaf_verifies_and_restores(tmp_path, writer):
     got = ckpt.restore(d, 1, tree)
     assert got["w"].tobytes() == tree["w"].tobytes()
     assert int(got["step"]) == 3
+
+
+@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b",
+                                  "seamless-m4t-medium"])
+def test_moe_and_encdec_trees_round_trip(tmp_path, arch):
+    """A smoke model's parameters and prefill cache, JAX's trees of MoE
+    units ({dense0, moe_layer}, a shared expert) or of enc / dec layers
+    with the cross cache: written by JAX, restored in the port into
+    ``lm_params_from_jax`` / ``lm_cache_from_jax`` templates, bit-equal;
+    written back by the port, verified and restored by JAX."""
+    import jax
+    from repro.configs.registry import get_config, smoke_config
+    from repro.models.zoo import get_model
+    from repro_torch import convert
+    from repro_torch.utils.params import tree_map
+    cfg = smoke_config(get_config(arch))
+    m = get_model(cfg)
+    params = m.init(jax.random.PRNGKey(0))
+    inputs = (jnp.ones((1, 8, cfg.d_model)) if cfg.family == "encdec"
+              else jnp.arange(8)[None] % cfg.vocab_size)
+    cache, _ = m.prefill(params, inputs, 16)
+    tree = {"params": params, "cache": cache}
+    want = _jax_to_np(jax.tree.map(np.asarray, tree))
+    jckpt.save(str(tmp_path / "jax"), 1, tree)
+    # plain dicts of the model's tensors, as TrainLoop checkpoints them
+    template = {"params": tree_map(lambda t: t, convert.lm_params_from_jax(
+                    want["params"])),
+                "cache": convert.lm_cache_from_jax(want["cache"])}
+    got = ckpt.restore(str(tmp_path / "jax"), 1, template)
+    _assert_tree_equal(got, want)
+    path = ckpt.save(str(tmp_path / "torch"), 1, got)
+    assert jckpt.verify(path)
+    back = jckpt.restore(str(tmp_path / "torch"), 1, _as_jax(want))
+    _assert_tree_equal(_jax_to_np(back), want)

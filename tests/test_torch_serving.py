@@ -70,8 +70,15 @@ def test_serve_flags(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.serve("qwen3-0.6b", requests=1)
-    # every id has a config now; the MoE model is still to port
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.serve("qwen3-moe-30b-a3b", requests=1, device="cpu")
+    # the MoE model serves at smoke size on the CPU, launching nothing
+    rdev.reset_launch_counts()
+    out = serve.serve("qwen3-moe-30b-a3b", requests=2, max_new=3,
+                      device="cpu")
+    assert [len(r.tokens) for r in out["done"]] == [3, 3]
+    assert out["cfg"].moe is not None and out["stats"]["tokens"] == 6
+    assert set(rdev.launch_counts().values()) == {0}
+    # the engine takes token prompts, the encdec family frame embeddings
+    with pytest.raises(NotImplementedError, match="frame embeddings"):
+        serve.serve("seamless-m4t-medium", requests=1, device="cpu")
     with pytest.raises(SystemExit):
         serve.main(["--arch", "no-such-arch", "--device", "cpu"])

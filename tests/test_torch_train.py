@@ -236,3 +236,19 @@ def test_train_main_smoke_on_cpu(tmp_path, capsys):
         with pytest.raises(NotImplementedError, match="item 8"):
             train.main(["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu",
                         *flag])
+
+
+def test_train_main_moe_smoke_on_cpu(capsys):
+    """The MoE family through the launcher: finite losses with the aux
+    loss in them; the encdec family raises, as its batches need frame
+    embeddings."""
+    from repro_torch.launch import train
+    loop = train.main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--steps",
+                       "2", "--global-batch", "2", "--seq", "32",
+                       "--device", "cpu"])
+    assert "arch=qwen3-moe-30b-a3b" in capsys.readouterr().out
+    assert len(loop.history) == 2
+    assert all(np.isfinite(h["loss"]) for h in loop.history)
+    with pytest.raises(NotImplementedError, match="enc_emb"):
+        train.main(["--arch", "seamless-m4t-medium", "--smoke", "--device",
+                    "cpu"])

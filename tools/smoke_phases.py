@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Run some phases of ``chip_smoke.py`` on the card, without the rest.
 
-    python3 tools/smoke_phases.py ssd_bwd [flash] [flash_bwd] [ssd] [train_check] [train] [train_ssm]
+    python3 tools/smoke_phases.py ssd_bwd [flash] [flash_bwd] [ssd] \
+        [serve_check] [serve_new] [serve_encdec] [train_check] [train] \
+        [train_ssm] [train_moe] [train_encdec]
 
 Builds the attention and SSD sources, forward and backward (one ``nvcc``
 each, in parallel), prints each kernel's registers and spills, then runs
-the named phases (``train_ssm``: the train phase of mamba2-780m, then of
-zamba2-1.2b)
-in the order given, each printing the JSON lines it prints in the whole
-script.  For quick checks of one path; ``chip_smoke.py`` stays the
-proof of the whole port.  Exits non-zero without CUDA or when a phase
-fails.
+the named phases (``serve_new``: the serve runs of qwen3-moe-30b-a3b and
+chameleon-34b; ``train_ssm``: the train phase of mamba2-780m, then of
+zamba2-1.2b; ``train_moe`` and ``train_encdec``: that of
+qwen3-moe-30b-a3b and of seamless-m4t-medium) in the order given, each
+printing the JSON lines it prints in the whole script.  For quick checks
+of one path; ``chip_smoke.py`` stays the proof of the whole port.
+Exits non-zero without CUDA or when a phase fails.
 """
 import argparse
 import json
@@ -24,8 +27,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import chip_smoke as cs  # noqa: E402
 
-PHASES = ("flash", "flash_bwd", "ssd", "ssd_bwd", "train_check", "train",
-          "train_ssm")
+PHASES = ("flash", "flash_bwd", "ssd", "ssd_bwd", "serve_check",
+          "serve_new", "serve_encdec", "train_check", "train", "train_ssm",
+          "train_moe", "train_encdec")
 
 
 def main(argv=None):
@@ -52,23 +56,41 @@ def main(argv=None):
     gen = torch.Generator("cuda").manual_seed(0)
     for name in args.phases:
         t0 = time.perf_counter()
-        if name == "flash":
-            cs.phase_flash(torch, fops, gen)
-        elif name == "flash_bwd":
-            cs.phase_flash_bwd(torch, fops, gen)
-        elif name == "ssd":
-            cs.phase_ssd(torch, sops, gen)
-        elif name == "ssd_bwd":
-            cs.phase_ssd_bwd(torch, sops, rdev, gen)
-        elif name == "train_check":
-            cs.phase_train_check(torch, rdev)
-        elif name == "train":
-            cs.phase_train(torch, np, rdev)
-        else:
-            for arch in cs.TRAIN_SSM:
-                cs.phase_train(torch, np, rdev, arch)
+        run_phase(name, cs, torch, np, rdev, fops, sops, gen)
         print(json.dumps({"phase_done": name,
                           "seconds": time.perf_counter() - t0}), flush=True)
+
+
+def run_phase(name, cs, torch, np, rdev, fops, sops, gen):
+    """Run phase ``name`` of ``chip_smoke.py`` (imported as ``cs``)."""
+    if name == "flash":
+        cs.phase_flash(torch, fops, gen)
+    elif name == "flash_bwd":
+        cs.phase_flash_bwd(torch, fops, gen)
+    elif name == "ssd":
+        cs.phase_ssd(torch, sops, gen)
+    elif name == "ssd_bwd":
+        cs.phase_ssd_bwd(torch, sops, rdev, gen)
+    elif name == "serve_check":
+        cs.phase_serve_check(torch, rdev)
+    elif name == "serve_new":
+        cs.phase_serve(torch, np, rdev, runs=[
+            r for r in cs.SERVE_RUNS
+            if r[0] in (cs.MOE_TRAIN[0], "chameleon-34b")],
+            rerun_first=False)
+    elif name == "serve_encdec":
+        cs.phase_serve_encdec(torch, np, rdev)
+    elif name == "train_check":
+        cs.phase_train_check(torch, rdev)
+    elif name == "train":
+        cs.phase_train(torch, np, rdev)
+    elif name == "train_moe":
+        cs.phase_train_repeat(torch, np, rdev, cs.MOE_TRAIN[0])
+    elif name == "train_encdec":
+        cs.phase_train_repeat(torch, np, rdev, cs.ENCDEC_ARCH)
+    else:
+        for arch in cs.TRAIN_SSM:
+            cs.phase_train(torch, np, rdev, arch)
 
 
 if __name__ == "__main__":
