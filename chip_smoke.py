@@ -44,6 +44,27 @@ Phases, each printing JSON lines:
                zoo: ``ZooEGRL`` on the 7-graph zoo at full width, 3 "ea"
                and 3 "egrl" generations with exact launch counts, then
                ``evaluate_gnn_zoo`` of the trained genome on BERT;
+               shard: the search across several devices, its shards on
+               distinct cards where there are enough, else side by side
+               on cuda:0 (printed): ``EGRL`` on BERT in "egrl" mode at
+               pop_shards 1, 2 and 3 from one seed, 3 generations, gated
+               on identical mappings and replay contents, equal rewards
+               and fitness, populations bit-equal or within 1e-6
+               relative (the largest logit difference of the forward at
+               P / S rows against P rows printed) and exact launches (4 S
+               + 4 GAT and S + 1 simulator launches a generation, 8 + 8
+               a SAC step); ``ZooEGRL`` on the 7 graphs, "egrl", with
+               dispatch "async" against "off": bit-equal rewards,
+               fitness and populations, ``run_zoo``'s launch counts,
+               ``device_map()`` and ``measure()``'s per-bucket ms;
+               ``autotune_bucket_k`` on the 7 graphs (K, c0, c1, probe
+               ms) and one generation of a zoo built with "autotune";
+               generation ms per S and async / off, 2 more generations
+               each taken in turns.  Every other phase measures the
+               one-device path on cuda:0: its drivers are built with
+               pop_shards and dispatch "off" (the placement service's
+               through ``REPRO_POP_SHARDS`` / ``REPRO_BUCKET_DISPATCH``),
+               so its launch counts hold however many cards there are;
 7. greedy   -- Greedy-DP at Figure 4's budget on BERT and ResNet-50:
                exact simulator launches, the final reward re-evaluated
                on the CPU, wall time and the simulator's device time;
@@ -166,7 +187,10 @@ Phases, each printing JSON lines:
                "egrl" run, the attention backward's the qwen3 train run,
                the SSD backward's the zamba2 train run; the simulator's
                also in Greedy-DP; every
-               kernel's in the placement stream, ``launches_placement``),
+               kernel's in the placement stream, ``launches_placement``;
+               the GAT and simulator kernels' in the shard phase's run at
+               3 pop shards, the zoo simulator's in its async dispatch
+               run, ``launches_shard``),
                error, time on the card, plain time, bound and
                library time; for the GAT kernels both per launch (a
                launch is one call of the wrapper) and over their group (4
@@ -189,6 +213,7 @@ Any failure raises and exits non-zero before the last line.  It needs
 CUDA and the repository's sources: alone, or without a card, it fails.
 """
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -984,7 +1009,7 @@ def run_slice(torch, np, name, make, egrl, sim, compiler, rdev, mode="ea",
     sac_s = [0.0]
     rdev.reset_launch_counts()
     t0 = time.perf_counter()
-    algo = egrl.EGRL(graph, cfg, mode=mode, device="cuda")
+    algo = egrl.EGRL(graph, cfg, mode=mode, device="cuda", pop_shards="off")
     update = algo.learner.update
 
     def timed_update(*args, **kwargs):
@@ -1062,6 +1087,17 @@ def run_slice(torch, np, name, make, egrl, sim, compiler, rdev, mode="ea",
                             else None)}
 
 
+def zoo_launches(K, n_graphs, gens, sac_steps, pg=True):
+    """What ``run_zoo`` checks: the compiler references, and per
+    generation and bucket 4 + 4 GAT and 1 + 1 simulator launches (the
+    population and the PG rollout), per SAC step and bucket 8 + 8."""
+    return {"gat_mp": gens * K * 4 * (1 + pg) + sac_steps * K * 8,
+            "gat_mp_bwd": sac_steps * K * 8, "memsim": n_graphs,
+            "memsim_zoo": gens * K * (1 + pg), "flash_attention": 0,
+            "flash_attention_tc": 0, "flash_attention_bwd": 0,
+            "flash_attention_bwd_tc": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
+
+
 def run_zoo(torch, np, zoo, egrl, sim, compiler, rdev, mode, gens):
     """``ZooEGRL`` on the 7-graph zoo ("auto": 4 buckets) at full width
     for ``gens`` generations, between a reset and a read of the launch
@@ -1077,7 +1113,7 @@ def run_zoo(torch, np, zoo, egrl, sim, compiler, rdev, mode, gens):
     rdev.reset_launch_counts()
     t0 = time.perf_counter()
     algo = egrl.ZooEGRL(graphs, cfg, mode=mode, buckets="auto",
-                        device="cuda")
+                        device="cuda", pop_shards="off", dispatch="off")
     K = algo.zoo.n_buckets
     gen_ms = []
     for _ in range(gens):
@@ -1089,11 +1125,7 @@ def run_zoo(torch, np, zoo, egrl, sim, compiler, rdev, mode, gens):
     counts = rdev.launch_counts()
     sac_steps = algo.learner.opt_a["t"] if algo.learner else 0
     pg = mode != "ea"
-    want = {"gat_mp": gens * K * 4 * (1 + pg) + sac_steps * K * 8,
-            "gat_mp_bwd": sac_steps * K * 8, "memsim": len(graphs),
-            "memsim_zoo": gens * K * (1 + pg), "flash_attention": 0,
-            "flash_attention_tc": 0, "flash_attention_bwd": 0,
-            "flash_attention_bwd_tc": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
+    want = zoo_launches(K, len(graphs), gens, sac_steps, pg)
     check(counts == want, f"zoo {mode}: launches {counts}, the path "
           f"implies {want}")
     rows_per_gen = algo.n_g + algo.n_b + (cfg.pg_rollouts if pg else 0)
@@ -1162,6 +1194,253 @@ def phase_zoo(torch, np, zoo, egrl, sim, compiler, rdev):
     return out
 
 
+# ------------------------------------------------------------ shard phase
+SHARD_COUNTS = (1, 2, 3)
+# generations checked, then 2 more timed in turns; the steady mean is
+# over generations 3-5 (the first trains no SAC step, the second the first)
+SHARD_GENERATIONS = 3
+
+
+@contextlib.contextmanager
+def one_device_env():
+    """``REPRO_POP_SHARDS`` and ``REPRO_BUCKET_DISPATCH`` at "off" for a
+    phase that builds its drivers through an entry point: its launch
+    counts are those of the one-device path, however many cards the
+    host has."""
+    old = {k: os.environ.get(k) for k in ("REPRO_POP_SHARDS",
+                                          "REPRO_BUCKET_DISPATCH")}
+    os.environ.update(dict.fromkeys(old, "off"))
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def sync_all(torch):
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def shard_devices(torch, S):
+    """S distinct cards where there are that many, else S times cuda:0;
+    and which of the two it is."""
+    if S == 1:
+        return ["cuda:0"], "one card"
+    if torch.cuda.device_count() >= S:
+        return [f"cuda:{i}" for i in range(S)], "distinct cards"
+    return ["cuda:0"] * S, "all on cuda:0"
+
+
+def dispatch_devices(torch):
+    """Every card where there are several, else cuda:0 twice (two bins
+    of the LPT packing on one card); and which of the two it is."""
+    n = torch.cuda.device_count()
+    if n > 1:
+        return [f"cuda:{i}" for i in range(n)], "distinct cards"
+    return ["cuda:0"] * 2, "all on cuda:0"
+
+
+def timed_generation(torch, algo):
+    sync_all(torch)
+    t = time.perf_counter()
+    algo.generation()
+    sync_all(torch)
+    return (time.perf_counter() - t) * 1e3
+
+
+def real_rows(pop, n, like):
+    """The real rows of a population (sharded or not) on ``like``'s
+    device."""
+    return (pop.cat(like.device) if hasattr(pop, "cat") else pop)[:n]
+
+
+def shard_launches(S, gens, sac_steps):
+    """What a BERT "egrl" run at S pop shards launches: the compiler
+    reference; per generation 4 GAT launches a shard for the population
+    and 4 for the PG rollout, one simulator launch a shard and one for
+    the PG rollout; per SAC step 8 forward and 8 backward GAT launches."""
+    return {"gat_mp": gens * 4 * (S + 1) + 8 * sac_steps,
+            "gat_mp_bwd": 8 * sac_steps, "memsim": 1 + gens * (S + 1),
+            "memsim_zoo": 0, "flash_attention": 0, "flash_attention_tc": 0,
+            "flash_attention_bwd": 0, "flash_attention_bwd_tc": 0,
+            "ssd_scan": 0, "ssd_scan_bwd": 0}
+
+
+def max_rel(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def phase_shard(torch, np, zoo, egrl, rdev):
+    """The search across several devices.  (a) ``EGRL`` on BERT,
+    "egrl", at pop_shards 1, 2 and 3 from the same seed (so the same
+    draws): identical mappings and replay contents, equal rewards and
+    fitness, populations bit-equal or within 1e-6 relative (the largest
+    logit difference printed), exact launches.  (b) ``ZooEGRL`` on the
+    7 graphs, "egrl", dispatch "async" against "off": bit-equal
+    rewards, fitness and populations, the serial launch counts;
+    ``device_map()`` and ``measure()``'s per-bucket ms.  (c)
+    ``autotune_bucket_k`` on the 7 graphs, and one generation of a zoo
+    built with "autotune".  (d) generation ms per S and async / off,
+    A/B in turns in this process.  Returns the launch counts of the
+    S = 3 run and of the async run."""
+    from repro_torch.core import gnn
+    from repro_torch.distributed import dispatch
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    n_cards = torch.cuda.device_count()
+
+    # (a) population sharding
+    runs, counts = {}, {}
+    for S in SHARD_COUNTS:
+        devs, where = shard_devices(torch, S)
+        rdev.reset_launch_counts()
+        algo = egrl.EGRL(zoo.bert(), egrl.EGRLConfig(seed=0), mode="egrl",
+                         device="cuda", pop_shards=S, devices=devs)
+        ms = [timed_generation(torch, algo) for _ in range(SHARD_GENERATIONS)]
+        counts[S] = rdev.launch_counts()
+        sac = algo.learner.opt_a["t"]
+        want = shard_launches(S, SHARD_GENERATIONS, sac)
+        check(counts[S] == want, f"shard S={S}: launches {counts[S]}, the "
+              f"path implies {want}")
+        check(algo.pop_sharding.n_shards == S, f"shard S={S}: "
+              f"{algo.pop_sharding.n_shards} shards")
+        runs[S] = (algo, ms, devs, where)
+    base = runs[1][0]
+    rows = []
+    for S in SHARD_COUNTS:
+        algo, ms, devs, where = runs[S]
+        check([h for h in algo.history] == [h for h in base.history],
+              f"shard S={S}: rewards or fitness differ from S=1: "
+              f"{algo.history[-1]} vs {base.history[-1]}")
+        check(np.array_equal(algo.best_mapping, base.best_mapping),
+              f"shard S={S}: best mapping differs")
+        n = base.buffer.size
+        check(algo.buffer.size == n and np.array_equal(
+            algo.buffer.actions[:n], base.buffer.actions[:n]) and
+            np.array_equal(algo.buffer.rewards[:n], base.buffer.rewards[:n]),
+            f"shard S={S}: replay contents differ")
+        g0, b0 = base.gnn_pop, base.bz_pop
+        g = real_rows(algo.gnn_pop, algo.n_g, g0)
+        b = real_rows(algo.bz_pop, algo.n_b, b0)
+        bit_equal = bool(torch.equal(g, g0) and torch.equal(b, b0))
+        rel = max(max_rel(g, g0), max_rel(b, b0))
+        check(bit_equal or rel <= 1e-6, f"shard S={S}: populations differ "
+              f"by {rel} relative")
+        # the forward's rounding at P/S rows against P rows, on the same
+        # population (S=1's)
+        with torch.no_grad():
+            full = gnn.population_logits(g0, base.feats, base.adj)
+            blocks = torch.cat([gnn.population_logits(blk, base.feats,
+                                                      base.adj)
+                                for blk in torch.tensor_split(
+                                    torch.nn.functional.pad(
+                                        g0, (0, 0, 0, algo.n_g_pad - algo.n_g)),
+                                    S)])[:algo.n_g]
+        rows.append({"S": S, "devices": devs, "placement": where,
+                     "padded_rows": [algo.n_g_pad, algo.n_b_pad],
+                     "generation_ms": ms, "launches": counts[S],
+                     "populations_bit_equal": bit_equal,
+                     "population_max_rel_diff": rel,
+                     "max_logit_diff_blocks_vs_full": float(
+                         (blocks - full).abs().max()),
+                     "mappings_identical": True})
+    # generations 4 and 5, the runs in turns: the A/B of S
+    for _ in range(2):
+        for S in SHARD_COUNTS:
+            runs[S][1].append(timed_generation(torch, runs[S][0]))
+    for r, S in zip(rows, SHARD_COUNTS):
+        check(runs[S][0].history == base.history,
+              f"shard S={S}: the timed generations diverged")
+        r["generation_ms"] = runs[S][1]
+        r["steady_generation_ms"] = float(np.mean(runs[S][1][2:]))
+        emit({"phase": "shard_population", "graph": "bert", "mode": "egrl",
+              "cards": n_cards, **r, "nvidia_smi": smi})
+    del runs
+
+    # (b) per-bucket dispatch against the serial path
+    graphs = [make() for make in zoo.WORKLOADS.values()]
+    cfg = egrl.EGRLConfig(seed=0)
+    devs, where = dispatch_devices(torch)
+    zruns, zcounts = {}, {}
+    for policy in ("async", "off"):
+        rdev.reset_launch_counts()
+        algo = egrl.ZooEGRL(graphs, cfg, mode="egrl", buckets="auto",
+                            device="cuda", pop_shards="off",
+                            dispatch=policy, devices=devs)
+        ms = [timed_generation(torch, algo) for _ in range(SHARD_GENERATIONS)]
+        zcounts[policy] = rdev.launch_counts()
+        K = algo.zoo.n_buckets
+        want = zoo_launches(K, len(graphs), SHARD_GENERATIONS,
+                            algo.learner.opt_a["t"])
+        check(zcounts[policy] == want, f"dispatch {policy}: launches "
+              f"{zcounts[policy]}, the serial path implies {want}")
+        zruns[policy] = (algo, ms)
+    (a, a_ms), (o, o_ms) = zruns["async"], zruns["off"]
+    check(a.dispatch is not None and o.dispatch is None,
+          "dispatch: async built no dispatcher, or off built one")
+    check(a.history == o.history and np.array_equal(a.best_reward,
+                                                    o.best_reward),
+          "dispatch: async rewards or fitness differ from off")
+    check(all(np.array_equal(x, y) for x, y in
+              zip(a.best_mapping, o.best_mapping)),
+          "dispatch: best mappings differ")
+    check(torch.equal(a.gnn_pop, o.gnn_pop) and torch.equal(a.bz_pop,
+                                                            o.bz_pop),
+          "dispatch: populations differ")
+    for _ in range(2):
+        for policy in ("async", "off"):
+            zruns[policy][1].append(timed_generation(torch,
+                                                     zruns[policy][0]))
+    check(a.history == o.history, "dispatch: the timed generations diverged")
+    dmap = a.dispatch.device_map()
+    bucket_ms = a.dispatch.measure(a.gnn_pop)
+    emit({"phase": "shard_dispatch", "graphs": list(a.zoo.names),
+          "buckets": [list(b.names) for b in a.zoo.buckets],
+          "devices": devs, "placement": where,
+          "device_map": dmap, "device_map_measured": a.dispatch.device_map(),
+          "measure_bucket_ms": bucket_ms,
+          "launches_async": zcounts["async"], "launches_off": zcounts["off"],
+          "bit_equal": True,
+          "generation_ms_async": a_ms, "generation_ms_off": o_ms,
+          "steady_generation_ms_async": float(np.mean(a_ms[2:])),
+          "steady_generation_ms_off": float(np.mean(o_ms[2:])),
+          "nvidia_smi": smi})
+    del zruns, a, o
+
+    # (c) the autotuned bucket count
+    dispatch._AUTOTUNE_CACHE.clear()
+    t0 = time.perf_counter()
+    k = dispatch.autotune_bucket_k(graphs, device="cuda")
+    tune_ms = (time.perf_counter() - t0) * 1e3
+    report = dispatch.autotune_report(graphs, device="cuda")
+    rdev.reset_launch_counts()
+    algo = egrl.ZooEGRL(graphs, cfg, mode="egrl", buckets="autotune",
+                        device="cuda", pop_shards="off", dispatch="off")
+    gen_ms = timed_generation(torch, algo)
+    got = rdev.launch_counts()
+    from repro_torch.graphs.bucketed import assign_buckets
+    assign = assign_buckets([g.n for g in graphs], k)
+    check(algo.zoo.graph_bucket == tuple(assign), f"autotune: the zoo's "
+          f"buckets {algo.zoo.graph_bucket} are not K={k}'s {assign}")
+    want = zoo_launches(algo.zoo.n_buckets, len(graphs), 1, 0)
+    check(got == want, f"autotune: launches {got}, want {want}")
+    check(np.isfinite(algo.history[-1]["gen_best_fitness"]),
+          "autotune: non-finite fitness")
+    emit({"phase": "shard_autotune", "chosen_k": k,
+          "buckets": [list(b.names) for b in algo.zoo.buckets],
+          "c0": report["c0"], "c1": report["c1"],
+          "predicted_ms": report["predicted_ms"], "n_dev": report["n_dev"],
+          "probe_ms": report["probe_ms"],
+          "probe_buckets": report["probe_buckets"], "autotune_ms": tune_ms,
+          "generation_ms": gen_ms, "launches": got, "nvidia_smi": smi})
+    emit({"phase_done": "shard", "seconds": time.perf_counter() - t_phase})
+    return counts[SHARD_COUNTS[-1]], zcounts["async"]
+
+
 def phase_profile(torch, egrl, zoo, mode="ea", generations=3, multi=False):
     """Device time by kernel over steady BERT generations (``multi``: of
     ``ZooEGRL`` on the 7-graph zoo, "auto" buckets) (torch.profiler),
@@ -1170,8 +1449,10 @@ def phase_profile(torch, egrl, zoo, mode="ea", generations=3, multi=False):
     generations train."""
     cfg = egrl.EGRLConfig(seed=1)
     algo = (egrl.ZooEGRL([make() for make in zoo.WORKLOADS.values()], cfg,
-                         mode=mode, buckets="auto", device="cuda") if multi
-            else egrl.EGRL(zoo.bert(), cfg, mode=mode, device="cuda"))
+                         mode=mode, buckets="auto", device="cuda",
+                         pop_shards="off", dispatch="off") if multi
+            else egrl.EGRL(zoo.bert(), cfg, mode=mode, device="cuda",
+                           pop_shards="off"))
     for _ in range(2):
         algo.generation()
     torch.cuda.synchronize()
@@ -3288,6 +3569,9 @@ def run_egrl(torch, np, rdev, gen, regs_memsim):
     zoo_runs = phase_zoo(torch, np, zoo, egrl, sim, compiler, rdev)
     zoo_counts = zoo_runs["egrl"]["launches"]
 
+    # the search across several devices
+    shard_counts, dispatch_counts = phase_shard(torch, np, zoo, egrl, rdev)
+
     # 7. Greedy-DP, the simulator's heaviest caller
     greedy = phase_greedy(torch, np, rdev, zoo, sim, compiler)
 
@@ -3311,6 +3595,10 @@ def run_egrl(torch, np, rdev, gen, regs_memsim):
          "device_ms": gat_path["device_ms"],
          **per_launch(gat_path),
          "launches_zoo_egrl": zoo_counts["gat_mp"],
+         "launches_shard": shard_counts["gat_mp"],
+         "launches_shard_from": "the BERT egrl run at 3 pop shards, 3 "
+                                "generations (memsim_evaluate_zoo's: the "
+                                "7-graph zoo's async dispatch run)",
          "per": "one population forward: 4 launches, BERT, P=16"},
         {"name": "gat_mp_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/gat_mp_bwd.cu",
@@ -3324,6 +3612,7 @@ def run_egrl(torch, np, rdev, gen, regs_memsim):
          "device_ms": bwd_path["device_ms"],
          **per_launch(bwd_path),
          "launches_zoo_egrl": zoo_counts["gat_mp_bwd"],
+         "launches_shard": shard_counts["gat_mp_bwd"],
          "per": "one SAC step: 8 calls (one CUDA launch each), BERT, B=24 "
                 "and B=1"},
         {"name": "memsim_evaluate", "route": "cuda",
@@ -3342,6 +3631,7 @@ def run_egrl(torch, np, rdev, gen, regs_memsim):
          "sm_clock_mhz": mem_path["sm_clock_mhz"],
          "latency_reward_bit_equal": mem_path["latency_reward_bit_equal"],
          "launches_zoo_egrl": zoo_counts["memsim"],
+         "launches_shard": shard_counts["memsim"],
          **regs_memsim["memsim_kernel"],
          "per": "one population: 1 launch, BERT, P=20; bound_ms is the "
                 "roofline, latency_bound_ms the dependent chain (the "
@@ -3360,6 +3650,7 @@ def run_egrl(torch, np, rdev, gen, regs_memsim):
          "latency_bound_ms": zoo_path["latency_bound_ms"],
          "bound_share": zoo_path["bound_share"],
          "single_graph_device_ms": zoo_path["single_graph_device_ms"],
+         "launches_shard": dispatch_counts["memsim_zoo"],
          **regs_memsim["memsim_zoo_kernel"],
          "per": "one bucket: 1 launch, moe_transformer + dense_cnn "
                 "(N_max 1043, W_max 126), P=20"}]
@@ -3500,7 +3791,8 @@ def main(argv=None):
     del model
     torch.cuda.empty_cache()
     encdec = timed("serve_encdec", phase_serve_encdec, torch, np, rdev)
-    placement = timed("placement", phase_placement, torch, np, rdev)  # 14
+    with one_device_env():
+        placement = timed("placement", phase_placement, torch, np, rdev)  # 14
     timed("train_check", phase_train_check, torch, rdev)   # 16
     train = timed("train", phase_train, torch, np, rdev)   # 17
     train_ssm = {arch: timed(f"train:{arch}", phase_train, torch, np, rdev,

@@ -36,6 +36,22 @@ bucket-major padded node grid ``n_eff = sum_k G_k N_max_k``.  In
 population code both classes share is ``_EvoPopulation``.
 ``evaluate_gnn_on`` / ``evaluate_gnn_zoo`` score a trained genome
 zero-shot (Figure 5).
+
+Several devices, one process (``pop_shards`` / ``REPRO_POP_SHARDS``,
+``distributed.population``): the populations are split into row blocks,
+one per shard device (``RowShards``), padded with throwaway rows where
+a sub-population does not divide the shard count.  Each shard runs the
+population forward (four ``gat_mp`` launches, per bucket in the zoo) and
+one simulator launch over its GNN and Boltzmann rows on its own device,
+against graph tensors staged there once; the EA step is
+``ea.evolve_sharded``.  Every draw stays on the primary device at the
+REAL counts and each shard receives copies of its rows' slices, so a
+seeded run does not depend on the shard count; the learner, the replay
+and the PG rollouts stay on the primary device, and the host copies
+only real rows, in the order GNN, Boltzmann, PG.  ``ZooEGRL`` may
+instead place its buckets on different devices (``dispatch`` /
+``REPRO_BUCKET_DISPATCH``, ``distributed.dispatch``); it does so only
+when the population is not sharded.
 """
 from __future__ import annotations
 
@@ -52,14 +68,19 @@ from repro_torch.core import gnn
 from repro_torch.core import params as P_
 from repro_torch.core.replay import ReplayBank, ReplayBuffer
 from repro_torch.core.sac import SACConfig, SACLearner, ZooSAC
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import (DeviceLike, normalize_device, resolve_device,
+                                same_type_devices)
+from repro_torch.distributed.dispatch import BucketDispatcher
+from repro_torch.distributed.population import (RowShards,
+                                                resolve_pop_sharding)
 from repro_torch.graphs.batch import GraphBatch
 from repro_torch.graphs.bucketed import BucketedZoo, build_bucketed_zoo
 from repro_torch.graphs.graph import WorkloadGraph
 from repro_torch.memsim.batch import (aggregate_rewards,
                                       evaluate_population_bucketed)
 from repro_torch.memsim.compiler import compiler_reference
-from repro_torch.memsim.simulator import build_sim_graph, evaluate_population
+from repro_torch.memsim.simulator import (SimGraph, build_sim_graph,
+                                          evaluate_population)
 from repro_torch.utils.envpolicy import env_policy
 
 
@@ -114,10 +135,20 @@ class ZooGenerationDraws:
 MODES = ("egrl", "ea", "pg")
 
 
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """Extend a stacked (P, ...) tensor with zero rows up to ``rows``."""
+    if x.shape[0] == rows:
+        return x
+    pad = torch.zeros((rows - x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad])
+
+
 class _EvoPopulation:
     """The population code ``EGRL`` and ``ZooEGRL`` share (JAX's
     ``_EvoPopulation``): the device and generator, the fixed population
-    split and elite counts, the stacked genome init, the EA step and the
+    split and elite counts, the stacked genome init and its placement
+    (one device, or row blocks over the pop shards), the EA step and the
     PG -> EA migration."""
 
     def _setup(self, cfg: EGRLConfig, mode: str, device: DeviceLike,
@@ -148,18 +179,64 @@ class _EvoPopulation:
             cfg.elites * self.n_g / max(cfg.pop_size, 1)))) if self.n_g else 0
         self.e_b = min(self.n_b, max(0, cfg.elites - self.e_g))
 
-    def _init_populations(self, n_features: int, bz_nodes: int):
+    def _init_populations(self, n_features: int, bz_nodes: int, pop_shards,
+                          devices):
         """Stacked genomes from ``self.gen``: GNN (n_g, V) flat
         parameters, then Boltzmann (n_b, F) flats over ``bz_nodes`` node
-        slots."""
+        slots; then their placement: one tensor on the device, or, per
+        the ``distributed.population`` policy over ``devices`` (default:
+        every visible device of ``self.device``'s type), row blocks over the
+        pop shards, padded with zero rows where a sub-population does
+        not divide the shard count."""
         self.genome_size = P_.genome_size(P_.gnn_spec(n_features))
-        self.gnn_pop = (torch.stack([P_.init_gnn(self.gen, n_features)
-                                     for _ in range(self.n_g)])
-                        if self.n_g else
-                        torch.zeros((0, self.genome_size), device=self.device))
-        self.bz_pop = (torch.stack([bz.to_flat(*bz.init_boltzmann(
+        gnn_pop = (torch.stack([P_.init_gnn(self.gen, n_features)
+                                for _ in range(self.n_g)])
+                   if self.n_g else
+                   torch.zeros((0, self.genome_size), device=self.device))
+        bz_pop = (torch.stack([bz.to_flat(*bz.init_boltzmann(
             self.gen, bz_nodes)) for _ in range(self.n_b)]) if self.n_b else
             torch.zeros((0, bz.flat_size(bz_nodes)), device=self.device))
+        self.devices = same_type_devices(devices, self.device)
+        self.pop_sharding = resolve_pop_sharding(
+            self.n_g, self.n_b, pop_shards, devices=self.devices)
+        self.n_g_pad, self.n_b_pad = self.pop_sharding.padded(self.n_g,
+                                                              self.n_b)
+        self.gnn_pop = self.pop_sharding.put(_pad_rows(gnn_pop, self.n_g_pad))
+        self.bz_pop = self.pop_sharding.put(_pad_rows(bz_pop, self.n_b_pad))
+
+    # --------------------------------------------------------- shards
+    def _shards(self) -> List[Tuple[torch.Tensor, torch.Tensor,
+                                    torch.device]]:
+        """(GNN block, Boltzmann block, device) per pop shard; the whole
+        populations on ``self.device`` when unsharded."""
+        if not self.pop_sharding.active:
+            return [(self.gnn_pop, self.bz_pop, self.device)]
+        return list(zip(self.gnn_pop.parts, self.bz_pop.parts,
+                        self.pop_sharding.devices))
+
+    def _shard_rows(self, x: torch.Tensor, s: int, pop) -> torch.Tensor:
+        """Shard ``s``'s rows of ``x`` (a draw over the REAL rows of the
+        sub-population held by ``pop``), on its device; its padding rows
+        draw zeros.  ``x`` itself when unsharded."""
+        if not isinstance(pop, RowShards):
+            return x
+        lo, hi = pop.offsets[s], pop.offsets[s + 1]
+        real = x[min(lo, x.shape[0]):min(hi, x.shape[0])]
+        return _pad_rows(real, hi - lo).to(pop.parts[s].device)
+
+    def _real_rows(self, per_shard: Sequence[torch.Tensor]) -> np.ndarray:
+        """Host copy of the real rows of per-shard (GNN block rows +
+        Boltzmann block rows, ...) tensors, GNN rows first."""
+        arrs = [x.cpu().numpy() for x in per_shard]
+        rg = [g.shape[0] for g, _, _ in self._shards()]
+        g = np.concatenate([a[:r] for a, r in zip(arrs, rg)])[:self.n_g]
+        b = np.concatenate([a[r:] for a, r in zip(arrs, rg)])[:self.n_b]
+        return np.concatenate([g, b])
+
+    def _row0(self) -> torch.Tensor:
+        """GNN row 0 (the top elite after a generation), from shard 0."""
+        pop = self.gnn_pop
+        return (pop.block(0) if isinstance(pop, RowShards) else pop)[0]
 
     def _draw_evolve(self, n_nodes: int) -> ea_mod.EvolveDraws:
         return ea_mod.draw_evolve(
@@ -167,16 +244,26 @@ class _EvoPopulation:
             genome_size=self.genome_size, n_nodes=n_nodes,
             tournament_k=self.cfg.tournament_k)
 
-    def _evolve(self, fitness: torch.Tensor, logits_g: torch.Tensor,
+    def _evolve(self, fitness: Sequence[torch.Tensor],
+                logits_g: Sequence[torch.Tensor],
                 draws: ea_mod.EvolveDraws, n_nodes: int):
-        """One EA step on the population's fitness (GNN rows first)."""
+        """One EA step on the population's fitness, per shard (GNN rows
+        first) with the shard's GNN posteriors."""
         cfg = self.cfg
-        self.gnn_pop, self.bz_pop = ea_mod.evolve(
-            self.gnn_pop, fitness[:self.n_g], self.bz_pop,
-            fitness[self.n_g:], logits_g, draws, n_nodes=n_nodes,
-            e_g=self.e_g, e_b=self.e_b, crossover_prob=cfg.crossover_prob,
-            mut_prob=cfg.mut_prob, mut_frac=cfg.mut_frac,
-            mut_std=cfg.mut_std)
+        kw = dict(n_nodes=n_nodes, e_g=self.e_g, e_b=self.e_b,
+                  crossover_prob=cfg.crossover_prob, mut_prob=cfg.mut_prob,
+                  mut_frac=cfg.mut_frac, mut_std=cfg.mut_std)
+        if not self.pop_sharding.active:
+            self.gnn_pop, self.bz_pop = ea_mod.evolve(
+                self.gnn_pop, fitness[0][:self.n_g], self.bz_pop,
+                fitness[0][self.n_g:], logits_g[0], draws, **kw)
+            return
+        rg = [g.shape[0] for g, _, _ in self._shards()]
+        self.gnn_pop, self.bz_pop = ea_mod.evolve_sharded(
+            self.pop_sharding, self.gnn_pop,
+            RowShards([f[:r] for f, r in zip(fitness, rg)]), self.bz_pop,
+            RowShards([f[r:] for f, r in zip(fitness, rg)]),
+            RowShards(logits_g), draws, n_g=self.n_g, n_b=self.n_b, **kw)
 
     # ------------------------------------------------------- warm start
     def _to_device(self, x) -> torch.Tensor:
@@ -204,13 +291,14 @@ class _EvoPopulation:
         (JAX's ``_EvoPopulation.warm_start``).  GNN row 0 becomes
         ``vec`` exactly, the next ``round(gnn_frac * n_g) - 1`` rows
         noisy copies ``vec + noise_std * gnn_noise``, the rest keep their
-        init; every Boltzmann genome is re-seeded from ``logits``
+        init; every real Boltzmann genome is re-seeded from ``logits``
         (default: the prior's posterior, ``prior_logits(vec)``) by
         ``bz.seed_from_logits`` at temperature ``t_init``.
 
         The draws are explicit: ``gnn_noise`` (n_seed - 1, V) and
         ``bz_noise`` (n_b, grid, 2) standard normals, drawn from the
-        driver's generator in that order when not given."""
+        generator ``self.gen`` in that order when not given.  A sharded
+        population is written through its blocks; padding rows stay."""
         vec = self._to_device(vec)
         if self.n_g:
             n_seed = max(1, int(round(gnn_frac * self.n_g)))
@@ -219,7 +307,10 @@ class _EvoPopulation:
                                         generator=self.gen,
                                         device=self.device)
             rows = torch.cat([vec[None], vec + noise_std * gnn_noise])
-            self.gnn_pop = torch.cat([rows, self.gnn_pop[n_seed:]])
+            if isinstance(self.gnn_pop, RowShards):
+                self.gnn_pop.write(0, rows)
+            else:
+                self.gnn_pop = torch.cat([rows, self.gnn_pop[n_seed:]])
         if self.n_b:
             if logits is None:
                 with torch.no_grad():
@@ -230,22 +321,33 @@ class _EvoPopulation:
                 bz_noise = torch.randn((self.n_b,) + logits.shape[:-1],
                                        generator=self.gen,
                                        device=self.device)
-            self.bz_pop = torch.stack([
+            rows = torch.stack([
                 bz.to_flat(*bz.seed_from_logits(logits, noise, t_init))
                 for noise in bz_noise])
+            if isinstance(self.bz_pop, RowShards):
+                self.bz_pop.write(0, rows)
+            else:
+                self.bz_pop = rows
 
     def _migrate(self):
-        """In "egrl" mode the actor's weights replace the last GNN genome,
-        the lowest-ranked child; when every GNN slot is an elite, elitism
-        wins."""
+        """In "egrl" mode the actor's weights replace the last real GNN
+        genome, the lowest-ranked child (on the shard that owns it);
+        when every GNN slot is an elite, elitism wins."""
         if self.mode == "egrl" and self.n_g > self.e_g:
-            self.gnn_pop[self.n_g - 1] = self.learner.actor
+            if isinstance(self.gnn_pop, RowShards):
+                self.gnn_pop.write(self.n_g - 1, self.learner.actor[None])
+            else:
+                self.gnn_pop[self.n_g - 1] = self.learner.actor
 
 
 class EGRL(_EvoPopulation):
     def __init__(self, graph: WorkloadGraph, cfg: EGRLConfig = EGRLConfig(),
                  mode: str = "egrl", device: DeviceLike = "cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 pop_shards=None, devices=None):
+        """``pop_shards`` overrides ``REPRO_POP_SHARDS`` (an int, "auto"
+        or "off"); ``devices`` lists the devices to shard over (default:
+        every visible device of ``device``'s type; one may repeat)."""
         self._setup(cfg, mode, device, generator)
         self.g = graph
         self.feats = torch.as_tensor(graph.features(), device=self.device)
@@ -254,7 +356,12 @@ class EGRL(_EvoPopulation):
         _, self.ref_latency = compiler_reference(graph, self.device)
 
         self._split_population()
-        self._init_populations(self.feats.shape[1], graph.n)
+        self._init_populations(self.feats.shape[1], graph.n, pop_shards,
+                               devices)
+        # the graph's tensors, staged once on each shard's device
+        self._staged = {}
+        for _, _, dev in self._shards():
+            self._graph_on(dev)
         self.learner = SACLearner(
             self.feats, self.adj, cfg.sac,
             torch.Generator(self.device).manual_seed(cfg.seed + 1))
@@ -264,6 +371,14 @@ class EGRL(_EvoPopulation):
         self.best_reward = -np.inf
         self.best_mapping: Optional[np.ndarray] = None
         self.history: List[Dict] = []
+
+    def _graph_on(self, dev) -> Tuple[torch.Tensor, torch.Tensor, SimGraph]:
+        """(feats, mask, SimGraph) on ``dev``, copied there once."""
+        key = normalize_device(dev)
+        if key not in self._staged:
+            self._staged[key] = (self.feats.to(key), self.adj.to(key),
+                                 SimGraph(*(x.to(key) for x in self.sg)))
+        return self._staged[key]
 
     # --------------------------------------------------------- generation
     def draw_generation(self) -> GenerationDraws:
@@ -290,28 +405,54 @@ class EGRL(_EvoPopulation):
         cfg = self.cfg
         d = self.draw_generation() if draws is None else draws
         n, n_pop = self.g.n, self.n_g + self.n_b
-        parts = []                       # (mappings, simulator result)
-        logits_g = (gnn.population_logits(self.gnn_pop, self.feats, self.adj)
-                    if self.n_g else
-                    torch.zeros((0, n, 2, 3), device=self.device))
+        shards = self._shards()
+        logits_g, maps_g, maps_b, pop_maps, pop_res = [], [], [], [], []
         if n_pop:
-            maps_g = gnn.sample_actions(logits_g, d.gumbel_g)
-            maps_b = bz.sample(bz.from_flat(self.bz_pop, n), d.gumbel_b)
-            maps = torch.cat([maps_g, maps_b]).contiguous()
-            parts.append((maps, evaluate_population(
-                self.sg, maps, self.ref_latency, cfg.reward_scale)))
+            with obs.span("rollout.gnn", rows=self.n_g):
+                for s, (g, _, dev) in enumerate(shards):
+                    feats, adj, _ = self._graph_on(dev)
+                    lg = (gnn.population_logits(g, feats, adj) if self.n_g
+                          else torch.zeros((0, n, 2, 3), device=dev))
+                    logits_g.append(lg)
+                    maps_g.append(gnn.sample_actions(lg, self._shard_rows(
+                        d.gumbel_g, s, self.gnn_pop)))
+            with obs.span("rollout.boltzmann", rows=self.n_b):
+                for s, (_, b, _) in enumerate(shards):
+                    maps_b.append(bz.sample(bz.from_flat(b, n),
+                                            self._shard_rows(d.gumbel_b, s,
+                                                             self.bz_pop)))
         if self.mode != "ea":
-            maps = self.learner.explore_actions(cfg.pg_rollouts,
-                                                d.gumbel_pg).contiguous()
-            parts.append((maps, evaluate_population(
-                self.sg, maps, self.ref_latency, cfg.reward_scale)))
+            with obs.span("rollout.pg", rows=cfg.pg_rollouts):
+                maps_pg = self.learner.explore_actions(
+                    cfg.pg_rollouts, d.gumbel_pg).contiguous()
+        with obs.span("evaluate", parts=len(shards) * (n_pop > 0)
+                      + (self.mode != "ea")):
+            # one simulator launch per shard over its GNN and Boltzmann
+            # rows, on its device
+            for mg, mb, (_, _, dev) in zip(maps_g, maps_b, shards):
+                pop_maps.append(torch.cat([mg, mb]).contiguous())
+                pop_res.append(evaluate_population(
+                    self._graph_on(dev)[2], pop_maps[-1], self.ref_latency,
+                    cfg.reward_scale))
+            if self.mode != "ea":
+                res_pg = evaluate_population(self.sg, maps_pg,
+                                             self.ref_latency,
+                                             cfg.reward_scale)
         if n_pop:
-            self._evolve(parts[0][1]["reward"], logits_g, d.evolve, n)
+            self._evolve([r["reward"] for r in pop_res], logits_g, d.evolve,
+                         n)
 
-        # host copies, once the generation's device work is queued
-        rewards = torch.cat([r["reward"] for _, r in parts]).cpu().numpy()
-        maps_np = torch.cat([m for m, _ in parts]).cpu().numpy()
-        valid = torch.cat([r["valid"] for _, r in parts]).cpu().numpy()
+        # host copies of the real rows, once the generation's device
+        # work is queued: GNN, Boltzmann, then PG
+        parts = [(self._real_rows(pop_maps),
+                  self._real_rows([r["reward"] for r in pop_res]),
+                  self._real_rows([r["valid"] for r in pop_res]))] \
+            if n_pop else []
+        if self.mode != "ea":
+            parts.append((maps_pg.cpu().numpy(),
+                          res_pg["reward"].cpu().numpy(),
+                          res_pg["valid"].cpu().numpy()))
+        maps_np, rewards, valid = (np.concatenate(x) for x in zip(*parts))
         self.steps += len(maps_np)
         self.buffer.add_batch(maps_np, rewards)
         gen_best = int(np.argmax(rewards))
@@ -357,18 +498,20 @@ class EGRL(_EvoPopulation):
         GNN, else the SAC actor, else (Boltzmann-only "ea" mode) the best
         Boltzmann prior."""
         if self.n_g:
-            return gnn.population_logits(self.gnn_pop[:1], self.feats,
-                                         self.adj)[0]
+            return gnn.population_logits(self._row0()[None].to(self.device),
+                                         self.feats, self.adj)[0]
         if self.mode != "ea":
             return self.learner.policy_logits()
-        return bz.boltzmann_logits(bz.from_flat(self.bz_pop[0], self.g.n))
+        bz0 = (self.bz_pop.block(0) if isinstance(self.bz_pop, RowShards)
+               else self.bz_pop)[0].to(self.device)
+        return bz.boltzmann_logits(bz.from_flat(bz0, self.g.n))
 
     def best_gnn_vec(self) -> np.ndarray:
         """Flat params of the best GNN (row 0 is the top elite after a
         generation; before any generation, an arbitrary init member), or
         the SAC actor's when the population holds no GNN genome."""
         if self.n_g:
-            return self.gnn_pop[0].cpu().numpy()
+            return self._row0().cpu().numpy()
         return self.learner.actor.cpu().numpy()
 
 
@@ -383,18 +526,24 @@ class ZooEGRL(_EvoPopulation):
                  fitness_agg: Optional[str] = None,
                  zoo: Optional[BucketedZoo] = None, buckets=None,
                  device: DeviceLike = "cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 pop_shards=None, dispatch=None, devices=None):
         """``zoo`` reuses a prebuilt ``BucketedZoo`` (or a flat
         ``GraphBatch``, one bucket) on ``device``; ``buckets`` overrides
-        ``REPRO_ZOO_BUCKETS`` ("auto" / "off" / K); ``fitness_agg``
-        overrides ``REPRO_FITNESS_AGG`` ("mean" / "worst")."""
+        ``REPRO_ZOO_BUCKETS`` ("auto" / "off" / K / "autotune");
+        ``fitness_agg`` overrides ``REPRO_FITNESS_AGG`` ("mean" /
+        "worst"); ``pop_shards`` overrides ``REPRO_POP_SHARDS`` and
+        ``dispatch`` ``REPRO_BUCKET_DISPATCH`` ("auto" / "off" /
+        "async"); ``devices`` lists the devices to spread over (default:
+        every visible device of ``device``'s type; one may repeat)."""
         self._setup(cfg, mode, device, generator)
         self.agg = env_policy("REPRO_FITNESS_AGG", choices=("mean", "worst"),
                               default="mean", override=fitness_agg)
         if isinstance(zoo, GraphBatch):
             zoo = BucketedZoo.from_batch(zoo)
         self.zoo = (zoo if zoo is not None
-                    else build_bucketed_zoo(graphs, buckets, self.device))
+                    else build_bucketed_zoo(graphs, buckets, self.device,
+                                            devices))
         if self.zoo.device.type != self.device.type:
             raise ValueError(f"zoo on {self.zoo.device}, the search on "
                              f"{self.device}")
@@ -407,7 +556,31 @@ class ZooEGRL(_EvoPopulation):
                              for b in self.zoo.buckets])])
 
         self._split_population()
-        self._init_populations(self.zoo.n_features, self.n_eff)
+        self._init_populations(self.zoo.n_features, self.n_eff, pop_shards,
+                               devices)
+        sharding = self.pop_sharding
+        # wide layout (2-D ("pop", "model") mesh): the buckets whose
+        # forward is within 2x of the costliest (G * N^2) split each pop
+        # block's rows over its grid row; the others run on the block's
+        # device
+        if sharding.active and sharding.model_shards > 1:
+            costs = [b.n_graphs * b.n_max ** 2 for b in self.zoo.buckets]
+            self._wide_bucket = tuple(c * 2 >= max(costs) for c in costs)
+        else:
+            self._wide_bucket = (False,) * self.zoo.n_buckets
+        # the zoo's tensors, staged once on each device the shards use
+        self._staged = {}
+        if sharding.active:
+            for devs in sharding.wide_devices:
+                for dev in devs:
+                    self._zoo_on(dev)
+        # bucket-parallel dispatch, only when the population is not
+        # sharded (either/or, as in the JAX package)
+        self.dispatch: Optional[BucketDispatcher] = None
+        if not sharding.active:
+            dsp = BucketDispatcher(self.zoo, policy=dispatch,
+                                   devices=self.devices)
+            self.dispatch = dsp if dsp.active else None
         if mode == "ea":
             self.learner, self.bank = None, None
         else:
@@ -422,6 +595,16 @@ class ZooEGRL(_EvoPopulation):
         self.best_fitness = -np.inf
         self.history: List[Dict] = []
 
+    def _zoo_on(self, dev) -> Tuple[BucketedZoo, Tuple[torch.Tensor, ...]]:
+        """(the zoo, its bucket masks) on ``dev``, copied there once."""
+        key = normalize_device(dev)
+        if key == normalize_device(self.zoo.device):
+            return self.zoo, self.masks
+        if key not in self._staged:
+            z = self.zoo.to(key)
+            self._staged[key] = (z, tuple(b.adj > 0 for b in z.buckets))
+        return self._staged[key]
+
     def _split_grid(self, flat: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """(R, n_eff, ...) over the bucket-major grid -> per bucket
         (R, G_k, N_max_k, ...)."""
@@ -432,10 +615,32 @@ class ZooEGRL(_EvoPopulation):
 
     def population_logits(self, pop: torch.Tensor
                           ) -> Tuple[torch.Tensor, ...]:
-        """(P, V) genomes -> per bucket (P, G_k, N_max_k, 2, 3)."""
+        """(P, V) genomes -> per bucket (P, G_k, N_max_k, 2, 3), on
+        ``pop``'s device."""
+        z, masks = self._zoo_on(pop.device)
         return tuple(gnn.population_logits_zoo(pop, b.feats, mask,
                                                b.node_mask, b.n_nodes)
-                     for b, mask in zip(self.zoo.buckets, self.masks))
+                     for b, mask in zip(z.buckets, masks))
+
+    def _shard_logits(self, s: int, g: torch.Tensor, wide
+                      ) -> Tuple[torch.Tensor, ...]:
+        """Per bucket, the logits of shard ``s``'s GNN block ``g`` on its
+        device; a wide bucket runs on the block's row split over the
+        grid row (``wide[s]``) and gathers the pieces back."""
+        if not any(self._wide_bucket):
+            return self.population_logits(g)
+        out = []
+        for k, b in enumerate(self.zoo.buckets):
+            pieces = wide[s].parts if self._wide_bucket[k] else (g,)
+            lg = []
+            for piece in pieces:
+                z, masks = self._zoo_on(piece.device)
+                bk = z.buckets[k]
+                lg.append(gnn.population_logits_zoo(
+                    piece, bk.feats, masks[k], bk.node_mask,
+                    bk.n_nodes).to(g.device))
+            out.append(torch.cat(lg) if len(lg) > 1 else lg[0])
+        return tuple(out)
 
     # --------------------------------------------------------- generation
     def draw_generation(self) -> ZooGenerationDraws:
@@ -462,36 +667,88 @@ class ZooEGRL(_EvoPopulation):
         cfg = self.cfg
         d = self.draw_generation() if draws is None else draws
         zoo, n_g, n_pop = self.zoo, self.n_g, self.n_g + self.n_b
-        parts = []                # (per-bucket mappings, simulator result)
-        logits_g = (self.population_logits(self.gnn_pop) if n_g else
-                    tuple(torch.zeros((0, b.n_graphs, b.n_max, 2, 3),
-                                      device=self.device)
-                          for b in zoo.buckets))
+        dsp = self.dispatch
+        shards = self._shards()
+        logits_g, maps_g, maps_b, pop_maps, pop_res = [], [], [], [], []
         if n_pop:
-            maps_b = self._split_grid(bz.sample(
-                bz.from_flat(self.bz_pop, self.n_eff), d.gumbel_b))
-            maps = tuple(torch.cat([gnn.sample_actions(lg, gg), mb])
-                         .contiguous()
-                         for lg, gg, mb in zip(logits_g, d.gumbel_g, maps_b))
-            parts.append((maps, evaluate_population_bucketed(
-                zoo, maps, cfg.reward_scale)))
+            with obs.span("rollout.gnn", rows=n_g, dispatch=dsp is not None):
+                if n_g and dsp is not None:
+                    # per-bucket forwards on their own devices; the
+                    # logits come back to the primary device for the EA
+                    # step's bucket-major grid
+                    lg_dev = dsp.forward(self.gnn_pop)
+                    maps_g.append(dsp.sample(d.gumbel_g, lg_dev))
+                    logits_g.append(tuple(dsp.pull(lg_dev)))
+                else:
+                    wide = (self.pop_sharding.put_wide(self.gnn_pop)
+                            if any(self._wide_bucket) else None)
+                    for s, (g, _, dev) in enumerate(shards):
+                        lg = (self._shard_logits(s, g, wide) if n_g else
+                              tuple(torch.zeros((g.shape[0], b.n_graphs,
+                                                 b.n_max, 2, 3), device=dev)
+                                    for b in zoo.buckets))
+                        logits_g.append(lg)
+                        maps_g.append(tuple(
+                            gnn.sample_actions(l, self._shard_rows(
+                                gg, s, self.gnn_pop))
+                            for l, gg in zip(lg, d.gumbel_g)))
+            with obs.span("rollout.boltzmann", rows=self.n_b):
+                for s, (_, b, _) in enumerate(shards):
+                    maps_b.append(self._split_grid(bz.sample(
+                        bz.from_flat(b, self.n_eff),
+                        self._shard_rows(d.gumbel_b, s, self.bz_pop))))
         if self.mode != "ea":
-            maps = tuple(m.contiguous() for m in self.learner.explore_actions(
-                cfg.pg_rollouts, d.gumbel_pg))
-            parts.append((maps, evaluate_population_bucketed(
-                zoo, maps, cfg.reward_scale)))
-        fit = [aggregate_rewards(r["reward"], self.agg) for _, r in parts]
+            with obs.span("rollout.pg", rows=cfg.pg_rollouts):
+                maps_pg = tuple(m.contiguous() for m in
+                                self.learner.explore_actions(
+                                    cfg.pg_rollouts, d.gumbel_pg))
+        with obs.span("evaluate", parts=len(shards) * (n_pop > 0)
+                      + (self.mode != "ea"), buckets=zoo.n_buckets,
+                      dispatch=dsp is not None):
+            # per shard, one simulator launch a bucket over its GNN and
+            # Boltzmann rows, on its device (the bucket's, dispatched)
+            for mg, mb, (_, _, dev) in zip(maps_g, maps_b, shards):
+                maps = tuple(torch.cat([g, b.to(g.device)]).contiguous()
+                             for g, b in zip(mg, mb))
+                pop_maps.append(maps)
+                pop_res.append(
+                    dsp.evaluate(maps, cfg.reward_scale) if dsp is not None
+                    else evaluate_population_bucketed(
+                        self._zoo_on(dev)[0], maps, cfg.reward_scale))
+            if self.mode != "ea":
+                res_pg = (dsp.evaluate(maps_pg, cfg.reward_scale)
+                          if dsp is not None else
+                          evaluate_population_bucketed(zoo, maps_pg,
+                                                       cfg.reward_scale))
+        fit = [aggregate_rewards(r["reward"], self.agg) for r in pop_res]
         if n_pop:
-            # Boltzmann seeding grid: bucket-major (n_g, n_eff, 2, 3)
-            grid = torch.cat([lg.reshape(n_g, -1, 2, 3) for lg in logits_g],
-                             dim=1)
-            self._evolve(fit[0], grid, d.evolve, self.n_eff)
+            # Boltzmann seeding grid: bucket-major (rows, n_eff, 2, 3)
+            grid = [torch.cat([l.reshape(l.shape[0], -1, 2, 3) if l.numel()
+                               else l.new_zeros((l.shape[0],
+                                                 l.shape[1] * l.shape[2],
+                                                 2, 3)) for l in lg], dim=1)
+                    for lg in logits_g]
+            self._evolve(fit, grid, d.evolve, self.n_eff)
 
-        # host copies, once the generation's device work is queued
-        rewards = torch.cat([r["reward"] for _, r in parts]).cpu().numpy()
-        fitness = torch.cat(fit).cpu().numpy()
-        valid = torch.cat([r["valid"] for _, r in parts]).cpu().numpy()
-        maps_np = [torch.cat([m[k] for m, _ in parts]).cpu().numpy()
+        # host copies of the real rows, once the generation's device
+        # work is queued: GNN, Boltzmann, then PG
+        parts = []                  # (rewards, fitness, valid, maps by bucket)
+        if n_pop:
+            parts.append((
+                self._real_rows([r["reward"] for r in pop_res]),
+                self._real_rows(fit),
+                self._real_rows([r["valid"] for r in pop_res]),
+                [self._real_rows([m[k] for m in pop_maps])
+                 for k in range(zoo.n_buckets)]))
+        if self.mode != "ea":
+            parts.append((res_pg["reward"].cpu().numpy(),
+                          aggregate_rewards(res_pg["reward"],
+                                            self.agg).cpu().numpy(),
+                          res_pg["valid"].cpu().numpy(),
+                          [m.cpu().numpy() for m in maps_pg]))
+        rewards, fitness, valid = (np.concatenate([p[i] for p in parts])
+                                   for i in range(3))
+        maps_np = [np.concatenate([p[3][k] for p in parts])
                    for k in range(zoo.n_buckets)]     # (R, G_k, N_max_k, 2)
         self.steps += rewards.size          # one per (genome, graph)
         acts_by_graph = [maps_np[zoo.graph_bucket[gi]][:, zoo.graph_slot[gi]]
@@ -544,7 +801,7 @@ class ZooEGRL(_EvoPopulation):
         """Flat params of the best GNN after a generation (row 0), else
         the ZooSAC actor's ("pg" mode), else None."""
         if self.n_g:
-            return self.gnn_pop[0].cpu().numpy()
+            return self._row0().cpu().numpy()
         if self.learner is not None:
             return self.learner.actor.cpu().numpy()
         return None

@@ -1,4 +1,5 @@
-"""Device resolution and the kernels' launch counters.
+"""Device resolution, the device lists of a search over several devices,
+and the kernels' launch counters.
 
 There is no silent fallback: a request for CUDA on a machine without it
 raises, and only an explicit ``device="cpu"`` runs the plain PyTorch
@@ -7,7 +8,7 @@ versions of the kernels.
 from __future__ import annotations
 
 import threading
-from typing import Dict, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 
@@ -27,6 +28,45 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def normalize_device(device: DeviceLike) -> torch.device:
+    """``torch.device`` with an explicit index for CUDA ("cuda" is the
+    current card), so two names of one card compare equal."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def visible_devices(devices: Optional[Sequence[DeviceLike]] = None
+                    ) -> List[torch.device]:
+    """``devices`` normalized, or by default every visible CUDA device
+    (the CPU alone on a host without one)."""
+    if devices is None:
+        if torch.cuda.is_available():
+            return [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+        return [torch.device("cpu")]
+    return [normalize_device(d) for d in devices]
+
+
+def same_type_devices(devices: Optional[Sequence[DeviceLike]],
+                      primary: DeviceLike) -> List[torch.device]:
+    """``devices`` normalized, by default every visible CUDA device for a
+    search on a card and the CPU alone for one on the CPU; raises when
+    one is not of ``primary``'s type: a CUDA search never moves a shard
+    or a bucket to the CPU, nor a CPU one to a card."""
+    dev = normalize_device(primary)
+    if devices is None:
+        devs = [dev] if dev.type == "cpu" else visible_devices()
+    else:
+        devs = visible_devices(devices)
+    bad = [d for d in devs if d.type != dev.type]
+    if bad:
+        raise ValueError(f"devices {bad} are not of the search's device type "
+                         f"({dev.type})")
+    return devs
 
 
 def count_launch(fn, attr: str = "launches") -> None:

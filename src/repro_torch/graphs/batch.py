@@ -25,7 +25,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, normalize_device, resolve_device
 from repro_torch.graphs.graph import WorkloadGraph
 from repro_torch.memsim import tiers as T
 from repro_torch.memsim.simulator import (SimGraph, build_release_idx,
@@ -67,6 +67,16 @@ class GraphBatch:
     @property
     def device(self) -> torch.device:
         return self.node_mask.device
+
+    def to(self, device: DeviceLike) -> "GraphBatch":
+        """This batch on ``device`` (itself when it is there already)."""
+        dev = normalize_device(device)
+        if dev == normalize_device(self.device):
+            return self
+        return dataclasses.replace(
+            self, sim=SimGraph(*(x.to(dev) for x in self.sim)),
+            **{f: getattr(self, f).to(dev) for f in
+               ("node_mask", "n_nodes", "ref_latency", "feats", "adj")})
 
     def graph_sim(self, i: int) -> SimGraph:
         """The i-th graph's padded SimGraph slice."""

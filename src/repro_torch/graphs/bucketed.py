@@ -15,7 +15,10 @@ Bucketing policy (``REPRO_ZOO_BUCKETS``, or the ``buckets`` argument of
   graph n lands in band ``floor(log2(n_max / n))``;
 - an integer K: ``[n_min, n_max]`` split into K geometric intervals,
   empty ones dropped;
-- ``"off"``: one bucket, the arrays of ``build_graph_batch``.
+- ``"off"``: one bucket, the arrays of ``build_graph_batch``;
+- ``"autotune"``: the K whose predicted makespan over the visible
+  devices is smallest, from per-bucket times measured on the octave
+  bucketing (``distributed.dispatch.autotune_bucket_k``).
 
 Buckets are ordered by ascending ``N_max_k``; within a bucket graphs
 keep their zoo order.  The JAX package's per-bucket PRNG plumbing
@@ -26,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -39,18 +42,13 @@ from repro_torch.utils.envpolicy import env_policy
 
 def resolve_bucket_policy(override: Union[str, int, None] = None
                           ) -> Union[str, int]:
-    """``REPRO_ZOO_BUCKETS`` -> "auto" | "off" | int >= 1, fail-loud.
-    "autotune" is a valid value of the JAX package whose time model is
-    multi-device; here it raises."""
-    policy = env_policy("REPRO_ZOO_BUCKETS",
-                        choices=("auto", "off", "autotune"),
-                        default="auto", override=override, int_ok=True)
-    if policy == "autotune":
-        raise ValueError(
-            "REPRO_ZOO_BUCKETS=autotune picks K from the multi-device "
-            "dispatcher's time model, which waits for the multi-device "
-            "port (ROADMAP item 8); use 'auto', 'off' or an integer K")
-    return policy
+    """``REPRO_ZOO_BUCKETS`` -> "auto" | "off" | "autotune" | int >= 1,
+    fail-loud.  "autotune" picks K from a measured per-bucket time model
+    (``distributed.dispatch``) and is resolved by ``build_bucketed_zoo``:
+    it needs the graphs, not just their sizes."""
+    return env_policy("REPRO_ZOO_BUCKETS",
+                      choices=("auto", "off", "autotune"),
+                      default="auto", override=override, int_ok=True)
 
 
 def assign_buckets(sizes: Sequence[int],
@@ -58,6 +56,11 @@ def assign_buckets(sizes: Sequence[int],
     """Bucket id per graph (ids dense, 0..K-1, ascending bucket size); a
     pure function of the node counts and the resolved policy."""
     policy = resolve_bucket_policy(policy)
+    if policy == "autotune":
+        raise ValueError(
+            "REPRO_ZOO_BUCKETS=autotune needs the graphs (it measures "
+            "per-bucket times) — call build_bucketed_zoo, which resolves "
+            "autotune to a concrete K before assigning")
     n = len(sizes)
     if n == 0:
         raise ValueError("empty zoo")
@@ -158,6 +161,13 @@ class BucketedZoo:
             out.append(torch.index_select(maps, -3, idx)[..., :b.n_max, :])
         return tuple(out)
 
+    def to(self, device: DeviceLike) -> "BucketedZoo":
+        """This zoo on ``device`` (itself when it is there already)."""
+        buckets = tuple(b.to(device) for b in self.buckets)
+        if all(a is b for a, b in zip(buckets, self.buckets)):
+            return self
+        return dataclasses.replace(self, buckets=buckets)
+
     @classmethod
     def from_batch(cls, gb: GraphBatch) -> "BucketedZoo":
         """A flat GraphBatch as a single-bucket zoo (shared, not
@@ -169,13 +179,24 @@ class BucketedZoo:
 
 def build_bucketed_zoo(graphs: Sequence[WorkloadGraph],
                        buckets: Union[str, int, None] = None,
-                       device: DeviceLike = "cuda") -> BucketedZoo:
+                       device: DeviceLike = "cuda",
+                       devices: Optional[Sequence[DeviceLike]] = None
+                       ) -> BucketedZoo:
     """Bucket ``graphs`` by node count (policy: ``buckets``, else
     ``REPRO_ZOO_BUCKETS``) and build one GraphBatch per bucket on
-    ``device``, each padded only to its own (N_max_k, W_max_k)."""
+    ``device``, each padded only to its own (N_max_k, W_max_k).  The
+    "autotune" policy measures a per-bucket time model on ``device``
+    first and resolves to the K whose predicted makespan over
+    ``devices`` (default: every visible device of ``device``'s type) is
+    smallest."""
     if not graphs:
         raise ValueError("empty zoo")
-    assign = assign_buckets([g.n for g in graphs], buckets)
+    policy = resolve_bucket_policy(buckets)
+    if policy == "autotune":
+        # imported here: the dispatch module imports this one
+        from repro_torch.distributed.dispatch import autotune_bucket_k
+        policy = autotune_bucket_k(graphs, device=device, devices=devices)
+    assign = assign_buckets([g.n for g in graphs], policy)
     n_buckets = max(assign) + 1
     per_bucket = [[g for g, a in zip(graphs, assign) if a == k]
                   for k in range(n_buckets)]

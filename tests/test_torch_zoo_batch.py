@@ -141,9 +141,26 @@ def test_env_policy_raises_like_jax(value, monkeypatch):
         jbucketed.resolve_bucket_policy()
 
 
-def test_autotune_waits_for_the_multi_device_port():
-    with pytest.raises(ValueError, match="multi-device port"):
-        bucketed.build_bucketed_zoo([zoo.resnet50()], "autotune",
-                                    device="cpu")
+def test_autotune_builds_the_k_it_chose(monkeypatch):
+    """A zoo built with "autotune" is bucketed by the K that
+    ``autotune_bucket_k`` chose from its (here fixed) probe times."""
+    from repro_torch.distributed import dispatch
+
+    def probe(z, **kw):
+        return {k: 0.5 + 2e-6 * b.n_graphs * b.n_max ** 2
+                for k, b in enumerate(z.buckets)}
+    monkeypatch.setattr(dispatch, "_probe_bucket_ms", probe)
+    monkeypatch.setattr(dispatch, "_AUTOTUNE_CACHE", {})
+    monkeypatch.setattr(dispatch, "_AUTOTUNE_REPORT", {})
+    graphs = [zoo.resnet50(), zoo.mobilenet_v2(), zoo.tiny_gpt(), zoo.bert()]
+    built = bucketed.build_bucketed_zoo(graphs, "autotune", device="cpu")
+    k = dispatch.autotune_bucket_k(graphs, device="cpu")
+    assign = bucketed.assign_buckets([g.n for g in graphs], k)
+    assert built.graph_bucket == tuple(assign)
+    assert built.n_buckets == max(assign) + 1
+    report = dispatch.autotune_report(graphs, device="cpu")
+    assert report["chosen_k"] == k and report["n_dev"] == 1
+    with pytest.raises(ValueError, match="needs the graphs"):
+        bucketed.assign_buckets([g.n for g in graphs], "autotune")
     with pytest.raises(ValueError, match="empty zoo"):
         bucketed.assign_buckets([], "auto")

@@ -3,14 +3,16 @@
 
     python3 tools/smoke_phases.py ssd_bwd [flash] [flash_bwd] [ssd] \
         [serve_check] [serve_new] [serve_encdec] [train_check] [train] \
-        [train_ssm] [train_moe] [train_encdec]
+        [train_ssm] [train_moe] [train_encdec] [shard]
 
 Builds the attention and SSD sources, forward and backward (one ``nvcc``
 each, in parallel), prints each kernel's registers and spills, then runs
 the named phases (``serve_new``: the serve runs of qwen3-moe-30b-a3b and
 chameleon-34b; ``train_ssm``: the train phase of mamba2-780m, then of
 zamba2-1.2b; ``train_moe`` and ``train_encdec``: that of
-qwen3-moe-30b-a3b and of seamless-m4t-medium) in the order given, each
+qwen3-moe-30b-a3b and of seamless-m4t-medium; ``shard``: the search
+across several devices, which also builds the GAT and simulator
+sources) in the order given, each
 printing the JSON lines it prints in the whole script.  For quick checks
 of one path; ``chip_smoke.py`` stays the proof of the whole port.
 Exits non-zero without CUDA or when a phase fails.
@@ -29,7 +31,7 @@ import chip_smoke as cs  # noqa: E402
 
 PHASES = ("flash", "flash_bwd", "ssd", "ssd_bwd", "serve_check",
           "serve_new", "serve_encdec", "train_check", "train", "train_ssm",
-          "train_moe", "train_encdec")
+          "train_moe", "train_encdec", "shard")
 
 
 def main(argv=None):
@@ -50,7 +52,9 @@ def main(argv=None):
              "torch": torch.__version__, "cuda": torch.version.cuda})
     t0 = time.perf_counter()
     rep = build.build(["flash_attention", "flash_attention_bwd", "ssd_scan",
-                       "ssd_scan_bwd"])
+                       "ssd_scan_bwd"]
+                      + (["gat_mp", "gat_mp_bwd", "memsim"]
+                         if "shard" in args.phases else []))
     cs.emit({"phase": "build", "seconds": time.perf_counter() - t0,
              "kernels": cs.ptxas_kernels(rep)})
     gen = torch.Generator("cuda").manual_seed(0)
@@ -88,6 +92,10 @@ def run_phase(name, cs, torch, np, rdev, fops, sops, gen):
         cs.phase_train_repeat(torch, np, rdev, cs.MOE_TRAIN[0])
     elif name == "train_encdec":
         cs.phase_train_repeat(torch, np, rdev, cs.ENCDEC_ARCH)
+    elif name == "shard":
+        from repro_torch.core import egrl
+        from repro_torch.graphs import zoo
+        cs.phase_shard(torch, np, zoo, egrl, rdev)
     else:
         for arch in cs.TRAIN_SSM:
             cs.phase_train(torch, np, rdev, arch)
