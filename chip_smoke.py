@@ -182,6 +182,21 @@ Phases, each printing JSON lines:
                of 5 steps from the same seed bit-equal to the first
                (losses and parameter checksums) in place of the
                restart;
+18. train_mesh -- (after qwen3-0.6b's train phase) qwen3-0.6b trained
+               over every visible card, one process per card
+               (``torch.distributed.run`` on ``tools/train_mesh.py``,
+               NCCL, the loopback): its one-card reference, then each
+               (data, model) layout (one card (1, 1); two (2, 1), (1, 2);
+               four (4, 1), (1, 4), (2, 2)) at the published config, B 4,
+               S 4096, 3 steps from seed 0, exact launches a step per
+               rank, and a checkpoint saved on the last layout restored
+               onto the others (one card: a one-card loop); one card
+               bit-equal to the one-card run (losses, parameter
+               checksums, and the reference bit-equal to the train
+               phase's run A), more within stated tolerances; per layout
+               the median step ms, tokens/s, each rank's peak memory and
+               shard bytes, rank 0's profile of a 4th step (device busy,
+               NCCL, GEMM and attention ms), and the card count;
 13. kernels -- (printed last) per kernel: launches in its slice's main
                path (the BERT "egrl" run, the zamba2 serve run, the zoo
                "egrl" run, the attention backward's the qwen3 train run,
@@ -195,7 +210,9 @@ Phases, each printing JSON lines:
                library time; for the GAT kernels both per launch (a
                launch is one call of the wrapper) and over their group (4
                forward launches, 8 backward calls); for attention also
-               the qwen3 train run's launches (``launches_train``); for
+               the qwen3 train run's launches (``launches_train``) and
+               those a step of each rank of each train_mesh layout
+               (``launches_train_mesh``); for
                attention and the SSD scan, forward and backward, the SSM
                train runs' (``launches_train_ssm``); for attention the
                serve runs of qwen3-moe and chameleon, one serve_encdec
@@ -1538,6 +1555,10 @@ MOE_TRAIN = ("qwen3-moe-30b-a3b", 4, 4)
 # the repeat run of the MoE and encdec train phases: this many steps
 # from the same seed, bit-equal to the first run's
 REPEAT_STEPS = 5
+# train_mesh: steps a layout runs (phase_train's run A gives the one-card
+# reference's checksums after as many); the worker's time limit
+MESH_STEPS = 3
+MESH_TIMEOUT_S = 600
 
 
 def served_prefills():
@@ -2733,10 +2754,10 @@ def phase_train(torch, np, rdev, arch=TRAIN_ARCH, n=TRAIN_STEPS):
     none = {k: 0 for k in rdev.launch_counts()}
     quiet = lambda _: None      # noqa: E731
 
-    def run(loop, steps, **kw):
+    def run(loop, steps, log=quiet, **kw):
         rdev.reset_launch_counts()
         t0 = time.perf_counter()
-        out = loop.run(steps, log=quiet, **kw)
+        out = loop.run(steps, log=log, **kw)
         torch.cuda.synchronize()
         return out, rdev.launch_counts(), time.perf_counter() - t0
 
@@ -2744,7 +2765,14 @@ def phase_train(torch, np, rdev, arch=TRAIN_ARCH, n=TRAIN_STEPS):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     a = TrainLoop(cfg, global_batch=B, seq=S, device="cuda")
-    (pa, sa, _), counts, a_s = run(a, n)
+    # the parameters' checksums after MESH_STEPS steps (train_mesh's
+    # one-card reference); the optimizer updates a.model.params in place
+    sums = {}
+
+    def at_mesh_steps(line):
+        if line.startswith(f"step {MESH_STEPS} "):
+            sums.update(checksum(torch, a.model.params))
+    (pa, sa, _), counts, a_s = run(a, n, log=at_mesh_steps)
     peak = torch.cuda.max_memory_allocated()
     want = {**none, **{k: n * v for k, v in per_step.items()}}
     check(counts == want, f"train {arch} launches {counts}, want {want}")
@@ -2805,16 +2833,104 @@ def phase_train(torch, np, rdev, arch=TRAIN_ARCH, n=TRAIN_STEPS):
            "model_flops_per_step": flops,
            "mfu_bf16_peak": flops / (med / 1e3) / PEAK_BF16,
            "max_memory_allocated_bytes": peak, "run_a_s": a_s,
+           "checksums_at_mesh_steps": sums,
            "restart": {"run_b1_s": b1_s, "run_b2_s": b2_s,
                        "losses": b_losses, "max_rel_loss_err": loss_err,
                        "max_state_err": state_err, "bit_equal": bit_equal}}
-    emit(row)
+    emit({k: v for k, v in row.items() if k != "checksums_at_mesh_steps"})
     emit(prof_row)
     del pa, sa, a
     torch.cuda.empty_cache()
     row["bwd_device_ms_per_call"] = bwd_ms
     row["ssd_bwd_device_ms_per_call"] = ssd_bwd_ms
     return row
+
+
+def phase_train_mesh(torch, np, train=None):
+    """Training over the cards of this host, one process per card:
+    ``python -m torch.distributed.run --standalone`` on
+    ``tools/train_mesh.py`` with one process per visible card (1, 2 or
+    4), rendezvous on the loopback.  Each (data, model) layout (one
+    card: (1, 1); two: (2, 1), (1, 2); four: (4, 1), (1, 4), (2, 2))
+    trains qwen3-0.6b at its published config from seed 0, B 4, S 4096,
+    for ``MESH_STEPS`` steps; the last saves at step 2 and other layouts
+    (one card: a one-card ``TrainLoop``) restore it and run step 3.  The
+    worker's gates (``tools/train_mesh.py``): exactly ``step_launches``
+    a step on every rank; against its one-card reference, one card
+    bit-equal (losses and parameter checksums), more within stated
+    tolerances.  Here, in addition: the reference bit-equal to the first
+    steps of ``phase_train``'s run A when it ran (``train``).  Prints
+    per layout the median step ms (host clock,
+    steps 2-3), tokens/s, each rank's peak memory and shard bytes, rank
+    0's profile of a 4th step, the card count, and the memory this
+    process still holds on cuda:0."""
+    import shutil
+    import signal
+    n = torch.cuda.device_count()
+    out_dir = os.path.join(ROOT, "build", "train_mesh")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = {"allocated_bytes": torch.cuda.memory_allocated(0),
+            "reserved_bytes": torch.cuda.memory_reserved(0)}
+    env = dict(os.environ, NCCL_SOCKET_IFNAME="lo", GLOO_SOCKET_IFNAME="lo")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(n),
+           os.path.join(ROOT, "tools", "train_mesh.py"), "--out", out_dir]
+    log = os.path.join(out_dir, "log.txt")
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=f,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=MESH_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        with open(log) as f:
+            print(f.read()[-12000:], flush=True)
+    check(rc == 0, f"train_mesh: the workers exited with {rc}")
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    ref = ranks[0]["reference"]
+    if train is not None:
+        check(ref["losses"] == train["losses"][:MESH_STEPS]
+              and ref["checksums"] == train["checksums_at_mesh_steps"],
+              f"train_mesh: the one-card reference {ref['losses']} is not "
+              f"bit-equal to run A's first steps {train['losses']}")
+    rows = {}
+    for kind in ("layouts", "restores"):
+        for i, row in enumerate(ranks[0][kind]):
+            ranks_of = [rk[kind][i] for rk in ranks if len(rk[kind]) > i]
+            out = {"phase": "train_mesh", "kind": kind[:-1], "cards": n,
+                   **{k: row[k] for k in row if k not in (
+                       "checksums", "launches")},
+                   "launches_per_rank": [rr["launches_per_step"]
+                                         for rr in ranks_of],
+                   "peak_memory_bytes_per_rank": [rr["peak_memory_bytes"]
+                                                  for rr in ranks_of],
+                   "param_shard_bytes_per_rank": [rr["param_shard_bytes"]
+                                                  for rr in ranks_of],
+                   "opt_shard_bytes_per_rank": [rr["opt_shard_bytes"]
+                                                for rr in ranks_of],
+                   "median_step_ms_per_rank": [rr["median_step_ms"]
+                                               for rr in ranks_of]}
+            emit(out)
+            rows[f"{kind[:-1]}:{row['layout']}"] = out
+    summary = {"phase": "train_mesh", "cards": n, "card": ranks[0]["card"],
+               "seconds": seconds, "parent_holds_on_cuda0": held,
+               "reference": {k: ref[k] for k in ("losses", "step_ms",
+                                                 "seconds")},
+               "reference_bit_equal_to_run_a": train is not None}
+    emit(summary)
+    return rows
 
 
 def checksum(torch, tree):
@@ -3795,6 +3911,7 @@ def main(argv=None):
         placement = timed("placement", phase_placement, torch, np, rdev)  # 14
     timed("train_check", phase_train_check, torch, rdev)   # 16
     train = timed("train", phase_train, torch, np, rdev)   # 17
+    train_mesh = timed("train_mesh", phase_train_mesh, torch, np, train)
     train_ssm = {arch: timed(f"train:{arch}", phase_train, torch, np, rdev,
                              arch) for arch in TRAIN_SSM}
     train_new = {arch: timed(f"train:{arch}", phase_train_repeat, torch, np,
@@ -3910,6 +4027,10 @@ def main(argv=None):
                     encdec["launches_prefill"][r["name"]],
                 **{f"train:{a}": t["launches"][r["name"]]
                    for a, t in train_new.items()}}
+            # per rank a step, each layout of the train_mesh phase
+            r["launches_train_mesh"] = {
+                k: [lp.get(r["name"], 0) for lp in m["launches_per_rank"]]
+                for k, m in train_mesh.items()}
         if r["name"].startswith("ssd_scan") or r["name"].startswith(
                 "flash_attention"):
             r["launches_train_ssm"] = {a: t["launches"].get(r["name"])

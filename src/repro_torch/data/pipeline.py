@@ -4,8 +4,8 @@ state.
 
 Copied from ``src/repro/data/pipeline.py``.  ``SyntheticLM`` draws from
 the same numpy Philox stream, so its batches equal the JAX package's bit
-for bit.  ``device_batch`` moves a host batch to one device as tensors;
-a sharded batch waits for the multi-GPU port (ROADMAP.md item 8).
+for bit.  ``device_batch`` moves a host batch to one device as tensors,
+on a process mesh only this rank's rows.
 """
 from __future__ import annotations
 
@@ -16,6 +16,8 @@ import time
 
 import numpy as np
 import torch
+
+from repro_torch.distributed import parallel as par
 
 
 @dataclasses.dataclass
@@ -61,15 +63,16 @@ class TokenFile:
         return {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
 
 
-def device_batch(batch, device, mesh=None):
+def device_batch(batch, device, mesh=None, batch_axes=None):
     """Host numpy batch -> tensors on ``device`` (integer arrays as int64,
-    the index type of the embedding and the loss).  A mesh raises: the
-    sharded batch is ROADMAP.md item 8."""
-    if mesh is not None:
-        raise NotImplementedError("a sharded batch needs the multi-GPU port "
-                                  "(ROADMAP.md item 8)")
+    the index type of the embedding and the loss).  With a process mesh
+    (JAX ``:60-68``), this rank's block of rows: the leading dim cut over
+    ``batch_axes`` as ``P(batch_axes)`` cuts it, the batch replicated
+    over every other axis; only that block is copied to the device."""
     out = {}
     for k, v in batch.items():
+        if mesh is not None:
+            v = par.block(v, 0, mesh, par.entry_axes(batch_axes))
         t = torch.as_tensor(np.ascontiguousarray(v))
         if not t.is_floating_point():
             t = t.long()

@@ -1,0 +1,372 @@
+"""Collectives on shards: what the JAX package's sharding constraints
+mean, done explicitly, one process per card.
+
+The JAX package states a layout (``distributed/rules.py`` ``wsc``, and
+``NamedSharding`` on the parameters) and GSPMD inserts the collectives
+(``src/repro/models/transformer.py:95-123``,
+``src/repro/training/train_step.py:37-39``).  PyTorch has neither, so
+this module holds the operations that layout implies, over a
+``launch.mesh.ProcessMesh``:
+
+- ``shard_tree`` / ``gather_tree``: a leaf cut along each dim by the mesh
+  axes its spec names (a tuple of axes in its order, the first major),
+  as ``NamedSharding`` cuts it, and put back together by all-gathers;
+- Megatron's f and g (``copy_to_model``: identity forward, all-reduce
+  over "model" backward; ``reduce_from_model``: all-reduce forward in
+  f32, cast once, identity backward) and ``matmul_f32``, the row-parallel
+  product whose partial output is f32;
+- the vocab-parallel embedding lookup and cross-entropy
+  (``models/common.py`` ``embed`` / ``chunked_xent`` with the vocab cut
+  over "model");
+- ``reduce_grads``: the gradient rule of a sharded train step;
+- ``all_reduce_`` / ``mean_over``: the sums and means over sharded dims
+  the optimizer needs.
+
+An axis of size 1 has no process group and no collective crosses it: at
+one rank every operation here is the identity or a plain local op.
+Every rank must make the same collective calls in the same order, as
+SPMD programs do.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.utils.params import tree_from_flat, tree_leaves
+
+NEG_INF = -1e30
+
+
+def entry_axes(entry) -> tuple:
+    """A spec entry (None, an axis name or a tuple of them) as a tuple."""
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
+
+
+def dim_axes(spec, ndim: int):
+    """The mesh axes cutting each of ``ndim`` dims (replicated past the
+    spec's end)."""
+    spec = tuple(spec or ())
+    if len(spec) > ndim:
+        raise ValueError(f"spec {spec} has more entries than {ndim} dims")
+    return [entry_axes(e) for e in spec] + [()] * (ndim - len(spec))
+
+
+def _live(mesh, axes):
+    return tuple(a for a in axes if mesh.shape[a] > 1)
+
+
+def spec_axes(spec, mesh) -> tuple:
+    """Every axis of size > 1 that cuts some dim of a leaf of ``spec``."""
+    return _live(mesh, [a for e in tuple(spec or ()) for a in entry_axes(e)])
+
+
+def _index(mesh, axes) -> int:
+    """Row-major index of this rank's block over ``axes``."""
+    coords, i = mesh.coords, 0
+    for a in axes:
+        i = i * mesh.shape[a] + coords[a]
+    return i
+
+
+def block(x, dim: int, mesh, axes):
+    """This rank's block of dim ``dim`` of ``x`` (a tensor or a numpy
+    array; a view) cut over ``axes``."""
+    n = math.prod(mesh.shape[a] for a in axes)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of size {x.shape[dim]} does not split "
+                         f"over {axes} ({n} shards)")
+    size = x.shape[dim] // n
+    i = _index(mesh, axes) * size
+    return x[(slice(None),) * dim + (slice(i, i + size),)]
+
+
+def global_shape(local_shape, spec, mesh) -> tuple:
+    """The full shape of a leaf whose shard on this rank has
+    ``local_shape``."""
+    return tuple(n * math.prod(mesh.shape[a] for a in axes)
+                 for n, axes in zip(local_shape,
+                                    dim_axes(spec, len(local_shape))))
+
+
+# ------------------------------------------------------------ collectives
+def all_reduce_(x, mesh, axes, op=dist.ReduceOp.SUM):
+    """``x`` reduced in place over each axis of size > 1 in ``axes``."""
+    for a in _live(mesh, entry_axes(axes)):
+        dist.all_reduce(x, op=op, group=mesh.groups[a])
+    return x
+
+
+def _all_gather(x, dim: int, mesh, axis: str):
+    parts = [torch.empty_like(x) for _ in range(mesh.shape[axis])]
+    dist.all_gather(parts, x.contiguous(), group=mesh.groups[axis])
+    return torch.cat(parts, dim)
+
+
+def _reduce_scatter(x, dim: int, mesh, axis: str):
+    """The sum over ``axis`` of ``x``, this rank's block of dim ``dim``."""
+    n = mesh.shape[axis]
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of size {x.shape[dim]} does not split "
+                         f"over {axis} ({n} shards)")
+    inp = x.movedim(dim, 0).contiguous()
+    out = inp.new_empty((inp.shape[0] // n,) + inp.shape[1:])
+    dist.reduce_scatter_tensor(out, inp, group=mesh.groups[axis])
+    return out.movedim(0, dim).contiguous()
+
+
+def mean_over(x, dim: int, mesh, axes, keepdim: bool = False):
+    """The mean over dim ``dim`` of the full tensor whose shard is ``x``
+    (the dim cut over ``axes``): ``x.mean(dim)`` when nothing cuts it
+    (``mesh`` may then be None), else the local sums all-reduced over
+    the cutting axes over the full length."""
+    live = _live(mesh, axes)
+    if not live:
+        return x.mean(dim=dim, keepdim=keepdim)
+    s = x.sum(dim=dim, keepdim=keepdim)
+    all_reduce_(s, mesh, live)
+    return s / (x.shape[dim] * math.prod(mesh.shape[a] for a in live))
+
+
+# ------------------------------------------------------------------ trees
+def shard_leaf(x, spec, mesh):
+    """This rank's shard of the full leaf ``x`` (a copy where cut, so the
+    full tensor can be freed; ``x`` itself where nothing cuts it)."""
+    out = x
+    for d, axes in enumerate(dim_axes(spec, x.ndim)):
+        out = block(out, d, mesh, _live(mesh, axes))
+    return out if out is x else out.clone(
+        memory_format=torch.contiguous_format)
+
+
+def gather_leaf(x, spec, mesh, axes=None):
+    """The leaf whose shard is ``x`` gathered over the axes of size > 1
+    that cut it (only those in ``axes`` when given)."""
+    for d, cut in enumerate(dim_axes(spec, x.ndim)):
+        for a in reversed(_live(mesh, cut)):     # the minor axis first
+            if axes is None or a in axes:
+                x = _all_gather(x, d, mesh, a)
+    return x
+
+
+def _specs_by_name(specs):
+    return dict(tree_leaves(specs))
+
+
+def shard_tree(full, specs, mesh):
+    """Each leaf of ``full`` cut to this rank's shard by its spec in
+    ``specs`` (a tree of the same keys)."""
+    sp = _specs_by_name(specs)
+    return tree_from_flat(full, {n: shard_leaf(x, sp[n], mesh)
+                                 for n, x in tree_leaves(full)})
+
+
+def gather_tree(local, specs, mesh, axes=None):
+    """The full leaves (over ``axes`` only, when given) of a tree of
+    shards: ``gather_tree(shard_tree(t, s, m), s, m)`` equals ``t``."""
+    sp = _specs_by_name(specs)
+    return tree_from_flat(local, {n: gather_leaf(x, sp[n], mesh, axes)
+                                  for n, x in tree_leaves(local)})
+
+
+# ------------------------------------------------- Megatron's f and g
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # a copy: autograd may hand one gradient tensor to several inputs
+        s = g.to(torch.float32, copy=True).contiguous()
+        dist.all_reduce(s, group=ctx.mesh.groups[ctx.axis])
+        return s.to(g.dtype), None, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dtype):
+        s = x.to(torch.float32, copy=True).contiguous()
+        dist.all_reduce(s, group=mesh.groups[axis])
+        ctx.in_dtype = x.dtype
+        return s.to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.in_dtype), None, None, None
+
+
+def copy_to_model(x, mesh, axis: str = "model"):
+    """f: the identity forward; the gradient all-reduced over ``axis``
+    (summed in f32, cast back once), where each rank's part of the
+    gradient came through its own heads, columns or vocab shard."""
+    return _CopyToModel.apply(x, mesh, axis)
+
+
+def reduce_from_model(x, mesh, dtype, axis: str = "model"):
+    """g: a row-parallel partial output ``x`` (f32) summed over ``axis``
+    in f32 and cast once to ``dtype``; the gradient passes unchanged."""
+    return _ReduceFromModel.apply(x, mesh, axis, dtype)
+
+
+class _MatmulF32(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        a2 = a.reshape(-1, a.shape[-1])
+        if a.dtype == torch.float32:
+            out = a2 @ w
+        elif a.is_cuda:
+            out = torch.mm(a2, w, out_dtype=torch.float32)
+        else:
+            out = a2.float() @ w.float()
+        return out.reshape(*a.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).to(a.dtype)
+        a2 = a.reshape(-1, a.shape[-1])
+        return (g2.mm(w.t()).reshape(a.shape), a2.t().mm(g2))
+
+
+def matmul_f32(a, w):
+    """``a @ w`` (a: (..., K), w: (K, N), one dtype) with an f32 output:
+    the products summed in f32 and not rounded to ``a``'s dtype, so a
+    sum of such partial outputs over ranks rounds once.  Its gradients
+    are ``a @ w``'s, in ``a``'s dtype."""
+    return _MatmulF32.apply(a, w)
+
+
+# ------------------------------------------------ the vocab-parallel ends
+def vocab_embed(table, tokens, mesh, dtype, axis: str = "model"):
+    """``table[tokens]`` cast to ``dtype`` with the table's rows cut over
+    ``axis``: each rank looks up the rows it owns, writes 0 elsewhere,
+    and g sums the f32 rows (one nonzero term each: exact)."""
+    n = table.shape[0]
+    local = tokens - mesh.coords[axis] * n
+    own = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    rows = torch.where(own[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                         device=rows.device))
+    return reduce_from_model(rows, mesh, dtype, axis)
+
+
+class _VocabNLL(torch.autograd.Function):
+    """Summed masked NLL of one chunk with the vocab cut over an axis:
+    hc (B, c, D) f32, w (D, V/m) f32, tc (B, c) targets, mc (B, c) f32
+    mask.  The logits are recomputed in the backward, whose gradient in
+    hc is this rank's part (the caller's f sums it)."""
+
+    @staticmethod
+    def _logits(hc, w, off, vocab_size):
+        logits = hc @ w
+        if off + w.shape[1] > vocab_size:
+            col = off + torch.arange(w.shape[1], device=w.device)
+            logits = torch.where(col >= vocab_size, NEG_INF, logits)
+        return logits
+
+    @staticmethod
+    def forward(ctx, hc, w, tc, mc, off, vocab_size, mesh, axis):
+        logits = _VocabNLL._logits(hc, w, off, vocab_size)
+        g = mesh.groups[axis]
+        mx = logits.amax(dim=-1)
+        dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=g)
+        se = torch.exp(logits - mx[..., None]).sum(dim=-1)
+        dist.all_reduce(se, group=g)
+        lse = mx + torch.log(se)
+        local = tc.long() - off
+        own = (local >= 0) & (local < w.shape[1])
+        idx = local.clamp(0, w.shape[1] - 1)[..., None]
+        gold = torch.gather(logits, -1, idx)[..., 0]
+        gold = torch.where(own, gold, 0.0)
+        dist.all_reduce(gold, group=g)
+        ctx.save_for_backward(hc, w, local, own, mc, lse)
+        ctx.off, ctx.vocab_size = off, vocab_size
+        return ((lse - gold) * mc).sum()
+
+    @staticmethod
+    def backward(ctx, gs):
+        hc, w, local, own, mc, lse = ctx.saved_tensors
+        p = torch.exp(_VocabNLL._logits(hc, w, ctx.off, ctx.vocab_size)
+                      - lse[..., None])
+        hit = torch.zeros_like(p).scatter_(
+            -1, local.clamp(0, w.shape[1] - 1)[..., None],
+            own[..., None].to(p.dtype))
+        dl = (p - hit) * (gs * mc)[..., None]
+        dh = dl @ w.t()
+        dw = hc.reshape(-1, hc.shape[-1]).t() @ dl.reshape(-1, dl.shape[-1])
+        return dh, dw, None, None, None, None, None, None
+
+
+def vocab_xent(w, h, targets, cfg, mesh, mask=None, axis: str = "model"):
+    """``models/common.py`` ``chunked_xent`` with the unembedding's vocab
+    columns cut over ``axis``: w (D, V/m) this rank's columns, h (B, S,
+    D) replicated.  Per ``cfg.logit_chunk`` tokens: the local f32 logits,
+    the global max and sum of exponentials by all-reduce, the gold logit
+    from the rank that owns it, the padded vocab masked; the backward
+    recomputes the chunk (softmax minus the one-hot on the local
+    columns).  Returns (mean loss over unmasked tokens, token count)."""
+    B, S, D = h.shape
+    c = min(cfg.logit_chunk, S)
+    if S % c:
+        raise ValueError(f"logit_chunk {c} does not divide S={S}")
+    w = w.to(h.dtype).float()
+    hf = copy_to_model(h.float(), mesh, axis)
+    off = mesh.coords[axis] * w.shape[1]
+    tot = torch.zeros((), device=h.device)
+    cnt = torch.zeros((), device=h.device)
+    for i in range(S // c):
+        sl = slice(i * c, (i + 1) * c)
+        mc = (torch.ones((B, c), device=h.device) if mask is None
+              else mask[:, sl].float())
+        tot = tot + _VocabNLL.apply(hf[:, sl], w, targets[:, sl], mc, off,
+                                    cfg.vocab_size, mesh, axis)
+        cnt = cnt + mc.sum()
+    return tot / torch.clamp(cnt, min=1.0), cnt
+
+
+# -------------------------------------------------------- the gradients
+def reduce_grads(grads, specs, mesh, batch_axes, model_partial=(),
+                 model_axis: str = "model"):
+    """The gradient rule of a sharded step.  ``grads`` are this rank's
+    gradients of its rows' mean loss in the layout the step computed
+    with: every leaf whole over the non-model axes (FSDP gathered), cut
+    over ``model_axis`` as its spec says.  Returns each leaf as this
+    rank's shard (``specs``) of the mean over the batch axes:
+    - summed over ``model_axis`` first for the leaves in
+      ``model_partial``: replicated over it but used inside a
+      head-partitioned region, so each rank holds its heads' part;
+    - along a batch axis that cuts the leaf, a reduce-scatter; along one
+      that does not, an all-reduce;
+    - along a non-batch axis that cuts the leaf, a plain slice (the
+      gradients are equal on its ranks);
+    - divided by the number of batch shards."""
+    batch = _live(mesh, entry_axes(batch_axes))
+    n = math.prod(mesh.shape[a] for a in batch)
+    sp = _specs_by_name(specs)
+    out = {}
+    for name, g in tree_leaves(grads):
+        cuts = dim_axes(sp[name], g.ndim)
+        in_place = name in model_partial or any(
+            not any(a in axes for axes in cuts) for a in batch)
+        # a copy before reducing in place: autograd may alias gradients
+        g = g.clone(memory_format=torch.contiguous_format) if in_place else g
+        if name in model_partial:
+            all_reduce_(g, mesh, (model_axis,))
+        for a in batch:
+            if not any(a in axes for axes in cuts):
+                all_reduce_(g, mesh, (a,))
+        for d, axes in enumerate(cuts):
+            for a in _live(mesh, axes):          # the major axis first
+                if a == model_axis:
+                    continue
+                g = (_reduce_scatter(g, d, mesh, a) if a in batch
+                     else block(g, d, mesh, (a,)).contiguous())
+        out[name] = g / n if n > 1 else g
+    return tree_from_flat(grads, out)
+

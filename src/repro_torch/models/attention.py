@@ -42,8 +42,11 @@ def _proj(x, w):
     return (x @ w.reshape(D, H * k).to(x.dtype)).reshape(*x.shape[:-1], H, k)
 
 
-def project_qkv(p, x, cfg: ModelConfig, positions):
-    """x: (B,S,D) -> q (B,S,K,G,h), k/v (B,S,K,h); rope + qk-norm applied."""
+def project_qkv(p, x, cfg: ModelConfig, positions, q_groups=None):
+    """x: (B,S,D) -> q (B,S,K,G,h), k/v (B,S,K,h); rope + qk-norm applied.
+    The head counts are the weights' (a rank's own heads under tensor
+    parallelism); q's K is k's, or ``q_groups`` when given (q as
+    (B,S,q_groups,H/q_groups,h))."""
     dt = x.dtype
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if cfg.qkv_bias:
@@ -56,7 +59,7 @@ def project_qkv(p, x, cfg: ModelConfig, positions):
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     B, S = x.shape[:2]
-    q = q.reshape(B, S, cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim)
+    q = q.reshape(B, S, q_groups or k.shape[2], -1, cfg.head_dim)
     return q, k, v
 
 

@@ -19,7 +19,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.utils.params import (ParamDef, init_params, is_node,
-                                      to_parameter_dict, with_dtype)
+                                      make_specs, to_parameter_dict,
+                                      with_dtype)
 
 NEG_INF = -1e30
 
@@ -183,15 +184,29 @@ class LMBase(nn.Module):
     layout (same keys, same stacked leading axes), and their cache
     tensors are made from ``cache_struct``.  ``forward``, ``loss``,
     ``prefill`` and ``decode_step`` take the parameters as their first
-    argument, as the JAX models do."""
+    argument, as the JAX models do.  ``plan`` is the sharding plan the
+    model was made for (``models/zoo.py`` ``get_model``), None on one
+    card."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, plan=None):
         super().__init__()
         self.cfg = cfg
+        self.plan = plan
         self.params = None
 
     def param_defs(self):
         return with_dtype(self._param_defs_raw(), self.cfg.param_dtype)
+
+    def param_specs(self):
+        """The parameters' PartitionSpecs under the plan's rules."""
+        assert self.plan is not None
+        return make_specs(self.param_defs(), self.plan.rules)
+
+    def model_partial_leaves(self):
+        """Names of the leaves replicated over "model" whose gradient each
+        rank holds only a part of (``parallel.reduce_grads``): none
+        unless the model splits its work over that axis."""
+        return frozenset()
 
     def init(self, generator: torch.Generator):
         """Random parameters on the generator's device."""
@@ -217,9 +232,13 @@ class LMBase(nn.Module):
         metrics {ce, aux, tokens}): ``forward``'s final hidden states
         through ``chunked_xent``, as every JAX model's ``loss``."""
         h, aux = self.forward(params, batch["tokens"])
-        ce, cnt = chunked_xent(params["embed"], h, batch["labels"],
-                               self.cfg, mask=batch.get("mask"))
+        ce, cnt = self._xent(params["embed"], h, batch["labels"],
+                             batch.get("mask"))
         return ce + aux, {"ce": ce, "aux": aux, "tokens": cnt}
+
+    def _xent(self, p, h, targets, mask):
+        """The loss head: ``chunked_xent``."""
+        return chunked_xent(p, h, targets, self.cfg, mask=mask)
 
     @property
     def device(self) -> torch.device:

@@ -1,10 +1,10 @@
 """Decoder-only transformer LM (the dense, MoE and VLM families):
 training forward and loss, prefill and decode.
 
-Copied from ``src/repro/models/transformer.py`` without sharding.
-Layers are stacked on a leading axis, as in the JAX pytree, and run in a
-Python loop over ``layer_slice`` views, so a layer's gradients land in
-the stacked leaves.  A unit is one layer, or for MoE configs with
+Copied from ``src/repro/models/transformer.py``.  Layers are stacked on
+a leading axis, as in the JAX pytree, and run in a Python loop over
+``layer_slice`` views, so a layer's gradients land in the stacked
+leaves.  A unit is one layer, or for MoE configs with
 ``moe.every`` = e > 1 the e layers {"dense0", ..., "moe_layer"} that
 JAX's scan stacks together; the MoE layers' aux losses are summed in
 f32 over units and added to the loss.  ``cfg.remat`` maps onto
@@ -14,17 +14,34 @@ outputs of matrix products without batch dimensions (JAX's
 ``dots_with_no_batch_dims_saveable``), and ``scan_block`` > 0 wraps
 groups of that many units in one more checkpoint, as the JAX two-level
 scan does.  Every setting gives the same numbers.
+
+With a plan whose "model" axis has more than one process (the dense
+family; ``models/zoo.py`` raises for the others), the layers run
+tensor-parallel, Megatron-style, with ``distributed/parallel.py``'s f
+and g where the JAX model constrains
+(``src/repro/models/transformer.py:95-123``): each rank holds H/m query
+heads and K/m kv heads (wq, wk, wv, their biases and wo cut on the head
+dims), f on the attention's input and g on
+``attn_out``'s f32 partial output; where the kv heads do not divide the
+axis, k and v are projected whole from the replicated wk / wv and each
+rank keeps the kv head of each of its H/m query heads, G = 1 (JAX
+``:110-118``).  The MLP is column-parallel (w_gate, w_up) then
+row-parallel (w_down) when ``rules["mlp"]`` is "model"; the embedding
+and the loss are vocab-parallel.  Without a plan, or with a "model" axis
+of one, every op is the one-card one.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import parallel as par
 from repro_torch.models import attention as att
 from repro_torch.models import common as cm
 from repro_torch.models.moe import moe_block, moe_defs
-from repro_torch.utils.params import ParamDef, tree_map
+from repro_torch.utils.params import ParamDef, tree_leaves, tree_map
 
 
 def _stack_defs(defs, n: int):
@@ -62,8 +79,11 @@ def remat(fn, cfg: ModelConfig):
 
 
 class TransformerLM(cm.LMBase):
-    def __init__(self, cfg: ModelConfig):
-        super().__init__(cfg)
+    def __init__(self, cfg: ModelConfig, plan=None):
+        super().__init__(cfg, plan)
+        # tensor-parallel over "model": its process mesh, else None
+        self.tp = (plan.mesh if plan is not None and plan.model_size > 1
+                   else None)
         # {depth: (B, S, k) expert ids} replacing the router's top-k in
         # the MoE layer at that depth (``moe_block``'s ``routes``); None
         # on every normal path
@@ -125,9 +145,58 @@ class TransformerLM(cm.LMBase):
                 for dp in self._unit_layers(params, u)]
 
     def _constrain_qkv(self, q, k, v):
-        """The sharding constraint of the JAX model: the identity on one
-        card."""
-        return q, k, v
+        """The sharding constraint of the JAX model.  The identity on one
+        card and where each rank's projections give its own kv heads;
+        where the kv heads do not divide the "model" axis, k / v (B, S,
+        K, h) whole -> the kv head of each of this rank's query heads,
+        (B, S, H/m, h), as repeating them to H heads and cutting H
+        would give."""
+        if self.tp is None or self.plan.kv_ok:
+            return q, k, v
+        Hm = q.shape[2]
+        idx = (torch.arange(Hm, device=k.device)
+               + self.tp.coords["model"] * Hm) // self.cfg.q_per_kv
+        return q, k.index_select(2, idx), v.index_select(2, idx)
+
+    def model_partial_leaves(self):
+        """Under tensor parallelism: the qk-norm scales, and wk / wv / bk
+        / bv where the kv heads are projected whole, are replicated over
+        "model" but act on each rank's heads only.  The norms on the
+        residual stream (ln1, ln2, final_norm) are not: under f and g
+        every rank already holds their whole gradient."""
+        if self.tp is None:
+            return frozenset()
+        part = {"q_norm", "k_norm"}
+        if not self.plan.kv_ok:
+            part |= {"wk", "wv", "bk", "bv"}
+        return frozenset(n for n, _ in tree_leaves(self.param_defs())
+                         if n.split(".")[-2:-1] == ["attn"]
+                         and n.split(".")[-1] in part)
+
+    def _row_parallel(self, a, w):
+        """g(a @ w): this rank's rows of w times its columns of a, the
+        f32 partial outputs summed over "model", cast once."""
+        return par.reduce_from_model(par.matmul_f32(a, w.to(a.dtype)),
+                                     self.tp, a.dtype)
+
+    def _mlp(self, p, h):
+        if self.tp is None or self.plan.rules["mlp"] != "model":
+            return cm.mlp(p, h)
+        h = par.copy_to_model(h, self.tp)
+        a = F.silu(h @ p["w_gate"].to(h.dtype)) * (h @ p["w_up"].to(h.dtype))
+        return self._row_parallel(a, p["w_down"])
+
+    def _xent(self, p, h, targets, mask):
+        if self.tp is None:
+            return super()._xent(p, h, targets, mask)
+        return par.vocab_xent(cm.unembed_matrix(p, self.cfg), h, targets,
+                              self.cfg, self.tp, mask)
+
+    def _no_tp(self, what):
+        if self.tp is not None:
+            raise NotImplementedError(
+                f"{what} under a tensor-parallel plan (the KV cache specs "
+                f"of sharded serving) is ROADMAP.md item 8, step 6")
 
     # ------------------------------------------------------------ layers
     def _attn_block(self, p, x, positions):
@@ -135,13 +204,25 @@ class TransformerLM(cm.LMBase):
         returns (x + o, k, v) so a caller can keep the KV cache."""
         cfg = self.cfg
         h = cm.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
-        q, k, v = att.project_qkv(p["attn"], h, cfg, positions)
+        if self.tp is None:
+            q, k, v = att.project_qkv(p["attn"], h, cfg, positions)
+        else:
+            h = par.copy_to_model(h, self.tp)
+            whole = not self.plan.kv_ok          # q as (B, S, H/m, 1, h)
+            q, k, v = att.project_qkv(
+                p["attn"], h, cfg, positions,
+                q_groups=p["attn"]["wq"].shape[1] if whole else None)
         qc, kc, vc = self._constrain_qkv(q, k, v)
         # positions is arange(S) (prefill), the kernel's kv_offset = 0;
         # passing it on would cost a device sync to check
         ctx = att.blocked_attention(
             qc, kc, vc, chunk=cfg.attn_chunk, causal=True)
-        return x + att.attn_out(p["attn"], ctx, cfg), k, v
+        if self.tp is None:
+            return x + att.attn_out(p["attn"], ctx, cfg), k, v
+        B, S = ctx.shape[:2]
+        wo = p["attn"]["wo"]
+        return x + self._row_parallel(ctx.reshape(B, S, -1),
+                                      wo.reshape(-1, wo.shape[-1])), k, v
 
     def _ffn_block(self, p, x, depth=None):
         """Pre-norm MLP or MoE block with residual -> (x + out, aux):
@@ -149,7 +230,7 @@ class TransformerLM(cm.LMBase):
         cfg = self.cfg
         h = cm.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
         if "moe" not in p:
-            return x + cm.mlp(p["mlp"], h), 0.0
+            return x + self._mlp(p["mlp"], h), 0.0
         routes = None if self.routes is None else self.routes.get(depth)
         rec = None if self.seen_routes is None else {}
         out, aux = moe_block(p["moe"], h, cfg, routes=routes, record=rec)
@@ -173,7 +254,11 @@ class TransformerLM(cm.LMBase):
         """tokens (B,S) -> (final hidden states (B,S,D), aux loss: the
         MoE layers' summed, f32; 0.0 without MoE)."""
         cfg = self.cfg
-        x = cm.embed(params["embed"], tokens, cfg)
+        if self.tp is None:
+            x = cm.embed(params["embed"], tokens, cfg)
+        else:
+            x = par.vocab_embed(params["embed"]["table"], tokens, self.tp,
+                                cfg.act_dtype)
         positions = torch.arange(tokens.shape[1], device=x.device)
         body = remat(lambda u, h: self._unit(params, u, h, positions), cfg)
         n, blk = self._unit_defs()[0], cfg.scan_block
@@ -226,6 +311,7 @@ class TransformerLM(cm.LMBase):
 
     def decode_step(self, params, cache, token, pos):
         """token (B,), pos int -> (logits (B,Vp), cache updated in place)."""
+        self._no_tp("decode_step")
         cfg = self.cfg
         x = cm.embed(params["embed"], token[:, None], cfg)  # (B,1,D)
         for d, p_l in self._layers(params):
@@ -237,6 +323,7 @@ class TransformerLM(cm.LMBase):
 
     def prefill(self, params, tokens, max_len: int):
         """tokens (B,S) -> (cache with [0:S] filled, last-token logits)."""
+        self._no_tp("prefill")
         cfg = self.cfg
         B, S = tokens.shape
         x = cm.embed(params["embed"], tokens, cfg)

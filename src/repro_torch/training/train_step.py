@@ -1,19 +1,34 @@
 """train_step: microbatched gradient accumulation, optional int8 gradient
 compression, and the optimizer, assembled for one model.
 
-Copied from ``src/repro/training/train_step.py`` without the sharding
-plan (one card; ROADMAP.md item 8).  The step is a plain function
-(params, opt_state, batch, step) -> (params, opt_state, metrics): the
-gradients come from ``torch.autograd.grad`` of the model's loss, and the
-optimizer updates the parameters and its state in place under
-``torch.no_grad()`` (``training/optimizers.py``), so the returned trees
-are the ones passed in.
+Copied from ``src/repro/training/train_step.py``.  The step is a plain
+function (params, opt_state, batch, step) -> (params, opt_state,
+metrics): the gradients come from ``torch.autograd.grad`` of the model's
+loss, and the optimizer updates the parameters and its state in place
+under ``torch.no_grad()`` (``training/optimizers.py``), so the returned
+trees are the ones passed in.
+
+With a plan (``distributed/rules.py``) over a process mesh, the trees
+hold this rank's shards (``model.param_specs()``, ``optimizers
+.state_specs``) and the batch this rank's rows, and a step does what the
+JAX step's shardings make GSPMD do: it gathers the FSDP leaves over the
+non-model axes once (a gather per layer, which saves memory, is later
+work), runs the forward and backward on the local rows (microbatches
+split them), reduces each gradient to the mean over the batch axes in
+its shard's layout (``parallel.reduce_grads``), clips by the global norm
+over the shards and runs the optimizer on the shards.  The loss is the
+mean over the batch shards.  Gradient compression under a plan raises:
+JAX compresses the logical leaf, and int8 blocks cut across shards would
+give other numbers.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import parallel as par
 from repro_torch.distributed.compression import compress_decompress
 from repro_torch.training import optimizers as opt
 from repro_torch.utils.params import tree_from_flat, tree_leaves, tree_map
@@ -62,12 +77,59 @@ def _microbatch_grads(loss_fn, params, batch, n_micro: int,
     return acc, loss_sum / n_micro, {}
 
 
-def make_train_step(model, cfg: ModelConfig, opt_name: str = None,
+def make_grad_fn(model, cfg: ModelConfig, plan):
+    """(params, batch) -> (grads, loss) of a sharded step: this rank's
+    shards of the parameters and its rows in, this rank's shards of the
+    mean gradient over the batch shards and that mean loss out."""
+    mesh, specs = plan.mesh, model.param_specs()
+    partial = model.model_partial_leaves()
+    batch_axes = par.entry_axes(plan.batch_axes)
+    n = math.prod(mesh.shape[a] for a in batch_axes)
+
+    def grad_fn(params, batch):
+        if n > 1 and "mask" in batch:
+            raise NotImplementedError(
+                "a masked batch over several batch shards: each rank's "
+                "mean loss would weigh its own token count (ROADMAP.md "
+                "item 8)")
+        with torch.no_grad():
+            work = par.gather_tree(params, specs, mesh, plan.data_axes)
+        grads, loss, _ = _microbatch_grads(
+            model.loss, work, batch, cfg.grad_accum_microbatches,
+            getattr(torch, cfg.grad_accum_dtype))
+        del work
+        grads = par.reduce_grads(grads, specs, mesh, batch_axes, partial)
+        if n > 1:
+            loss = par.all_reduce_(loss.clone(), mesh, batch_axes) / n
+        return grads, loss
+
+    return grad_fn
+
+
+def make_train_step(model, cfg: ModelConfig, plan=None, opt_name: str = None,
                     grad_compression: bool = False,
                     opt_cfg: opt.OptConfig = None):
     """(train_step, opt_init, opt config) for ``model`` (its ``loss``) and
-    ``cfg`` (optimizer, microbatches, accumulation dtype)."""
+    ``cfg`` (optimizer, microbatches, accumulation dtype); with ``plan``,
+    the sharded step over its process mesh."""
     opt_name = opt_name or cfg.optimizer
+    if plan is not None:
+        if grad_compression:
+            raise NotImplementedError(
+                "gradient compression under a sharding plan is not ported "
+                "(ROADMAP.md item 8): JAX compresses each whole gradient "
+                "leaf, and int8 blocks cut across shards give other "
+                "numbers")
+        ocfg, opt_init, opt_update = opt.make_optimizer(
+            opt_name, opt_cfg, plan.mesh, model.param_specs())
+        grad_fn = make_grad_fn(model, cfg, plan)
+
+        def sharded_step(params, opt_state, batch, step):
+            grads, loss = grad_fn(params, batch)
+            params, opt_state, om = opt_update(grads, opt_state, params)
+            return params, opt_state, {"loss": loss, **om, "step": step + 1}
+
+        return sharded_step, opt_init, ocfg
     ocfg, opt_init, opt_update = opt.make_optimizer(opt_name, opt_cfg)
 
     def loss_fn(params, batch):

@@ -1,13 +1,16 @@
 """Parameter declarations and their initialisation.
 
-Copied from ``src/repro/utils/params.py`` without the sharding part
-(``make_specs``; the port serves on one card).  A model declares its
+Copied from ``src/repro/utils/params.py``.  A model declares its
 parameters as a nested dict of :class:`ParamDef`; ``init_params``
 draws them from an explicit ``torch.Generator`` (the JAX package draws
 from a PRNG key: the two give different numbers from one seed, with the
 same initialiser kinds and scales).  ``to_parameter_dict`` holds such a
 tree in a nested ``nn.ParameterDict`` with the same keys and stacked
-axes.
+axes.  ``make_specs`` maps each leaf's logical axes to mesh axes through
+a rules table (``distributed/rules.py``), giving a tree of
+:class:`PartitionSpec`: the layout ``distributed/parallel.py`` cuts and
+gathers the leaves by (JAX: ``make_specs`` ``:76``,
+``validate_divisibility`` ``:105``).
 """
 from __future__ import annotations
 
@@ -29,6 +32,20 @@ class ParamDef:
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+class PartitionSpec(tuple):
+    """One entry per tensor dim: None (replicated), a mesh axis name, or
+    a tuple of axis names (the dim cut over their product, the first
+    axis major), as ``jax.sharding.PartitionSpec``; ``tuple(spec)``
+    equals ``tuple(P(...))`` of the same entries.  Dims past the end of
+    the spec are replicated."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
 
 
 def is_node(x) -> bool:
@@ -110,6 +127,59 @@ def with_dtype(defs, dtype):
 def param_count(tree) -> int:
     """Number of elements over the leaves of a parameter tree."""
     return sum(math.prod(x.shape) for _, x in tree_leaves(tree))
+
+
+def _flat_axes(m) -> tuple:
+    """A rules entry (None, an axis name or a tuple of them) as a tuple."""
+    return (m,) if isinstance(m, str) else tuple(m or ())
+
+
+def make_specs(defs, rules: Mapping[str, Any]):
+    """logical axes -> PartitionSpec through a rules table.
+
+    rules maps logical axis name -> mesh axis (str), tuple of mesh axes,
+    or None.  Unknown axis names are an error (catches typos early).
+    Two tensor dims never map onto one mesh axis: the later dim stays
+    replicated."""
+
+    def one(d: ParamDef) -> PartitionSpec:
+        parts, used = [], set()
+        for ax in d.axes:
+            if ax is None:
+                parts.append(None)
+                continue
+            if ax not in rules:
+                raise KeyError(f"logical axis {ax!r} missing from rules")
+            m = rules[ax]
+            flat = _flat_axes(m)
+            if any(f in used for f in flat):
+                parts.append(None)
+                continue
+            used.update(flat)
+            parts.append(m)
+        return PartitionSpec(*parts)
+
+    return tree_map(one, defs)
+
+
+def _keystr(name: str) -> str:
+    """A dotted leaf name as ``jax.tree_util.keystr`` prints a dict
+    path: ``['layers']['attn']['wq']``."""
+    return "".join(f"[{k!r}]" for k in name.split("."))
+
+
+def validate_divisibility(defs, rules, mesh_shape: Mapping[str, int]):
+    """(path, dim, logical axis, shard count) of every sharded dim that
+    its mesh axes do not divide, in JAX's leaf order and path format."""
+    problems = []
+    for name, d in tree_leaves(defs):
+        for dim, ax in zip(d.shape, d.axes):
+            if ax is None or ax not in rules or rules[ax] is None:
+                continue
+            n = math.prod(mesh_shape[f] for f in _flat_axes(rules[ax]))
+            if dim % n:
+                problems.append((_keystr(name), dim, ax, n))
+    return problems
 
 
 def to_parameter_dict(tree) -> nn.ParameterDict:

@@ -106,7 +106,7 @@ def test_train_step_matches_jax(opt_name, micro, compress):
                        remat="full")
     jstep, jinit, jocfg = jax_step(jm, jm.cfg, None, opt_name,
                                    grad_compression=compress)
-    step, init, ocfg = make_train_step(m, m.cfg, opt_name,
+    step, init, ocfg = make_train_step(m, m.cfg, None, opt_name,
                                        grad_compression=compress)
     js = jinit(jp)
     ts = convert.opt_state_from_jax(jax.tree.map(np.asarray, js))
@@ -221,7 +221,10 @@ def test_preempted_and_restored_loop_equals_straight_run(tmp_path):
         assert torch.equal(a, b), name
 
 
-def test_train_main_smoke_on_cpu(tmp_path, capsys):
+def test_train_main_smoke_on_cpu(tmp_path, capsys, monkeypatch):
+    """The launcher on the CPU, one process: two steps and a checkpoint.
+    ``--distributed`` outside ``torch.distributed.run``'s environment
+    raises, as does a ``--mesh`` of 8 processes in a world of one."""
     from repro_torch.launch import train
     loop = train.main(["--arch", "granite-3-8b", "--smoke", "--steps", "2",
                        "--global-batch", "2", "--seq", "32", "--device",
@@ -232,8 +235,12 @@ def test_train_main_smoke_on_cpu(tmp_path, capsys):
     assert len(loop.history) == 2
     assert all(np.isfinite(h["loss"]) for h in loop.history)
     assert (tmp_path / "step_00000002" / "manifest.json").exists()
-    for flag in (["--mesh", "2,4"], ["--distributed"]):
-        with pytest.raises(NotImplementedError, match="item 8"):
+    for k in train._TORCHRUN_ENV:
+        monkeypatch.delenv(k, raising=False)
+    for flag, err, match in (
+            (["--mesh", "2,4"], ValueError, "needs 8 process"),
+            (["--distributed"], RuntimeError, "torch.distributed.run")):
+        with pytest.raises(err, match=match):
             train.main(["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu",
                         *flag])
 

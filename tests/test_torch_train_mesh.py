@@ -1,0 +1,343 @@
+"""The port's training over several processes (``distributed/parallel.py``,
+the plan seam of ``TransformerLM``, ``make_train_step(plan=)``, the
+sharded optimizers and batches, ``TrainLoop(mesh=)`` and restore onto
+another layout) on the CPU, against the port's one-device step and the
+JAX package's single-device loss and step.
+
+One ``python -m torch.distributed.run --nproc-per-node 4`` of
+``tests/_torch_mesh_worker.py`` (gloo, 4 ranks) runs every case over
+layouts (4, 1), (1, 4), (2, 2) and (2, 1, 2) and writes what it got; the
+tests compare.  qwen3-0.6b's smoke config (4 heads over 2 kv heads)
+shards its kv heads at "model" 2 and projects them whole and expands
+them at "model" 4; granite-3-8b runs 4 microbatches over the local rows;
+llama3-405b runs Adafactor (factored at the smoke widths with
+``min_dim_factored`` 16); mamba2-780m and qwen3-moe-30b-a3b run data
+parallel; last, the launcher's ``main`` trains over the same 4 ranks.
+qwen3's parameters are JAX's initialisation, carried across by
+``convert.lm_params_from_jax``, the others the port's draws; all in f32.
+
+Tolerances: the sharded step sums in another order than one device (the
+gradient over ranks, the vocab-parallel softmax, the row-parallel
+products).  The loss is held within 1e-6 of one device's (relative),
+every gathered gradient within 1e-5 of its leaf's largest element, the
+optimizer state within 1e-5.  The parameters' movement (after - before)
+within 1e-4 of the learning rates' sum plus one f32 spacing per element,
+except where AdamW's g / (|g| + eps) turns with the gradient's last
+digits: elements whose clipped gradient at some step is below 100 eps
+(1e-6), at most 0.1 % of a leaf, as ``test_torch_train.py`` holds one
+step against JAX.
+"""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs.registry import get_config as jax_config  # noqa: E402
+from repro.configs.registry import smoke_config as jax_smoke  # noqa: E402
+from repro.models.zoo import get_model as jax_model  # noqa: E402
+from repro.training.train_step import make_train_step as jax_step  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.configs.base import ShapeCfg  # noqa: E402
+from repro_torch.configs.registry import get_config, smoke_config  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLM, device_batch  # noqa: E402
+from repro_torch.distributed.rules import make_plan  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.train import TrainLoop  # noqa: E402
+from repro_torch.models.zoo import get_model  # noqa: E402
+from repro_torch.training import optimizers as opt  # noqa: E402
+from repro_torch.training.train_step import (_microbatch_grads,  # noqa: E402
+                                             make_train_step)
+from repro_torch.utils.params import tree_from_flat, tree_leaves  # noqa: E402
+
+import _torch_mesh_worker as W  # noqa: E402
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(HERE, "..", "src")
+ARCHS = sorted({c[0] for c in W.CASES.values()} | {W.RESTORE_ARCH})
+
+
+JAX_ARCH = "qwen3-0.6b"     # the case held against the JAX package
+
+
+@pytest.fixture(scope="module")
+def jax_qwen3():
+    jm = jax_model(jax_smoke(jax_config(JAX_ARCH)))
+    return jm, jm.init(jax.random.PRNGKey(0))
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory, jax_qwen3):
+    """The worker's outputs and standard output: one torchrun of 4 gloo
+    ranks for the file.  qwen3's parameters are JAX's (carried across by
+    ``convert``), the other archs' the port's draws from seed 0."""
+    d = tmp_path_factory.mktemp("mesh")
+    inp, out = d / "in", d / "out"
+    inp.mkdir()
+    out.mkdir()
+    for arch in ARCHS:
+        if arch == JAX_ARCH:
+            tree = convert.lm_params_from_jax(
+                jax.tree.map(np.asarray, jax_qwen3[1]))
+        else:
+            tree = get_model(W.case_config(arch, {})).init(
+                torch.Generator().manual_seed(0))
+        np.savez(inp / f"{arch}.npz", **{n: x.detach().numpy()
+                                         for n, x in tree_leaves(tree)})
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", os.path.join(HERE, "_torch_mesh_worker.py"),
+         str(inp), str(out)], env=env, capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return inp, out, proc.stdout + proc.stderr
+
+
+def _load(path):
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
+
+
+def _sub(d, prefix):
+    return {k[len(prefix) + 1:]: v for k, v in d.items()
+            if k.startswith(prefix + "/")}
+
+
+def _np(tree):
+    return {n: x.detach().numpy().copy() for n, x in tree_leaves(tree)}
+
+
+def close(got, want, tol, what):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got - want).max())
+    assert err <= tol * scale, (what, err, scale)
+
+
+def moved_close(got, want, before, lr_sum, small, what):
+    """The parameter's movement against the reference's (module note)."""
+    moved = want.astype(np.float64) - before
+    beyond = np.abs(got.astype(np.float64) - before - moved) > (
+        1e-4 * lr_sum + np.spacing(np.abs(want).astype(np.float32)))
+    assert np.all(small[beyond]), (what, int(beyond.sum()))
+    assert np.mean(beyond) <= 1e-3, (what, int(beyond.sum()))
+
+
+def one_device(name, inp):
+    """The port's one-device run of a case from the same parameters and
+    batches: loss and gradients of the first batch, then per step the
+    loss, clipped gradients and parameters, and the optimizer state."""
+    arch, _, B, S, over, opt_over = W.CASES[name]
+    cfg = W.case_config(arch, over)
+    m = get_model(cfg)
+    with np.load(inp / f"{arch}.npz") as f:
+        params = m.load(tree_from_flat(m.param_defs(),
+                                       {k: torch.tensor(f[k])
+                                        for k in f.files}))
+    ocfg = opt.OptConfig(name=cfg.optimizer, **opt_over)
+    # make_train_step's one-device step, its gradients kept before the
+    # optimizer clips them in place
+    _, init, update = opt.make_optimizer(cfg.optimizer, ocfg)
+    data = SyntheticLM(cfg.vocab_size, S, B, seed=W.BATCH_SEED)
+    out = {"before": _np(params), "steps": []}
+    state = init(params)
+    for i in range(2):
+        b = device_batch(data.batch_at(i), "cpu")
+        g, loss, _ = _microbatch_grads(m.loss, params, b,
+                                       cfg.grad_accum_microbatches,
+                                       getattr(torch, cfg.grad_accum_dtype))
+        grads = _np(g)
+        params, state, met = update(g, state, params)
+        clip = min(1.0, ocfg.grad_clip / max(float(met["grad_norm"]), 1e-9))
+        out["steps"].append({"loss": float(loss), "grads": grads,
+                             "clip": clip, "lr": float(met["lr"]),
+                             "params": _np(params)})
+    out["opt"] = _np({k: v for k, v in state.items() if k != "step"})
+    return out
+
+
+@pytest.fixture(scope="module")
+def refs(run):
+    return {name: one_device(name, run[0]) for name in W.CASES}
+
+
+CASE_NAMES = list(W.CASES)
+
+
+@pytest.mark.parametrize("name", CASE_NAMES)
+def test_shard_gather_round_trip(run, name):
+    """``gather_tree(shard_tree(t))`` gave every parameter back bit for
+    bit on every layout."""
+    assert bool(_load(run[1] / f"{name}.npz")["roundtrip"])
+
+
+@pytest.mark.parametrize("name", CASE_NAMES)
+def test_loss_and_grads_match_one_device(run, refs, name):
+    """The sharded loss of the first batch, and every gradient gathered
+    from the shards, against one device's."""
+    got, want = _load(run[1] / f"{name}.npz"), refs[name]["steps"][0]
+    close(got["grad_loss"], want["loss"], 1e-6, "loss")
+    grads = _sub(got, "grad")
+    assert set(grads) == set(want["grads"])
+    for n, g in want["grads"].items():
+        close(grads[n], g, 1e-5, n)
+
+
+@pytest.mark.parametrize("name", CASE_NAMES)
+def test_two_steps_match_one_device(run, refs, name):
+    """Two sharded steps (the second through ``make_train_step``): both
+    losses, the parameters and the optimizer state (AdamW's m and v,
+    Adafactor's vr / vc / v) gathered from the shards against one
+    device's."""
+    got, ref = _load(run[1] / f"{name}.npz"), refs[name]
+    for i in range(2):
+        close(got[f"loss{i + 1}"], ref["steps"][i]["loss"], 1e-6,
+              f"loss{i + 1}")
+    lr_sum = sum(s["lr"] for s in ref["steps"])
+    want = ref["steps"][1]["params"]
+    params = _sub(got, "p2")
+    assert set(params) == set(want)
+    for n, p in want.items():
+        small = np.zeros(p.shape, bool)
+        for s in ref["steps"]:
+            small |= np.abs(s["grads"][n]) * s["clip"] < 1e-6
+        moved_close(params[n], p, ref["before"][n], lr_sum, small, n)
+    state = _sub(got, "opt")
+    assert int(state.pop("step")) == 2
+    assert set(state) == set(ref["opt"])
+    for n, v in ref["opt"].items():
+        close(state[n], v, 1e-5, n)
+
+
+def test_slice_matches_jax_single_device(run, refs, jax_qwen3):
+    """qwen3-0.6b at (2, 2) (kv heads sharded, vocab-parallel loss, FSDP
+    over "data") against the JAX package on the same parameters and
+    batch: the loss within 1e-6 of ``model.loss`` (relative), the
+    parameters after one step within 1e-5 of each leaf's largest element
+    of JAX's single-device ``make_train_step(model, cfg, None)`` and
+    their movement as the module note says (the small gradients: the
+    port's one-device ones, held against JAX's in ``test_torch_train``)."""
+    got = _load(run[1] / "qwen3-2x2.npz")
+    _, _, B, S, _, _ = W.CASES["qwen3-2x2"]
+    jm, jp = jax_qwen3
+    hb = SyntheticLM(jm.cfg.vocab_size, S, B, seed=W.BATCH_SEED).batch_at(0)
+    jb = {k: jnp.asarray(v) for k, v in hb.items()}
+    jl, _ = jm.loss(jp, jb)
+    close(got["grad_loss"], jl, 1e-6, "loss")
+    close(got["loss1"], jl, 1e-6, "loss1")
+    step, init, _ = jax_step(jm, jm.cfg, None)
+    jp1, _, jmet = jax.jit(step)(jp, init(jp), jb, jnp.int32(0))
+    flat = lambda t: {".".join(k.key for k in path): np.asarray(v)  # noqa
+                      for path, v in jax.tree_util.tree_leaves_with_path(t)}
+    want, before = flat(jp1), flat(jp)
+    one = refs["qwen3-2x2"]["steps"][0]
+    params = _sub(got, "p1")
+    assert set(params) == set(want)
+    for n, p in want.items():
+        close(params[n], p, 1e-5, n)
+        moved_close(params[n], p, before[n], float(jmet["lr"]),
+                    np.abs(one["grads"][n]) * one["clip"] < 1e-6, n)
+
+
+@pytest.mark.parametrize("shape", W.RESTORE_LAYOUTS,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_restore_onto_another_layout(run, shape):
+    """A ``TrainLoop`` on (2, 2) saved at step 1; a loop on ``shape``
+    restored it (its shards cut from the full arrays) and ran steps 2
+    and 3: losses and parameters against a one-device loop that ran the
+    3 steps straight (the same seed and stream)."""
+    got = _load(run[1] / f"restore-{'x'.join(map(str, shape))}.npz")
+    cfg = smoke_config(get_config(W.RESTORE_ARCH))
+    straight = TrainLoop(cfg, global_batch=W.RESTORE_B, seq=W.RESTORE_S,
+                         device="cpu")
+    params, _, _ = straight.run(3, log=lambda _: None)
+    assert list(got["steps"]) == [2, 3]
+    for i, h in enumerate(straight.history[1:]):
+        close(got["losses"][i], h["loss"], 1e-6, f"loss {h['step']}")
+    want = _np(params)
+    for n, p in want.items():
+        close(_sub(got, "p")[n], p, 1e-5, n)
+
+
+def _plan(arch, shape, **over):
+    cfg = smoke_config(get_config(arch)).replace(**over)
+    axes = ("data", "model")
+    mesh = make_mesh(shape, axes, ["cpu"] * int(np.prod(shape)))
+    return cfg, make_plan(cfg, mesh, ShapeCfg("t", 32, 4, "train"))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "qwen3-moe-30b-a3b",
+                                  "zamba2-1.2b", "seamless-m4t-medium"])
+def test_other_families_raise_at_model_2(arch):
+    """Tensor parallelism is ported for the dense transformer only: the
+    other families raise at a "model" axis of 2 and are taken at 1."""
+    cfg, plan = _plan(arch, (2, 2))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        get_model(cfg, plan)
+    cfg, plan = _plan(arch, (4, 1))
+    assert get_model(cfg, plan).plan is plan
+
+
+@pytest.mark.parametrize("over,shape,what", [
+    ({}, (1, 8), "sequence parallelism"),
+    ({"seq_shard_activations": True}, (2, 2), "resid_seq")])
+def test_sp_and_resid_seq_plans_raise(over, shape, what):
+    """4 query heads on an 8-way "model" axis (SP) and a
+    sequence-sharded residual stream raise, never run unsharded."""
+    cfg, plan = _plan("qwen3-0.6b", shape, **over)
+    assert (plan.seq_axes if what.startswith("seq") else plan.resid_seq)
+    with pytest.raises(NotImplementedError, match=f"{what}.*item 8"):
+        get_model(cfg, plan)
+
+
+def test_grad_compression_under_a_plan_raises():
+    cfg, plan = _plan("qwen3-0.6b", (4, 1))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        make_train_step(get_model(cfg, plan), cfg, plan,
+                        grad_compression=True)
+
+
+def test_launcher_over_four_processes(run):
+    """``launch.train.main(["--distributed", "--mesh", "2,2", ...])`` in
+    the worker's gloo group of 4: rank 0 alone logs, and its losses (as
+    logged, 4 decimals) are those of one process."""
+    log = run[2]
+    assert log.count("step 2 loss") == 1
+    assert "mesh={'data': 2, 'model': 2}" in log
+    la = W.LAUNCHER
+    one = TrainLoop(smoke_config(get_config(la["arch"])),
+                    global_batch=la["global_batch"], seq=la["seq"],
+                    device="cpu")
+    one.run(la["steps"], log=lambda _: None)
+    for h in one.history:
+        assert f"step {h['step']} loss {h['loss']:.4f}" in log
+
+
+def test_no_fallback_from_the_card(monkeypatch):
+    """A process mesh or ``--distributed`` on the card raises when CUDA,
+    or this rank's card, is missing: it never drops to the CPU or to one
+    process."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train as train_mod
+    for k, v in (("RANK", "0"), ("WORLD_SIZE", "2"), ("LOCAL_RANK", "3"),
+                 ("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", "1")):
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_mod.init_distributed("cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mesh_mod.make_process_mesh((1, 1), ("data", "model"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(RuntimeError, match="LOCAL_RANK 3 but only 2"):
+        train_mod.init_distributed("cuda")

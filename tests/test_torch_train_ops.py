@@ -26,6 +26,7 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.data import pipeline as pipe  # noqa: E402
 from repro_torch.distributed import compression as comp  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
+from repro_torch.launch.mesh import make_process_mesh  # noqa: E402
 from repro_torch.models import common as cm  # noqa: E402
 from repro_torch.training import optimizers as opt  # noqa: E402
 from repro_torch.training import remat  # noqa: E402
@@ -329,8 +330,11 @@ def test_synthetic_lm_batches_bit_equal(seed, step):
     dev = pipe.device_batch(got, "cpu")
     assert dev["tokens"].dtype == torch.int64
     assert np.array_equal(dev["labels"].numpy(), want["labels"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pipe.device_batch(got, "cpu", mesh=object())
+    # a world of one process: its block is every row
+    mesh = make_process_mesh((1, 1), ("data", "model"), "cpu")
+    one = pipe.device_batch(got, "cpu", mesh, ("data",))
+    for k in ("tokens", "labels"):
+        assert torch.equal(one[k], dev[k])
 
 
 def test_token_file_batches_equal_jax(tmp_path):

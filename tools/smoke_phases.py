@@ -3,14 +3,17 @@
 
     python3 tools/smoke_phases.py ssd_bwd [flash] [flash_bwd] [ssd] \
         [serve_check] [serve_new] [serve_encdec] [train_check] [train] \
-        [train_ssm] [train_moe] [train_encdec] [shard]
+        [train_ssm] [train_moe] [train_encdec] [train_mesh] [shard]
 
 Builds the attention and SSD sources, forward and backward (one ``nvcc``
 each, in parallel), prints each kernel's registers and spills, then runs
 the named phases (``serve_new``: the serve runs of qwen3-moe-30b-a3b and
 chameleon-34b; ``train_ssm``: the train phase of mamba2-780m, then of
 zamba2-1.2b; ``train_moe`` and ``train_encdec``: that of
-qwen3-moe-30b-a3b and of seamless-m4t-medium; ``shard``: the search
+qwen3-moe-30b-a3b and of seamless-m4t-medium; ``train_mesh``: qwen3-0.6b
+over every visible card, one process per card, held against its own
+one-card reference (alone, without the train phase's run A); ``shard``:
+the search
 across several devices, which also builds the GAT and simulator
 sources) in the order given, each
 printing the JSON lines it prints in the whole script.  For quick checks
@@ -31,7 +34,7 @@ import chip_smoke as cs  # noqa: E402
 
 PHASES = ("flash", "flash_bwd", "ssd", "ssd_bwd", "serve_check",
           "serve_new", "serve_encdec", "train_check", "train", "train_ssm",
-          "train_moe", "train_encdec", "shard")
+          "train_moe", "train_encdec", "train_mesh", "shard")
 
 
 def main(argv=None):
@@ -58,15 +61,19 @@ def main(argv=None):
     cs.emit({"phase": "build", "seconds": time.perf_counter() - t0,
              "kernels": cs.ptxas_kernels(rep)})
     gen = torch.Generator("cuda").manual_seed(0)
+    done = {}
     for name in args.phases:
         t0 = time.perf_counter()
-        run_phase(name, cs, torch, np, rdev, fops, sops, gen)
+        done[name] = run_phase(name, cs, torch, np, rdev, fops, sops, gen,
+                               done)
         print(json.dumps({"phase_done": name,
                           "seconds": time.perf_counter() - t0}), flush=True)
 
 
-def run_phase(name, cs, torch, np, rdev, fops, sops, gen):
-    """Run phase ``name`` of ``chip_smoke.py`` (imported as ``cs``)."""
+def run_phase(name, cs, torch, np, rdev, fops, sops, gen, done):
+    """Run phase ``name`` of ``chip_smoke.py`` (imported as ``cs``);
+    ``done``: what the phases run before it returned (train_mesh takes
+    the train phase's run A as its reference when it ran)."""
     if name == "flash":
         cs.phase_flash(torch, fops, gen)
     elif name == "flash_bwd":
@@ -87,7 +94,9 @@ def run_phase(name, cs, torch, np, rdev, fops, sops, gen):
     elif name == "train_check":
         cs.phase_train_check(torch, rdev)
     elif name == "train":
-        cs.phase_train(torch, np, rdev)
+        return cs.phase_train(torch, np, rdev)
+    elif name == "train_mesh":
+        return cs.phase_train_mesh(torch, np, done.get("train"))
     elif name == "train_moe":
         cs.phase_train_repeat(torch, np, rdev, cs.MOE_TRAIN[0])
     elif name == "train_encdec":
