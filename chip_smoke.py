@@ -135,8 +135,10 @@ Phases, each printing JSON lines:
                over Sk = 1000, the MoE and encdec train phases'
                attentions (qwen3-moe's row at S = 4096; seamless's
                encoder, decoder and cross-attention, Sq = 4096 over Sk
-               = 2048), Sq = 300 over Sk = 1024 non-causal, and
-               llama4's and chameleon's heads, each launched twice for
+               = 2048), Sq = 300 over Sk = 1024 non-causal,
+               llama4's and chameleon's heads, and qwen2.5-14b's
+               sequence-parallel attention (Sq = S/3 over Sk = S = 3072
+               at causal offsets S/3 and 2S/3), each launched twice for
                bit-equal
                gradients; bf16 on the tensor-core route, checked and
                timed on the fp32-core route too (``ms_fp32_cores``);
@@ -182,21 +184,34 @@ Phases, each printing JSON lines:
                of 5 steps from the same seed bit-equal to the first
                (losses and parameter checksums) in place of the
                restart;
-18. train_mesh -- (after qwen3-0.6b's train phase) qwen3-0.6b trained
-               over every visible card, one process per card
+18. train_mesh -- (after qwen3-0.6b's train phase) the port's models
+               trained over the visible cards, one process per card
                (``torch.distributed.run`` on ``tools/train_mesh.py``,
-               NCCL, the loopback): its one-card reference, then each
-               (data, model) layout (one card (1, 1); two (2, 1), (1, 2);
-               four (4, 1), (1, 4), (2, 2)) at the published config, B 4,
-               S 4096, 3 steps from seed 0, exact launches a step per
-               rank, and a checkpoint saved on the last layout restored
-               onto the others (one card: a one-card loop); one card
+               NCCL, the loopback; one launch per world size, and one
+               of its own for the MoE's deepest cut): per run
+               its one-card reference, then each (data, model) layout at
+               published widths, B 4, 3 steps from seed 0 -- qwen3-0.6b
+               (one card (1, 1); two (2, 1), (1, 2); four (4, 1), (1,
+               4), (2, 2), and (1, 4) with its residual stream cut on S,
+               Megatron-SP, also against (1, 4) without it); on four cards
+               also mamba2-780m ((1, 4), (2, 2)), zamba2-1.2b,
+               qwen3-moe-30b-a3b (expert parallel, 32 experts a rank, at
+               4 layers and at 16 with no reference) and
+               seamless-m4t-medium at (1, 4), and on three of them
+               qwen2.5-14b's sequence-parallel attention at (1, 3), 4
+               layers, S 3072 -- exact launches a step per rank, finite
+               losses, and qwen3's checkpoint saved on one layout
+               restored onto another (one card: a one-card loop); one card
                bit-equal to the one-card run (losses, parameter
-               checksums, and the reference bit-equal to the train
-               phase's run A), more within stated tolerances; per layout
-               the median step ms, tokens/s, each rank's peak memory and
-               shard bytes, rank 0's profile of a 4th step (device busy,
-               NCCL, GEMM and attention ms), and the card count;
+               checksums, and qwen3's reference bit-equal to the train
+               phase's run A), more within stated tolerances; a run that
+               needs more cards than the host has is printed as not
+               run; each run's gates checked as it ends, and what
+               missed printed; per layout the median step ms,
+               tokens/s, each rank's
+               peak memory, shard bytes and NCCL ms, each rank's profile
+               of a 4th step (device busy, NCCL, GEMM, attention and SSD
+               ms), and the card count;
 13. kernels -- (printed last) per kernel: launches in its slice's main
                path (the BERT "egrl" run, the zamba2 serve run, the zoo
                "egrl" run, the attention backward's the qwen3 train run,
@@ -211,6 +226,7 @@ Phases, each printing JSON lines:
                launch is one call of the wrapper) and over their group (4
                forward launches, 8 backward calls); for attention also
                the qwen3 train run's launches (``launches_train``) and
+               for attention and the SSD scan, forward and backward,
                those a step of each rank of each train_mesh layout
                (``launches_train_mesh``); for
                attention and the SSD scan, forward and backward, the SSM
@@ -1558,7 +1574,12 @@ REPEAT_STEPS = 5
 # train_mesh: steps a layout runs (phase_train's run A gives the one-card
 # reference's checksums after as many); the worker's time limit
 MESH_STEPS = 3
-MESH_TIMEOUT_S = 600
+MESH_TIMEOUT_S = 1800
+# qwen2.5-14b's sequence-parallel run in train_mesh: its 40 query heads
+# on a "model" axis of SP_RANKS cards (they do not divide it), so each
+# rank attends with S / SP_RANKS query rows; S = SP_SEQ divides by it
+SP_RANKS = 3
+SP_SEQ = 3072
 
 
 def served_prefills():
@@ -1819,7 +1840,11 @@ def flash_bwd_family_cases():
     (4096 queries over 2048 frames, non-causal) at B = 4, 16 heads of
     64; then 300 queries over 1024 keys without the causal mask
     (qwen3-0.6b's heads), llama4's heads (8 KV heads with 5 queries
-    each) and chameleon's (8 with 8); bf16, on the tensor cores."""
+    each) and chameleon's (8 with 8); last the sequence-parallel
+    attention of the train_mesh phase's qwen2.5-14b run (8 KV heads with
+    5 queries each, h 128, one microbatch's row): rank r of m = 3 takes
+    the S/m query rows at causal offset S r / m over all S = 3072 keys,
+    r = 1 and 2; bf16, on the tensor cores."""
     from repro_torch.configs.registry import get_config
     bf = "bfloat16"
     heads = lambda c: (c.n_kv_heads, c.q_per_kv, c.head_dim)  # noqa: E731
@@ -1835,7 +1860,10 @@ def flash_bwd_family_cases():
         ("llama4-heads", 1, 1024, 1024,
          *heads(get_config("llama4-maverick-400b-a17b")), bf, True, 0),
         ("chameleon-heads", 1, 1024, 1024,
-         *heads(get_config("chameleon-34b")), bf, True, 0)]
+         *heads(get_config("chameleon-34b")), bf, True, 0)] + [
+        (f"qwen2.5-14b:sp:r={r}", 1, SP_SEQ // SP_RANKS, SP_SEQ,
+         *heads(get_config("qwen2.5-14b")), bf, True,
+         SP_SEQ * r // SP_RANKS) for r in (1, 2)]
 
 
 def flash_bwd_error(torch, got, want, bf16):
@@ -1877,11 +1905,15 @@ def sdpa_backward(torch, q, k, v, g, causal, q_offset=0):
         .requires_grad_()
     vs = v.repeat_interleave(G, dim=2).transpose(1, 2).detach() \
         .requires_grad_()
-    if causal and (S != Sk or q_offset):
-        check(q_offset == Sk - S, "SDPA's causal masks align at the top "
-              "left or the bottom right")
+    if causal and q_offset and q_offset == Sk - S:
         out = F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=causal_lower_right(S, Sk))
+    elif causal and (S != Sk or q_offset):
+        # SDPA's causal masks align at the top left or the bottom right:
+        # any other offset (a middle rank's query rows) as a dense mask
+        pos = torch.arange(S, device=q.device)[:, None] + q_offset
+        out = F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=torch.arange(Sk, device=q.device) <= pos)
     else:
         out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
     gs = g.reshape(B, S, K * G, h).transpose(1, 2)
@@ -2541,24 +2573,36 @@ def step_launches(cfg, tensor_cores):
     (every mamba2 layer; zamba2's grouped layers), once outside (zamba2's
     tail), and its backward once; all of it once per microbatch.  An
     encdec model's attention blocks: each encoder layer's, and each
-    decoder layer's self- and cross-attention.  ``tensor_cores``: bf16
-    at h 64 / 128, where every attention launch takes the tensor-core
-    route."""
+    decoder layer's self- and cross-attention.  Where the transformer's
+    units (a layer, or ``moe.every`` of them) fill groups of
+    ``scan_block``, the two-level remat also recomputes each group under
+    its outer checkpoint in the backward, which stops (PyTorch's early
+    stop) as soon as it has the group's last unit's input: every block
+    but those of each group's last unit a third time.  ``tensor_cores``:
+    bf16 at h 64 / 128, where every attention launch takes the
+    tensor-core route."""
     L = cfg.n_layers
     out = {}
+    recomputed = 0      # attention blocks run a third time
     if cfg.family == "encdec":
         blocks = cfg.enc_layers + 2 * cfg.dec_layers
     elif cfg.ssm is None:
         blocks = L
+        per = cfg.moe.every if cfg.moe else 1
+        units, blk = L // per, cfg.scan_block
+        if cfg.scan_layers and blk and units % blk == 0:
+            recomputed = L - units // blk * per
     else:
         k = cfg.shared_attn_every
         blocks = L // k if k else 0
         grouped = blocks * k if k else L
         out.update(ssd_scan=2 * grouped + (L - grouped), ssd_scan_bwd=L)
     if blocks:
-        tc = blocks if tensor_cores else 0
-        out.update(flash_attention=2 * blocks, flash_attention_tc=2 * tc,
-                   flash_attention_bwd=blocks, flash_attention_bwd_tc=tc)
+        fwd = 2 * blocks + recomputed
+        tc = 1 if tensor_cores else 0
+        out.update(flash_attention=fwd, flash_attention_tc=fwd * tc,
+                   flash_attention_bwd=blocks,
+                   flash_attention_bwd_tc=blocks * tc)
     return {k: v * cfg.grad_accum_microbatches for k, v in out.items()}
 
 
@@ -2846,70 +2890,149 @@ def phase_train(torch, np, rdev, arch=TRAIN_ARCH, n=TRAIN_STEPS):
     return row
 
 
-def phase_train_mesh(torch, np, train=None):
+def mesh_launches(n, names=None):
+    """[(world size, run names)], one torchrun launch each, of the
+    train_mesh runs on a host of ``n`` cards: each run name (of
+    ``names``, when given) at the most cards of its runs that ``n``
+    covers (``tools/train_mesh.py`` ``RUNS``), one launch per world size
+    (the most cards first) and one of its own for each ``alone`` run;
+    and the names none fits, with the cards they need."""
+    import train_mesh as tm         # tools/, on the path above
+    worlds, missing = {}, {}
+    for name in dict.fromkeys(r.name for r in tm.RUNS
+                              if not names or r.name in names):
+        fit = [r for r in tm.RUNS if r.name == name and r.cards <= n]
+        if fit:
+            run = max(fit, key=lambda r: r.cards)
+            worlds.setdefault(run.cards, []).append(run)
+        else:
+            missing[name] = min(r.cards for r in tm.RUNS if r.name == name)
+    launches = []
+    for world, runs in sorted(worlds.items(), reverse=True):
+        shared = [r.name for r in runs if not r.alone]
+        launches += ([(world, shared)] if shared else []) + [
+            (world, [r.name]) for r in runs if r.alone]
+    return launches, missing
+
+
+def phase_train_mesh(torch, np, train=None, names=None):
     """Training over the cards of this host, one process per card:
     ``python -m torch.distributed.run --standalone`` on
-    ``tools/train_mesh.py`` with one process per visible card (1, 2 or
-    4), rendezvous on the loopback.  Each (data, model) layout (one
-    card: (1, 1); two: (2, 1), (1, 2); four: (4, 1), (1, 4), (2, 2))
-    trains qwen3-0.6b at its published config from seed 0, B 4, S 4096,
-    for ``MESH_STEPS`` steps; the last saves at step 2 and other layouts
-    (one card: a one-card ``TrainLoop``) restore it and run step 3.  The
-    worker's gates (``tools/train_mesh.py``): exactly ``step_launches``
-    a step on every rank; against its one-card reference, one card
+    ``tools/train_mesh.py``, rendezvous on the loopback, once per launch
+    that ``mesh_launches`` gives (on four cards: 4, the MoE's 16-layer
+    cut in a launch of its own, then 3 for qwen2.5-14b's
+    sequence-parallel run; on one: 1).  Each run of
+    ``tools/train_mesh.py`` ``RUNS`` trains its model at published
+    widths (the depth cuts in ``RUNS``) from seed 0, B 4, for
+    ``MESH_STEPS`` steps on each of its (data, model) layouts:
+    qwen3-0.6b ((1, 1); (2, 1), (1, 2); (4, 1), (1, 4), (2, 2), and
+    (1, 4) with ``seq_shard_activations`` also against (1, 4) without
+    it), mamba2-780m ((1, 4), (2, 2)), zamba2-1.2b, qwen3-moe-30b-a3b at 4
+    and 16 layers (expert parallel, 32 experts a rank) and
+    seamless-m4t-medium at (1, 4), qwen2.5-14b at (1, 3); qwen3's
+    checkpoint saved on one layout is restored onto another (one card: a
+    one-card loop).  The worker's gates (``tools/train_mesh.py``
+    ``gate_run``, checked after each run): exactly ``step_launches`` a
+    step on every rank; against rank 0's one-card reference, one card
     bit-equal (losses and parameter checksums), more within stated
-    tolerances.  Here, in addition: the reference bit-equal to the first
-    steps of ``phase_train``'s run A when it ran (``train``).  Prints
-    per layout the median step ms (host clock,
-    steps 2-3), tokens/s, each rank's peak memory and shard bytes, rank
-    0's profile of a 4th step, the card count, and the memory this
-    process still holds on cuda:0."""
+    tolerances; each run's line says what missed (``gates_missed``, every
+    rank's).  Here, in addition: qwen3's reference
+    bit-equal to the first steps of ``phase_train``'s run A when it ran
+    (``train``).  A run that needs more cards than the host has is
+    printed as not run.  ``names``: only the runs of these names.
+    Prints per layout the median step ms (host
+    clock, steps 2-3), tokens/s, each rank's peak memory and shard
+    bytes, each rank's profile of a 4th step (device busy, NCCL, GEMM,
+    attention and SSD ms), the card count, and the memory this process
+    still holds on cuda:0."""
     import shutil
     import signal
     n = torch.cuda.device_count()
+    launches, missing = mesh_launches(n, names)
+    for name, need in missing.items():
+        emit({"phase": "train_mesh", "run": name, "cards": n,
+              "not_run": f"needs {need} cards, the host has {n}"})
     out_dir = os.path.join(ROOT, "build", "train_mesh")
     shutil.rmtree(out_dir, ignore_errors=True)
-    os.makedirs(out_dir)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     held = {"allocated_bytes": torch.cuda.memory_allocated(0),
             "reserved_bytes": torch.cuda.memory_reserved(0)}
     env = dict(os.environ, NCCL_SOCKET_IFNAME="lo", GLOO_SOCKET_IFNAME="lo")
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", str(n),
-           os.path.join(ROOT, "tools", "train_mesh.py"), "--out", out_dir]
-    log = os.path.join(out_dir, "log.txt")
-    t0 = time.perf_counter()
-    with open(log, "w") as f:
-        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=f,
-                                stderr=subprocess.STDOUT,
-                                start_new_session=True)
-        try:
-            rc = proc.wait(timeout=MESH_TIMEOUT_S)
-        finally:
-            if proc.poll() is None:
-                os.killpg(proc.pid, signal.SIGKILL)
-                proc.wait()
-    seconds = time.perf_counter() - t0
-    if rc != 0:
-        with open(log) as f:
-            print(f.read()[-12000:], flush=True)
-    check(rc == 0, f"train_mesh: the workers exited with {rc}")
-    ranks = []
-    for r in range(n):
-        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
-            ranks.append(json.load(f))
-    ref = ranks[0]["reference"]
-    if train is not None:
-        check(ref["losses"] == train["losses"][:MESH_STEPS]
-              and ref["checksums"] == train["checksums_at_mesh_steps"],
-              f"train_mesh: the one-card reference {ref['losses']} is not "
-              f"bit-equal to run A's first steps {train['losses']}")
+    rows, seconds, failed = {}, {}, {}
+    for k, (world, run_names) in enumerate(launches):
+        wdir = os.path.join(out_dir, f"launch{k}-world{world}")
+        os.makedirs(wdir)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(world),
+               os.path.join(ROOT, "tools", "train_mesh.py"), "--out", wdir,
+               "--runs", *run_names]
+        log = os.path.join(wdir, "log.txt")
+        t0 = time.perf_counter()
+        with open(log, "w") as f:
+            proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=f,
+                                    stderr=subprocess.STDOUT,
+                                    start_new_session=True)
+            try:
+                rc = proc.wait(timeout=MESH_TIMEOUT_S)
+            finally:
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+        what = os.path.basename(wdir)
+        seconds[what] = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            path = os.path.join(wdir, f"rank{r}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    ranks.append(json.load(f))
+        if rc != 0 or len(ranks) < world:
+            with open(log) as f:
+                print(f.read()[-12000:], flush=True)
+        for i, res in enumerate(ranks[0]["runs"] if ranks else ()):
+            per_rank = [rk["runs"][i] for rk in ranks if len(rk["runs"]) > i]
+            rows.update(mesh_rows(res, per_rank, world))
+            ref = res.get("reference")
+            emit({"phase": "train_mesh", "run": res["name"],
+                  "cards": world, "card": ranks[0]["card"],
+                  "seconds": res["seconds"],
+                  "gates_missed": [m for rr in per_rank
+                                   for m in rr["gates_missed"]],
+                  "reference": None if ref is None else {
+                      k: ref[k] for k in ("losses", "step_ms", "seconds")},
+                  "reference_bit_equal_to_run_a":
+                      res["name"] == TRAIN_ARCH and train is not None})
+        if rc != 0:     # the next launch still runs; the phase fails after
+            failed[what] = rc
+            continue
+        for res in ranks[0]["runs"]:
+            ref = res.get("reference")
+            if res["name"] == TRAIN_ARCH and train is not None:
+                check(ref["losses"] == train["losses"][:MESH_STEPS]
+                      and ref["checksums"] ==
+                      train["checksums_at_mesh_steps"],
+                      f"train_mesh: the one-card reference {ref['losses']} "
+                      f"is not bit-equal to run A's first steps "
+                      f"{train['losses']}")
+    emit({"phase": "train_mesh", "cards": n, "launches": launches,
+          "seconds_per_launch": seconds, "parent_holds_on_cuda0": held})
+    check(not failed, f"train_mesh: the workers exited with {failed} "
+          f"(launch: exit code)")
+    return rows
+
+
+def mesh_rows(res, per_rank, world):
+    """The printed rows of one train_mesh run: per layout and restore,
+    rank 0's row with every rank's launches a step, peak memory, shard
+    bytes and median step ms."""
     rows = {}
     for kind in ("layouts", "restores"):
-        for i, row in enumerate(ranks[0][kind]):
-            ranks_of = [rk[kind][i] for rk in ranks if len(rk[kind]) > i]
-            out = {"phase": "train_mesh", "kind": kind[:-1], "cards": n,
+        for i, row in enumerate(res.get(kind, ())):
+            ranks_of = [rr[kind][i] for rr in per_rank
+                        if len(rr.get(kind, ())) > i]
+            out = {"phase": "train_mesh", "run": res["name"],
+                   "kind": kind[:-1], "cards": world,
                    **{k: row[k] for k in row if k not in (
                        "checksums", "launches")},
                    "launches_per_rank": [rr["launches_per_step"]
@@ -2921,15 +3044,11 @@ def phase_train_mesh(torch, np, train=None):
                    "opt_shard_bytes_per_rank": [rr["opt_shard_bytes"]
                                                 for rr in ranks_of],
                    "median_step_ms_per_rank": [rr["median_step_ms"]
-                                               for rr in ranks_of]}
+                                               for rr in ranks_of],
+                   "nccl_ms_per_rank": [rr.get("profile", {}).get("nccl_ms")
+                                        for rr in ranks_of]}
             emit(out)
-            rows[f"{kind[:-1]}:{row['layout']}"] = out
-    summary = {"phase": "train_mesh", "cards": n, "card": ranks[0]["card"],
-               "seconds": seconds, "parent_holds_on_cuda0": held,
-               "reference": {k: ref[k] for k in ("losses", "step_ms",
-                                                 "seconds")},
-               "reference_bit_equal_to_run_a": train is not None}
-    emit(summary)
+            rows[f"{res['name']}:{kind[:-1]}:{row['layout']}"] = out
     return rows
 
 
@@ -2963,37 +3082,21 @@ def encdec_batch(torch, cfg, step):
 def train_runner(torch, cfg):
     """(run(steps, at) -> (state, losses, step ms, checksum of the
     parameters after step ``at``), batch_at(step)) for the MoE and
-    encdec train phases.  qwen3-moe runs through ``TrainLoop`` (the
-    checksum taken from its model's parameters, which the optimizer
-    updates in place, by its per-step log hook); seamless through
-    ``make_train_step`` on ``encdec_batch``es, as ``TrainLoop`` takes no
-    frame embeddings.  Random weights from seed 0 either way."""
-    from repro_torch.data.pipeline import SyntheticLM, device_batch
+    encdec train phases, through ``TrainLoop`` (the checksum taken from
+    its model's parameters, which the optimizer updates in place, by its
+    per-step log hook): qwen3-moe on the loop's own stream (seed 0),
+    seamless on ``encdec_batch``es.  Random weights from seed 0."""
     from repro_torch.launch.train import TrainLoop
-    from repro_torch.models.zoo import get_model
-    from repro_torch.training.train_step import make_train_step
-
+    batches = None
     if cfg.family == "encdec":
-        def run(steps, at):
-            model = get_model(cfg)
-            params = model.init(torch.Generator("cuda").manual_seed(0))
-            step_fn, opt_init, _ = make_train_step(model, cfg)
-            state, losses, ms, sums = opt_init(params), [], [], None
-            for step in range(steps):
-                t0 = time.monotonic()
-                params, state, met = step_fn(params, state,
-                                             encdec_batch(torch, cfg, step),
-                                             step)
-                losses.append(float(met["loss"]))
-                ms.append((time.monotonic() - t0) * 1e3)
-                if step + 1 == at:
-                    sums = checksum(torch, params)
-            return (step_fn, params, state), losses, ms, sums
-        return run, lambda step: encdec_batch(torch, cfg, step)
+        batches = lambda step: encdec_batch(torch, cfg, step)  # noqa: E731
+
+    def loop():
+        return TrainLoop(cfg, global_batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                         device="cuda", batches=batches)
 
     def run(steps, at):
-        a = TrainLoop(cfg, global_batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-                      device="cuda")
+        a = loop()
         sums = {}
 
         def hook(line):
@@ -3002,9 +3105,7 @@ def train_runner(torch, cfg):
         pa, sa, _ = a.run(steps, log=hook)
         return ((a.step_fn, pa, sa), [h["loss"] for h in a.history],
                 [h["ms"] for h in a.history], sums)
-    # TrainLoop's own stream (seed 0)
-    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
-    return run, lambda step: device_batch(data.batch_at(step), "cuda")
+    return run, loop().batch_at
 
 
 def phase_train_repeat(torch, np, rdev, arch, n=TRAIN_STEPS):
@@ -3013,7 +3114,7 @@ def phase_train_repeat(torch, np, rdev, arch, n=TRAIN_STEPS):
     weights from seed 0: qwen3-moe-30b-a3b at full width cut to
     ``MOE_TRAIN``'s 4 layers, 4 microbatches of one row (``TrainLoop``);
     seamless-m4t-medium at its published 6 + 6 layers on tokens (4,
-    4096) and frames (4, 2048, 1024) (``make_train_step``).  Run A:
+    4096) and frames (4, 2048, 1024) (``TrainLoop(batches=)``).  Run A:
     ``n`` steps.  Gates: every loss finite; exactly ``step_launches``
     per step, every attention launch on the tensor cores; a second run
     of ``REPEAT_STEPS`` steps from the same seed gives bit-equal losses
@@ -4027,12 +4128,13 @@ def main(argv=None):
                     encdec["launches_prefill"][r["name"]],
                 **{f"train:{a}": t["launches"][r["name"]]
                    for a, t in train_new.items()}}
-            # per rank a step, each layout of the train_mesh phase
+        if r["name"].startswith("ssd_scan") or r["name"].startswith(
+                "flash_attention"):
+            # per rank a step, each layout of the train_mesh phase (on
+            # each rank's heads, query rows or experts)
             r["launches_train_mesh"] = {
                 k: [lp.get(r["name"], 0) for lp in m["launches_per_rank"]]
                 for k, m in train_mesh.items()}
-        if r["name"].startswith("ssd_scan") or r["name"].startswith(
-                "flash_attention"):
             r["launches_train_ssm"] = {a: t["launches"].get(r["name"])
                                        for a, t in train_ssm.items()}
     for r in rows:

@@ -64,16 +64,18 @@ class TokenFile:
 
 
 def device_batch(batch, device, mesh=None, batch_axes=None):
-    """Host numpy batch -> tensors on ``device`` (integer arrays as int64,
-    the index type of the embedding and the loss).  With a process mesh
-    (JAX ``:60-68``), this rank's block of rows: the leading dim cut over
-    ``batch_axes`` as ``P(batch_axes)`` cuts it, the batch replicated
-    over every other axis; only that block is copied to the device."""
+    """Host numpy batch (or tensors) -> tensors on ``device`` (integer
+    arrays as int64, the index type of the embedding and the loss).  With
+    a process mesh (JAX ``:60-68``), this rank's block of rows: the
+    leading dim cut over ``batch_axes`` as ``P(batch_axes)`` cuts it, the
+    batch replicated over every other axis; only that block is copied to
+    the device."""
     out = {}
     for k, v in batch.items():
         if mesh is not None:
             v = par.block(v, 0, mesh, par.entry_axes(batch_axes))
-        t = torch.as_tensor(np.ascontiguousarray(v))
+        t = (v.contiguous() if isinstance(v, torch.Tensor)
+             else torch.as_tensor(np.ascontiguousarray(v)))
         if not t.is_floating_point():
             t = t.long()
         out[k] = t.to(device)

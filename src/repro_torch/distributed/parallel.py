@@ -15,6 +15,13 @@ this module holds the operations that layout implies, over a
   over "model" backward; ``reduce_from_model``: all-reduce forward in
   f32, cast once, identity backward) and ``matmul_f32``, the row-parallel
   product whose partial output is f32;
+- the sequence-parallel ends: all-gathers on S whose gradient is a
+  reduce-scatter (``gather_seq``, Megatron-SP's f) or this rank's rows
+  (``gather_seq_replicated``), and the reduce-scatter whose gradient is
+  an all-gather (``scatter_seq``, Megatron-SP's g); ``TensorParallel``
+  picks a model's entry and exit to a split block by its plan;
+- ``rms_norm_cut``: ``models/common.py`` ``rms_norm`` over a dim cut
+  over "model" (Mamba2's gated norm over its d_in);
 - the vocab-parallel embedding lookup and cross-entropy
   (``models/common.py`` ``embed`` / ``chunked_xent`` with the vocab cut
   over "model");
@@ -242,17 +249,161 @@ def matmul_f32(a, w):
     return _MatmulF32.apply(a, w)
 
 
+# ------------------------------------------- the sequence-parallel ends
+def seq_rows(S: int, mesh, axis: str = "model") -> slice:
+    """This rank's block of ``S`` sequence positions cut over ``axis``."""
+    n = mesh.shape[axis]
+    if S % n:
+        raise ValueError(f"sequence length {S} does not split over {axis} "
+                         f"({n} shards)")
+    r = mesh.coords[axis] * (S // n)
+    return slice(r, r + S // n)
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, partial_grad):
+        ctx.mesh, ctx.axis, ctx.partial = mesh, axis, partial_grad
+        return _all_gather(x, 1, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.partial:
+            return g[:, seq_rows(g.shape[1], ctx.mesh, ctx.axis)], None, \
+                None, None
+        s = _reduce_scatter(g.to(torch.float32), 1, ctx.mesh, ctx.axis)
+        return s.to(g.dtype), None, None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dtype):
+        ctx.mesh, ctx.axis, ctx.in_dtype = mesh, axis, x.dtype
+        return _reduce_scatter(x.to(torch.float32), 1, mesh, axis).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_gather(g, 1, ctx.mesh, ctx.axis).to(ctx.in_dtype), None,
+                None, None)
+
+
+def gather_seq(x, mesh, axis: str = "model"):
+    """Megatron-SP's entry to a block (in place of f): this rank's rows
+    (B, S/m, ...) all-gathered on S; the gradient, each rank's part over
+    all S (it went through its own heads, columns or experts), summed in
+    f32 over ``axis`` and cut to this rank's rows (a reduce-scatter)."""
+    return _GatherSeq.apply(x, mesh, axis, True)
+
+
+def gather_seq_replicated(x, mesh, axis: str = "model"):
+    """The rows each rank computed of a replicated tensor (B, S/m, ...)
+    all-gathered on S; the gradient, whole and equal on every rank, cut
+    to this rank's rows.  The sequence-parallel attention's exit."""
+    return _GatherSeq.apply(x, mesh, axis, False)
+
+
+def scatter_seq(x, mesh, dtype, axis: str = "model"):
+    """Megatron-SP's exit from a block (in place of g): a partial output
+    ``x`` (B, S, ...) summed over ``axis`` in f32, this rank's rows cast
+    once to ``dtype`` (a reduce-scatter); the gradient of those rows
+    all-gathered on S."""
+    return _ScatterSeq.apply(x, mesh, axis, dtype)
+
+
+class TensorParallel:
+    """A model's work split over the "model" axis of a plan: the entry
+    to a head-, column- or expert-parallel block and its exit, over a
+    replicated residual stream (f and g) or, with ``plan.resid_seq``
+    (Megatron-SP), one cut on S (``gather_seq`` and ``scatter_seq``)."""
+
+    def __init__(self, plan, axis: str = "model"):
+        self.plan, self.mesh, self.axis = plan, plan.mesh, axis
+        self.seq = plan.resid_seq is not None
+        self.size = plan.mesh.shape[axis]
+
+    @property
+    def rank(self) -> int:
+        """This process's coordinate on the axis (a process mesh's)."""
+        return self.mesh.coords[self.axis]
+
+    def enter(self, h):
+        """A block's input (the normed residual stream) -> what every
+        rank of the axis computes on: the whole sequence."""
+        if self.seq:
+            return gather_seq(h, self.mesh, self.axis)
+        return copy_to_model(h, self.mesh, self.axis)
+
+    def exit(self, partial, dtype):
+        """A block's f32 partial output (B, S, D) -> its sum over the
+        axis in the residual stream's layout, cast once to ``dtype``."""
+        if self.seq:
+            return scatter_seq(partial, self.mesh, dtype, self.axis)
+        return reduce_from_model(partial, self.mesh, dtype, self.axis)
+
+    def row_parallel(self, a, w):
+        """``exit(a @ w)``: this rank's rows of w times its columns of a,
+        the partial outputs summed in f32."""
+        return self.exit(matmul_f32(a, w.to(a.dtype)), a.dtype)
+
+
+# --------------------------------------------- a norm over a cut dim
+class _RMSNormCut(torch.autograd.Function):
+    """``models/common.py`` ``rms_norm`` of x whose last dim is cut over
+    an axis (x (..., d/m) and scale (d/m,) this rank's columns): the sum
+    of squares and, in the backward, the row sums of g * scale * x
+    summed over the axis in f32; the mean over the full d."""
+
+    @staticmethod
+    def _inv(x, eps, d, mesh, axis):
+        xf = x.float()
+        ss = (xf * xf).sum(-1)
+        dist.all_reduce(ss, group=mesh.groups[axis])
+        return torch.rsqrt(ss / d + eps)[..., None]
+
+    @staticmethod
+    def forward(ctx, x, scale, eps, mesh, axis):
+        d = x.shape[-1] * mesh.shape[axis]
+        inv = _RMSNormCut._inv(x, eps, d, mesh, axis)
+        ctx.save_for_backward(x, scale, inv)
+        ctx.d, ctx.mesh, ctx.axis = d, mesh, axis
+        return x * inv.to(x.dtype) * scale.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, inv = ctx.saved_tensors
+        gs = g * scale.to(x.dtype)
+        t = (gs.float() * x.float()).sum(-1, keepdim=True)
+        dist.all_reduce(t, group=ctx.mesh.groups[ctx.axis])
+        coeff = inv ** 3 * (t / ctx.d)
+        dx = gs * inv.to(x.dtype) - x * coeff.to(x.dtype)
+        xin = x * inv.to(x.dtype)
+        dscale = (g.float() * xin.float()).reshape(-1, g.shape[-1]).sum(0)
+        return dx, dscale.to(scale.dtype), None, None, None
+
+
+def rms_norm_cut(x, scale, eps: float, mesh, axis: str = "model"):
+    """``rms_norm`` over a last dim cut over ``axis``: this rank's columns
+    of the full norm, the mean of squares over all of them (f32, one
+    all-reduce), and one more all-reduce in the backward."""
+    return _RMSNormCut.apply(x, scale, eps, mesh, axis)
+
+
 # ------------------------------------------------ the vocab-parallel ends
-def vocab_embed(table, tokens, mesh, dtype, axis: str = "model"):
+def vocab_embed(table, tokens, mesh, dtype, axis: str = "model",
+                seq: bool = False):
     """``table[tokens]`` cast to ``dtype`` with the table's rows cut over
     ``axis``: each rank looks up the rows it owns, writes 0 elsewhere,
-    and g sums the f32 rows (one nonzero term each: exact)."""
+    and g sums the f32 rows (one nonzero term each: exact); with
+    ``seq``, a reduce-scatter gives this rank's positions alone (the
+    Megatron-SP residual stream)."""
     n = table.shape[0]
     local = tokens - mesh.coords[axis] * n
     own = (local >= 0) & (local < n)
     rows = table[local.clamp(0, n - 1)]
     rows = torch.where(own[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                          device=rows.device))
+    if seq:
+        return scatter_seq(rows, mesh, dtype, axis)
     return reduce_from_model(rows, mesh, dtype, axis)
 
 
@@ -303,20 +454,25 @@ class _VocabNLL(torch.autograd.Function):
         return dh, dw, None, None, None, None, None, None
 
 
-def vocab_xent(w, h, targets, cfg, mesh, mask=None, axis: str = "model"):
+def vocab_xent(w, h, targets, cfg, mesh, mask=None, axis: str = "model",
+               seq: bool = False):
     """``models/common.py`` ``chunked_xent`` with the unembedding's vocab
     columns cut over ``axis``: w (D, V/m) this rank's columns, h (B, S,
-    D) replicated.  Per ``cfg.logit_chunk`` tokens: the local f32 logits,
-    the global max and sum of exponentials by all-reduce, the gold logit
-    from the rank that owns it, the padded vocab masked; the backward
-    recomputes the chunk (softmax minus the one-hot on the local
-    columns).  Returns (mean loss over unmasked tokens, token count)."""
+    D) replicated (with ``seq``, h (B, S/m, D) this rank's positions,
+    gathered on S first).  Per ``cfg.logit_chunk`` tokens: the local f32
+    logits, the global max and sum of exponentials by all-reduce, the
+    gold logit from the rank that owns it, the padded vocab masked; the
+    backward recomputes the chunk (softmax minus the one-hot on the
+    local columns).  Returns (mean loss over unmasked tokens, token
+    count)."""
+    if seq:
+        h = gather_seq(h, mesh, axis)
     B, S, D = h.shape
     c = min(cfg.logit_chunk, S)
     if S % c:
         raise ValueError(f"logit_chunk {c} does not divide S={S}")
     w = w.to(h.dtype).float()
-    hf = copy_to_model(h.float(), mesh, axis)
+    hf = h.float() if seq else copy_to_model(h.float(), mesh, axis)
     off = mesh.coords[axis] * w.shape[1]
     tot = torch.zeros((), device=h.device)
     cnt = torch.zeros((), device=h.device)

@@ -47,8 +47,9 @@ _log = get_logger("train")
 _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                  "MASTER_PORT")
 _ENCDEC = ("the encdec family trains on frame embeddings (enc_emb), which "
-           "SyntheticLM's token batches lack, as in the JAX launcher; drive "
-           "it through training.train_step.make_train_step")
+           "SyntheticLM's token batches lack, as in the JAX launcher; give "
+           "TrainLoop batches= that hold them, or drive it through "
+           "training.train_step.make_train_step")
 
 
 class TrainLoop:
@@ -56,11 +57,15 @@ class TrainLoop:
     directly).  ``history`` holds {step, loss, ms} for every step run, on
     every rank.  With ``mesh`` (a process mesh), the loop trains with
     the plan for (cfg, seq, global_batch) on it, on the mesh's device,
-    and its parameters and optimizer state are this rank's shards."""
+    and its parameters and optimizer state are this rank's shards.
+    ``batches``: step -> the global batch of that step (numpy arrays or
+    tensors), in place of ``SyntheticLM``'s token batches from ``seed``;
+    the encdec family needs it, for its frame embeddings."""
 
     def __init__(self, cfg, *, global_batch=8, seq=128, ckpt_dir=None,
-                 mesh=None, seed=0, grad_compression=False, device="cuda"):
-        if cfg.family == "encdec":
+                 mesh=None, seed=0, grad_compression=False, device="cuda",
+                 batches=None):
+        if cfg.family == "encdec" and batches is None:
             raise NotImplementedError(_ENCDEC)
         self.mesh = mesh
         self.plan = None if mesh is None else make_plan(
@@ -71,6 +76,7 @@ class TrainLoop:
         self.step_fn, self.opt_init, self.ocfg = make_train_step(
             self.model, cfg, self.plan, grad_compression=grad_compression)
         self.data = SyntheticLM(cfg.vocab_size, seq, global_batch, seed=seed)
+        self.batches = batches or self.data.batch_at
         self.ckpt_dir = ckpt_dir
         self.seq, self.gb = seq, global_batch
         self.history = []
@@ -118,6 +124,12 @@ class TrainLoop:
                 return params, state["opt"], last
         return self.init_state(seed)
 
+    def batch_at(self, step: int):
+        """Batch ``step`` of the stream on this rank's device: its rows
+        under a mesh."""
+        return device_batch(self.batches(step), self.device, self.mesh,
+                            self.plan.batch_axes if self.plan else None)
+
     def request_preempt(self, *_):
         self._preempted = True
 
@@ -129,12 +141,10 @@ class TrainLoop:
         params, opt_state, start = self.restore_or_init()
         if not self.is_main:
             log = lambda _: None        # noqa: E731
-        batch_axes = self.plan.batch_axes if self.plan else None
         step_times = []
         for step in range(start, steps):
             t0 = time.monotonic()
-            batch = device_batch(self.data.batch_at(step), self.device,
-                                 self.mesh, batch_axes)
+            batch = self.batch_at(step)
             params, opt_state, metrics = self.step_fn(
                 params, opt_state, batch, step)
             loss = float(metrics["loss"])       # waits for the step

@@ -42,25 +42,38 @@ def _proj(x, w):
     return (x @ w.reshape(D, H * k).to(x.dtype)).reshape(*x.shape[:-1], H, k)
 
 
+def project_q(p, x, cfg: ModelConfig, positions, groups: int):
+    """x: (B,S,D) -> q (B,S,groups,H/groups,h), bias, qk-norm and rope
+    applied; H is wq's head count (a rank's own heads under tensor
+    parallelism)."""
+    q = _proj(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    return q.reshape(*x.shape[:2], groups, -1, cfg.head_dim)
+
+
+def project_kv(p, x, cfg: ModelConfig, positions):
+    """x: (B,S,D) -> k, v (B,S,K,h), bias, qk-norm and rope applied."""
+    dt = x.dtype
+    k, v = _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    if cfg.qk_norm:
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return rope(k, positions, cfg.rope_theta), v
+
+
 def project_qkv(p, x, cfg: ModelConfig, positions, q_groups=None):
     """x: (B,S,D) -> q (B,S,K,G,h), k/v (B,S,K,h); rope + qk-norm applied.
     The head counts are the weights' (a rank's own heads under tensor
     parallelism); q's K is k's, or ``q_groups`` when given (q as
     (B,S,q_groups,H/q_groups,h))."""
-    dt = x.dtype
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(dt)
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    B, S = x.shape[:2]
-    q = q.reshape(B, S, q_groups or k.shape[2], -1, cfg.head_dim)
-    return q, k, v
+    k, v = project_kv(p, x, cfg, positions)
+    return project_q(p, x, cfg, positions, q_groups or k.shape[2]), k, v
 
 
 def blocked_attention(q, k, v, *, chunk: int, causal: bool,

@@ -18,13 +18,19 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import parallel as par
 from repro_torch.utils.params import (ParamDef, init_params, is_node,
                                       make_specs, to_parameter_dict,
-                                      with_dtype)
+                                      tree_leaves, with_dtype)
 
 NEG_INF = -1e30
 
 CacheSpec = collections.namedtuple("CacheSpec", ["shape", "dtype"])
+
+# the norms on the residual stream, by parent name (Megatron-SP cuts
+# them on S); the SSM's leaves on its "ssm_state" axis
+RESID_NORMS = ("ln1", "ln2", "lnx", "ln", "final_norm", "enc_norm")
+SSM_STATE_LEAVES = ("w_B", "w_C", "conv_B", "conv_bB", "conv_C", "conv_bC")
 
 
 def _rms_inv(x, eps):
@@ -193,6 +199,9 @@ class LMBase(nn.Module):
         self.cfg = cfg
         self.plan = plan
         self.params = None
+        # the split over "model" (``parallel.TensorParallel``), else None
+        self.tp = (par.TensorParallel(plan) if plan is not None
+                   and plan.model_size > 1 else None)
 
     def param_defs(self):
         return with_dtype(self._param_defs_raw(), self.cfg.param_dtype)
@@ -205,8 +214,63 @@ class LMBase(nn.Module):
     def model_partial_leaves(self):
         """Names of the leaves replicated over "model" whose gradient each
         rank holds only a part of (``parallel.reduce_grads``): none
-        unless the model splits its work over that axis."""
-        return frozenset()
+        unless the model splits its work over that axis; then
+        - the qk-norm scales, and wk / wv / bk / bv where the kv heads
+          are projected whole (they act on this rank's heads only);
+          every attention leaf under sequence parallelism (this rank's
+          query rows);
+        - the MoE router (this rank's experts' gates);
+        - the SSM's B / C projections and convolutions (this rank's
+          heads);
+        - under Megatron-SP the residual stream's norms, and a
+          replicated MLP's leaves (this rank's positions).
+        The norms on a replicated residual stream are not: under f and
+        g every rank already holds their whole gradient."""
+        if self.tp is None:
+            return frozenset()
+        return frozenset(n for n, _ in tree_leaves(self.param_defs())
+                         if self._partial(n.split(".")))
+
+    def _partial(self, parts) -> bool:
+        plan, seq = self.plan, self.tp.seq
+        leaf, parent = parts[-1], (parts[-2] if len(parts) > 1 else None)
+        if parent in ("attn", "xattn"):
+            return (not plan.shard_heads or leaf in ("q_norm", "k_norm")
+                    or (not plan.kv_ok and leaf in ("wk", "wv", "bk", "bv")))
+        if parent == "moe":
+            return leaf == "router"
+        if leaf in SSM_STATE_LEAVES:
+            return plan.rules["ssm_head"] == "model"
+        if seq and leaf == "scale" and parent in RESID_NORMS:
+            return True
+        return seq and parent in ("mlp", "shared") and \
+            plan.rules["mlp"] != "model"
+
+    # ------------------------------------------- the split over "model"
+    def _embed(self, p, tokens):
+        """The embedding lookup: vocab-parallel under a split, in the
+        residual stream's layout."""
+        if self.tp is None:
+            return embed(p, tokens, self.cfg)
+        return par.vocab_embed(p["table"], tokens, self.tp.mesh,
+                               self.cfg.act_dtype, seq=self.tp.seq)
+
+    def _mlp(self, p, h):
+        """The MLP on the normed residual stream h: column-parallel
+        (w_gate, w_up) then row-parallel (w_down) where ``rules["mlp"]``
+        is "model", else whole (on this rank's positions under
+        Megatron-SP)."""
+        if self.tp is None or self.plan.rules["mlp"] != "model":
+            return mlp(p, h)
+        h = self.tp.enter(h)
+        a = F.silu(h @ p["w_gate"].to(h.dtype)) * (h @ p["w_up"].to(h.dtype))
+        return self.tp.row_parallel(a, p["w_down"])
+
+    def _no_tp(self, what):
+        if self.tp is not None:
+            raise NotImplementedError(
+                f"{what} under a tensor-parallel plan (the KV cache specs "
+                f"of sharded serving) is ROADMAP.md item 8, step 6")
 
     def init(self, generator: torch.Generator):
         """Random parameters on the generator's device."""
@@ -237,8 +301,12 @@ class LMBase(nn.Module):
         return ce + aux, {"ce": ce, "aux": aux, "tokens": cnt}
 
     def _xent(self, p, h, targets, mask):
-        """The loss head: ``chunked_xent``."""
-        return chunked_xent(p, h, targets, self.cfg, mask=mask)
+        """The loss head: ``chunked_xent``, vocab-parallel under a
+        split."""
+        if self.tp is None:
+            return chunked_xent(p, h, targets, self.cfg, mask=mask)
+        return par.vocab_xent(unembed_matrix(p, self.cfg), h, targets,
+                              self.cfg, self.tp.mesh, mask, seq=self.tp.seq)
 
     @property
     def device(self) -> torch.device:

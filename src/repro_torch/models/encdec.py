@@ -1,9 +1,9 @@
 """Encoder-decoder transformer (the seamless-m4t backbone): training
 forward and loss, prefill and decode.
 
-Copied from ``src/repro/models/encdec.py`` without sharding.  The
-speech frontend is a stub, as in the JAX package: the encoder takes
-precomputed frame embeddings (B, Se, D).  Encoder layers: non-causal
+Copied from ``src/repro/models/encdec.py``.  The speech frontend is a
+stub, as in the JAX package: the encoder takes precomputed frame
+embeddings (B, Se, D).  Encoder layers: non-causal
 self-attention with RoPE, SwiGLU MLP.  Decoder layers: causal
 self-attention with RoPE, non-causal cross-attention over the encoder
 memory (no RoPE, Sq != Sk), SwiGLU MLP.  Every prefill and training
@@ -11,22 +11,31 @@ attention goes through ``blocked_attention`` (the flash kernels on
 CUDA); decode is ``decode_attention`` over the self cache and over the
 cross cache, plain torch ops as in the JAX package.  Each encoder and
 decoder layer is one ``remat`` unit, as JAX's ``_remat`` body.
+
+Under a plan that splits "model" (JAX ``:60-119``) every attention and
+MLP goes through ``TransformerLM``'s split blocks (``self._tf``, built
+with the plan): the encoder's self-attention and MLP, the decoder's
+self-attention, cross-attention and MLP.  The cross-attention's k / v
+come from the encoder memory (whole on every rank, gathered on S under
+Megatron-SP) through this rank's kv heads of wk / wv; the embedding and
+the loss are vocab-parallel, as in the dense family.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import parallel as par
 from repro_torch.models import attention as att
 from repro_torch.models import common as cm
 from repro_torch.models.transformer import TransformerLM, _stack_defs, remat
 
 
 class EncDecLM(cm.LMBase):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, plan=None):
         assert cfg.enc_layers and cfg.dec_layers
-        super().__init__(cfg)
-        self._tf = TransformerLM(cfg)
+        super().__init__(cfg, plan)
+        self._tf = TransformerLM(cfg, plan)
 
     def _enc_layer_defs(self):
         cfg = self.cfg
@@ -51,14 +60,8 @@ class EncDecLM(cm.LMBase):
 
     # ----------------------------------------------------------- encoder
     def _enc_layer(self, p, h, positions):
-        cfg = self.cfg
-        hh = cm.rms_norm(h, p["ln1"]["scale"], cfg.norm_eps)
-        q, k, v = att.project_qkv(p["attn"], hh, cfg, positions)
-        ctx = att.blocked_attention(q, k, v, chunk=cfg.attn_chunk,
-                                    causal=False)
-        h = h + att.attn_out(p["attn"], ctx, cfg)
-        hh = cm.rms_norm(h, p["ln2"]["scale"], cfg.norm_eps)
-        return h + cm.mlp(p["mlp"], hh)
+        h, _, _ = self._tf._attn_block(p, h, positions, causal=False)
+        return self._tf._ffn_block(p, h)[0]
 
     def encode(self, params, enc_emb):
         """enc_emb (B,Se,D) precomputed frame embeddings (frontend stub)
@@ -66,6 +69,8 @@ class EncDecLM(cm.LMBase):
         cfg = self.cfg
         x = enc_emb.to(cfg.act_dtype)
         positions = torch.arange(x.shape[1], device=x.device)
+        if self.tp is not None and self.tp.seq:
+            x = x[:, par.seq_rows(x.shape[1], self.tp.mesh)]
         body = remat(lambda i, h: self._enc_layer(
             cm.layer_slice(params["enc"], i), h, positions), cfg)
         for i in range(cfg.enc_layers):
@@ -95,10 +100,13 @@ class EncDecLM(cm.LMBase):
         cfg = self.cfg
         h, _, _ = self._tf._attn_block(p, h, positions)
         hh = cm.rms_norm(h, p["lnx"]["scale"], cfg.norm_eps)
-        xk, xv = self._cross_kv(p["xattn"], enc_out)
-        h = h + self._cross_attend(p["xattn"], hh, xk, xv)
-        hh = cm.rms_norm(h, p["ln2"]["scale"], cfg.norm_eps)
-        return h + cm.mlp(p["mlp"], hh)
+        if self.tp is None:
+            xk, xv = self._cross_kv(p["xattn"], enc_out)
+            h = h + self._cross_attend(p["xattn"], hh, xk, xv)
+        else:
+            h = h + self._tf._tp_attention(p["xattn"], hh, enc_out,
+                                           positions, False, cross=True)[0]
+        return self._tf._ffn_block(p, h)[0]
 
     def forward(self, params, batch):
         """batch {tokens (B,St), enc_emb (B,Se,D)} -> (final hidden
@@ -106,7 +114,7 @@ class EncDecLM(cm.LMBase):
         cfg = self.cfg
         enc_out = self.encode(params, batch["enc_emb"])
         tokens = batch["tokens"]
-        x = cm.embed(params["embed"], tokens, cfg)
+        x = self._embed(params["embed"], tokens)
         positions = torch.arange(tokens.shape[1], device=x.device)
         body = remat(lambda i, h, mem: self._dec_layer(
             cm.layer_slice(params["dec"], i), h, mem, positions), cfg)
@@ -118,8 +126,8 @@ class EncDecLM(cm.LMBase):
         """batch: {tokens, labels (B,St)[, mask], enc_emb (B,Se,D)} ->
         (loss, metrics {ce, aux, tokens})."""
         h, aux = self.forward(params, batch)
-        ce, cnt = cm.chunked_xent(params["embed"], h, batch["labels"],
-                                  self.cfg, mask=batch.get("mask"))
+        ce, cnt = self._xent(params["embed"], h, batch["labels"],
+                             batch.get("mask"))
         return ce + aux, {"ce": ce, "aux": aux, "tokens": cnt}
 
     # ----------------------------------------------------------- serving
@@ -142,6 +150,7 @@ class EncDecLM(cm.LMBase):
     def decode_step(self, params, cache, token, pos):
         """token (B,), pos int -> (logits (B,Vp), cache: the self cache
         updated in place at pos, the cross cache as it was)."""
+        self._no_tp("decode_step")
         cfg = self.cfg
         x = cm.embed(params["embed"], token[:, None], cfg)
         Se = cache["xk"].shape[2]
@@ -164,6 +173,7 @@ class EncDecLM(cm.LMBase):
         """enc_emb (B,Se,D) -> (cache: the cross keys and values of each
         decoder layer, the self cache empty but for BOS at 0; BOS
         logits (B,Vp))."""
+        self._no_tp("prefill")
         cfg = self.cfg
         enc_out = self.encode(params, enc_emb)
         B = enc_out.shape[0]

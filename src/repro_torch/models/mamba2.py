@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import parallel as par
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models import common as cm
 from repro_torch.models.transformer import _stack_defs, remat
@@ -89,13 +90,26 @@ def ssd_chunked(x, B_, C_, dt, A_log, chunk: int, init_state=None):
     return ssd_scan(x, dt, A_log, B_, C_, chunk=Q, init_state=init_state)
 
 
-def mamba_block(p, x, cfg: ModelConfig, return_state: bool = False):
-    """Pre-norm residual mamba2 mixer on (B,S,D)."""
+def mamba_block(p, x, cfg: ModelConfig, return_state: bool = False,
+                tp=None):
+    """Pre-norm residual mamba2 mixer on (B,S,D).
+
+    ``tp``: the model's split over "model" (``parallel.TensorParallel``;
+    ``rules["ssm_inner"]`` and ``["ssm_head"]`` "model"), or None.  The
+    normed input enters the split whole; w_z, w_x, conv_x / conv_bx,
+    w_dt, dt_bias, A_log, D_skip and the gated norm's scale are this
+    rank's d_in/m columns and H/m heads (the weights' shapes), so the
+    scan runs on its heads; B and C (w_B, w_C and their convolutions)
+    are whole, each rank using them for its heads (model-partial
+    leaves); the gated norm sums its squares over "model"
+    (``parallel.rms_norm_cut``) and out_proj is row-parallel."""
     s = cfg.ssm
-    d_in, H = _dims(cfg)
     dt_ = x.dtype
-    Bb, S = x.shape[:2]
     h = cm.rms_norm(x, p["ln"]["scale"], cfg.norm_eps)
+    if tp is not None:
+        h = tp.enter(h)
+    Bb, S = h.shape[:2]
+    d_in, H = p["w_x"].shape[-1], p["A_log"].shape[-1]
     z = h @ p["w_z"].to(dt_)
     xr = h @ p["w_x"].to(dt_)                                  # raw conv input
     Br = h @ p["w_B"].to(dt_)
@@ -110,6 +124,9 @@ def mamba_block(p, x, cfg: ModelConfig, return_state: bool = False):
     y = y.to(dt_) + p["D_skip"].to(dt_)[None, None, :, None] * xc_
     y = y.reshape(Bb, S, d_in)
     y = y * F.silu(z)
+    if tp is not None:
+        y = par.rms_norm_cut(y, p["norm"], cfg.norm_eps, tp.mesh)
+        return x + tp.row_parallel(y, p["out_proj"]), None
     y = cm.rms_norm(y, p["norm"], cfg.norm_eps)
     out = y @ p["out_proj"].to(dt_)
     if return_state:
@@ -147,6 +164,14 @@ def mamba_decode(p, x, cfg: ModelConfig, conv_x, conv_B, conv_C, ssm_state):
     y = cm.rms_norm(y, p["norm"], cfg.norm_eps)
     out = (y @ p["out_proj"].to(dt_))[:, None, :]
     return x + out, (ncx, ncB, ncC), new_state.to(dt_)
+
+
+def ssm_split(model):
+    """``model.tp`` where its plan splits the SSM heads over "model"
+    (``ssm_inner`` and ``ssm_head``, which ``models/zoo.py``
+    ``check_plan`` holds equal), else None."""
+    tp = model.tp
+    return tp if tp is not None and tp.plan.rules["ssm_head"] else None
 
 
 def ssm_cache_struct(cfg: ModelConfig, batch: int):
@@ -190,9 +215,10 @@ class Mamba2LM(cm.LMBase):
     def forward(self, params, tokens):
         """tokens (B,S) -> (final hidden states (B,S,D), aux loss 0.0)."""
         cfg = self.cfg
-        x = cm.embed(params["embed"], tokens, cfg)
+        x = self._embed(params["embed"], tokens)
+        tp = ssm_split(self)
         body = remat(lambda i, h: mamba_block(
-            cm.layer_slice(params["layers"], i), h, cfg)[0], cfg)
+            cm.layer_slice(params["layers"], i), h, cfg, tp=tp)[0], cfg)
         for i in range(cfg.n_layers):
             x = body(i, x)
         return self._final(params, x)
@@ -203,6 +229,7 @@ class Mamba2LM(cm.LMBase):
 
     def decode_step(self, params, cache, token, pos):
         """token (B,) -> (logits (B,Vp), cache updated in place)."""
+        self._no_tp("decode_step")
         cfg = self.cfg
         x = cm.embed(params["embed"], token[:, None], cfg)
         for i in range(cfg.n_layers):
@@ -213,6 +240,7 @@ class Mamba2LM(cm.LMBase):
         return logits, cache
 
     def prefill(self, params, tokens, max_len: int):
+        self._no_tp("prefill")
         cfg = self.cfg
         x = cm.embed(params["embed"], tokens, cfg)
         tails, states = [], []

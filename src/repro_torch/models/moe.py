@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.parallel import matmul_f32
 from repro_torch.models.common import mlp, mlp_defs
 from repro_torch.utils.params import ParamDef
 
@@ -132,12 +133,15 @@ def route(p, x, cfg: ModelConfig, routes=None):
             "capacity": C}
 
 
-def moe_block(p, x, cfg: ModelConfig, routes=None, record=None):
+def moe_block(p, x, cfg: ModelConfig, routes=None, record=None, tp=None):
     """x: (B,S,D) -> (out (B,S,D), aux loss f32 scalar, the mean over
     rows).  ``routes``: optional (B, S, k) expert ids in place of the
     router's top-k.  ``record``, if given, is filled with ``route``'s
     dict (tests and checks read the routes and the kept choices from
-    it)."""
+    it).  ``tp``: the model's split over "model"
+    (``parallel.TensorParallel``), or None (``_moe_split``)."""
+    if tp is not None:
+        return _moe_split(p, x, cfg, routes, record, tp)
     m = cfg.moe
     B, S, D = x.shape
     E, k = m.n_experts, m.top_k
@@ -165,3 +169,54 @@ def moe_block(p, x, cfg: ModelConfig, routes=None, record=None):
     if m.shared_expert_ff:
         out = out + mlp(p["shared"], x)
     return out, r["aux"].mean()
+
+
+def _moe_split(p, x, cfg: ModelConfig, routes, record, tp):
+    """``moe_block`` with the experts split over "model" (JAX
+    ``moe_defs``: "expert" maps first).  The normed tokens enter the
+    split whole (f, or the gather on S under Megatron-SP), so every rank
+    routes every token of its rows as one card does: the same top-k,
+    capacity (per row and expert) and drops.  Expert parallelism (w_gate,
+    w_up, w_down cut on E): each rank runs the capacity slots of its E/m
+    experts.  A rank's combine is its choices' weighted outputs in
+    choice order (the others' read the zero row), summed in f32; the
+    shared expert's row-parallel partial (``rules["mlp"]`` "model") joins
+    it, and one exit sums them over "model" and casts once.  A shared
+    expert that is not split runs whole on the block's input.  The
+    router's gradient is each rank's part (its experts' gates): a
+    model-partial leaf; the aux loss's gradient is rank 0's alone."""
+    m = cfg.moe
+    k = m.top_k
+    dt = x.dtype
+    h = tp.enter(x)
+    B, S, D = h.shape
+    r = route(p, h, cfg, routes)
+    if record is not None:
+        record.update(r)
+    C = r["capacity"]
+    El = p["w_gate"].shape[0]
+    lo = tp.rank * El * C
+    hi = lo + El * C
+    tok_slot = r["tok_slot"]
+    mine = torch.where((tok_slot >= lo) & (tok_slot < hi), tok_slot - lo,
+                       El * C)
+    buf = _Route.apply(h, r["slot_tok"][:, lo:hi], mine)     # (B,El*C,D)
+    xe = buf.view(B, El, C, D).transpose(0, 1).reshape(El, B * C, D)
+    a = F.silu(torch.bmm(xe, p["w_gate"].to(dt)))
+    a = a * torch.bmm(xe, p["w_up"].to(dt))
+    eo = torch.bmm(a, p["w_down"].to(dt))
+    eo = eo.view(El, B, C, D).transpose(0, 1).reshape(B, El * C, D)
+    got = _Route.apply(eo, mine.reshape(B, S * k),
+                       r["slot_choice"][:, lo:hi, None])      # (B,S*k,D)
+    w = (r["gate"] * r["keep"]).to(dt)
+    part = (got * w[..., None]).float().view(B, S, k, D).sum(2)
+    whole_shared = m.shared_expert_ff and tp.plan.rules["mlp"] != "model"
+    if m.shared_expert_ff and not whole_shared:
+        sp = p["shared"]
+        s = F.silu(h @ sp["w_gate"].to(dt)) * (h @ sp["w_up"].to(dt))
+        part = part + matmul_f32(s, sp["w_down"].to(dt))
+    out = tp.exit(part, dt)
+    if whole_shared:
+        out = out + mlp(p["shared"], x)
+    aux = r["aux"].mean()
+    return out, aux if tp.rank == 0 else aux.detach()

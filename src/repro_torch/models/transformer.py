@@ -15,25 +15,32 @@ outputs of matrix products without batch dimensions (JAX's
 groups of that many units in one more checkpoint, as the JAX two-level
 scan does.  Every setting gives the same numbers.
 
-With a plan whose "model" axis has more than one process (the dense
-family; ``models/zoo.py`` raises for the others), the layers run
-tensor-parallel, Megatron-style, with ``distributed/parallel.py``'s f
-and g where the JAX model constrains
-(``src/repro/models/transformer.py:95-123``): each rank holds H/m query
-heads and K/m kv heads (wq, wk, wv, their biases and wo cut on the head
-dims), f on the attention's input and g on
-``attn_out``'s f32 partial output; where the kv heads do not divide the
-axis, k and v are projected whole from the replicated wk / wv and each
-rank keeps the kv head of each of its H/m query heads, G = 1 (JAX
-``:110-118``).  The MLP is column-parallel (w_gate, w_up) then
-row-parallel (w_down) when ``rules["mlp"]`` is "model"; the embedding
-and the loss are vocab-parallel.  Without a plan, or with a "model" axis
-of one, every op is the one-card one.
+With a plan whose "model" axis has more than one process, the layers
+run split over it (``LMBase.tp``, a ``parallel.TensorParallel``), with
+``distributed/parallel.py``'s collectives where the JAX model constrains
+(``src/repro/models/transformer.py:95-123``).  Attention is head-
+parallel where the query heads divide the axis: each rank holds H/m
+query heads and K/m kv heads (wq, wk, wv, their biases and wo cut on
+the head dims), or, where the kv heads do not divide it, projects k and
+v whole from the replicated wk / wv and keeps the kv head of each of
+its H/m query heads (JAX ``:110-118``); wo is row-parallel.  Where the
+query heads do not divide the axis, attention is sequence-parallel
+(JAX ``:119-123``): every rank holds every head, computes q for its S/m
+query rows and k / v for the whole sequence, and the kernels take the
+rows' causal offset; the rows' outputs are gathered on S.  The MLP is
+column-parallel (w_gate, w_up) then row-parallel (w_down) when
+``rules["mlp"]`` is "model"; the MoE layers are expert-parallel
+(``moe.moe_block``'s ``tp``); the embedding and the loss are
+vocab-parallel.  Over a replicated residual stream each split block
+starts with f and ends with g (f32 partial sums, cast once); with
+``seq_shard_activations`` (``plan.resid_seq``, Megatron-SP) the stream
+is cut on S, each block starts with an all-gather on S and ends with a
+reduce-scatter, and the loss gathers S first.  Without a plan, or with
+a "model" axis of one, every op is the one-card one.
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -41,7 +48,7 @@ from repro_torch.distributed import parallel as par
 from repro_torch.models import attention as att
 from repro_torch.models import common as cm
 from repro_torch.models.moe import moe_block, moe_defs
-from repro_torch.utils.params import ParamDef, tree_leaves, tree_map
+from repro_torch.utils.params import ParamDef, tree_map
 
 
 def _stack_defs(defs, n: int):
@@ -81,9 +88,6 @@ def remat(fn, cfg: ModelConfig):
 class TransformerLM(cm.LMBase):
     def __init__(self, cfg: ModelConfig, plan=None):
         super().__init__(cfg, plan)
-        # tensor-parallel over "model": its process mesh, else None
-        self.tp = (plan.mesh if plan is not None and plan.model_size > 1
-                   else None)
         # {depth: (B, S, k) expert ids} replacing the router's top-k in
         # the MoE layer at that depth (``moe_block``'s ``routes``); None
         # on every normal path
@@ -144,85 +148,87 @@ class TransformerLM(cm.LMBase):
         return [dp for u in range(n_units)
                 for dp in self._unit_layers(params, u)]
 
-    def _constrain_qkv(self, q, k, v):
-        """The sharding constraint of the JAX model.  The identity on one
-        card and where each rank's projections give its own kv heads;
-        where the kv heads do not divide the "model" axis, k / v (B, S,
-        K, h) whole -> the kv head of each of this rank's query heads,
-        (B, S, H/m, h), as repeating them to H heads and cutting H
-        would give."""
-        if self.tp is None or self.plan.kv_ok:
-            return q, k, v
-        Hm = q.shape[2]
+    def _kv_of_heads(self, k, v, Hm):
+        """k / v (B, S, K, h) projected whole (the kv heads do not divide
+        the "model" axis) -> the kv head of each of this rank's Hm query
+        heads, (B, S, Hm, h), as repeating them to H heads and cutting H
+        would give (JAX ``_constrain_qkv``)."""
         idx = (torch.arange(Hm, device=k.device)
-               + self.tp.coords["model"] * Hm) // self.cfg.q_per_kv
-        return q, k.index_select(2, idx), v.index_select(2, idx)
+               + self.tp.rank * Hm) // self.cfg.q_per_kv
+        return k.index_select(2, idx), v.index_select(2, idx)
 
-    def model_partial_leaves(self):
-        """Under tensor parallelism: the qk-norm scales, and wk / wv / bk
-        / bv where the kv heads are projected whole, are replicated over
-        "model" but act on each rank's heads only.  The norms on the
-        residual stream (ln1, ln2, final_norm) are not: under f and g
-        every rank already holds their whole gradient."""
-        if self.tp is None:
-            return frozenset()
-        part = {"q_norm", "k_norm"}
-        if not self.plan.kv_ok:
-            part |= {"wk", "wv", "bk", "bv"}
-        return frozenset(n for n, _ in tree_leaves(self.param_defs())
-                         if n.split(".")[-2:-1] == ["attn"]
-                         and n.split(".")[-1] in part)
+    def _tp_attention(self, pa, hq, hkv, positions, causal, cross=False):
+        """Attention under the split over "model", hq (B, S, D) the
+        normed queries' stream and hkv the keys' (the same tensor for
+        self-attention, the encoder memory for cross-attention), both in
+        the residual stream's layout -> (the output to add to hq's
+        stream, k, v).  ``cross``: the projections without bias,
+        qk-norm or RoPE (``encdec.EncDecLM``'s cross-attention).
 
-    def _row_parallel(self, a, w):
-        """g(a @ w): this rank's rows of w times its columns of a, the
-        f32 partial outputs summed over "model", cast once."""
-        return par.reduce_from_model(par.matmul_f32(a, w.to(a.dtype)),
-                                     self.tp, a.dtype)
+        Head-parallel (JAX ``_constrain_qkv`` ``:104-118``): this rank's
+        H/m query heads and K/m kv heads (or the kv head of each of its
+        query heads, projected whole), row-parallel wo.  Sequence-
+        parallel where the heads do not divide the axis (``:119-123``):
+        this rank's S/m query rows, every head, k / v over the whole
+        sequence, the kernels' causal offset at the rows' first
+        position; the rows' outputs gathered on S (under Megatron-SP
+        they stay this rank's rows)."""
+        cfg, tp, plan = self.cfg, self.tp, self.plan
+        if cross:
+            def proj_q(h, pos, groups):
+                return att._proj(h, pa["wq"]).reshape(
+                    *h.shape[:2], groups, -1, cfg.head_dim)
 
-    def _mlp(self, p, h):
-        if self.tp is None or self.plan.rules["mlp"] != "model":
-            return cm.mlp(p, h)
-        h = par.copy_to_model(h, self.tp)
-        a = F.silu(h @ p["w_gate"].to(h.dtype)) * (h @ p["w_up"].to(h.dtype))
-        return self._row_parallel(a, p["w_down"])
+            def proj_kv(h, pos):
+                return att._proj(h, pa["wk"]), att._proj(h, pa["wv"])
+        else:
+            def proj_q(h, pos, groups):
+                return att.project_q(pa, h, cfg, pos, groups)
 
-    def _xent(self, p, h, targets, mask):
-        if self.tp is None:
-            return super()._xent(p, h, targets, mask)
-        return par.vocab_xent(cm.unembed_matrix(p, self.cfg), h, targets,
-                              self.cfg, self.tp, mask)
-
-    def _no_tp(self, what):
-        if self.tp is not None:
-            raise NotImplementedError(
-                f"{what} under a tensor-parallel plan (the KV cache specs "
-                f"of sharded serving) is ROADMAP.md item 8, step 6")
+            def proj_kv(h, pos):
+                return att.project_kv(pa, h, cfg, pos)
+        # the keys' stream whole on every rank; the queries' too, but for
+        # the rows of this rank under sequence parallel Megatron-SP
+        kv_in = tp.enter(hkv)
+        own_rows = tp.seq and not plan.shard_heads
+        q_in = hq if own_rows else kv_in if hkv is hq else tp.enter(hq)
+        k, v = proj_kv(kv_in, positions)
+        if plan.shard_heads:
+            Hm = pa["wq"].shape[1]
+            q = proj_q(q_in, positions, k.shape[2] if plan.kv_ok else Hm)
+            kc, vc = (k, v) if plan.kv_ok else self._kv_of_heads(k, v, Hm)
+            ctx = att.blocked_attention(q, kc, vc, chunk=cfg.attn_chunk,
+                                        causal=causal)
+            B, S = ctx.shape[:2]
+            wo = pa["wo"]
+            return tp.row_parallel(ctx.reshape(B, S, -1),
+                                   wo.reshape(-1, wo.shape[-1])), k, v
+        rows = par.seq_rows(hq.shape[1] * (tp.size if own_rows else 1),
+                            tp.mesh)
+        q = proj_q(q_in if own_rows else q_in[:, rows], positions[rows],
+                   k.shape[2])
+        ctx = att.blocked_attention(q, k, v, chunk=cfg.attn_chunk,
+                                    causal=causal,
+                                    kv_offset=rows.start if causal else 0)
+        o = att.attn_out(pa, ctx, cfg)
+        return (o if tp.seq else par.gather_seq_replicated(o, tp.mesh)), k, v
 
     # ------------------------------------------------------------ layers
-    def _attn_block(self, p, x, positions):
-        """Pre-norm causal self-attention with residual over (B,S,D);
-        returns (x + o, k, v) so a caller can keep the KV cache."""
+    def _attn_block(self, p, x, positions, causal=True):
+        """Pre-norm self-attention (causal unless ``causal`` is False)
+        with residual over (B,S,D); returns (x + o, k, v) so a caller can
+        keep the KV cache."""
         cfg = self.cfg
         h = cm.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
-        if self.tp is None:
-            q, k, v = att.project_qkv(p["attn"], h, cfg, positions)
-        else:
-            h = par.copy_to_model(h, self.tp)
-            whole = not self.plan.kv_ok          # q as (B, S, H/m, 1, h)
-            q, k, v = att.project_qkv(
-                p["attn"], h, cfg, positions,
-                q_groups=p["attn"]["wq"].shape[1] if whole else None)
-        qc, kc, vc = self._constrain_qkv(q, k, v)
+        if self.tp is not None:
+            o, k, v = self._tp_attention(p["attn"], h, h, positions, causal)
+            return x + o, k, v
+        q, k, v = att.project_qkv(p["attn"], h, cfg, positions)
         # positions is arange(S) (prefill), the kernel's kv_offset = 0;
         # passing it on would cost a device sync to check
-        ctx = att.blocked_attention(
-            qc, kc, vc, chunk=cfg.attn_chunk, causal=True)
-        if self.tp is None:
-            return x + att.attn_out(p["attn"], ctx, cfg), k, v
-        B, S = ctx.shape[:2]
-        wo = p["attn"]["wo"]
-        return x + self._row_parallel(ctx.reshape(B, S, -1),
-                                      wo.reshape(-1, wo.shape[-1])), k, v
+        ctx = att.blocked_attention(q, k, v, chunk=cfg.attn_chunk,
+                                    causal=causal)
+        return x + att.attn_out(p["attn"], ctx, cfg), k, v
 
     def _ffn_block(self, p, x, depth=None):
         """Pre-norm MLP or MoE block with residual -> (x + out, aux):
@@ -233,10 +239,11 @@ class TransformerLM(cm.LMBase):
             return x + self._mlp(p["mlp"], h), 0.0
         routes = None if self.routes is None else self.routes.get(depth)
         rec = None if self.seen_routes is None else {}
-        out, aux = moe_block(p["moe"], h, cfg, routes=routes, record=rec)
+        out, aux = moe_block(p["moe"], h, cfg, routes=routes, record=rec,
+                             tp=self.tp)
         if rec is not None:
             self.seen_routes[depth] = rec["experts"].view(
-                *h.shape[:2], cfg.moe.top_k).detach()
+                h.shape[0], -1, cfg.moe.top_k).detach()
         return x + out, aux
 
     def _unit(self, params, u, x, positions):
@@ -254,11 +261,7 @@ class TransformerLM(cm.LMBase):
         """tokens (B,S) -> (final hidden states (B,S,D), aux loss: the
         MoE layers' summed, f32; 0.0 without MoE)."""
         cfg = self.cfg
-        if self.tp is None:
-            x = cm.embed(params["embed"], tokens, cfg)
-        else:
-            x = par.vocab_embed(params["embed"]["table"], tokens, self.tp,
-                                cfg.act_dtype)
+        x = self._embed(params["embed"], tokens)
         positions = torch.arange(tokens.shape[1], device=x.device)
         body = remat(lambda u, h: self._unit(params, u, h, positions), cfg)
         n, blk = self._unit_defs()[0], cfg.scan_block

@@ -9,7 +9,11 @@ layers; the parameters keep the JAX layout, ``groups`` stacked (G, k,
 own KV-cache slice.  The training forward checkpoints each group (its k
 mamba layers and the shared block, as JAX's ``_remat`` of
 ``_group_fwd``) and runs the tail outside any checkpoint; the shared
-block's gradients sum over its G uses.
+block's gradients sum over its G uses.  Under a plan that splits
+"model", the mamba layers run on this rank's heads
+(``mamba2.mamba_block``'s ``tp``) and the shared block through
+``TransformerLM``'s split attention and MLP (``self._tf``, built with
+the plan).
 
 Simplification vs the released checkpoints, as in the JAX package: the
 shared block consumes the residual stream directly (no
@@ -25,20 +29,21 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as att
 from repro_torch.models import common as cm
 from repro_torch.models.mamba2 import (decode_layer, mamba_block, mamba_defs,
-                                       ssm_cache_struct)
+                                       ssm_cache_struct, ssm_split)
 from repro_torch.models.transformer import (TransformerLM, _stack_defs,
                                            remat)
 
 
 class Zamba2LM(cm.LMBase):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, plan=None):
         assert cfg.shared_attn_every > 0 and cfg.ssm is not None
-        super().__init__(cfg)
+        super().__init__(cfg, plan)
         self.k = cfg.shared_attn_every
         self.G = cfg.n_layers // self.k
         self.tail = cfg.n_layers % self.k
-        # reuse transformer attention/mlp machinery for the shared block
-        self._tf = TransformerLM(cfg)
+        # reuse transformer attention/mlp machinery for the shared block,
+        # split over "model" as the plan says
+        self._tf = TransformerLM(cfg, plan)
 
     # ------------------------------------------------------------ params
     def _param_defs_raw(self):
@@ -74,7 +79,7 @@ class Zamba2LM(cm.LMBase):
         cfg, shared = self.cfg, params["shared"]
         for _, p_l in itertools.islice(self._mamba_layers(params),
                                        g * self.k, (g + 1) * self.k):
-            x, _ = mamba_block(p_l, x, cfg)
+            x, _ = mamba_block(p_l, x, cfg, tp=ssm_split(self))
         x, _, _ = self._tf._attn_block(shared, x, positions)
         x, _ = self._tf._ffn_block(shared, x)
         return x
@@ -82,7 +87,7 @@ class Zamba2LM(cm.LMBase):
     def forward(self, params, tokens):
         """tokens (B,S) -> (final hidden states (B,S,D), aux loss 0.0)."""
         cfg = self.cfg
-        x = cm.embed(params["embed"], tokens, cfg)
+        x = self._embed(params["embed"], tokens)
         positions = torch.arange(tokens.shape[1], device=x.device)
         body = remat(lambda g, h: self._group_fwd(params, g, h, positions),
                      cfg)
@@ -90,7 +95,7 @@ class Zamba2LM(cm.LMBase):
             x = body(g, x)
         for _, p_l in itertools.islice(self._mamba_layers(params),
                                        self.G * self.k, None):
-            x, _ = mamba_block(p_l, x, cfg)
+            x, _ = mamba_block(p_l, x, cfg, tp=ssm_split(self))
         return self._final(params, x)
 
     # ----------------------------------------------------------- serving
@@ -103,6 +108,7 @@ class Zamba2LM(cm.LMBase):
 
     def decode_step(self, params, cache, token, pos):
         """token (B,), pos int -> (logits (B,Vp), cache updated in place)."""
+        self._no_tp("decode_step")
         cfg = self.cfg
         x = cm.embed(params["embed"], token[:, None], cfg)
         shared = params["shared"]
@@ -117,6 +123,7 @@ class Zamba2LM(cm.LMBase):
         return logits, cache
 
     def prefill(self, params, tokens, max_len: int):
+        self._no_tp("prefill")
         cfg = self.cfg
         B, S = tokens.shape
         x = cm.embed(params["embed"], tokens, cfg)

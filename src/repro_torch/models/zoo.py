@@ -10,10 +10,14 @@ Copied from ``src/repro/models/zoo.py`` (``get_model`` ``:22``).  API
   decode_step(params, cache, token, pos) -> (logits, cache)
   cache_struct(batch, max_len) / init_cache(batch, max_len)
 
-A plan with a "model" axis of one process is taken by every family: data
-parallelism and FSDP wrap the forward (``training/train_step.py``) and
-leave it as it is.  Tensor parallelism over a larger "model" axis is
-ported for the dense transformer (the dense and vlm families) alone.
+A plan whose "model" axis has more than one process splits every
+family's work over it, as the JAX models' sharding constraints lay it
+out (``distributed/parallel.py`` ``TensorParallel``): attention heads
+(or query rows where the heads do not divide the axis: sequence
+parallelism), MLP columns, MoE experts, SSM heads, the vocabulary, and
+with ``seq_shard_activations`` the residual stream's positions
+(Megatron-SP).  ``check_plan`` raises for the plans that are not
+ported.
 """
 from __future__ import annotations
 
@@ -25,25 +29,32 @@ from repro_torch.models.zamba2 import Zamba2LM
 
 
 def check_plan(cfg: ModelConfig, plan) -> None:
-    """Raise ``NotImplementedError`` for a plan the port cannot run: a
-    "model" axis of more than one process for the moe, ssm, hybrid and
-    encdec families, or with sequence parallelism (``seq_axes``: heads
-    that do not divide the axis) or a sequence-sharded residual stream
-    (``resid_seq``).  Nothing silently runs unsharded."""
+    """Raise ``NotImplementedError`` for a plan the port cannot run under
+    a "model" axis of more than one process: MoE experts that do not
+    divide the axis (JAX then cuts each expert's d_ff_expert,
+    "mlp_exp"), the SSM's d_in and heads split differently
+    (``ssm_inner`` and ``ssm_head`` disagree), or a sequence-sharded
+    residual stream (``resid_seq``) through mamba layers whose heads the
+    axis does not split.  Nothing silently runs unsharded."""
     if plan is None or plan.model_size == 1:
         return
     why = None
-    if cfg.family not in ("dense", "vlm"):
-        why = f"the {cfg.family} family"
-    elif plan.seq_axes is not None:
-        why = (f"sequence parallelism ({cfg.n_heads} heads on a "
-               f"{plan.model_size}-way model axis)")
-    elif plan.resid_seq is not None:
-        why = "a sequence-sharded residual stream (resid_seq)"
+    if cfg.moe is not None and plan.rules["expert"] is None:
+        why = (f"{cfg.moe.n_experts} experts that do not divide the axis "
+               f"(each expert's d_ff_expert cut)")
+    if cfg.ssm is not None:
+        inner, head = plan.rules["ssm_inner"], plan.rules["ssm_head"]
+        if inner != head:
+            why = (f'rules["ssm_inner"] = {inner!r} and '
+                   f'rules["ssm_head"] = {head!r} disagree')
+        elif plan.resid_seq is not None and head is None:
+            why = ("a sequence-sharded residual stream (resid_seq) "
+                   "through mamba layers whose heads the axis does not "
+                   "split")
     if why:
         raise NotImplementedError(
-            f"{cfg.name}: {why} under a model axis of {plan.model_size} is "
-            f"not ported (ROADMAP.md item 8); use a model axis of 1")
+            f"{cfg.name}: {why} under a model axis of {plan.model_size}; "
+            f"not ported (ROADMAP.md item 8)")
 
 
 def get_model(cfg: ModelConfig, plan=None):
@@ -51,12 +62,9 @@ def get_model(cfg: ModelConfig, plan=None):
     if cfg.family in ("dense", "moe", "vlm"):
         return TransformerLM(cfg, plan)
     if cfg.family == "ssm":
-        model = Mamba2LM(cfg)
-    elif cfg.family == "hybrid":
-        model = Zamba2LM(cfg)
-    elif cfg.family == "encdec":
-        model = EncDecLM(cfg)
-    else:
-        raise ValueError(f"unknown family {cfg.family!r}")
-    model.plan = plan
-    return model
+        return Mamba2LM(cfg, plan)
+    if cfg.family == "hybrid":
+        return Zamba2LM(cfg, plan)
+    if cfg.family == "encdec":
+        return EncDecLM(cfg, plan)
+    raise ValueError(f"unknown family {cfg.family!r}")

@@ -6,16 +6,17 @@
 
 Joins the gloo process group torchrun describes, then runs every entry
 of ``CASES`` in turn over the one world of 4 ranks, each on its own
-process mesh: the full parameters come from ``INPUT_DIR/<arch>.npz``
-(dotted leaf names, as the test wrote them), are cut with
+process mesh: the full parameters come from
+``INPUT_DIR/<input_key(case)>.npz`` (dotted leaf names, as the test
+wrote them), are cut with
 ``shard_tree``, and the case takes two steps: the first from
 ``make_grad_fn`` and the optimizer's update (its gradients recorded), the
 second through ``make_train_step``.  Rank 0 writes what the test compares to
 ``OUTPUT_DIR/<case>.npz``: the losses, the gathered gradients, the
 parameters after each step, the optimizer state after the second and
 whether shard -> gather gave the parameters back bit for bit.
-``RESTORES``: a ``TrainLoop`` saves at step 1 on one layout, and loops on
-other layouts restore from it and run to step 3.  Last, the launcher's
+``RESTORES``: per arch a ``TrainLoop`` saves at step 1 on one layout, and
+loops on other layouts restore from it and run to step 3.  Last, the launcher's
 ``main`` trains over the same group (``LAUNCHER``, its log on
 standard output).
 """
@@ -62,11 +63,40 @@ for _shape in ((2, 2), (2, 1, 2)):
         "llama3-405b", _shape, 4, 32, {}, {"min_dim_factored": 16})
 CASES["mamba2-4x1"] = ("mamba2-780m", (4, 1), 4, 32, {}, {})
 CASES["moe-4x1"] = ("qwen3-moe-30b-a3b", (4, 1), 4, 32, {}, {})
+# the split over "model" of the other families: mamba2's 8 SSM heads
+# (2 or 4 a rank), qwen3-moe's 4 experts (1 or 2 a rank), zamba2's
+# mamba layers and shared block, seamless's encoder, decoder and
+# cross-attention (64 frames under 32 tokens)
+for _shape in ((1, 4), (2, 2)):
+    _t = "x".join(map(str, _shape))
+    CASES[f"mamba2-{_t}"] = ("mamba2-780m", _shape, 4, 32, {}, {})
+    CASES[f"moe-{_t}"] = ("qwen3-moe-30b-a3b", _shape, 4, 32, {}, {})
+CASES["zamba2-1x4"] = ("zamba2-1.2b", (1, 4), 4, 32, {}, {})
+CASES["seamless-1x4"] = ("seamless-m4t-medium", (1, 4), 4, 32, {}, {})
+# sequence parallelism: 6 query heads do not divide 4, so each rank
+# takes 8 of the 32 query rows; Megatron-SP: the residual stream cut on S
+CASES["qwen3-sp-1x4"] = ("qwen3-0.6b", (1, 4), 4, 32,
+                         {"n_heads": 6, "n_kv_heads": 2}, {})
+CASES["qwen3-resid-seq-1x4"] = ("qwen3-0.6b", (1, 4), 4, 32,
+                                {"seq_shard_activations": True}, {})
+ENC_FRAMES = 64
+# the cases that split the other families or attention's query rows over
+# "model"
+SPLIT_CASES = ("mamba2-1x4", "mamba2-2x2", "moe-1x4", "moe-2x2",
+               "zamba2-1x4", "seamless-1x4", "qwen3-sp-1x4",
+               "qwen3-resid-seq-1x4")
+# overrides that change the parameters' shapes: a case with one of them
+# has inputs of its own
+SHAPE_FIELDS = ("n_heads", "n_kv_heads")
 
-# a TrainLoop on SAVE_LAYOUT saves at step 1; loops on each of
-# RESTORE_LAYOUTS restore it and run to step 3
-RESTORE_ARCH, SAVE_LAYOUT, RESTORE_LAYOUTS = "qwen3-0.6b", (2, 2), (
-    (4, 1), (1, 4))
+# arch -> (save layout, restore layouts): a TrainLoop on the save layout
+# saves at step 1; loops on each restore layout restore it and run to
+# step 3.  Beside qwen3's head cut: the experts' cut (EP), the SSM
+# heads', the encdec's
+RESTORES = {"qwen3-0.6b": ((2, 2), ((4, 1), (1, 4))),
+            "mamba2-780m": ((1, 4), ((2, 2),)),
+            "qwen3-moe-30b-a3b": ((1, 4), ((2, 2),)),
+            "seamless-m4t-medium": ((1, 4), ((2, 2),))}
 RESTORE_B, RESTORE_S = 4, 32
 # the launcher's run over the 4 ranks at (2, 2), the smoke config; rank
 # 0 alone logs
@@ -75,6 +105,47 @@ LAUNCHER = {"arch": "qwen3-0.6b", "steps": 2, "global_batch": 4, "seq": 32}
 
 def case_config(arch, overrides):
     return smoke_config(get_config(arch)).replace(**overrides)
+
+
+def input_key(name):
+    """The name of a case's parameter file: its arch, and the overrides
+    that change the parameters' shapes."""
+    arch, over = CASES[name][0], CASES[name][4]
+    return arch + "".join(f"-{k}{over[k]}" for k in SHAPE_FIELDS
+                          if k in over)
+
+
+def host_batch(name, i):
+    """Batch ``i`` of a case on the host (``lm_batch``)."""
+    arch, _, B, S, over, _ = CASES[name]
+    return lm_batch(case_config(arch, over), B, S, BATCH_SEED, i)
+
+
+def lm_batch(cfg, B, S, seed, i):
+    """Batch ``i`` of SyntheticLM's stream from ``seed``, and for encdec
+    standard normal frame embeddings (B, ENC_FRAMES, D) from seed i."""
+    hb = dict(SyntheticLM(cfg.vocab_size, S, B, seed=seed).batch_at(i))
+    if cfg.family == "encdec":
+        hb["enc_emb"] = np.random.default_rng(i).standard_normal(
+            (B, ENC_FRAMES, cfg.d_model)).astype(np.float32)
+    return hb
+
+
+def restore_loop(arch, mesh=None, **kw):
+    """A ``TrainLoop`` of ``RESTORES``' runs: the smoke config of
+    ``arch``, the stream from seed 0 (``lm_batch``), on ``mesh`` or one
+    CPU process."""
+    cfg = smoke_config(get_config(arch))
+    return TrainLoop(cfg, global_batch=RESTORE_B, seq=RESTORE_S, mesh=mesh,
+                     device="cpu", batches=lambda i: lm_batch(
+                         cfg, RESTORE_B, RESTORE_S, 0, i), **kw)
+
+
+def restore_name(arch, shape):
+    """The output file of a restore (no extension); qwen3's carry the
+    layout alone."""
+    t = "x".join(map(str, shape))
+    return f"restore-{t}" if arch == "qwen3-0.6b" else f"restore-{arch}-{t}"
 
 
 def mesh_of(shape):
@@ -94,7 +165,7 @@ def run_case(name, in_dir, out_dir):
     plan = make_plan(cfg, mesh, ShapeCfg("test", S, B, "train"))
     model = get_model(cfg, plan)
     specs = model.param_specs()
-    with np.load(os.path.join(in_dir, f"{arch}.npz")) as f:
+    with np.load(os.path.join(in_dir, f"{input_key(name)}.npz")) as f:
         full = tree_from_flat(model.param_defs(),
                               {k: torch.tensor(f[k]) for k in f.files})
     local = par.shard_tree(full, specs, mesh)
@@ -104,10 +175,10 @@ def run_case(name, in_dir, out_dir):
     params = model.load(local)
     ocfg = opt.OptConfig(name=cfg.optimizer, **opt_over)
     step_fn, opt_init, _ = make_train_step(model, cfg, plan, opt_cfg=ocfg)
-    data = SyntheticLM(cfg.vocab_size, S, B, seed=BATCH_SEED)
 
     def batch(i):
-        return device_batch(data.batch_at(i), "cpu", mesh, plan.batch_axes)
+        return device_batch(host_batch(name, i), "cpu", mesh,
+                            plan.batch_axes)
 
     # step 1 as the sharded step takes it, its gradients gathered before
     # the optimizer clips them in place; step 2 through make_train_step
@@ -131,24 +202,21 @@ def run_case(name, in_dir, out_dir):
 
 
 def run_restores(out_dir):
-    cfg = smoke_config(get_config(RESTORE_ARCH))
-    ckpt_dir = os.path.join(out_dir, "ckpt")
     quiet = lambda _: None      # noqa: E731
-
-    def loop(shape, **kw):
-        return TrainLoop(cfg, global_batch=RESTORE_B, seq=RESTORE_S,
-                         mesh=mesh_of(shape), **kw)
-    loop(SAVE_LAYOUT, ckpt_dir=ckpt_dir).run(1, save_every=1, log=quiet)
-    for shape in RESTORE_LAYOUTS:
-        lp = loop(shape, ckpt_dir=ckpt_dir)
-        params, _, _ = lp.run(3, log=quiet)
-        full = par.gather_tree(params, lp.model.param_specs(), lp.mesh)
-        if lp.mesh.rank == 0:
-            np.savez(os.path.join(
-                out_dir, f"restore-{'x'.join(map(str, shape))}.npz"),
-                steps=np.array([h["step"] for h in lp.history]),
-                losses=np.array([h["loss"] for h in lp.history]),
-                **_np(full, "p"))
+    for arch, (save, shapes) in RESTORES.items():
+        ckpt_dir = os.path.join(out_dir, f"ckpt-{arch}")
+        restore_loop(arch, mesh_of(save), ckpt_dir=ckpt_dir).run(
+            1, save_every=1, log=quiet)
+        for shape in shapes:
+            lp = restore_loop(arch, mesh_of(shape), ckpt_dir=ckpt_dir)
+            params, _, _ = lp.run(3, log=quiet)
+            full = par.gather_tree(params, lp.model.param_specs(), lp.mesh)
+            if lp.mesh.rank == 0:
+                np.savez(os.path.join(out_dir,
+                                      restore_name(arch, shape) + ".npz"),
+                         steps=np.array([h["step"] for h in lp.history]),
+                         losses=np.array([h["loss"] for h in lp.history]),
+                         **_np(full, "p"))
 
 
 def main(argv):

@@ -11,6 +11,9 @@ against ``jax.vjp`` in ``tests/test_torch_train_ops.py``.
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs its files in parallel workers, and
+# the port's small CPU ops lose more to thread hand-offs than they gain
+torch.set_num_threads(1)
 
 from repro_torch import device as rdev  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402

@@ -17,6 +17,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs its files in parallel workers, and
+# the port's small CPU ops lose more to thread hand-offs than they gain
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

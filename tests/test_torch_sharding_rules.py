@@ -24,6 +24,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs its files in parallel workers, and
+# the port's small CPU ops lose more to thread hand-offs than they gain
+torch.set_num_threads(1)
 
 from repro.configs.base import SHAPES as JAX_SHAPES  # noqa: E402
 from repro.configs.registry import get_config as jax_config  # noqa: E402

@@ -6,10 +6,15 @@ and batch, the remat settings against each other, and a ``TrainLoop``
 preempted and restored against one that ran straight through.  JAX
 parameters reach the port through ``convert.lm_params_from_jax``; the
 smoke configs are f32."""
+import os
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs its files in parallel workers, and
+# the port's small CPU ops lose more to thread hand-offs than they gain
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -259,3 +264,37 @@ def test_train_main_moe_smoke_on_cpu(capsys):
     with pytest.raises(NotImplementedError, match="enc_emb"):
         train.main(["--arch", "seamless-m4t-medium", "--smoke", "--device",
                     "cpu"])
+
+
+@pytest.mark.parametrize("arch,layers,block", [
+    ("qwen3-moe-30b-a3b", 16, 8), ("llama4-maverick-400b-a17b", 8, 2),
+    ("qwen3-0.6b", 6, 0)])
+def test_step_launches_counts_the_two_level_remat(monkeypatch, arch, layers,
+                                                  block):
+    """``chip_smoke.step_launches``, the count the card's launch gates
+    hold a training step to, against the attention forwards that one
+    remat "full" forward and backward run, counted here: the two-level
+    remat where the units fill groups of ``scan_block`` (qwen3-moe's 16
+    layers in 2 groups of 8, as its deepest four-card cut runs; llama4's
+    units of 2 layers in groups of 2), and one level without it.
+    Exact."""
+    from repro_torch.models import attention as att
+    from repro_torch.training.train_step import _microbatch_grads
+    monkeypatch.syspath_prepend(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), ".."))
+    import chip_smoke
+    calls = []
+    plain = att.blocked_attention
+    monkeypatch.setattr(att, "blocked_attention",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    cfg = smoke_config(get_config(arch)).replace(
+        n_layers=layers, scan_block=block, remat="full", dtype="float32",
+        grad_accum_microbatches=1)
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    _microbatch_grads(model.loss, params,
+                      device_batch(batch(cfg, 2, 16, 0), "cpu"), 1,
+                      torch.float32)
+    want = chip_smoke.step_launches(cfg, False)
+    assert len(calls) == want["flash_attention"]
+    assert want["flash_attention_bwd"] == layers

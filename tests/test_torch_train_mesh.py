@@ -1,5 +1,5 @@
 """The port's training over several processes (``distributed/parallel.py``,
-the plan seam of ``TransformerLM``, ``make_train_step(plan=)``, the
+the plan seam of every model family, ``make_train_step(plan=)``, the
 sharded optimizers and batches, ``TrainLoop(mesh=)`` and restore onto
 another layout) on the CPU, against the port's one-device step and the
 JAX package's single-device loss and step.
@@ -12,21 +12,45 @@ shards its kv heads at "model" 2 and projects them whole and expands
 them at "model" 4; granite-3-8b runs 4 microbatches over the local rows;
 llama3-405b runs Adafactor (factored at the smoke widths with
 ``min_dim_factored`` 16); mamba2-780m and qwen3-moe-30b-a3b run data
-parallel; last, the launcher's ``main`` trains over the same 4 ranks.
-qwen3's parameters are JAX's initialisation, carried across by
-``convert.lm_params_from_jax``, the others the port's draws; all in f32.
+parallel at (4, 1) and split their 8 SSM heads and 4 experts over
+"model" at (1, 4) and (2, 2); zamba2-1.2b splits its mamba layers and
+shared block, seamless-m4t-medium its encoder, decoder and
+cross-attention at (1, 4); qwen3 with 6 query heads runs its attention
+sequence-parallel at (1, 4) (8 query rows a rank), and with
+``seq_shard_activations`` its residual stream cut on S (Megatron-SP);
+checkpoints saved on one layout are restored onto another (qwen3's
+heads, mamba2's SSM heads, qwen3-moe's experts, seamless); last, the
+launcher's ``main`` trains over the same 4 ranks.  The parameters of
+qwen3 (4 and 6 query heads), mamba2 and qwen3-moe are JAX's
+initialisation, carried across by ``convert.lm_params_from_jax``, the
+others the port's draws; all in f32.
 
 Tolerances: the sharded step sums in another order than one device (the
 gradient over ranks, the vocab-parallel softmax, the row-parallel
 products).  The loss is held within 1e-6 of one device's (relative),
 every gathered gradient within 1e-5 of its leaf's largest element, the
-optimizer state within 1e-5.  The parameters' movement (after - before)
+optimizer state within 1e-5 (the same gates for every case, the
+split ones included: they sum over ranks the SSM heads' B / C
+gradients, the gated norm's squares, the experts' partial combines and
+the query rows' attention in another order too).  The parameters'
+movement (after - before)
 within 1e-4 of the learning rates' sum plus one f32 spacing per element,
 except where AdamW's g / (|g| + eps) turns with the gradient's last
 digits: elements whose clipped gradient at some step is below 100 eps
 (1e-6), at most 0.1 % of a leaf, as ``test_torch_train.py`` holds one
-step against JAX.
+step against JAX.  The split cases (``SPLIT_CASES`` of the worker) sum
+over ranks in more places, and AdamW divides each gradient by its own
+size, so an element far below its leaf's largest carries the sums'
+rounding relatively larger (1e-4 of it where the gradient gate allows
+1e-5 of the leaf's largest): they hold the movement within one f32
+spacing per element per step (two: each step rounds p once, and both
+roundings can fall the other way, as at one element of mamba2-1x4's
+embedding), and their exempt elements also count those whose first
+moment after step 2 cancels to below 1 % of its terms, where m / sqrt(v)
+turns with the gradients' last digits (one element of zamba2-1x4's
+out_proj: 0.7 %); still at most 0.1 % of a leaf.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -35,6 +59,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs its files in parallel workers, and
+# the port's small CPU ops lose more to thread hand-offs than they gain
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -60,36 +87,51 @@ import _torch_mesh_worker as W  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "..", "src")
-ARCHS = sorted({c[0] for c in W.CASES.values()} | {W.RESTORE_ARCH})
 
 
-JAX_ARCH = "qwen3-0.6b"     # the case held against the JAX package
-
-
-@pytest.fixture(scope="module")
-def jax_qwen3():
-    jm = jax_model(jax_smoke(jax_config(JAX_ARCH)))
-    return jm, jm.init(jax.random.PRNGKey(0))
+JAX_ARCH = "qwen3-0.6b"     # the case held against the JAX package's step
+# the parameter files (``input_key``) that hold JAX's initialisation, each
+# by a case that reads it: their cases can be held against the JAX package
+JAX_INPUTS = {W.input_key(n): n for n in ("qwen3-4x1", "mamba2-4x1",
+                                          "moe-4x1", "qwen3-sp-1x4")}
 
 
 @pytest.fixture(scope="module")
-def run(tmp_path_factory, jax_qwen3):
+def jax_models():
+    """{input key: (JAX model, its parameters from PRNGKey(0))}."""
+    out = {}
+    for key, name in JAX_INPUTS.items():
+        arch, over = W.CASES[name][0], W.CASES[name][4]
+        jm = jax_model(jax_smoke(jax_config(arch)).replace(**over))
+        out[key] = jm, jm.init(jax.random.PRNGKey(0))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_qwen3(jax_models):
+    return jax_models[JAX_ARCH]
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory, jax_models):
     """The worker's outputs and standard output: one torchrun of 4 gloo
-    ranks for the file.  qwen3's parameters are JAX's (carried across by
-    ``convert``), the other archs' the port's draws from seed 0."""
+    ranks for the file.  The parameters of ``JAX_INPUTS`` are JAX's
+    (carried across by ``convert``), the others the port's draws from
+    seed 0."""
     d = tmp_path_factory.mktemp("mesh")
     inp, out = d / "in", d / "out"
     inp.mkdir()
     out.mkdir()
-    for arch in ARCHS:
-        if arch == JAX_ARCH:
+    for key, name in {W.input_key(n): n for n in W.CASES}.items():
+        arch, over = W.CASES[name][0], W.CASES[name][4]
+        if key in JAX_INPUTS:
             tree = convert.lm_params_from_jax(
-                jax.tree.map(np.asarray, jax_qwen3[1]))
+                jax.tree.map(np.asarray, jax_models[key][1]))
         else:
-            tree = get_model(W.case_config(arch, {})).init(
+            tree = get_model(W.case_config(arch, over)).init(
                 torch.Generator().manual_seed(0))
-        np.savez(inp / f"{arch}.npz", **{n: x.detach().numpy()
-                                         for n, x in tree_leaves(tree)})
+        np.savez(inp / f"{key}.npz", **{n: x.detach().numpy()
+                                        for n, x in tree_leaves(tree)})
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.run(
@@ -124,13 +166,24 @@ def close(got, want, tol, what):
     assert err <= tol * scale, (what, err, scale)
 
 
-def moved_close(got, want, before, lr_sum, small, what):
-    """The parameter's movement against the reference's (module note)."""
+def moved_close(got, want, before, lr_sum, small, what, roundings=1):
+    """The parameter's movement against the reference's (module note):
+    ``roundings`` f32 spacings per element."""
     moved = want.astype(np.float64) - before
     beyond = np.abs(got.astype(np.float64) - before - moved) > (
-        1e-4 * lr_sum + np.spacing(np.abs(want).astype(np.float32)))
+        1e-4 * lr_sum
+        + roundings * np.spacing(np.abs(want).astype(np.float32)))
     assert np.all(small[beyond]), (what, int(beyond.sum()))
     assert np.mean(beyond) <= 1e-3, (what, int(beyond.sum()))
+
+
+def first_moment_cancels(steps, n, b1=0.9):
+    """Elements whose AdamW first moment after the last step sums the
+    steps' clipped gradients to below 1 % of its terms' sizes."""
+    terms = [(1 - b1) * b1 ** (len(steps) - 1 - i)
+             * s["grads"][n].astype(np.float64) * s["clip"]
+             for i, s in enumerate(steps)]
+    return np.abs(sum(terms)) < 1e-2 * sum(np.abs(t) for t in terms)
 
 
 def one_device(name, inp):
@@ -140,7 +193,7 @@ def one_device(name, inp):
     arch, _, B, S, over, opt_over = W.CASES[name]
     cfg = W.case_config(arch, over)
     m = get_model(cfg)
-    with np.load(inp / f"{arch}.npz") as f:
+    with np.load(inp / f"{W.input_key(name)}.npz") as f:
         params = m.load(tree_from_flat(m.param_defs(),
                                        {k: torch.tensor(f[k])
                                         for k in f.files}))
@@ -148,11 +201,10 @@ def one_device(name, inp):
     # make_train_step's one-device step, its gradients kept before the
     # optimizer clips them in place
     _, init, update = opt.make_optimizer(cfg.optimizer, ocfg)
-    data = SyntheticLM(cfg.vocab_size, S, B, seed=W.BATCH_SEED)
     out = {"before": _np(params), "steps": []}
     state = init(params)
     for i in range(2):
-        b = device_batch(data.batch_at(i), "cpu")
+        b = device_batch(W.host_batch(name, i), "cpu")
         g, loss, _ = _microbatch_grads(m.loss, params, b,
                                        cfg.grad_accum_microbatches,
                                        getattr(torch, cfg.grad_accum_dtype))
@@ -211,7 +263,12 @@ def test_two_steps_match_one_device(run, refs, name):
         small = np.zeros(p.shape, bool)
         for s in ref["steps"]:
             small |= np.abs(s["grads"][n]) * s["clip"] < 1e-6
-        moved_close(params[n], p, ref["before"][n], lr_sum, small, n)
+        roundings = 1
+        if name in W.SPLIT_CASES:
+            roundings = len(ref["steps"])
+            small |= first_moment_cancels(ref["steps"], n)
+        moved_close(params[n], p, ref["before"][n], lr_sum, small, n,
+                    roundings)
     state = _sub(got, "opt")
     assert int(state.pop("step")) == 2
     assert set(state) == set(ref["opt"])
@@ -249,17 +306,55 @@ def test_slice_matches_jax_single_device(run, refs, jax_qwen3):
                     np.abs(one["grads"][n]) * one["clip"] < 1e-6, n)
 
 
-@pytest.mark.parametrize("shape", W.RESTORE_LAYOUTS,
-                         ids=lambda s: "x".join(map(str, s)))
-def test_restore_onto_another_layout(run, shape):
-    """A ``TrainLoop`` on (2, 2) saved at step 1; a loop on ``shape``
+# the split cases held against the JAX package's single-device loss and
+# gradients on the same parameters
+JAX_SPLIT_CASES = ("mamba2-1x4", "moe-1x4", "qwen3-sp-1x4",
+                   "qwen3-resid-seq-1x4")
+
+
+@pytest.mark.parametrize("name", JAX_SPLIT_CASES)
+def test_split_matches_jax_single_device(run, jax_models, name):
+    """mamba2-780m's SSM heads, qwen3-moe-30b-a3b's experts, qwen3's
+    attention sequence-parallel (6 query heads over 2 kv heads: each rank
+    8 query rows at their causal offset, the rows gathered) and qwen3
+    with its residual stream cut on S (Megatron-SP: all-gathers and
+    reduce-scatters on S, the norms model-partial), each split over a
+    "model" axis of 4, against ``jax.value_and_grad`` of the JAX
+    package's ``model.loss`` on one device: the loss within 1e-6 of its
+    value and every gathered gradient within 1e-5 of its leaf's largest
+    element, as ``test_torch_arch_smoke.py`` and
+    ``test_torch_train_ssm.py`` hold the one-device port (f32, sums in
+    another order)."""
+    got = _load(run[1] / f"{name}.npz")
+    jm, jp = jax_models[W.input_key(name)]
+    jb = {k: jnp.asarray(v) for k, v in W.host_batch(name, 0).items()}
+    (jl, _), jg = jax.value_and_grad(jm.loss, has_aux=True)(jp, jb)
+    close(got["grad_loss"], jl, 1e-6, "loss")
+    flat = {".".join(k.key for k in path): np.asarray(v)
+            for path, v in jax.tree_util.tree_leaves_with_path(jg)}
+    grads = _sub(got, "grad")
+    assert set(grads) == set(flat)
+    for n, g in flat.items():
+        close(grads[n], g, 1e-5, n)
+
+
+RESTORE_CASES = [(arch, shape) for arch, (_, shapes) in W.RESTORES.items()
+                 for shape in shapes]
+
+
+@pytest.mark.parametrize("arch,shape", RESTORE_CASES,
+                         ids=[W.restore_name(*c)[len("restore-"):]
+                              for c in RESTORE_CASES])
+def test_restore_onto_another_layout(run, arch, shape):
+    """A ``TrainLoop`` on the arch's save layout (qwen3: (2, 2); mamba2,
+    qwen3-moe, seamless: (1, 4), their SSM heads, experts or attention
+    heads cut over "model") saved at step 1; a loop on ``shape``
     restored it (its shards cut from the full arrays) and ran steps 2
-    and 3: losses and parameters against a one-device loop that ran the
-    3 steps straight (the same seed and stream)."""
-    got = _load(run[1] / f"restore-{'x'.join(map(str, shape))}.npz")
-    cfg = smoke_config(get_config(W.RESTORE_ARCH))
-    straight = TrainLoop(cfg, global_batch=W.RESTORE_B, seq=W.RESTORE_S,
-                         device="cpu")
+    and 3: losses within 1e-6 and parameters within 1e-5 of each leaf's
+    largest element against a one-device loop that ran the 3 steps
+    straight (the same seed and stream)."""
+    got = _load(run[1] / f"{W.restore_name(arch, shape)}.npz")
+    straight = W.restore_loop(arch)
     params, _, _ = straight.run(3, log=lambda _: None)
     assert list(got["steps"]) == [2, 3]
     for i, h in enumerate(straight.history[1:]):
@@ -278,25 +373,38 @@ def _plan(arch, shape, **over):
 
 @pytest.mark.parametrize("arch", ["mamba2-780m", "qwen3-moe-30b-a3b",
                                   "zamba2-1.2b", "seamless-m4t-medium"])
-def test_other_families_raise_at_model_2(arch):
-    """Tensor parallelism is ported for the dense transformer only: the
-    other families raise at a "model" axis of 2 and are taken at 1."""
-    cfg, plan = _plan(arch, (2, 2))
-    with pytest.raises(NotImplementedError, match="item 8"):
+def test_every_family_builds_at_model_2(arch):
+    """Every family takes a "model" axis of 2 (the split the worker's
+    cases run) and of 1."""
+    for shape in ((2, 2), (4, 1)):
+        cfg, plan = _plan(arch, shape)
+        assert get_model(cfg, plan).plan is plan
+
+
+def test_ssm_rules_disagreeing_raise():
+    """A plan that cuts the SSM's d_in over "model" but not its heads
+    (4 heads of 32 on an 8-way axis: d_in 128 divides, H does not)
+    raises, naming both rules, and never runs unsplit."""
+    cfg = smoke_config(get_config("mamba2-780m"))
+    cfg = cfg.replace(ssm=dataclasses.replace(cfg.ssm, head_dim=32))
+    mesh = make_mesh((1, 8), ("data", "model"), ["cpu"] * 8)
+    plan = make_plan(cfg, mesh, ShapeCfg("t", 32, 4, "train"))
+    assert plan.rules["ssm_inner"] == "model"
+    assert plan.rules["ssm_head"] is None
+    with pytest.raises(NotImplementedError,
+                       match=r'ssm_inner.*ssm_head.*item 8'):
         get_model(cfg, plan)
-    cfg, plan = _plan(arch, (4, 1))
-    assert get_model(cfg, plan).plan is plan
 
 
-@pytest.mark.parametrize("over,shape,what", [
-    ({}, (1, 8), "sequence parallelism"),
-    ({"seq_shard_activations": True}, (2, 2), "resid_seq")])
-def test_sp_and_resid_seq_plans_raise(over, shape, what):
-    """4 query heads on an 8-way "model" axis (SP) and a
-    sequence-sharded residual stream raise, never run unsharded."""
-    cfg, plan = _plan("qwen3-0.6b", shape, **over)
-    assert (plan.seq_axes if what.startswith("seq") else plan.resid_seq)
-    with pytest.raises(NotImplementedError, match=f"{what}.*item 8"):
+def test_moe_experts_not_dividing_raise():
+    """6 experts on a 4-way "model" axis (JAX cuts each expert's
+    d_ff_expert there) raise, never run unsplit."""
+    cfg = smoke_config(get_config("qwen3-moe-30b-a3b"))
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, n_experts=6))
+    mesh = make_mesh((1, 4), ("data", "model"), ["cpu"] * 4)
+    plan = make_plan(cfg, mesh, ShapeCfg("t", 32, 4, "train"))
+    assert plan.rules["expert"] is None
+    with pytest.raises(NotImplementedError, match=r"6 experts.*item 8"):
         get_model(cfg, plan)
 
 

@@ -3,16 +3,19 @@
 
     python3 tools/smoke_phases.py ssd_bwd [flash] [flash_bwd] [ssd] \
         [serve_check] [serve_new] [serve_encdec] [train_check] [train] \
-        [train_ssm] [train_moe] [train_encdec] [train_mesh] [shard]
+        [train_ssm] [train_moe] [train_encdec] [train_mesh] [shard] \
+        [--mesh-runs NAME ...]
 
 Builds the attention and SSD sources, forward and backward (one ``nvcc``
 each, in parallel), prints each kernel's registers and spills, then runs
 the named phases (``serve_new``: the serve runs of qwen3-moe-30b-a3b and
 chameleon-34b; ``train_ssm``: the train phase of mamba2-780m, then of
 zamba2-1.2b; ``train_moe`` and ``train_encdec``: that of
-qwen3-moe-30b-a3b and of seamless-m4t-medium; ``train_mesh``: qwen3-0.6b
-over every visible card, one process per card, held against its own
-one-card reference (alone, without the train phase's run A); ``shard``:
+qwen3-moe-30b-a3b and of seamless-m4t-medium; ``train_mesh``: the runs
+of ``tools/train_mesh.py`` over the visible cards, one process per
+card, each held against its own one-card reference (qwen3-0.6b's alone,
+without the train phase's run A; ``--mesh-runs``: only the runs of
+those names); ``shard``:
 the search
 across several devices, which also builds the GAT and simulator
 sources) in the order given, each
@@ -40,6 +43,8 @@ PHASES = ("flash", "flash_bwd", "ssd", "ssd_bwd", "serve_check",
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("phases", nargs="+", choices=PHASES)
+    ap.add_argument("--mesh-runs", nargs="*",
+                    help="train_mesh: only the runs of these names")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -65,12 +70,13 @@ def main(argv=None):
     for name in args.phases:
         t0 = time.perf_counter()
         done[name] = run_phase(name, cs, torch, np, rdev, fops, sops, gen,
-                               done)
+                               done, args.mesh_runs)
         print(json.dumps({"phase_done": name,
                           "seconds": time.perf_counter() - t0}), flush=True)
 
 
-def run_phase(name, cs, torch, np, rdev, fops, sops, gen, done):
+def run_phase(name, cs, torch, np, rdev, fops, sops, gen, done,
+              mesh_runs=None):
     """Run phase ``name`` of ``chip_smoke.py`` (imported as ``cs``);
     ``done``: what the phases run before it returned (train_mesh takes
     the train phase's run A as its reference when it ran)."""
@@ -96,7 +102,8 @@ def run_phase(name, cs, torch, np, rdev, fops, sops, gen, done):
     elif name == "train":
         return cs.phase_train(torch, np, rdev)
     elif name == "train_mesh":
-        return cs.phase_train_mesh(torch, np, done.get("train"))
+        return cs.phase_train_mesh(torch, np, done.get("train"),
+                                   names=mesh_runs)
     elif name == "train_moe":
         cs.phase_train_repeat(torch, np, rdev, cs.MOE_TRAIN[0])
     elif name == "train_encdec":

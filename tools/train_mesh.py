@@ -1,33 +1,43 @@
 #!/usr/bin/env python3
-"""One rank of ``chip_smoke.py``'s train_mesh phase: qwen3-0.6b trained
-over the cards of one host, one process per card.
+"""One rank of ``chip_smoke.py``'s train_mesh phase: the port's models
+trained over the cards of one host, one process per card.
 
     python -m torch.distributed.run --standalone --nproc-per-node N \\
-        tools/train_mesh.py --out DIR
+        tools/train_mesh.py --out DIR [--runs NAME ...]
 
-N is 1, 2 or 4.  Joins the NCCL process group (``launch.train``
-``init_distributed``: this rank on ``cuda:LOCAL_RANK``), then:
+Joins the NCCL process group (``launch.train`` ``init_distributed``:
+this rank on ``cuda:LOCAL_RANK``), then takes each run of ``RUNS`` made
+for a world of N processes (or those named), in order:
 
-1. rank 0 alone runs ``STEPS`` one-card ``TrainLoop`` steps (mesh None):
-   the reference, at the published config (bf16 activations, f32
-   parameters, remat "full", AdamW), B ``chip_smoke.TRAIN_BATCH``, S
-   ``chip_smoke.TRAIN_SEQ``, seed 0 -- what ``phase_train``'s run A does;
-2. every layout of ``LAYOUTS[N]`` (("data", "model") process meshes)
-   runs ``STEPS`` steps of a ``TrainLoop(mesh=)`` from the same seed; the
-   last one saves a checkpoint at step ``SAVE_AT``;
-3. restore onto another layout: loops on ``RESTORES[N]`` (on one card a
-   one-card ``TrainLoop``) restore that checkpoint and run step 3.
+1. unless the run has none, rank 0 alone runs ``STEPS`` one-card steps
+   (mesh None): the reference, at the run's config (bf16 activations,
+   f32 parameters, remat "full", AdamW, the run's depth cut), B
+   ``chip_smoke.TRAIN_BATCH``, S the run's, seed 0 -- for qwen3-0.6b
+   what ``phase_train``'s run A does;
+2. every layout of the run (("data", "model") process meshes, with the
+   run's config overrides, e.g. ``seq_shard_activations``) runs
+   ``STEPS`` steps of a ``TrainLoop(mesh=)`` from the same seed (the
+   encdec family on ``chip_smoke.encdec_batch``'s batches); the run's
+   saving layout saves a checkpoint at step ``SAVE_AT``;
+3. restore onto another layout: loops on the run's restore layouts
+   (None: a one-card loop) restore that checkpoint and run step 3.
 
 Per layout each rank records its losses, step ms (host clock; a step
 ends when the rank has its loss), launches, peak device memory and the
 bytes of its parameter and optimizer shards, then profiles a 4th step
-(``profile_step``: device busy and idle, NCCL, GEMM and attention
-device ms, the top kernels); rank 0 gathers the
-parameters and holds them against the reference (``compare``).  Each
-rank writes ``DIR/rank<r>.json``, then checks the gates (``gates``) and
-exits non-zero if one misses.
+(``profile_step``: device busy and idle, NCCL, GEMM, attention and SSD
+device ms, the top kernels); rank 0 gathers the parameters and holds
+them against the reference (``compare``) and, for the run's ``pairs``,
+one layout's against another's.  After every run each rank checks that
+run's gates (``gate_run``: a later run that fails cannot hide an earlier
+one's result), records what missed under ``gates_missed`` and writes
+``DIR/rank<r>.json``; it exits non-zero after the last run if any gate
+missed.  A rank that raises stops the world (torchrun ends the others,
+which would wait in a collective).
 """
 import argparse
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -44,257 +54,429 @@ import chip_smoke as cs  # noqa: E402
 
 STEPS = cs.MESH_STEPS
 SAVE_AT = 2
-LAYOUTS = {1: [(1, 1)], 2: [(2, 1), (1, 2)], 4: [(4, 1), (1, 4), (2, 2)]}
-# loops that restore the last layout's checkpoint (None: one card, no
-# mesh)
-RESTORES = {1: [None], 2: [(2, 1)], 4: [(4, 1), (1, 4)]}
+RESID_SEQ = {"seq_shard_activations": True}
+
+
+@dataclasses.dataclass(frozen=True)
+class Run:
+    """A model trained on a world of ``cards`` processes: its layouts
+    (shape, config overrides), against rank 0's one-card run of the
+    same config (``reference``); ``save`` (an index of ``layouts``) saves
+    at ``SAVE_AT`` and ``restores`` (shape or None, overrides) restore
+    it; ``pairs`` (i, j): layout j also held against layout i.
+    ``alone``: the run gets a torchrun launch of its own (a fresh process
+    a card, for a run that fills the card)."""
+    name: str
+    arch: str
+    cards: int
+    layouts: tuple
+    cut: dict = dataclasses.field(default_factory=dict)
+    seq: int = cs.TRAIN_SEQ
+    reference: bool = True
+    save: int = None
+    restores: tuple = ()
+    pairs: tuple = ()
+    alone: bool = False
+
+
+RUNS = (
+    Run("qwen3-0.6b", cs.TRAIN_ARCH, 1, (((1, 1), {}),), save=0,
+        restores=((None, {}),)),
+    Run("qwen3-0.6b", cs.TRAIN_ARCH, 2, (((2, 1), {}), ((1, 2), {})),
+        save=1, restores=(((2, 1), {}),)),
+    # Megatron-SP: (1, 4) with the residual stream cut on S, also held
+    # against (1, 4) without it
+    Run("qwen3-0.6b", cs.TRAIN_ARCH, 4,
+        (((4, 1), {}), ((1, 4), {}), ((2, 2), {}), ((1, 4), RESID_SEQ)),
+        save=2, restores=(((4, 1), {}), ((1, 4), {})), pairs=((1, 3),)),
+    # the split of the other families and SP.  No restores: the
+    # checkpoint manager gathers the whole tree (parameters and AdamW's
+    # two moments: 7-37 GB here) onto every rank and rank 0 writes it,
+    # minutes of four cards a run; qwen3's restores above and the CPU
+    # worker's (tests/_torch_mesh_worker.py RESTORES: mamba2, qwen3-moe,
+    # seamless) hold the manager's cut onto another layout
+    Run("mamba2-780m", "mamba2-780m", 4, (((1, 4), {}), ((2, 2), {}))),
+    Run("zamba2-1.2b", "zamba2-1.2b", 4, (((1, 4), {}),)),
+    Run("seamless-m4t-medium", cs.ENCDEC_ARCH, 4, (((1, 4), {}),)),
+    # expert parallelism: one card's 4-layer cut (cs.MOE_TRAIN) against
+    # one card; then the deepest cut that fits, at 32 experts a rank, held
+    # to the other gates (no card holds it alone).  A rank peaks at ~7x
+    # its parameter shards (the parameters, AdamW's two moments, the
+    # gradients, their f32 accumulator and the update's temporaries): 16
+    # layers take 74 GB, in a process of their own; 16 is two groups of
+    # scan_block (8), so the two-level remat runs
+    Run("qwen3-moe-30b-a3b:4", cs.MOE_TRAIN[0], 4, (((1, 4), {}),),
+        cut={"n_layers": cs.MOE_TRAIN[1],
+             "grad_accum_microbatches": cs.MOE_TRAIN[2]}),
+    Run("qwen3-moe-30b-a3b:16", cs.MOE_TRAIN[0], 4, (((1, 4), {}),),
+        cut={"n_layers": 16, "grad_accum_microbatches": cs.MOE_TRAIN[2]},
+        reference=False, alone=True),
+    # the SP fallback, 3 cards, cut to 4 of 48 layers (one card holds
+    # the reference)
+    Run("qwen2.5-14b", "qwen2.5-14b", cs.SP_RANKS,
+        (((1, cs.SP_RANKS), {}),), cut={"n_layers": 4}, seq=cs.SP_SEQ),
+)
 # a layout against the one-card reference.  Losses within LOSS_TOL
 # relative: the same bf16 model, its products and f32 sums in another
 # order (row-parallel partials summed over ranks, the vocab-parallel
-# softmax, cuBLAS choosing its algorithm by row count).  Parameters:
-# each element within PARAM_ABS_TOL of the reference's, twice the most
-# 3 AdamW steps at this warm-up move one (the learning rates 3e-6, 6e-6
-# and 9e-6 sum to 1.8e-5; an update's size is at most about 1, weight
-# decay adds 0.1 |p| of it): a layout that lost or scrambled a shard
-# misses it by the parameters' own size; and the steps' movement (after
-# - before, over every parameter) at a cosine of at least MOVE_COS_MIN
-# with the reference's, where a wrong gradient would give ~0 (AdamW's
-# first steps move each element by about lr times the sign of its
-# gradient, so only gradients within rounding of 0 may turn).  One rank
-# runs the one-card ops: bit-equal.
+# softmax, the split norms, cuBLAS choosing its algorithm by row count;
+# the MoE's router may then send a near-tied token elsewhere).
+# Parameters: each element within PARAM_ABS_TOL of the reference's,
+# twice the most 3 AdamW steps at this warm-up move one (the learning
+# rates 3e-6, 6e-6 and 9e-6 sum to 1.8e-5; an update's size is at most
+# about 1, weight decay adds 0.1 |p| of it): a layout that lost or
+# scrambled a shard misses it by the parameters' own size; and the
+# steps' movement (after - before), over every parameter and over each
+# leaf, at a cosine of at least MOVE_COS_MIN with the reference's, where
+# a wrong gradient would give ~0 (AdamW's first steps move each element
+# by about lr times the sign of its gradient, so only gradients within
+# rounding of 0 may turn; the MoE's experts, whose tokens a near-tied
+# router choice can move, read 0.956 at 4 layers).  One rank runs the
+# one-card ops: bit-equal.
 LOSS_TOL = 1e-3
 PARAM_ABS_TOL = 4e-5
 MOVE_COS_MIN = 0.9
 
 
-def tag(shape):
-    return "one-card" if shape is None else "x".join(map(str, shape))
+def runs_for(world, names=None):
+    """The runs of a world of ``world`` processes (those named, when
+    given)."""
+    return [r for r in RUNS if r.cards == world
+            and (not names or r.name in names)]
 
 
-def compare(torch, full, ref, p0):
-    """Per-leaf largest |full - ref| and the movement's cosine."""
-    dot = nf = nr = 0.0
-    worst = {}
+def tag(shape, over=None):
+    if shape is None:
+        return "one-card"
+    return "x".join(map(str, shape)) + ("+resid-seq" if over and over.get(
+        "seq_shard_activations") else "")
+
+
+def run_config(run):
+    from repro_torch.configs.registry import get_config
+    return get_config(run.arch).replace(**run.cut)
+
+
+# elements of a leaf compared at once: the MoE's expert leaves hold 0.8 G
+# of them, whose f64 copies would not fit beside the run's state
+COMPARE_CHUNK = 1 << 24
+
+
+def compare(full, ref, p0):
+    """Per-leaf largest |full - ref|, and the movement's cosine over
+    every parameter and per leaf (f64 sums, a chunk of each leaf at a
+    time)."""
+    worst, sums = {}, {}
     for n, x in full.items():
-        r = ref["params"][n]
-        worst[n] = float((x - r).abs().max())
-        a, b = (x - p0[n]).double(), (r - p0[n]).double()
-        dot += float((a * b).sum())
-        nf += float((a * a).sum())
-        nr += float((b * b).sum())
+        x, r, x0 = (t.reshape(-1) for t in (x, ref[n], p0[n]))
+        worst[n], s = 0.0, [0.0, 0.0, 0.0]
+        for i in range(0, x.numel(), COMPARE_CHUNK):
+            sl = slice(i, i + COMPARE_CHUNK)
+            worst[n] = max(worst[n], float((x[sl] - r[sl]).abs().max()))
+            a, b = (x[sl] - x0[sl]).double(), (r[sl] - x0[sl]).double()
+            for j, t in enumerate((a * b, a * a, b * b)):
+                s[j] += float(t.sum())
+        sums[n] = s
+
+    def cos(dot, nf, nr):
+        return dot / math.sqrt(max(nf * nr, 1e-300))
     return {"max_abs_param_err": max(worst.values()),
             "worst_leaf": max(worst, key=worst.get),
-            "move_cosine": dot / math.sqrt(max(nf * nr, 1e-300))}
+            "move_cosine": cos(*map(sum, zip(*sums.values()))),
+            "move_cosine_by_leaf": {n: cos(*s) for n, s in sums.items()}}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", required=True)
+    ap.add_argument("--runs", nargs="*", help="names of RUNS (default: "
+                    "every run made for this world size)")
     args = ap.parse_args(argv)
     import torch
     import torch.distributed as dist
-    from repro_torch import device as rdev
-    from repro_torch.configs.registry import get_config
-    from repro_torch.data.pipeline import device_batch
-    from repro_torch.distributed import parallel as par
-    from repro_torch.launch.mesh import make_process_mesh
-    from repro_torch.launch.train import TrainLoop, init_distributed
-    from repro_torch.models.zoo import get_model
-    from repro_torch.utils.params import tree_leaves
+    from repro_torch.launch.train import init_distributed
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = init_distributed("cuda")
     rank, world = dist.get_rank(), dist.get_world_size()
-    if world not in LAYOUTS:
-        raise ValueError(f"train_mesh runs on 1, 2 or 4 cards, not {world}")
-    cfg = get_config(cs.TRAIN_ARCH)
-    B, S = cs.TRAIN_BATCH, cs.TRAIN_SEQ
-    per_step = cs.step_launches(cfg, True)
-    quiet = lambda _: None      # noqa: E731
+    runs = runs_for(world, args.runs)
+    if not runs:
+        raise ValueError(f"train_mesh: no run for {world} cards "
+                         f"(names {args.runs})")
     out = {"rank": rank, "world": world, "device": str(dev),
-           "card": torch.cuda.get_device_name(dev), "layouts": [],
-           "restores": []}
+           "card": torch.cuda.get_device_name(dev), "runs": []}
+    try:
+        for run in runs:
+            t0 = time.perf_counter()
+            res = train_run(run, rank, dev)
+            res.update(name=run.name, arch=run.arch, cards=run.cards,
+                       seq=run.seq, cut=run.cut,
+                       seconds=time.perf_counter() - t0)
+            res["gates_missed"] = gate_run(res, rank, world)
+            out["runs"].append(res)
+            free_device(torch)
+            dist.barrier()
+            # after every run: what a run cut short still has
+            with open(os.path.join(args.out, f"rank{rank}.json"), "w") as f:
+                json.dump(out, f)
+        missed = {r["name"]: r["gates_missed"] for r in out["runs"]
+                  if r["gates_missed"]}
+        cs.check(not missed, f"train_mesh rank {rank}: gates missed "
+                 f"{missed}")
+    finally:
+        dist.destroy_process_group()
+
+
+def train_run(run, rank, dev):
+    """One run's reference, layouts and restores on this rank: its
+    record (``reference`` on rank 0, ``layouts``, ``restores``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import device as rdev
+    from repro_torch.distributed import parallel as par
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.models.zoo import get_model
+    from repro_torch.utils.params import tree_leaves
+    base = run_config(run)
+    B, S = cs.TRAIN_BATCH, run.seq
+    batches = None
+    if base.family == "encdec":     # the encdec train phase's batches
+        batches = lambda step: cs.encdec_batch(torch, base, step)  # noqa
+        assert (B, S) == (cs.TRAIN_BATCH, cs.TRAIN_SEQ)
+    quiet = lambda _: None      # noqa: E731
+    res = {"launches_per_step_want": cs.step_launches(base, True),
+           "layouts": [], "restores": []}
 
     def flat(tree):
         return {n: x.detach() for n, x in tree_leaves(tree)}
 
     ref = p0 = None
-    if rank == 0:
+    if run.reference and rank == 0:
         t0 = time.perf_counter()
-        loop = TrainLoop(cfg, global_batch=B, seq=S, device=dev)
+        loop = TrainLoop(base, global_batch=B, seq=S, device=dev,
+                         batches=batches)
         params, _, _ = loop.run(STEPS, log=quiet)
         ref = {"losses": [h["loss"] for h in loop.history],
                "step_ms": [h["ms"] for h in loop.history],
                "checksums": cs.checksum(torch, params),
                "params": {n: x.clone() for n, x in flat(params).items()}}
         del loop, params
-        p0 = flat(get_model(cfg).init(torch.Generator(dev).manual_seed(0)))
-        torch.cuda.empty_cache()
-        out["reference"] = {k: ref[k] for k in ("losses", "step_ms",
+        p0 = flat(get_model(base).init(torch.Generator(dev).manual_seed(0)))
+        free_device(torch)
+        res["reference"] = {k: ref[k] for k in ("losses", "step_ms",
                                                 "checksums")}
-        out["reference"]["seconds"] = time.perf_counter() - t0
+        res["reference"]["seconds"] = time.perf_counter() - t0
     dist.barrier()
 
     ckpt_dir = os.path.join(ROOT, "build", "train_mesh_ckpt")
     if rank == 0:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     dist.barrier()
-
-    def profile_step(loop, params, state):
-        """One more step (the 4th) under the profiler, every rank at
-        once: this rank's wall ms (host clock, to its loss), device busy
-        ms (the union of its kernels' intervals: NCCL runs on a stream
-        of its own, beside the compute) and idle share, and the device
-        ms of the NCCL kernels (their transfers and their waits for the
-        other ranks), the GEMMs and attention."""
-        from torch.autograd import DeviceType
-        batch = device_batch(loop.data.batch_at(STEPS), loop.device,
-                             loop.mesh, loop.plan.batch_axes if loop.plan
-                             else None)
-        torch.cuda.synchronize()
-        dist.barrier()
-        with cs.padded_profile() as prof:
-            t0 = time.perf_counter()
-            _, _, met = loop.step_fn(params, state, batch, STEPS)
-            float(met["loss"])
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        # "nccl:<op>" records repeat their kernels' time: left out
-        evts = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-                and not e.name.startswith("nccl:")]
-        kernels, spans = {}, []
-        for e in evts:
-            ms, n = kernels.get(e.name[:80], (0.0, 0))
-            kernels[e.name[:80]] = (ms + e.time_range.elapsed_us() / 1e3,
-                                    n + 1)
-            spans.append((e.time_range.start, e.time_range.end))
-        busy, end = 0.0, None
-        for a, b in sorted(spans):
-            if end is None or a > end:
-                busy, end = busy + (b - a), b
-            elif b > end:
-                busy, end = busy + (b - end), b
-
-        def by(*words):
-            return sum(ms for k, (ms, _) in kernels.items()
-                       if any(w in k.lower() for w in words))
-        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
-        return {"wall_ms": wall, "device_busy_ms": busy / 1e3,
-                "device_idle_share": 1.0 - busy / 1e3 / wall if spans
-                else "not measured",
-                "nccl_ms": by("nccl"), "gemm_ms": by("gemm", "cutlass",
-                                                      "nvjet", "xmma"),
-                "attention_ms": by("flash_"),
-                "top_kernels": [{"name": k, "device_ms": ms, "calls": n}
-                                for k, (ms, n) in top]}
+    kept = {}       # rank 0: the gathered parameters of the pairs' layouts
+    keep = {i for pair in run.pairs for i in pair}
 
     def check_against_ref(row, full):
-        if rank != 0:
-            return
         first = row["steps"][0] - 1
         row["max_rel_loss_err"] = max(
             abs(x - y) / abs(y) for x, y in
             zip(row["losses"], ref["losses"][first:]))
-        row.update(compare(torch, full, ref, p0))
+        row.update(compare(full, ref["params"], p0))
         row["checksums"] = cs.checksum(torch, full)
         row["bit_equal_to_reference"] = (
             row["losses"] == ref["losses"][first:]
             and row["checksums"] == ref["checksums"])
 
-    def run(shape, profile=False, **kw):
-        """One loop's row, its parameters (gathered) held against the
-        reference before a profiled 4th step moves them."""
+    def one(shape, over, profile=False, gather=True, **kw):
+        """One loop's row, its parameters (gathered unless ``gather`` is
+        False) held against the reference before a profiled 4th step
+        moves them; and the gathered parameters on rank 0."""
+        cfg = base.replace(**over)
         mesh = None if shape is None else make_process_mesh(
             shape, ("data", "model"), "cuda")
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
+        free_device(torch)
+        held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         loop = TrainLoop(cfg, global_batch=B, seq=S, mesh=mesh, device=dev,
-                         ckpt_dir=kw.pop("ckpt_dir", None))
+                         ckpt_dir=kw.pop("ckpt_dir", None), batches=batches)
         rdev.reset_launch_counts()
         params, state, _ = loop.run(STEPS, log=quiet, **kw)
         torch.cuda.synchronize()
         counts = rdev.launch_counts()
         ms = [h["ms"] for h in loop.history]
-        row = {"layout": tag(shape), "steps": [h["step"] for h in
-                                               loop.history],
+        row = {"layout": tag(shape, over), "steps": [h["step"] for h in
+                                                     loop.history],
                "losses": [h["loss"] for h in loop.history], "step_ms": ms,
                "median_step_ms": statistics.median(ms[1:] or ms),
                "launches": counts,
                "launches_per_step": {k: v // len(ms) for k, v in
                                      counts.items() if v},
                "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+               "held_bytes_before": held,
                "param_shard_bytes": sum(x.numel() * x.element_size() for
                                         _, x in tree_leaves(params)),
                "opt_shard_bytes": sum(x.numel() * x.element_size() for
                                       _, x in tree_leaves(state)),
                "seconds": time.perf_counter() - t0}
         row["tokens_per_s"] = B * S / row["median_step_ms"] * 1e3
-        full = (flat(params) if mesh is None else flat(par.gather_tree(
-            params, loop.model.param_specs(), mesh)))
-        check_against_ref(row, full)
-        del full
+        full = None
+        if gather:
+            full = (flat(params) if mesh is None else flat(par.gather_tree(
+                params, loop.model.param_specs(), mesh)))
+        if rank != 0:
+            full = None
+        elif ref is not None:
+            check_against_ref(row, full)
         if profile:
-            row["profile"] = profile_step(loop, params, state)
+            row["profile"] = profile_step(torch, loop, params, state)
         del loop, params, state
-        return row
+        return row, full
 
-    save_layout = LAYOUTS[world][-1]
-    for shape in LAYOUTS[world]:
-        save = shape == save_layout
-        out["layouts"].append(run(
-            shape, profile=True,
-            **({"ckpt_dir": ckpt_dir, "save_every": SAVE_AT} if save
-               else {})))
+    for i, (shape, over) in enumerate(run.layouts):
+        save = {"ckpt_dir": ckpt_dir, "save_every": SAVE_AT} \
+            if i == run.save else {}
+        row, full = one(shape, over, profile=True,
+                        gather=run.reference or i in keep, **save)
+        if i in keep and full is not None:
+            kept[i] = full
+        del full
+        res["layouts"].append(row)
         dist.barrier()
-    for shape in RESTORES[world]:
-        if shape is None and rank != 0:
-            continue
-        row = run(shape, ckpt_dir=ckpt_dir)
-        row["restored_from"] = tag(save_layout)
-        out["restores"].append(row)
-    dist.barrier()
+    for i, j in run.pairs:
+        if rank == 0:
+            a, b = kept[i], kept[j]
+            row = res["layouts"][j]
+            row["against"] = res["layouts"][i]["layout"]
+            row["against_max_rel_loss_err"] = max(
+                abs(x - y) / abs(y) for x, y in
+                zip(row["losses"], res["layouts"][i]["losses"]))
+            row["against_max_abs_param_err"] = max(
+                float((a[n] - b[n]).abs().max()) for n in a)
+    kept.clear()
+    if run.save is not None:
+        for shape, over in run.restores:
+            if shape is not None or rank == 0:
+                row, full = one(shape, over, ckpt_dir=ckpt_dir)
+                del full
+                row["restored_from"] = tag(*run.layouts[run.save])
+                res["restores"].append(row)
+            dist.barrier()
     if rank == 0:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
-    with open(os.path.join(args.out, f"rank{rank}.json"), "w") as f:
-        json.dump(out, f)
-    try:
-        gates(out, ref, per_step)
-    finally:
-        dist.destroy_process_group()
+    return res
 
 
-def gates(out, ref, per_step):
-    """Exactly ``step_launches`` a step on every rank; on rank 0 every
-    loss finite and, against the reference, one rank bit-equal and more
-    within the tolerances above; a restored loop ran step 3 alone."""
-    want = {k: v * STEPS for k, v in per_step.items()}
-    for row in out["layouts"]:
+def free_device(torch):
+    """Collect a finished run's objects (cycles included) and return the
+    card's cached blocks, so the next run starts from what is live."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def profile_step(torch, loop, params, state):
+    """One more step (the 4th) under the profiler, every rank at once:
+    this rank's wall ms (host clock, to its loss), device busy ms (the
+    union of its kernels' intervals: NCCL runs on a stream of its own,
+    beside the compute) and idle share, and the device ms of the NCCL
+    kernels (their transfers and their waits for the other ranks), the
+    GEMMs and attention."""
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    batch = loop.batch_at(STEPS)
+    torch.cuda.synchronize()
+    dist.barrier()
+    with cs.padded_profile() as prof:
+        t0 = time.perf_counter()
+        _, _, met = loop.step_fn(params, state, batch, STEPS)
+        float(met["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # "nccl:<op>" records repeat their kernels' time: left out
+    evts = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.startswith("nccl:")]
+    kernels, spans = {}, []
+    for e in evts:
+        ms, n = kernels.get(e.name[:80], (0.0, 0))
+        kernels[e.name[:80]] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        spans.append((e.time_range.start, e.time_range.end))
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy, end = busy + (b - a), b
+        elif b > end:
+            busy, end = busy + (b - end), b
+
+    def by(*words):
+        return sum(ms for k, (ms, _) in kernels.items()
+                   if any(w in k.lower() for w in words))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"wall_ms": wall, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / 1e3 / wall if spans
+            else "not measured",
+            "nccl_ms": by("nccl"), "gemm_ms": by("gemm", "cutlass",
+                                                  "nvjet", "xmma"),
+            "attention_ms": by("flash_"),
+            "ssd_ms": by("ssd_"),
+            "top_kernels": [{"name": k, "device_ms": ms, "calls": n}
+                            for k, (ms, n) in top]}
+
+
+def gate_run(res, rank, world):
+    """One run's gates on this rank, what missed (empty when none did):
+    exactly ``step_launches`` a step on every rank; a restored loop ran
+    step 3 alone; on rank 0 every loss finite and, against the
+    reference, one card bit-equal and more cards within the tolerances
+    above (and a pair's layouts against each other within the same)."""
+    missed = []
+
+    def check(ok, msg):
+        if not ok:
+            missed.append(msg)
+    name = f"train_mesh {res['name']}"
+    want = {k: v * STEPS for k, v in res["launches_per_step_want"].items()}
+    for row in res["layouts"]:
         got = {k: v for k, v in row["launches"].items() if v}
-        cs.check(got == want, f"train_mesh {row['layout']} rank "
-                 f"{out['rank']}: launches {got}, want {want}")
-    for row in out["restores"]:
-        cs.check(row["steps"] == [STEPS], f"train_mesh restore "
-                 f"{row['layout']}: steps {row['steps']}")
-    if ref is None:
-        return
-    cs.check(all(math.isfinite(x) for x in ref["losses"]),
-             f"train_mesh reference losses {ref['losses']}")
-    for row in out["layouts"] + out["restores"]:
-        what = f"train_mesh {row['layout']}"
-        if out["world"] == 1:
-            cs.check(row["bit_equal_to_reference"],
-                     f"{what}: not bit-equal to the one-card run: losses "
-                     f"{row['losses']} against {ref['losses']}")
+        check(got == want, f"{name} {row['layout']} rank {rank}: launches "
+              f"{got}, want {want}")
+    for row in res["restores"]:
+        check(row["steps"] == [STEPS], f"{name} restore {row['layout']}: "
+              f"steps {row['steps']}")
+    if rank != 0:
+        return missed
+    ref = res.get("reference")
+    if ref is not None:
+        check(all(math.isfinite(x) for x in ref["losses"]),
+              f"{name} reference losses {ref['losses']}")
+    for row in res["layouts"] + res["restores"]:
+        what = f"{name} {row['layout']}"
+        check(all(math.isfinite(x) for x in row["losses"]),
+              f"{what}: losses {row['losses']}")
+        if "against" in row:
+            check(row["against_max_rel_loss_err"] <= LOSS_TOL
+                  and row["against_max_abs_param_err"] <= PARAM_ABS_TOL,
+                  f"{what} against {row['against']}: loss "
+                  f"{row['against_max_rel_loss_err']}, parameters "
+                  f"{row['against_max_abs_param_err']}")
+        if ref is None:
             continue
-        cs.check(row["max_rel_loss_err"] <= LOSS_TOL,
-                 f"{what}: losses {row['losses']} against {ref['losses']}")
-        cs.check(row["max_abs_param_err"] <= PARAM_ABS_TOL,
-                 f"{what}: parameter error {row['max_abs_param_err']} in "
-                 f"{row['worst_leaf']}")
-        cs.check(row["move_cosine"] >= MOVE_COS_MIN,
-                 f"{what}: movement cosine {row['move_cosine']}")
+        if world == 1:
+            check(row["bit_equal_to_reference"], f"{what}: not bit-equal "
+                  f"to the one-card run: losses {row['losses']} against "
+                  f"{ref['losses']}")
+            continue
+        check(row["max_rel_loss_err"] <= LOSS_TOL,
+              f"{what}: losses {row['losses']} against {ref['losses']}")
+        check(row["max_abs_param_err"] <= PARAM_ABS_TOL,
+              f"{what}: parameter error {row['max_abs_param_err']} in "
+              f"{row['worst_leaf']}")
+        check(row["move_cosine"] >= MOVE_COS_MIN,
+              f"{what}: movement cosine {row['move_cosine']}")
+        low = {n: c for n, c in row["move_cosine_by_leaf"].items()
+               if c < MOVE_COS_MIN}
+        check(not low, f"{what}: movement cosines of leaves {low}")
+    return missed
 
 
 if __name__ == "__main__":
