@@ -102,8 +102,9 @@ Phases, each printing JSON lines:
 12. serve   -- ``launch.serve.serve`` of zamba2-1.2b at its published
                config: 8 requests of 256 to 2048 tokens, 32 new tokens
                each, exact launch counts, run twice for equal tokens; then
-               mamba2-780m and qwen3-0.6b, and, at full width cut in
-               depth to fit f32 parameters, qwen3-moe-30b-a3b (16 of 48
+               mamba2-780m (2 requests), qwen3-0.6b (zamba2's traffic:
+               ``SERVE_MESH_TRAFFIC``), and, at full width cut in depth
+               to fit f32 parameters, qwen3-moe-30b-a3b (16 of 48
                layers) and chameleon-34b (8 of 48), 2 requests each;
                serve_profile: device time by kernel over one 2048-token
                zamba2 prefill and 10 decode ticks; serve_encdec:
@@ -111,6 +112,20 @@ Phases, each printing JSON lines:
                of 4 sequences of 2048 frames and 32 greedy decode
                steps, twice: exactly 6 attention launches a prefill and
                none a step, equal tokens, prefill and step ms;
+12b. serve_mesh -- the port's models served over the visible cards,
+               one process per card (``torch.distributed.run`` on
+               ``tools/serve_mesh.py``, NCCL, the loopback): one card
+               serves qwen3-0.6b's serve traffic at (1, 1) under a plan,
+               bit-equal (tokens and every call's logits) to its
+               one-card reference and to the serve phase's qwen3-0.6b
+               run; on more cards the runs of ``RUNS`` (qwen3-0.6b at
+               (1, 2) and (1, 4), mamba2-780m, seamless-m4t-medium, the
+               zamba2-1.2b long_500k cell at (4, 1), qwen3-moe-30b-a3b at
+               16 and 48 layers, qwen2.5-14b at 8 and 48 over three,
+               each bf16 run beside an f32 twin) on the reference's
+               tokens: exact launches per rank, finite logits, the ranks'
+               tokens equal, a repeat equal, logits against the one-card
+               run; the rest printed as not run;
 14. placement -- ``launch.serve_placements.serve`` at the service's
                defaults (pop 8, batch 4, budget "auto", neighbour cache
                on, GNN 128 x 4 levels x 4 heads): every supported (arch,
@@ -233,7 +248,9 @@ Phases, each printing JSON lines:
                train runs' (``launches_train_ssm``); for attention the
                serve runs of qwen3-moe and chameleon, one serve_encdec
                prefill and the MoE and encdec train runs'
-               (``launches_new_paths``).
+               (``launches_new_paths``); for attention and the SSD
+               scan, each serve_mesh layout's per rank
+               (``launches_serve_mesh``).
 
 Each phase's seconds are printed as it ends (``phase_done``) and
 together before the kernels line (``phase_seconds``, ``total_s``).
@@ -1536,11 +1553,15 @@ def phase_profile(torch, egrl, zoo, mode="ea", generations=3, multi=False):
 # on the card: qwen3-moe 623 M a layer (its 128 experts' three (2048,
 # 768) matrices) and 622 M of embeddings, 16 of 48 layers ~42 GB;
 # chameleon 692 M a layer and 1.07 B of embeddings, 8 of 48 ~26.5 GB
+# qwen3-0.6b's traffic (requests, slots, new tokens, prompt lengths):
+# also the serve_mesh phase's (tools/serve_mesh.py), whose one-card
+# layout is held bit-equal to this run
+SERVE_MESH_TRAFFIC = (8, 4, 32, (256, 512, 1024, 2048))
 SERVE_RUNS = (
     ("zamba2-1.2b", 8, 4, 32, (256, 512, 1024, 2048),
      {"flash_attention": 6, "flash_attention_tc": 6, "ssd_scan": 38}, None),
     ("mamba2-780m", 2, 2, 16, (1024, 2048), {"ssd_scan": 48}, None),
-    ("qwen3-0.6b", 2, 2, 16, (1024, 2048),
+    ("qwen3-0.6b", *SERVE_MESH_TRAFFIC,
      {"flash_attention": 28, "flash_attention_tc": 28}, None),
     ("qwen3-moe-30b-a3b", 2, 2, 16, (1024, 2048),
      {"flash_attention": 16, "flash_attention_tc": 16}, 16),
@@ -1643,7 +1664,11 @@ def flash_family_cases():
     frames (16 heads of 64, non-causal), cross-attention (non-causal, Sq
     != Sk): seamless's heads at 4096 queries over 2048 frames and
     qwen3-0.6b's at 300 over 1024, and llama4's heads (8 KV heads with
-    5 queries each, h 128)."""
+    5 queries each, h 128), then qwen2.5-14b's sequence-parallel
+    prefill over ``SP_RANKS`` cards (8 KV heads with 5 queries each, h
+    128): each rank's ceil(S/3) query rows at their first position over
+    every key, at prompts of 256 and 2048 (the last rank's block runs
+    one row past the prompt, as serve_mesh pads it)."""
     from repro_torch.configs.registry import get_config
     cases = [(cfg.name, 1, S, S, cfg.n_kv_heads, cfg.q_per_kv,
               cfg.head_dim, cfg.dtype, True, 0)
@@ -1653,6 +1678,7 @@ def flash_family_cases():
     enc = encdec_attention(ed, ENCDEC_BATCH, ENCDEC_FRAMES, 1)[0]
     qwen = get_config("qwen3-0.6b")
     ll4 = get_config("llama4-maverick-400b-a17b")
+    q25 = get_config("qwen2.5-14b")
     heads = lambda c: (c.n_kv_heads, c.q_per_kv, c.head_dim)  # noqa: E731
     return cases + [
         enc[:7] + (ed.dtype, False, 0),
@@ -1660,7 +1686,11 @@ def flash_family_cases():
          False, 0),
         ("cross:Sq=300,Sk=1024", 1, 300, 1024, *heads(qwen), qwen.dtype,
          False, 0),
-        ("llama4-heads", 1, 2048, 2048, *heads(ll4), ll4.dtype, True, 0)]
+        ("llama4-heads", 1, 2048, 2048, *heads(ll4), ll4.dtype, True, 0)
+    ] + [(f"qwen2.5-14b:SP S={S} rank {r}", 1, c, S, *heads(q25),
+          q25.dtype, True, r * c)
+         for S in (256, 2048) for c in (-(-S // SP_RANKS),)
+         for r in range(SP_RANKS)]
 
 
 def flash_error(torch, got, want, bf16):
@@ -1699,7 +1729,7 @@ def sdpa_attention(torch, q, k, v, causal, q_offset=0):
     """One scaled_dot_product_attention call computing the same function
     on the same tensors (heads moved to dim 1 as strided views), timed as
     a yardstick only.  Queries at positions Sk - Sq.. take SDPA's
-    lower-right causal mask."""
+    lower-right causal mask, at any other offset a boolean mask."""
     import torch.nn.functional as F
     from torch.nn.attention.bias import causal_lower_right
     B, S, K, G, h = q.shape
@@ -1707,9 +1737,11 @@ def sdpa_attention(torch, q, k, v, causal, q_offset=0):
     qs = q.view(B, S, K * G, h).transpose(1, 2)
     ks, vs = k.transpose(1, 2), v.transpose(1, 2)
     if causal and (S != Sk or q_offset):
-        check(q_offset == Sk - S, "SDPA's causal masks align at the top "
-              "left or the bottom right")
-        mask = causal_lower_right(S, Sk)
+        if q_offset == Sk - S:
+            mask = causal_lower_right(S, Sk)
+        else:       # query i sees keys <= i + q_offset
+            mask = (torch.arange(Sk, device=q.device)[None]
+                    <= torch.arange(S, device=q.device)[:, None] + q_offset)
         return lambda: F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask, enable_gqa=G > 1)
     return lambda: F.scaled_dot_product_attention(
@@ -2890,23 +2922,25 @@ def phase_train(torch, np, rdev, arch=TRAIN_ARCH, n=TRAIN_STEPS):
     return row
 
 
-def mesh_launches(n, names=None):
+def mesh_launches(n, names=None, runs=None):
     """[(world size, run names)], one torchrun launch each, of the
-    train_mesh runs on a host of ``n`` cards: each run name (of
-    ``names``, when given) at the most cards of its runs that ``n``
-    covers (``tools/train_mesh.py`` ``RUNS``), one launch per world size
+    train_mesh runs (``tools/train_mesh.py`` ``RUNS``, or ``runs``) on a
+    host of ``n`` cards: each run name (of ``names``, when given) at the
+    most cards of its runs that ``n`` covers, one launch per world size
     (the most cards first) and one of its own for each ``alone`` run;
     and the names none fits, with the cards they need."""
-    import train_mesh as tm         # tools/, on the path above
+    if runs is None:
+        import train_mesh as tm     # tools/, on the path above
+        runs = tm.RUNS
     worlds, missing = {}, {}
-    for name in dict.fromkeys(r.name for r in tm.RUNS
+    for name in dict.fromkeys(r.name for r in runs
                               if not names or r.name in names):
-        fit = [r for r in tm.RUNS if r.name == name and r.cards <= n]
+        fit = [r for r in runs if r.name == name and r.cards <= n]
         if fit:
             run = max(fit, key=lambda r: r.cards)
             worlds.setdefault(run.cards, []).append(run)
         else:
-            missing[name] = min(r.cards for r in tm.RUNS if r.name == name)
+            missing[name] = min(r.cards for r in runs if r.name == name)
     launches = []
     for world, runs in sorted(worlds.items(), reverse=True):
         shared = [r.name for r in runs if not r.alone]
@@ -2945,51 +2979,20 @@ def phase_train_mesh(torch, np, train=None, names=None):
     bytes, each rank's profile of a 4th step (device busy, NCCL, GEMM,
     attention and SSD ms), the card count, and the memory this process
     still holds on cuda:0."""
-    import shutil
-    import signal
     n = torch.cuda.device_count()
     launches, missing = mesh_launches(n, names)
     for name, need in missing.items():
         emit({"phase": "train_mesh", "run": name, "cards": n,
               "not_run": f"needs {need} cards, the host has {n}"})
-    out_dir = os.path.join(ROOT, "build", "train_mesh")
-    shutil.rmtree(out_dir, ignore_errors=True)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     held = {"allocated_bytes": torch.cuda.memory_allocated(0),
             "reserved_bytes": torch.cuda.memory_reserved(0)}
-    env = dict(os.environ, NCCL_SOCKET_IFNAME="lo", GLOO_SOCKET_IFNAME="lo")
     rows, seconds, failed = {}, {}, {}
-    for k, (world, run_names) in enumerate(launches):
-        wdir = os.path.join(out_dir, f"launch{k}-world{world}")
-        os.makedirs(wdir)
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc-per-node", str(world),
-               os.path.join(ROOT, "tools", "train_mesh.py"), "--out", wdir,
-               "--runs", *run_names]
-        log = os.path.join(wdir, "log.txt")
-        t0 = time.perf_counter()
-        with open(log, "w") as f:
-            proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=f,
-                                    stderr=subprocess.STDOUT,
-                                    start_new_session=True)
-            try:
-                rc = proc.wait(timeout=MESH_TIMEOUT_S)
-            finally:
-                if proc.poll() is None:
-                    os.killpg(proc.pid, signal.SIGKILL)
-                    proc.wait()
-        what = os.path.basename(wdir)
-        seconds[what] = time.perf_counter() - t0
-        ranks = []
-        for r in range(world):
-            path = os.path.join(wdir, f"rank{r}.json")
-            if os.path.exists(path):
-                with open(path) as f:
-                    ranks.append(json.load(f))
-        if rc != 0 or len(ranks) < world:
-            with open(log) as f:
-                print(f.read()[-12000:], flush=True)
+    for what, world, rc, ranks, sec in torchrun_launches(
+            "train_mesh.py", os.path.join(ROOT, "build", "train_mesh"),
+            launches):
+        seconds[what] = sec
         for i, res in enumerate(ranks[0]["runs"] if ranks else ()):
             per_rank = [rk["runs"][i] for rk in ranks if len(rk["runs"]) > i]
             rows.update(mesh_rows(res, per_rank, world))
@@ -3019,6 +3022,152 @@ def phase_train_mesh(torch, np, train=None, names=None):
           "seconds_per_launch": seconds, "parent_holds_on_cuda0": held})
     check(not failed, f"train_mesh: the workers exited with {failed} "
           f"(launch: exit code)")
+    return rows
+
+
+def torchrun_launches(tool, out_dir, launches):
+    """``python -m torch.distributed.run --standalone --nproc-per-node
+    W tools/<tool> --out DIR --runs ...`` for each (W, run names) of
+    ``launches`` in turn (NCCL and gloo on the loopback), each within
+    ``MESH_TIMEOUT_S`` and its process group killed after; ``out_dir``
+    emptied first, each launch's rank files and torchrun log
+    (``log.txt``, its tail printed on a failure) in
+    ``out_dir/launch<k>-world<W>``.  Yields (that directory's name, W,
+    exit code, the rank files read, seconds)."""
+    import shutil
+    import signal
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, NCCL_SOCKET_IFNAME="lo", GLOO_SOCKET_IFNAME="lo")
+    for k, (world, run_names) in enumerate(launches):
+        wdir = os.path.join(out_dir, f"launch{k}-world{world}")
+        os.makedirs(wdir)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(world),
+               os.path.join(ROOT, "tools", tool), "--out", wdir,
+               "--runs", *run_names]
+        log = os.path.join(wdir, "log.txt")
+        t0 = time.perf_counter()
+        with open(log, "w") as f:
+            proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=f,
+                                    stderr=subprocess.STDOUT,
+                                    start_new_session=True)
+            try:
+                rc = proc.wait(timeout=MESH_TIMEOUT_S)
+            finally:
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+        sec = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            path = os.path.join(wdir, f"rank{r}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    ranks.append(json.load(f))
+        if rc != 0 or len(ranks) < world:
+            with open(log) as f:
+                print(f.read()[-12000:], flush=True)
+        yield os.path.basename(wdir), world, rc, ranks, sec
+
+
+def phase_serve_mesh(torch, np, serve_rows=None, names=None):
+    """Serving over the cards of this host, one process per card:
+    ``tools/serve_mesh.py`` under torchrun once per launch that
+    ``mesh_launches`` gives for its ``RUNS`` (on four cards: 4, the
+    48-layer MoE in a launch of its own, then 3 for qwen2.5-14b's
+    sequence-parallel runs; on one: 1).  Each run serves its model at
+    published widths (the depth cuts in ``RUNS``), random weights from
+    seed 0, on each of its (data, model) layouts: qwen3-0.6b (8
+    requests of 256-2048 tokens, 4 slots, 32 new: ``SERVE_MESH_TRAFFIC``)
+    at (1, 1), and on four cards at (1, 1), (1, 2), (1, 4);
+    mamba2-780m and seamless-m4t-medium (a prefill of 4 x 2048 frames, 32
+    decode steps) at (1, 4); zamba2-1.2b's long_500k decode cell at (4,
+    1) (a batch of 1 over 524,288 cached positions, the cache cut on S
+    over "data"); qwen3-moe-30b-a3b at 16 layers against one card (its
+    routes handed across) and at all 48; qwen2.5-14b at 8 layers
+    against one card and at 48, sequence-parallel over 3 cards.  The
+    worker's gates (``tools/serve_mesh.py`` ``gate_run``): exact kernel
+    launches on every rank, finite logits, every rank the same tokens,
+    a repeat equal; against rank 0's one-card run on its tokens, (1, 1)
+    bit-equal (tokens and every call's logits), more cards the logits
+    within ``serve_mesh.tolerance`` of the largest (bf16: three times
+    the one card's own bf16 error, from its f32 shadow; the f32 twin of
+    each run within 1e-4) and every token the one card's but at a near
+    tie.  Here, in addition:
+    the (1, 1) layout bit-equal to the serve phase's qwen3-0.6b run when
+    it ran (``serve_rows``).  A run that needs more cards than the host
+    has is printed as not run.  Prints per layout prefill ms by prompt
+    length, decode tick ms, TTFT and tokens/s, each rank's peak memory
+    and cache bytes and NCCL ms in a profiled decode step, and the card
+    count."""
+    import serve_mesh as sm         # tools/, on the path above
+    n = torch.cuda.device_count()
+    launches, missing = mesh_launches(n, names, sm.RUNS)
+    for name, need in missing.items():
+        emit({"phase": "serve_mesh", "run": name, "cards": n,
+              "not_run": f"needs {need} cards, the host has {n}"})
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rows, seconds, failed = {}, {}, {}
+    one = (serve_rows or {}).get(TRAIN_ARCH)
+    for what, world, rc, ranks, sec in torchrun_launches(
+            "serve_mesh.py", os.path.join(ROOT, "build", "serve_mesh"),
+            launches):
+        seconds[what] = sec
+        if rc != 0:
+            failed[what] = rc
+        for i, res in enumerate(ranks[0]["runs"] if ranks else ()):
+            per_rank = [rk["runs"][i] for rk in ranks if len(rk["runs"]) > i]
+            ref = res.get("reference")
+            emit({"phase": "serve_mesh", "run": res["name"],
+                  "cards": world, "card": ranks[0]["card"],
+                  "seconds": res["seconds"],
+                  "gates_missed": [m for rr in per_rank
+                                   for m in rr["gates_missed"]],
+                  "launches_want": res["launches_want"],
+                  "reference": None if ref is None else {
+                      k: ref[k] for k in ref if k not in ("generated",
+                                                          "profile")}})
+            for j, row in enumerate(res["layouts"]):
+                ranks_of = [rr["layouts"][j] for rr in per_rank
+                            if len(rr["layouts"]) > j
+                            and rr["layouts"][j]["layout"] == row["layout"]]
+                out = {"phase": "serve_mesh", "run": res["name"],
+                       "cards": world,
+                       **{k: row[k] for k in row if k not in (
+                           "generated", "profile")},
+                       "ranks": len(ranks_of),
+                       "launches_per_rank": [r["launches"] for r in ranks_of],
+                       "peak_memory_bytes_per_rank":
+                           [r["peak_memory_bytes"] for r in ranks_of],
+                       "cache_bytes_per_rank": [r["cache_bytes"]
+                                                for r in ranks_of],
+                       "param_bytes_per_rank": [r["param_bytes"]
+                                                for r in ranks_of],
+                       "profile_per_rank": [
+                           {k: v for k, v in r["profile"].items()
+                            if k != "top_kernels"}
+                           if isinstance(r["profile"], dict) else r["profile"]
+                           for r in ranks_of],
+                       "top_kernels_rank0": row["profile"].get("top_kernels")
+                       if isinstance(row["profile"], dict) else None}
+                if res["name"] == TRAIN_ARCH and row["layout"] == "1x1" \
+                        and one is not None:
+                    out["tokens_equal_to_serve_phase"] = (
+                        row["generated"] == one["generated"])
+                    out["bit_equal_to_serve_phase"] = (
+                        out["tokens_equal_to_serve_phase"]
+                        and row["logits_digest"] == one["logits_digest"])
+                    if not out["bit_equal_to_serve_phase"]:
+                        failed["1x1 against the serve phase"] = out[
+                            "tokens_equal_to_serve_phase"]
+                emit(out)
+                rows[f"{res['name']}:{row['layout']}"] = out
+    emit({"phase": "serve_mesh", "cards": n, "launches": launches,
+          "seconds_per_launch": seconds})
+    check(not failed, f"serve_mesh: the workers exited with {failed} "
+          f"(launch: exit code; qwen3-0.6b's (1, 1) layout not bit-equal "
+          f"to the serve phase: whether its tokens were equal)")
     return rows
 
 
@@ -3189,13 +3338,28 @@ def phase_train_repeat(torch, np, rdev, arch, n=TRAIN_STEPS):
     return row
 
 
+def logits_digest(torch, sums):
+    """A hash of per-call logits checksums (``logits_sum``), in order:
+    equal digests, bit-equal logits call by call."""
+    import hashlib
+    vals = torch.stack(sums).cpu().tolist() if sums else []
+    return hashlib.sha1(json.dumps(vals).encode()).hexdigest()
+
+
+def logits_sum(torch, logits):
+    """The sum of the logits' 32-bit words as an int64 (a device scalar):
+    one bit changed changes it."""
+    return logits.contiguous().view(torch.int32).sum(dtype=torch.int64)
+
+
 class WatchLogits:
     """Records whether every prefill and decode step of the served model
-    classes returns finite logits (a device flag, read once at the end)."""
+    classes returns finite logits (a device flag, read once at the end),
+    and each call's logits checksum (``digest``)."""
 
     def __init__(self, torch, classes):
         self.torch, self.classes = torch, classes
-        self.flags, self.saved = [], []
+        self.flags, self.saved, self.sums = [], [], []
 
     def __enter__(self):
         for cls in self.classes:
@@ -3205,11 +3369,13 @@ class WatchLogits:
             def prefill(model, *a, _f=pre, **kw):
                 cache, logits = _f(model, *a, **kw)
                 self.flags.append(self.torch.isfinite(logits).all())
+                self.sums.append(logits_sum(self.torch, logits))
                 return cache, logits
 
             def decode_step(model, *a, _f=dec, **kw):
                 logits, cache = _f(model, *a, **kw)
                 self.flags.append(self.torch.isfinite(logits).all())
+                self.sums.append(logits_sum(self.torch, logits))
                 return logits, cache
 
             cls.prefill, cls.decode_step = prefill, decode_step
@@ -3221,6 +3387,9 @@ class WatchLogits:
 
     def all_finite(self):
         return bool(self.torch.stack(self.flags).all().item())
+
+    def digest(self):
+        return logits_digest(self.torch, self.sums)
 
 
 def run_serve(torch, rdev, arch, requests, slots, max_len, max_new,
@@ -3247,6 +3416,7 @@ def run_serve(torch, rdev, arch, requests, slots, max_len, max_new,
         torch.cuda.synchronize()
         counts = rdev.launch_counts()
         finite = watch.all_finite()
+        out["logits_digest"] = watch.digest()
     out["allocated_before_bytes"] = before
     return out, counts, finite, torch.cuda.max_memory_allocated()
 
@@ -3308,6 +3478,10 @@ def phase_serve(torch, np, rdev, runs=SERVE_RUNS, rerun_first=True):
               f"{arch} serve: prompt lengths")
         row = serve_row(np, arch, out, counts, finite, peak)
         row["seconds"] = time.perf_counter() - t0
+        # for serve_mesh's one-card layout: each request's tokens and the
+        # logits' digest (not printed)
+        kept = {"generated": {str(r.rid): r.tokens for r in out["done"]},
+                "logits_digest": out["logits_digest"]}
         if first is None and rerun_first:
             tokens = {r.rid: r.tokens for r in out["done"]}
             model = out["model"]
@@ -3324,7 +3498,7 @@ def phase_serve(torch, np, rdev, runs=SERVE_RUNS, rerun_first=True):
             first = row
         del out
         emit(row)
-        rows[arch] = row
+        rows[arch] = dict(row, **kept)
         torch.cuda.empty_cache()
     return first, model, rows
 
@@ -4008,6 +4182,8 @@ def main(argv=None):
     del model
     torch.cuda.empty_cache()
     encdec = timed("serve_encdec", phase_serve_encdec, torch, np, rdev)
+    serve_mesh = timed("serve_mesh", phase_serve_mesh, torch, np,
+                       serve_rows)
     with one_device_env():
         placement = timed("placement", phase_placement, torch, np, rdev)  # 14
     timed("train_check", phase_train_check, torch, rdev)   # 16
@@ -4137,6 +4313,11 @@ def main(argv=None):
                 for k, m in train_mesh.items()}
             r["launches_train_ssm"] = {a: t["launches"].get(r["name"])
                                        for a, t in train_ssm.items()}
+        if r["name"] in ("flash_attention", "ssd_scan"):
+            # per rank over each serve_mesh layout's traffic
+            r["launches_serve_mesh"] = {
+                k: [lp.get(r["name"], 0) for lp in m["launches_per_rank"]]
+                for k, m in serve_mesh.items()}
     for r in rows:
         counter = {"gat_mp_fwd": "gat_mp", "memsim_evaluate": "memsim",
                    "memsim_evaluate_zoo": "memsim_zoo"}.get(r["name"],

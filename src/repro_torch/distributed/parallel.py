@@ -22,6 +22,9 @@ this module holds the operations that layout implies, over a
   picks a model's entry and exit to a split block by its plan;
 - ``rms_norm_cut``: ``models/common.py`` ``rms_norm`` over a dim cut
   over "model" (Mamba2's gated norm over its d_in);
+- ``SeqCut`` / ``seq_cut``: a serving cache's sequence dim cut over mesh
+  axes (the partial-softmax decode's reduction), and ``padded_rows``,
+  the blocks of ceil(S/m) rows a prefill of any length takes;
 - the vocab-parallel embedding lookup and cross-entropy
   (``models/common.py`` ``embed`` / ``chunked_xent`` with the vocab cut
   over "model");
@@ -62,6 +65,11 @@ def dim_axes(spec, ndim: int):
 
 def _live(mesh, axes):
     return tuple(a for a in axes if mesh.shape[a] > 1)
+
+
+def live_axes(mesh, entry) -> tuple:
+    """The axes of size > 1 of a spec entry (none without a mesh)."""
+    return () if mesh is None else _live(mesh, entry_axes(entry))
 
 
 def spec_axes(spec, mesh) -> tuple:
@@ -107,7 +115,9 @@ def all_reduce_(x, mesh, axes, op=dist.ReduceOp.SUM):
     return x
 
 
-def _all_gather(x, dim: int, mesh, axis: str):
+def all_gather(x, dim: int, mesh, axis: str):
+    """The blocks of ``axis``'s ranks joined along dim ``dim``, in rank
+    order (no gradient)."""
     parts = [torch.empty_like(x) for _ in range(mesh.shape[axis])]
     dist.all_gather(parts, x.contiguous(), group=mesh.groups[axis])
     return torch.cat(parts, dim)
@@ -155,7 +165,7 @@ def gather_leaf(x, spec, mesh, axes=None):
     for d, cut in enumerate(dim_axes(spec, x.ndim)):
         for a in reversed(_live(mesh, cut)):     # the minor axis first
             if axes is None or a in axes:
-                x = _all_gather(x, d, mesh, a)
+                x = all_gather(x, d, mesh, a)
     return x
 
 
@@ -260,11 +270,44 @@ def seq_rows(S: int, mesh, axis: str = "model") -> slice:
     return slice(r, r + S // n)
 
 
+def padded_rows(S: int, mesh, axis: str = "model"):
+    """(first row, rows a rank) of this rank's block of ``S`` positions
+    cut over ``axis`` into blocks of ceil(S / n), as GSPMD pads an
+    uneven dim: the last blocks may run past S (their rows are padding,
+    trimmed after ``all_gather``)."""
+    c = -(-S // mesh.shape[axis])
+    return mesh.coords[axis] * c, c
+
+
+class SeqCut:
+    """A cache's sequence dim cut over mesh axes (a spec entry, its axes
+    of size > 1 in order, the first major): this rank's block is number
+    ``index`` of ``n``, its positions [index * Sl, (index + 1) * Sl)
+    for a local length Sl.  The partial-softmax decode reduces over
+    ``axes`` (``all_reduce_``)."""
+
+    def __init__(self, mesh, axes):
+        self.mesh, self.axes = mesh, tuple(axes)
+        self.n = math.prod(mesh.shape[a] for a in self.axes)
+        self.index = _index(mesh, self.axes)
+
+    def owner(self, pos: int, local_len: int):
+        """(block, local index) of global position ``pos``."""
+        return divmod(pos, local_len)
+
+
+def seq_cut(mesh, entry):
+    """The ``SeqCut`` of a spec entry, None where no axis of size > 1
+    cuts the dim."""
+    axes = live_axes(mesh, entry)
+    return SeqCut(mesh, axes) if axes else None
+
+
 class _GatherSeq(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, partial_grad):
         ctx.mesh, ctx.axis, ctx.partial = mesh, axis, partial_grad
-        return _all_gather(x, 1, mesh, axis)
+        return all_gather(x, 1, mesh, axis)
 
     @staticmethod
     def backward(ctx, g):
@@ -283,7 +326,7 @@ class _ScatterSeq(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (_all_gather(g, 1, ctx.mesh, ctx.axis).to(ctx.in_dtype), None,
+        return (all_gather(g, 1, ctx.mesh, ctx.axis).to(ctx.in_dtype), None,
                 None, None)
 
 
@@ -314,11 +357,13 @@ class TensorParallel:
     """A model's work split over the "model" axis of a plan: the entry
     to a head-, column- or expert-parallel block and its exit, over a
     replicated residual stream (f and g) or, with ``plan.resid_seq``
-    (Megatron-SP), one cut on S (``gather_seq`` and ``scatter_seq``)."""
+    (Megatron-SP) unless ``seq`` is False, one cut on S (``gather_seq``
+    and ``scatter_seq``)."""
 
-    def __init__(self, plan, axis: str = "model"):
+    def __init__(self, plan, axis: str = "model", seq=None):
         self.plan, self.mesh, self.axis = plan, plan.mesh, axis
-        self.seq = plan.resid_seq is not None
+        # seq=False: the stream whole whatever the plan (a decode step)
+        self.seq = plan.resid_seq is not None if seq is None else seq
         self.size = plan.mesh.shape[axis]
 
     @property

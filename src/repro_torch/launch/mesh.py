@@ -135,9 +135,6 @@ def make_process_mesh(shape, axes, device: DeviceLike = "cuda"
     order as the others: it creates the per-axis subgroups."""
     import torch.distributed as dist
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
-    if len(shape) != len(axes):
-        raise ValueError(f"mesh shape {shape} and axes {axes} differ in "
-                         f"length")
     live = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if live else 1
     needed = math.prod(shape)
@@ -147,8 +144,37 @@ def make_process_mesh(shape, axes, device: DeviceLike = "cuda"
             f"but the world has {world}: launch one process per card with "
             f"python -m torch.distributed.run --nproc-per-node {needed} "
             f"... --distributed")
+    return _ranks_mesh(shape, axes, device)
+
+
+def make_process_submesh(shape, axes, device: DeviceLike = "cuda"
+                         ) -> Optional[ProcessMesh]:
+    """A mesh of ``shape`` over ranks 0 .. prod(shape) - 1 of a world at
+    least that large (a layout of fewer cards beside the world's); None
+    on the ranks outside it, which must not enter its collectives.
+    Every rank must call it, in the same order: it creates the
+    subgroups."""
+    import torch.distributed as dist
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if math.prod(shape) > world:
+        raise ValueError(f"a process mesh of shape {shape} needs "
+                         f"{math.prod(shape)} processes; the world has "
+                         f"{world}")
+    return _ranks_mesh(shape, axes, device)
+
+
+def _ranks_mesh(shape, axes, device):
+    """The mesh of ``shape`` over ranks 0 .. prod(shape) - 1, row-major,
+    and this rank's subgroup along each axis of size > 1 (None for a
+    rank outside it)."""
+    import torch.distributed as dist
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in "
+                         f"length")
+    live = dist.is_available() and dist.is_initialized()
     rank = dist.get_rank() if live else 0
-    ranks = np.arange(world).reshape(shape)
+    ranks = np.arange(math.prod(shape)).reshape(shape)
     groups = {}
     for i, ax in enumerate(axes):
         if shape[i] == 1:
@@ -157,6 +183,8 @@ def make_process_mesh(shape, axes, device: DeviceLike = "cuda"
             g = dist.new_group([int(r) for r in line])
             if rank in line:
                 groups[ax] = g
+    if rank >= ranks.size:
+        return None
     return ProcessMesh(axes, ranks, rank=rank, device=process_device(device),
                        groups=groups)
 

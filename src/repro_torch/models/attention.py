@@ -6,13 +6,17 @@ runs the flash kernel (``kernels.flash_attention``) on CUDA tensors and
 its plain version on CPU tensors, and is differentiable: its gradient is
 the backward kernel (or its plain version), the counterpart of the JAX
 custom VJP ``_flash``.  ``decode_attention`` is plain torch ops, as in
-the JAX package.
+the JAX package; over a cache cut on S (sharded serving) it combines
+the ranks' partial softmaxes with two all-reduces, what GSPMD lowers
+JAX's softmax over a sharded dim to.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import parallel as par
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import NEG_INF, rms_norm, rope
 from repro_torch.utils.params import ParamDef
@@ -97,20 +101,38 @@ def blocked_attention(q, k, v, *, chunk: int, causal: bool,
                            causal=causal, q_offset=kv_offset, chunk=chunk)
 
 
-def decode_attention(q, k_cache, v_cache, pos):
+def decode_attention(q, k_cache, v_cache, pos, cut=None):
     """Single-token attention over the cache.
 
     q: (B,1,K,G,h); caches: (B,Smax,K,h); pos: current position.
-    Positions > pos are masked."""
+    Positions > pos are masked.  ``cut`` (a ``parallel.SeqCut``): the
+    caches are this rank's block of a cache cut on S; each rank takes
+    its f32 max m_r, sum l_r and output o_r over its positions, then one
+    all-reduce MAX of m and one all-reduce SUM of [l_r, o_r] e^(m_r - M)
+    over the cut's axes give o / l.  A rank whose whole block lies past
+    pos has m_r = NEG_INF, so its scale e^(m_r - M) is exactly 0."""
     B, _, K, G, h = q.shape
     Smax = k_cache.shape[1]
     scale = torch.tensor(h ** -0.5, dtype=q.dtype)
     s = torch.einsum("bokgh,bskh->bkgs", (q * scale).float(),
                      k_cache.float())
-    valid = torch.arange(Smax, device=q.device)[None, None, None, :] <= pos
-    s = torch.where(valid, s, NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskh->bkgh", w, v_cache.float())
+    if cut is None:
+        valid = torch.arange(Smax, device=q.device)[None, None, None, :] <= pos
+        s = torch.where(valid, s, NEG_INF)
+        w = torch.softmax(s, dim=-1)
+        out = torch.einsum("bkgs,bskh->bkgh", w, v_cache.float())
+        return out.reshape(B, 1, K, G, h).to(q.dtype)
+    first = cut.index * Smax
+    valid = torch.arange(first, first + Smax, device=q.device) <= pos
+    s = torch.where(valid[None, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)                         # (B,K,G,1)
+    p = torch.exp(s - m)
+    o = torch.einsum("bkgs,bskh->bkgh", p, v_cache.float())
+    big = par.all_reduce_(m.clone(), cut.mesh, cut.axes, dist.ReduceOp.MAX)
+    c = torch.exp(m - big)
+    lo = par.all_reduce_(torch.cat([p.sum(-1, keepdim=True) * c, o * c], -1),
+                         cut.mesh, cut.axes)
+    out = lo[..., 1:] / lo[..., :1]
     return out.reshape(B, 1, K, G, h).to(q.dtype)
 
 
@@ -121,13 +143,30 @@ def attn_out(p, ctx, cfg: ModelConfig):
     return ctx.reshape(B, S, cfg.n_heads * cfg.head_dim) @ wo.to(ctx.dtype)
 
 
-def update_cache(cache, new, pos, mode: str = "dus"):
+def update_cache(cache, new, pos, mode: str = "dus", cut=None):
     """Write new (B,1,K,h) into cache (B,S,K,h) at sequence index pos, in
     place (the JAX code returns an updated copy), and return the cache.
     ``pos`` is clamped into the cache as ``dynamic_update_slice`` does;
-    both modes ("dus", "onehot") write the same values."""
+    both modes ("dus", "onehot") write the same values.  ``cut``: the
+    cache is this rank's block of a cache cut on S (``parallel.SeqCut``),
+    written only by the rank that owns pos, at its local index."""
     if mode not in ("dus", "onehot"):
         raise ValueError(f"unknown cache update mode {mode!r}")
-    pos = min(max(int(pos), 0), cache.shape[1] - 1)
+    S = cache.shape[1]
+    pos = min(max(int(pos), 0), S * (1 if cut is None else cut.n) - 1)
+    if cut is not None:
+        owner, pos = cut.owner(pos, S)
+        if owner != cut.index:
+            return cache
     cache[:, pos] = new[:, 0].to(cache.dtype)
+    return cache
+
+
+def fill_cache(cache, new, cut=None):
+    """A prefill's keys or values new (B,S,K,h) into positions [0, S) of
+    cache (B,Smax,K,h), in place; with ``cut``, this rank's block of a
+    cache cut on S takes the positions it holds."""
+    first = 0 if cut is None else cut.index * cache.shape[1]
+    n = min(max(new.shape[1] - first, 0), cache.shape[1])
+    cache[:, :n] = new[:, first:first + n]
     return cache

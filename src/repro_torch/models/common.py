@@ -11,6 +11,8 @@ JAX code does with ``jax.checkpoint``.
 from __future__ import annotations
 
 import collections
+import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -19,9 +21,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import parallel as par
-from repro_torch.utils.params import (ParamDef, init_params, is_node,
-                                      make_specs, to_parameter_dict,
-                                      tree_leaves, with_dtype)
+from repro_torch.utils.params import (ParamDef, PartitionSpec, init_params,
+                                      is_node, make_specs, to_parameter_dict,
+                                      tree_leaves, tree_map, with_dtype)
 
 NEG_INF = -1e30
 
@@ -146,10 +148,14 @@ def chunked_xent(p, h, targets, cfg: ModelConfig, mask=None):
     return tot / torch.clamp(cnt, min=1.0), cnt
 
 
-def logits_last(p, h_last, cfg: ModelConfig):
-    """h_last: (B, D) -> (B, Vp) f32 logits with padded vocab masked."""
+def logits_last(p, h_last, cfg: ModelConfig, mesh=None):
+    """h_last: (B, D) -> (B, Vp) f32 logits with padded vocab masked.
+    ``mesh``: the unembedding is this rank's vocab shard, its logits
+    (B, Vp/m) all-gathered on "model" into the whole (B, Vp)."""
     w = unembed_matrix(p, cfg)
     logits = h_last.float() @ w.float()
+    if mesh is not None:
+        logits = par.all_gather(logits, 1, mesh, "model")
     if cfg.vocab_padded != cfg.vocab_size:
         logits[:, cfg.vocab_size:] = NEG_INF
     return logits
@@ -192,16 +198,31 @@ class LMBase(nn.Module):
     ``prefill`` and ``decode_step`` take the parameters as their first
     argument, as the JAX models do.  ``plan`` is the sharding plan the
     model was made for (``models/zoo.py`` ``get_model``), None on one
-    card."""
+    card.
+
+    Under a plan, ``prefill`` and ``decode_step`` serve (JAX's
+    ``launch/programs.py`` cells): the parameters are the rank's
+    model-local leaves (``load_serving`` gathers the FSDP cut once), the
+    inputs this rank's rows of the plan's batch axes, the cache this
+    rank's block under ``launch/programs.py`` ``cache_specs``
+    (``init_cache`` takes the global batch), and the logits every rank's
+    (B, Vp).  JAX makes its prefill and decode plans from different
+    shapes; one model holds one plan for both, and the only field that
+    may differ between them, ``resid_seq``, a decode step ignores: it
+    runs the residual stream whole (``tp_whole``), as JAX's decode plan
+    sets ``resid_seq`` None."""
 
     def __init__(self, cfg: ModelConfig, plan=None):
         super().__init__()
         self.cfg = cfg
         self.plan = plan
         self.params = None
-        # the split over "model" (``parallel.TensorParallel``), else None
-        self.tp = (par.TensorParallel(plan) if plan is not None
-                   and plan.model_size > 1 else None)
+        # the split over "model" (``parallel.TensorParallel``), else None;
+        # ``tp_whole`` the same split over a whole residual stream
+        split = plan is not None and plan.model_size > 1
+        self.tp = par.TensorParallel(plan) if split else None
+        self.tp_whole = (par.TensorParallel(plan, seq=False) if split
+                         else None)
 
     def param_defs(self):
         return with_dtype(self._param_defs_raw(), self.cfg.param_dtype)
@@ -247,30 +268,91 @@ class LMBase(nn.Module):
             plan.rules["mlp"] != "model"
 
     # ------------------------------------------- the split over "model"
-    def _embed(self, p, tokens):
-        """The embedding lookup: vocab-parallel under a split, in the
-        residual stream's layout."""
-        if self.tp is None:
+    def _embed(self, p, tokens, tp=None):
+        """The embedding lookup: vocab-parallel under a split (``tp``, or
+        ``self.tp`` when None), in the residual stream's layout."""
+        tp = tp or self.tp
+        if tp is None:
             return embed(p, tokens, self.cfg)
-        return par.vocab_embed(p["table"], tokens, self.tp.mesh,
-                               self.cfg.act_dtype, seq=self.tp.seq)
+        return par.vocab_embed(p["table"], tokens, tp.mesh,
+                               self.cfg.act_dtype, seq=tp.seq)
 
-    def _mlp(self, p, h):
+    def _mlp(self, p, h, tp=None):
         """The MLP on the normed residual stream h: column-parallel
         (w_gate, w_up) then row-parallel (w_down) where ``rules["mlp"]``
         is "model", else whole (on this rank's positions under
-        Megatron-SP)."""
-        if self.tp is None or self.plan.rules["mlp"] != "model":
+        Megatron-SP).  ``tp``: the split (``self.tp`` when None)."""
+        tp = tp or self.tp
+        if tp is None or self.plan.rules["mlp"] != "model":
             return mlp(p, h)
-        h = self.tp.enter(h)
+        h = tp.enter(h)
         a = F.silu(h @ p["w_gate"].to(h.dtype)) * (h @ p["w_up"].to(h.dtype))
-        return self.tp.row_parallel(a, p["w_down"])
+        return tp.row_parallel(a, p["w_down"])
 
-    def _no_tp(self, what):
-        if self.tp is not None:
-            raise NotImplementedError(
-                f"{what} under a tensor-parallel plan (the KV cache specs "
-                f"of sharded serving) is ROADMAP.md item 8, step 6")
+    # ----------------------------------------------------------- serving
+    @functools.cached_property
+    def cache_cut(self):
+        """The ``parallel.SeqCut`` of the cache's sequence dim
+        (``plan.cache_seq``: "model" where the kv heads do not divide
+        it, and the data axes the batch leaves spare), or None."""
+        if self.plan is None:
+            return None
+        return par.seq_cut(self.plan.mesh, self.plan.cache_seq)
+
+    @property
+    def batch_shards(self) -> int:
+        """The blocks the plan's batch axes cut the rows into (1 without
+        a plan): a rank's prefill takes B / batch_shards rows."""
+        if self.plan is None:
+            return 1
+        axes = par.live_axes(self.plan.mesh, self.plan.batch_axes)
+        return math.prod(self.plan.mesh.shape[a] for a in axes)
+
+    def serve_specs(self):
+        """The parameters' specs with the plan's data axes dropped: the
+        model-local leaves a serving rank holds."""
+        data = set(self.plan.data_axes)
+
+        def local(spec):
+            return PartitionSpec(*(
+                None if not kept else kept[0] if len(kept) == 1 else kept
+                for kept in (tuple(a for a in par.entry_axes(e)
+                                   if a not in data) for e in spec)))
+        return tree_map(local, self.param_specs())
+
+    def load_serving(self, params):
+        """Hold this rank's shards ``params`` (the ``param_specs`` layout,
+        as training holds them) as model-local leaves: the FSDP ("data")
+        cut of every leaf gathered once, as ``training/train_step.py``
+        ``make_grad_fn`` gathers it once a step."""
+        if self.plan is not None:
+            with torch.no_grad():
+                params = par.gather_tree(params, self.param_specs(),
+                                         self.plan.mesh, self.plan.data_axes)
+        return self.load(params)
+
+    def local_cache_struct(self, batch: int, max_len: int, **kw):
+        """``cache_struct`` of the global ``batch``, each leaf's shape this
+        rank's block under the plan (``launch/programs.py``)."""
+        if self.plan is None:
+            return self.cache_struct(batch, max_len, **kw)
+        from repro_torch.launch.programs import local_cache_struct
+        return local_cache_struct(self, self.plan, batch, max_len, **kw)
+
+    def _last_row(self, x):
+        """The last position's hidden state (B, D) of x (B, S, D): on the
+        last rank under Megatron-SP, shared by an all-gather."""
+        if self.tp is None or not self.tp.seq:
+            return x[:, -1]
+        return par.all_gather(x[:, -1:], 1, self.tp.mesh, "model")[:, -1]
+
+    def _logits_last(self, p, h_last, tp=None):
+        """(B, D) -> (B, Vp) f32 logits, the padded vocab masked: under a
+        split (``tp``, or ``self.tp`` when None) every rank returns the
+        one-card logits, its vocab shard's all-gathered."""
+        tp = tp or self.tp
+        return logits_last(p, h_last, self.cfg,
+                           None if tp is None else tp.mesh)
 
     def init(self, generator: torch.Generator):
         """Random parameters on the generator's device."""
@@ -314,6 +396,9 @@ class LMBase(nn.Module):
             return torch.device("cpu")
         return next(self.params.parameters()).device
 
-    def init_cache(self, batch: int, max_len: int):
+    def init_cache(self, batch: int, max_len: int, **kw):
+        """A zero cache of the global ``batch``: this rank's block of each
+        leaf under a plan."""
         return {k: torch.zeros(s.shape, dtype=s.dtype, device=self.device)
-                for k, s in self.cache_struct(batch, max_len).items()}
+                for k, s in self.local_cache_struct(batch, max_len,
+                                                    **kw).items()}

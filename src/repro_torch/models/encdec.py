@@ -18,7 +18,10 @@ with the plan): the encoder's self-attention and MLP, the decoder's
 self-attention, cross-attention and MLP.  The cross-attention's k / v
 come from the encoder memory (whole on every rank, gathered on S under
 Megatron-SP) through this rank's kv heads of wk / wv; the embedding and
-the loss are vocab-parallel, as in the dense family.
+the loss are vocab-parallel, as in the dense family.  Serving: the self
+and cross caches both take the plan's cache spec; a decode step's
+cross-attention runs over the whole encoder memory through the rank's
+heads.
 """
 from __future__ import annotations
 
@@ -142,46 +145,49 @@ class EncDecLM(cm.LMBase):
         return {"k": f(sh_self), "v": f(sh_self),
                 "xk": f(sh_cross), "xv": f(sh_cross)}
 
-    def init_cache(self, batch: int, max_len: int, enc_len: int = None):
-        return {k: torch.zeros(s.shape, dtype=s.dtype, device=self.device)
-                for k, s in self.cache_struct(batch, max_len,
-                                              enc_len).items()}
-
     def decode_step(self, params, cache, token, pos):
         """token (B,), pos int -> (logits (B,Vp), cache: the self cache
-        updated in place at pos, the cross cache as it was)."""
-        self._no_tp("decode_step")
+        updated in place at pos, the cross cache as it was).  Under a
+        plan: this rank's rows, heads and cache blocks; cross-attention
+        over the whole encoder memory through the rank's heads."""
         cfg = self.cfg
-        x = cm.embed(params["embed"], token[:, None], cfg)
-        Se = cache["xk"].shape[2]
+        tp = self.tp_whole
+        x = self._embed(params["embed"], token[:, None], tp)
+        cut = self.cache_cut
+        Se = cache["xk"].shape[2] * (1 if cut is None else cut.n)
         for i in range(cfg.dec_layers):
             p = cm.layer_slice(params["dec"], i)
             x = self._tf._decode_attn(p, x, cache["k"][i], cache["v"][i],
-                                      pos)
+                                      pos, tp)
             # cross-attention over the full encoder memory
             hh = cm.rms_norm(x, p["lnx"]["scale"], cfg.norm_eps)
-            cx = att.decode_attention(self._cross_q(p["xattn"], hh),
-                                      cache["xk"][i], cache["xv"][i], Se - 1)
-            x = x + att.attn_out(p["xattn"], cx, cfg)
-            hh = cm.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
-            x = x + cm.mlp(p["mlp"], hh)
+            if tp is not None:
+                hh = tp.enter(hh)
+            x = x + self._tf._decode_heads(
+                p["xattn"], att._proj(hh, p["xattn"]["wq"]), cache["xk"][i],
+                cache["xv"][i], Se - 1, tp)
+            x, _ = self._tf._ffn_block(p, x, tp=tp)
         x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-        logits = cm.logits_last(params["embed"], x[:, 0], cfg)
-        return logits, cache
+        return self._logits_last(params["embed"], x[:, 0], tp), cache
 
     def prefill(self, params, enc_emb, max_len: int):
         """enc_emb (B,Se,D) -> (cache: the cross keys and values of each
         decoder layer, the self cache empty but for BOS at 0; BOS
-        logits (B,Vp))."""
-        self._no_tp("prefill")
+        logits (B,Vp)).  Under a plan: this rank's rows, the encoder
+        split as in training, each cache this rank's block."""
         cfg = self.cfg
         enc_out = self.encode(params, enc_emb)
+        if self.tp is not None:
+            enc_out = self.tp.enter(enc_out)    # whole under Megatron-SP
         B = enc_out.shape[0]
-        cache = self.init_cache(B, max_len, enc_out.shape[1])
+        cache = self.init_cache(B * self.batch_shards, max_len,
+                                enc_len=enc_out.shape[1])
+        cut = self.cache_cut
         for i in range(cfg.dec_layers):
             xk, xv = self._cross_kv(
                 cm.layer_slice(params["dec"], i)["xattn"], enc_out)
-            cache["xk"][i], cache["xv"][i] = xk, xv
+            att.fill_cache(cache["xk"][i], xk, cut)
+            att.fill_cache(cache["xv"][i], xv, cut)
         bos = torch.zeros((B,), dtype=torch.long, device=enc_out.device)
         logits, cache = self.decode_step(params, cache, bos, 0)
         return cache, logits

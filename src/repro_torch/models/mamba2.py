@@ -8,7 +8,10 @@ tensors ``ssd_chunked`` runs the kernels of ``kernels.ssd_scan``, whose
 backward is a kernel too.  The training forward runs the layers in a
 Python loop over ``layer_slice`` views, each under ``remat`` (one
 checkpoint per layer, as JAX's ``_remat`` body).
-Decode is the O(1) recurrent step on (H, N, hd) states.  n_groups = 1
+Decode is the O(1) recurrent step on (H, N, hd) states.  Under a plan
+that splits the SSM heads, prefill and decode run on the rank's heads
+and d_in columns: its cache holds their states and conv_x columns
+(``launch/programs.py`` ``cache_specs``), conv_B / conv_C whole.  n_groups = 1
 (B/C shared across heads), as in the published 780m config.  z, x, B, C
 and dt have separate projection and conv parameters, as in the JAX
 package: mathematically the fused in_proj of the reference
@@ -126,9 +129,10 @@ def mamba_block(p, x, cfg: ModelConfig, return_state: bool = False,
     y = y * F.silu(z)
     if tp is not None:
         y = par.rms_norm_cut(y, p["norm"], cfg.norm_eps, tp.mesh)
-        return x + tp.row_parallel(y, p["out_proj"]), None
-    y = cm.rms_norm(y, p["norm"], cfg.norm_eps)
-    out = y @ p["out_proj"].to(dt_)
+        out = tp.row_parallel(y, p["out_proj"])
+    else:
+        y = cm.rms_norm(y, p["norm"], cfg.norm_eps)
+        out = y @ p["out_proj"].to(dt_)
     if return_state:
         W = s.conv_width
         tails = (xr[:, -(W - 1):, :], Br[:, -(W - 1):, :], Cr[:, -(W - 1):, :])
@@ -136,12 +140,18 @@ def mamba_block(p, x, cfg: ModelConfig, return_state: bool = False,
     return x + out, None
 
 
-def mamba_decode(p, x, cfg: ModelConfig, conv_x, conv_B, conv_C, ssm_state):
-    """One-token step. x (B,1,D); conv_* raw history; ssm_state (B,H,N,hd)."""
+def mamba_decode(p, x, cfg: ModelConfig, conv_x, conv_B, conv_C, ssm_state,
+                 tp=None):
+    """One-token step. x (B,1,D); conv_* raw history; ssm_state (B,H,N,hd).
+    ``tp``: the split over "model" (``mamba_block``'s): the rank's d_in/m
+    columns of conv_x and H/m heads of ssm_state, the gated norm over
+    the cut, a row-parallel out_proj."""
     s = cfg.ssm
-    d_in, H = _dims(cfg)
+    d_in, H = p["w_x"].shape[-1], p["A_log"].shape[-1]
     dt_ = x.dtype
     h = cm.rms_norm(x, p["ln"]["scale"], cfg.norm_eps)[:, 0]   # (B,D)
+    if tp is not None:
+        h = tp.enter(h)
     z = h @ p["w_z"].to(dt_)
     xr = h @ p["w_x"].to(dt_)
     Br = h @ p["w_B"].to(dt_)
@@ -161,16 +171,20 @@ def mamba_decode(p, x, cfg: ModelConfig, conv_x, conv_B, conv_C, ssm_state):
     y = y.to(dt_) + p["D_skip"].to(dt_)[None, :, None] * x_ssm
     y = y.reshape(-1, d_in)
     y = y * F.silu(z)
-    y = cm.rms_norm(y, p["norm"], cfg.norm_eps)
-    out = (y @ p["out_proj"].to(dt_))[:, None, :]
+    if tp is not None:
+        y = par.rms_norm_cut(y, p["norm"], cfg.norm_eps, tp.mesh)
+        out = tp.row_parallel(y, p["out_proj"])[:, None, :]
+    else:
+        y = cm.rms_norm(y, p["norm"], cfg.norm_eps)
+        out = (y @ p["out_proj"].to(dt_))[:, None, :]
     return x + out, (ncx, ncB, ncC), new_state.to(dt_)
 
 
-def ssm_split(model):
-    """``model.tp`` where its plan splits the SSM heads over "model"
-    (``ssm_inner`` and ``ssm_head``, which ``models/zoo.py``
-    ``check_plan`` holds equal), else None."""
-    tp = model.tp
+def ssm_split(model, tp=None):
+    """``tp`` (``model.tp`` when None) where the model's plan splits the
+    SSM heads over "model" (``ssm_inner`` and ``ssm_head``, which
+    ``models/zoo.py`` ``check_plan`` holds equal), else None."""
+    tp = tp or model.tp
     return tp if tp is not None and tp.plan.rules["ssm_head"] else None
 
 
@@ -189,12 +203,12 @@ def ssm_cache_struct(cfg: ModelConfig, batch: int):
     }
 
 
-def decode_layer(p, x, cfg, cache, i):
+def decode_layer(p, x, cfg, cache, i, tp=None):
     """``mamba_decode`` of layer i against its slices of ``cache``,
     written back in place (the JAX code stacks new cache arrays)."""
     x, (ncx, ncb, ncc), ns = mamba_decode(
         p, x, cfg, cache["conv_x"][i], cache["conv_B"][i],
-        cache["conv_C"][i], cache["state"][i])
+        cache["conv_C"][i], cache["state"][i], tp)
     cache["conv_x"][i] = ncx
     cache["conv_B"][i] = ncb
     cache["conv_C"][i] = ncc
@@ -228,29 +242,32 @@ class Mamba2LM(cm.LMBase):
         return ssm_cache_struct(self.cfg, batch)
 
     def decode_step(self, params, cache, token, pos):
-        """token (B,) -> (logits (B,Vp), cache updated in place)."""
-        self._no_tp("decode_step")
+        """token (B,) -> (logits (B,Vp), cache updated in place).  Under a
+        plan: this rank's rows, SSM heads and conv_x columns."""
         cfg = self.cfg
-        x = cm.embed(params["embed"], token[:, None], cfg)
+        tp = self.tp_whole
+        x = self._embed(params["embed"], token[:, None], tp)
         for i in range(cfg.n_layers):
             x = decode_layer(cm.layer_slice(params["layers"], i), x, cfg,
-                             cache, i)
+                             cache, i, ssm_split(self, tp))
         x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-        logits = cm.logits_last(params["embed"], x[:, 0], cfg)
-        return logits, cache
+        return self._logits_last(params["embed"], x[:, 0], tp), cache
 
     def prefill(self, params, tokens, max_len: int):
-        self._no_tp("prefill")
+        """tokens (B,S) -> (cache: each layer's conv tails and final SSD
+        state, last-token logits).  Under a plan: this rank's rows, the
+        scan on its heads (their states and conv_x columns kept)."""
         cfg = self.cfg
-        x = cm.embed(params["embed"], tokens, cfg)
+        x = self._embed(params["embed"], tokens)
         tails, states = [], []
         for i in range(cfg.n_layers):
             x, (t3, st) = mamba_block(cm.layer_slice(params["layers"], i), x,
-                                      cfg, return_state=True)
+                                      cfg, return_state=True,
+                                      tp=ssm_split(self))
             tails.append(t3)
             states.append(st)
         x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-        logits = cm.logits_last(params["embed"], x[:, -1], cfg)
+        logits = self._logits_last(params["embed"], self._last_row(x))
         cache = {"conv_x": torch.stack([t[0] for t in tails]),
                  "conv_B": torch.stack([t[1] for t in tails]),
                  "conv_C": torch.stack([t[2] for t in tails]),

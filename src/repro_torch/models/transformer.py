@@ -37,6 +37,19 @@ starts with f and ends with g (f32 partial sums, cast once); with
 is cut on S, each block starts with an all-gather on S and ends with a
 reduce-scatter, and the loss gathers S first.  Without a plan, or with
 a "model" axis of one, every op is the one-card one.
+
+Serving under a plan (``LMBase``): the prefill runs the layers as
+training does, the SP fallback taking a prompt of any length (blocks of
+ceil(S/m) query rows, the last ones padding, the outputs gathered and
+trimmed, as GSPMD pads); each rank writes its block of the KV cache
+(``launch/programs.py`` ``cache_specs``: its kv heads where they divide
+"model"; else every kv head over its positions, the cache cut on S over
+"model"; and over the data axes a batch of 1 leaves spare).  A decode
+step runs the stream whole: its heads against its cache block, the
+query heads all-gathered where only the cache's S is cut, the partial
+softmaxes combined over the cache's sequence axes
+(``attention.decode_attention``), a row-parallel wo; the logits are
+all-gathered from the vocab shards.
 """
 from __future__ import annotations
 
@@ -169,7 +182,7 @@ class TransformerLM(cm.LMBase):
         H/m query heads and K/m kv heads (or the kv head of each of its
         query heads, projected whole), row-parallel wo.  Sequence-
         parallel where the heads do not divide the axis (``:119-123``):
-        this rank's S/m query rows, every head, k / v over the whole
+        this rank's ceil(S/m) query rows, every head, k / v over the whole
         sequence, the kernels' causal offset at the rows' first
         position; the rows' outputs gathered on S (under Megatron-SP
         they stay this rank's rows)."""
@@ -203,15 +216,23 @@ class TransformerLM(cm.LMBase):
             wo = pa["wo"]
             return tp.row_parallel(ctx.reshape(B, S, -1),
                                    wo.reshape(-1, wo.shape[-1])), k, v
-        rows = par.seq_rows(hq.shape[1] * (tp.size if own_rows else 1),
-                            tp.mesh)
-        q = proj_q(q_in if own_rows else q_in[:, rows], positions[rows],
+        # blocks of ceil(S/m) rows, as GSPMD pads an uneven dim: a prompt
+        # of any length; the padding's outputs are trimmed after the gather
+        S = hq.shape[1] * (tp.size if own_rows else 1)
+        first, c = par.padded_rows(S, tp.mesh)
+        if not own_rows:
+            q_in = torch.nn.functional.pad(
+                q_in, (0, 0, 0, c * tp.size - S))[:, first:first + c]
+        # positions is arange(S), as the kernel's kv_offset assumes
+        q = proj_q(q_in, torch.arange(first, first + c, device=q_in.device),
                    k.shape[2])
         ctx = att.blocked_attention(q, k, v, chunk=cfg.attn_chunk,
                                     causal=causal,
-                                    kv_offset=rows.start if causal else 0)
+                                    kv_offset=first if causal else 0)
         o = att.attn_out(pa, ctx, cfg)
-        return (o if tp.seq else par.gather_seq_replicated(o, tp.mesh)), k, v
+        if tp.seq:
+            return o, k, v
+        return par.gather_seq_replicated(o, tp.mesh)[:, :S], k, v
 
     # ------------------------------------------------------------ layers
     def _attn_block(self, p, x, positions, causal=True):
@@ -230,17 +251,19 @@ class TransformerLM(cm.LMBase):
                                     causal=causal)
         return x + att.attn_out(p["attn"], ctx, cfg), k, v
 
-    def _ffn_block(self, p, x, depth=None):
+    def _ffn_block(self, p, x, depth=None, tp=None):
         """Pre-norm MLP or MoE block with residual -> (x + out, aux):
-        the MoE layer's aux loss (f32), 0.0 for an MLP."""
+        the MoE layer's aux loss (f32), 0.0 for an MLP.  ``tp``: the
+        split (``self.tp`` when None)."""
         cfg = self.cfg
+        tp = tp or self.tp
         h = cm.rms_norm(x, p["ln2"]["scale"], cfg.norm_eps)
         if "moe" not in p:
-            return x + self._mlp(p["mlp"], h), 0.0
+            return x + self._mlp(p["mlp"], h, tp), 0.0
         routes = None if self.routes is None else self.routes.get(depth)
         rec = None if self.seen_routes is None else {}
         out, aux = moe_block(p["moe"], h, cfg, routes=routes, record=rec,
-                             tp=self.tp)
+                             tp=tp)
         if rec is not None:
             self.seen_routes[depth] = rec["experts"].view(
                 h.shape[0], -1, cfg.moe.top_k).detach()
@@ -285,22 +308,63 @@ class TransformerLM(cm.LMBase):
                 aux = aux + a
         return self._final(params, x, aux)
 
-    def _decode_attn(self, p, x, kc, vc, pos):
-        """Self-attention of one decode step with residual: x (B,1,D);
-        kc/vc (B,Smax,K,h) single-layer cache, written in place at pos."""
-        cfg = self.cfg
-        h = cm.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
-        positions = torch.full((1,), pos, device=x.device)
-        q, k, v = att.project_qkv(p["attn"], h, cfg, positions)
-        att.update_cache(kc, k, pos, cfg.cache_update)
-        att.update_cache(vc, v, pos, cfg.cache_update)
-        ctx = att.decode_attention(q, kc, vc, pos)
-        return x + att.attn_out(p["attn"], ctx, cfg)
+    def _decode_heads(self, pa, q, kc, vc, pos, tp):
+        """One decode step's attention through the rank's heads: q
+        (B,1,Hl,h) this rank's query heads (every head without a head
+        split) at pos, over this rank's cache kc/vc (B,Sl,Kl,h), written
+        already -> the output to add to the stream (B,1,D).
 
-    def _decode_layer(self, p, x, kc, vc, pos, depth=None):
+        - No split, or sequence-parallel attention (every head on every
+          rank): whole wo.
+        - Heads and kv heads split: the rank's heads over its kv heads,
+          row-parallel wo.
+        - Heads split, kv heads not (the cache cut on S over "model"):
+          the query heads all-gathered (B·H·h), every head's partial
+          softmax over the rank's positions, the rank's heads' context
+          through the row-parallel wo.
+        Over a cache cut on S (``cache_cut``) the partial softmaxes are
+        combined (``attention.decode_attention``)."""
+        cfg, plan, cut = self.cfg, self.plan, self.cache_cut
+        B, _, Hl, h = q.shape
+        Kl = kc.shape[2]
+        if tp is None or not plan.shard_heads or plan.kv_ok:
+            ctx = att.decode_attention(q.reshape(B, 1, Kl, -1, h), kc, vc,
+                                       pos, cut)
+            if tp is None or not plan.shard_heads:
+                return att.attn_out(pa, ctx, cfg)
+            wo = pa["wo"]
+            return tp.row_parallel(ctx.reshape(B, 1, -1),
+                                   wo.reshape(-1, wo.shape[-1]))
+        qa = par.all_gather(q, 2, tp.mesh, "model")
+        ctx = att.decode_attention(qa.reshape(B, 1, Kl, -1, h), kc, vc, pos,
+                                   cut).reshape(B, 1, -1, h)
+        mine = ctx[:, :, tp.rank * Hl:(tp.rank + 1) * Hl].reshape(B, 1, -1)
+        wo = pa["wo"]
+        return tp.row_parallel(mine, wo.reshape(-1, wo.shape[-1]))
+
+    def _decode_attn(self, p, x, kc, vc, pos, tp=None):
+        """Self-attention of one decode step with residual: x (B,1,D);
+        kc/vc (B,Smax,K,h) single-layer cache (this rank's block under a
+        plan), written in place at pos; ``tp``: the split over a whole
+        stream (``tp_whole``) or None."""
+        cfg = self.cfg
+        pa = p["attn"]
+        h = cm.rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
+        if tp is not None:
+            h = tp.enter(h)
+        positions = torch.full((1,), pos, device=x.device)
+        k, v = att.project_kv(pa, h, cfg, positions)
+        heads = pa["wq"].shape[1]
+        q = att.project_q(pa, h, cfg, positions, heads)
+        att.update_cache(kc, k, pos, cfg.cache_update, self.cache_cut)
+        att.update_cache(vc, v, pos, cfg.cache_update, self.cache_cut)
+        return x + self._decode_heads(pa, q.reshape(*q.shape[:2], heads, -1),
+                                      kc, vc, pos, tp)
+
+    def _decode_layer(self, p, x, kc, vc, pos, depth=None, tp=None):
         """One layer of a decode step: ``_decode_attn``, then the FFN."""
-        x = self._decode_attn(p, x, kc, vc, pos)
-        x, _ = self._ffn_block(p, x, depth)
+        x = self._decode_attn(p, x, kc, vc, pos, tp)
+        x, _ = self._ffn_block(p, x, depth, tp)
         return x
 
     # ----------------------------------------------------------- serving
@@ -313,30 +377,30 @@ class TransformerLM(cm.LMBase):
                 "v": cm.CacheSpec(sh, cfg.act_dtype)}
 
     def decode_step(self, params, cache, token, pos):
-        """token (B,), pos int -> (logits (B,Vp), cache updated in place)."""
-        self._no_tp("decode_step")
-        cfg = self.cfg
-        x = cm.embed(params["embed"], token[:, None], cfg)  # (B,1,D)
+        """token (B,), pos int -> (logits (B,Vp), cache updated in place).
+        Under a plan: this rank's rows and cache block, the stream
+        whole."""
+        tp = self.tp_whole
+        x = self._embed(params["embed"], token[:, None], tp)  # (B,1,D)
         for d, p_l in self._layers(params):
             x = self._decode_layer(p_l, x, cache["k"][d], cache["v"][d], pos,
-                                   d)
-        x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-        logits = cm.logits_last(params["embed"], x[:, 0], cfg)
-        return logits, cache
+                                   d, tp)
+        x = cm.rms_norm(x, params["final_norm"]["scale"], self.cfg.norm_eps)
+        return self._logits_last(params["embed"], x[:, 0], tp), cache
 
     def prefill(self, params, tokens, max_len: int):
-        """tokens (B,S) -> (cache with [0:S] filled, last-token logits)."""
-        self._no_tp("prefill")
+        """tokens (B,S) -> (cache with [0:S] filled, last-token logits).
+        Under a plan: this rank's rows, its block of the cache."""
         cfg = self.cfg
         B, S = tokens.shape
-        x = cm.embed(params["embed"], tokens, cfg)
+        x = self._embed(params["embed"], tokens)
         positions = torch.arange(S, device=x.device)
-        cache = self.init_cache(B, max(max_len, S))
+        cache = self.init_cache(B * self.batch_shards, max(max_len, S))
+        cut = self.cache_cut
         for d, p_l in self._layers(params):
             x, k, v = self._attn_block(p_l, x, positions)
             x, _ = self._ffn_block(p_l, x, d)
-            cache["k"][d, :, :S] = k
-            cache["v"][d, :, :S] = v
+            att.fill_cache(cache["k"][d], k, cut)
+            att.fill_cache(cache["v"][d], v, cut)
         x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-        logits = cm.logits_last(params["embed"], x[:, -1], cfg)
-        return cache, logits
+        return cache, self._logits_last(params["embed"], self._last_row(x))

@@ -13,7 +13,9 @@ block's gradients sum over its G uses.  Under a plan that splits
 "model", the mamba layers run on this rank's heads
 (``mamba2.mamba_block``'s ``tp``) and the shared block through
 ``TransformerLM``'s split attention and MLP (``self._tf``, built with
-the plan).
+the plan); serving keeps the rank's SSM heads' caches and its block of
+the shared block's KV cache (cut on S over "data" at a batch of 1, as
+JAX's long_500k cell lays it out).
 
 Simplification vs the released checkpoints, as in the JAX package: the
 shared block consumes the residual stream directly (no
@@ -107,43 +109,45 @@ class Zamba2LM(cm.LMBase):
                 "attn_v": cm.CacheSpec(sh, cfg.act_dtype)}
 
     def decode_step(self, params, cache, token, pos):
-        """token (B,), pos int -> (logits (B,Vp), cache updated in place)."""
-        self._no_tp("decode_step")
+        """token (B,), pos int -> (logits (B,Vp), cache updated in place).
+        Under a plan: this rank's rows, SSM heads and block of the shared
+        block's cache."""
         cfg = self.cfg
-        x = cm.embed(params["embed"], token[:, None], cfg)
+        tp = self.tp_whole
+        x = self._embed(params["embed"], token[:, None], tp)
         shared = params["shared"]
         for i, p_l in self._mamba_layers(params):
-            x = decode_layer(p_l, x, cfg, cache, i)
+            x = decode_layer(p_l, x, cfg, cache, i, ssm_split(self, tp))
             if i < self.G * self.k and (i + 1) % self.k == 0:
                 g = i // self.k
                 x = self._tf._decode_layer(shared, x, cache["attn_k"][g],
-                                           cache["attn_v"][g], pos)
+                                           cache["attn_v"][g], pos, tp=tp)
         x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-        logits = cm.logits_last(params["embed"], x[:, 0], cfg)
-        return logits, cache
+        return self._logits_last(params["embed"], x[:, 0], tp), cache
 
     def prefill(self, params, tokens, max_len: int):
-        self._no_tp("prefill")
         cfg = self.cfg
         B, S = tokens.shape
-        x = cm.embed(params["embed"], tokens, cfg)
+        x = self._embed(params["embed"], tokens)
         positions = torch.arange(S, device=x.device)
         shared = params["shared"]
-        kv_len = max(max_len, S)
-        attn = cm.CacheSpec((self.G, B, kv_len, cfg.n_kv_heads,
-                             cfg.head_dim), cfg.act_dtype)
+        attn = self.local_cache_struct(B * self.batch_shards,
+                                       max(max_len, S))["attn_k"]
         ks = torch.zeros(attn.shape, dtype=attn.dtype, device=x.device)
         vs = torch.zeros_like(ks)
+        cut = self.cache_cut
         tails, states = [], []
         for i, p_l in self._mamba_layers(params):
-            x, (t3, st) = mamba_block(p_l, x, cfg, return_state=True)
+            x, (t3, st) = mamba_block(p_l, x, cfg, return_state=True,
+                                      tp=ssm_split(self))
             tails.append(t3)
             states.append(st)
             if i < self.G * self.k and (i + 1) % self.k == 0:
                 # shared attention over the full prefix, keep kv
                 g = i // self.k
-                x, ks[g, :, :S], vs[g, :, :S] = self._tf._attn_block(
-                    shared, x, positions)
+                x, k, v = self._tf._attn_block(shared, x, positions)
+                att.fill_cache(ks[g], k, cut)
+                att.fill_cache(vs[g], v, cut)
                 x, _ = self._tf._ffn_block(shared, x)
         cache = {"conv_x": torch.stack([t[0] for t in tails]),
                  "conv_B": torch.stack([t[1] for t in tails]),
@@ -151,5 +155,4 @@ class Zamba2LM(cm.LMBase):
                  "state": torch.stack(states),
                  "attn_k": ks, "attn_v": vs}
         x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-        logits = cm.logits_last(params["embed"], x[:, -1], cfg)
-        return cache, logits
+        return cache, self._logits_last(params["embed"], self._last_row(x))

@@ -16,8 +16,11 @@ out (``distributed/parallel.py`` ``TensorParallel``): attention heads
 (or query rows where the heads do not divide the axis: sequence
 parallelism), MLP columns, MoE experts, SSM heads, the vocabulary, and
 with ``seq_shard_activations`` the residual stream's positions
-(Megatron-SP).  ``check_plan`` raises for the plans that are not
-ported.
+(Megatron-SP).  Training and serving (``prefill`` / ``decode_step`` with
+the caches of ``launch/programs.py`` ``cache_specs``) run under every
+plan ``make_plan`` gives but those ``check_plan`` raises for; the
+serving narrowings raise where they are met (``serving/engine.py``
+under batch axes, a cache length its sequence axes do not divide).
 """
 from __future__ import annotations
 
@@ -35,7 +38,8 @@ def check_plan(cfg: ModelConfig, plan) -> None:
     "mlp_exp"), the SSM's d_in and heads split differently
     (``ssm_inner`` and ``ssm_head`` disagree), or a sequence-sharded
     residual stream (``resid_seq``) through mamba layers whose heads the
-    axis does not split.  Nothing silently runs unsharded."""
+    axis does not split.  Each holds for training and serving alike.
+    Nothing silently runs unsharded."""
     if plan is None or plan.model_size == 1:
         return
     why = None

@@ -18,6 +18,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed import parallel as par
+
 
 @dataclasses.dataclass
 class Request:
@@ -31,8 +33,20 @@ class Request:
 
 
 class Engine:
+    """Under a sharding plan every rank runs the same engine over its
+    model-local parameters and cache blocks (``LMBase`` serving); the
+    plan's batch axes must not cut the slots: a B = 1 prefill and its
+    slot write cannot cut them over "data"."""
+
     def __init__(self, model, params, *, slots: int, max_len: int,
                  eos_id: Optional[int] = None, greedy: bool = True):
+        plan = getattr(model, "plan", None)
+        if plan is not None and par.live_axes(plan.mesh, plan.batch_axes):
+            raise NotImplementedError(
+                f"the engine under a plan whose batch axes "
+                f"{plan.batch_axes} cut the slots: its B = 1 prefills and "
+                f"slot writes cannot be cut over them (drive the model's "
+                f"prefill / decode_step with each rank's rows instead)")
         self.model, self.params = model, params
         self.B, self.max_len = slots, max_len
         self.eos = eos_id

@@ -38,11 +38,14 @@ class PartitionSpec(tuple):
     """One entry per tensor dim: None (replicated), a mesh axis name, or
     a tuple of axis names (the dim cut over their product, the first
     axis major), as ``jax.sharding.PartitionSpec``; ``tuple(spec)``
-    equals ``tuple(P(...))`` of the same entries.  Dims past the end of
-    the spec are replicated."""
+    equals ``tuple(P(...))`` of the same entries (a tuple of one axis is
+    that axis, an empty one None, as JAX normalises them).  Dims past the
+    end of the spec are replicated."""
 
     def __new__(cls, *parts):
-        return super().__new__(cls, parts)
+        return super().__new__(cls, (
+            (p[0] if len(p) == 1 else p or None) if isinstance(p, tuple)
+            else p for p in parts))
 
     def __repr__(self):
         return f"PartitionSpec{tuple.__repr__(self)}"

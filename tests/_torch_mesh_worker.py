@@ -79,6 +79,9 @@ CASES["qwen3-sp-1x4"] = ("qwen3-0.6b", (1, 4), 4, 32,
                          {"n_heads": 6, "n_kv_heads": 2}, {})
 CASES["qwen3-resid-seq-1x4"] = ("qwen3-0.6b", (1, 4), 4, 32,
                                 {"seq_shard_activations": True}, {})
+# 30 query rows, which 4 do not divide: blocks of 8, the last 2 padding
+CASES["qwen3-sp-S30-1x4"] = ("qwen3-0.6b", (1, 4), 4, 30,
+                             {"n_heads": 6, "n_kv_heads": 2}, {})
 ENC_FRAMES = 64
 # the cases that split the other families or attention's query rows over
 # "model"

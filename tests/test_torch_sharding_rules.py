@@ -32,13 +32,16 @@ from repro.configs.base import SHAPES as JAX_SHAPES  # noqa: E402
 from repro.configs.registry import get_config as jax_config  # noqa: E402
 from repro.configs.registry import smoke_config as jax_smoke  # noqa: E402
 from repro.distributed.rules import make_plan as jax_plan  # noqa: E402
+from repro.launch.programs import cache_specs as jax_cache_specs  # noqa: E402
+from jax.sharding import PartitionSpec as JaxP  # noqa: E402
 from repro.models.zoo import get_model as jax_model  # noqa: E402
 from repro.training import optimizers as jopt  # noqa: E402
 from repro.utils.params import make_specs as jax_specs  # noqa: E402
 from repro.utils.params import (  # noqa: E402
     validate_divisibility as jax_validate)
 from repro_torch.checkpoint import manager as ckpt  # noqa: E402
-from repro_torch.configs.base import SHAPES, supports_shape  # noqa: E402
+from repro_torch.configs.base import (SHAPES, ShapeCfg,  # noqa: E402
+                                      supports_shape)
 from repro_torch.configs.registry import (ARCH_IDS, get_config,  # noqa: E402
                                           smoke_config)
 from repro_torch.data.pipeline import device_batch  # noqa: E402
@@ -46,6 +49,8 @@ from repro_torch.distributed import parallel as par  # noqa: E402
 from repro_torch.distributed.rules import make_plan  # noqa: E402
 from repro_torch.launch.mesh import (ProcessMesh, make_mesh,  # noqa: E402
                                      make_process_mesh, make_production_mesh)
+from repro_torch.launch.programs import (batch_specs,  # noqa: E402
+                                         cache_specs, local_cache_struct)
 from repro_torch.models.zoo import get_model  # noqa: E402
 from repro_torch.training import optimizers as opt  # noqa: E402
 from repro_torch.utils.params import PartitionSpec as P  # noqa: E402
@@ -138,6 +143,28 @@ def test_specs_and_divisibility_match_jax(arch):
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
+def test_cache_specs_match_jax(arch):
+    """``launch/programs.py`` ``cache_specs`` leaf by leaf against JAX's
+    ``launch/programs.py`` ``cache_specs``, per (config, shape, mesh),
+    and ``batch_specs`` against the specs JAX's attaches."""
+    n = 0
+    for cfg, jcfg, name, mshape, axes in _grid(arch):
+        got, want = _plans(cfg, jcfg, name, mshape, axes)
+        cs = cache_specs(get_model(cfg), cfg, got)
+        jcs = jax_cache_specs(jax_model(jcfg), jcfg, want)
+        bs = batch_specs(cfg, SHAPES[name], got)
+        for k in bs:
+            assert tuple(bs[k]) == tuple(JaxP(want.batch_axes, None,
+                                              *([None] * (k == "enc_emb"))))
+        assert set(cs) == set(jcs)
+        for k, s in cs.items():
+            assert isinstance(s, P)
+            assert tuple(s) == tuple(jcs[k]), (arch, name, mshape, k)
+        n += 1
+    assert n >= 2 * 3 * len(MESHES)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
 @pytest.mark.parametrize("opt_name", ["adamw", "adafactor"])
 def test_state_specs_match_jax(arch, opt_name):
     """``state_specs`` mirrors the parameters' specs as JAX's does
@@ -179,6 +206,31 @@ def _specs_for(axes):
     return SPECS2 + (SPECS3 if "pod" in axes else [])
 
 
+# the serving caches of every arch's smoke config on each shard mesh, a
+# batch of 1 (the sequence cut over the spare data axes too) and of 4
+CACHE_BATCHES, CACHE_LEN = (1, 4), 32
+
+
+def _cache_cases():
+    """[(mesh index, arch, batch, leaf, spec, global shape)]."""
+    out = []
+    for m, (mshape, axes) in enumerate(SHARD_MESHES):
+        mesh = make_mesh(mshape, axes, ["cpu"] * int(np.prod(mshape)))
+        for arch in ARCH_IDS:
+            cfg = smoke_config(get_config(arch))
+            for b in CACHE_BATCHES:
+                plan = make_plan(cfg, mesh, ShapeCfg("serve", CACHE_LEN, b,
+                                                       "decode"))
+                model = get_model(cfg)
+                cs = cache_specs(model, cfg, plan)
+                for k, st in model.cache_struct(b, CACHE_LEN).items():
+                    out.append((m, arch, b, k, tuple(cs[k]), st.shape))
+    return out
+
+
+CACHE_CASES = _cache_cases()
+
+
 def _rank_mesh(mshape, axes, rank):
     return ProcessMesh(axes, np.arange(int(np.prod(mshape))).reshape(mshape),
                        rank=rank)
@@ -205,6 +257,16 @@ for mshape, axes in {SHARD_MESHES!r}:
         out["slices"].append([[[s.start or 0, s.stop or x.shape[i]]
                                for i, s in enumerate(idx[dev])]
                               for dev in mesh.devices.flat])
+out["cache"] = []
+for m, spec, shape in {[(c[0], [list(e) if isinstance(e, tuple) else e for e in c[4]], list(c[5])) for c in CACHE_CASES]!r}:
+    mshape, axes = {SHARD_MESHES!r}[m]
+    mesh = jax.make_mesh(mshape, axes,
+                         devices=jax.devices()[:int(np.prod(mshape))])
+    spec = [tuple(e) if isinstance(e, list) else e for e in spec]
+    idx = NamedSharding(mesh, P(*spec)).devices_indices_map(tuple(shape))
+    out["cache"].append([[(s.stop or shape[i]) - (s.start or 0)
+                          for i, s in enumerate(idx[dev])]
+                         for dev in mesh.devices.flat])
 tree = {{"w": jnp.arange(64.0).reshape(8, 8)}}
 m1 = jax.make_mesh((4, 2), ("data", "model"))
 t1 = {{"w": jax.device_put(tree["w"], NamedSharding(m1, P("data", "model")))}}
@@ -246,6 +308,25 @@ def test_shards_match_named_sharding(jax_shards, m):
                 rows = device_batch({"x": full.numpy()}, "cpu", mesh,
                                     spec[0])["x"]
                 assert torch.equal(rows, full[slice(*sl[0])])
+
+
+def test_local_cache_struct_matches_named_sharding(jax_shards):
+    """Each rank's ``local_cache_struct`` leaf shape is the shape of the
+    slice a ``NamedSharding`` of the leaf's cache spec gives the device
+    at that mesh position, for every arch's smoke config on each shard
+    mesh at a batch of 1 and of 4."""
+    want = jax_shards[0]["cache"]
+    assert len(want) == len(CACHE_CASES)
+    for (m, arch, b, leaf, _, _), shapes in zip(CACHE_CASES, want):
+        mshape, axes = SHARD_MESHES[m]
+        cfg = smoke_config(get_config(arch))
+        for r, shape in enumerate(shapes):
+            mesh = _rank_mesh(mshape, axes, r)
+            plan = make_plan(cfg, mesh, ShapeCfg("serve", CACHE_LEN, b,
+                                                   "decode"))
+            got = local_cache_struct(get_model(cfg), plan, b, CACHE_LEN)
+            assert got[leaf].shape == tuple(shape), (arch, mshape, b, leaf,
+                                                     r)
 
 
 def test_restore_matches_jax_elastic_case(jax_shards):

@@ -2,20 +2,25 @@
 """Run some phases of ``chip_smoke.py`` on the card, without the rest.
 
     python3 tools/smoke_phases.py ssd_bwd [flash] [flash_bwd] [ssd] \
-        [serve_check] [serve_new] [serve_encdec] [train_check] [train] \
-        [train_ssm] [train_moe] [train_encdec] [train_mesh] [shard] \
-        [--mesh-runs NAME ...]
+        [serve_check] [serve] [serve_new] [serve_encdec] [train_check] [train] \
+        [train_ssm] [train_moe] [train_encdec] [train_mesh] [serve_mesh] \
+        [shard] [--mesh-runs NAME ...]
 
 Builds the attention and SSD sources, forward and backward (one ``nvcc``
 each, in parallel), prints each kernel's registers and spills, then runs
-the named phases (``serve_new``: the serve runs of qwen3-moe-30b-a3b and
+the named phases (``serve``: the serve phase's runs; ``serve_new``: the
+serve runs of qwen3-moe-30b-a3b and
 chameleon-34b; ``train_ssm``: the train phase of mamba2-780m, then of
 zamba2-1.2b; ``train_moe`` and ``train_encdec``: that of
 qwen3-moe-30b-a3b and of seamless-m4t-medium; ``train_mesh``: the runs
 of ``tools/train_mesh.py`` over the visible cards, one process per
 card, each held against its own one-card reference (qwen3-0.6b's alone,
 without the train phase's run A; ``--mesh-runs``: only the runs of
-those names); ``shard``:
+those names); ``serve_mesh``: the runs of ``tools/serve_mesh.py``
+over the visible cards, each against its own one-card reference (and
+qwen3-0.6b's (1, 1) layout bit-equal to the serve phase's qwen3-0.6b
+run when ``serve`` ran before it; ``--mesh-runs`` names its runs too);
+``shard``:
 the search
 across several devices, which also builds the GAT and simulator
 sources) in the order given, each
@@ -37,7 +42,8 @@ import chip_smoke as cs  # noqa: E402
 
 PHASES = ("flash", "flash_bwd", "ssd", "ssd_bwd", "serve_check",
           "serve_new", "serve_encdec", "train_check", "train", "train_ssm",
-          "train_moe", "train_encdec", "train_mesh", "shard")
+          "train_moe", "train_encdec", "train_mesh", "serve_mesh", "shard",
+          "serve")
 
 
 def main(argv=None):
@@ -103,6 +109,11 @@ def run_phase(name, cs, torch, np, rdev, fops, sops, gen, done,
         return cs.phase_train(torch, np, rdev)
     elif name == "train_mesh":
         return cs.phase_train_mesh(torch, np, done.get("train"),
+                                   names=mesh_runs)
+    elif name == "serve":
+        return cs.phase_serve(torch, np, rdev)[2]
+    elif name == "serve_mesh":
+        return cs.phase_serve_mesh(torch, np, done.get("serve"),
                                    names=mesh_runs)
     elif name == "train_moe":
         cs.phase_train_repeat(torch, np, rdev, cs.MOE_TRAIN[0])

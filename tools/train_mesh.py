@@ -376,21 +376,30 @@ def free_device(torch):
 
 
 def profile_step(torch, loop, params, state):
-    """One more step (the 4th) under the profiler, every rank at once:
-    this rank's wall ms (host clock, to its loss), device busy ms (the
-    union of its kernels' intervals: NCCL runs on a stream of its own,
-    beside the compute) and idle share, and the device ms of the NCCL
-    kernels (their transfers and their waits for the other ranks), the
-    GEMMs and attention."""
+    """One more step (the 4th) under the profiler, every rank at once
+    (``device_profile``)."""
     import torch.distributed as dist
-    from torch.autograd import DeviceType
     batch = loop.batch_at(STEPS)
     torch.cuda.synchronize()
     dist.barrier()
-    with cs.padded_profile() as prof:
-        t0 = time.perf_counter()
+
+    def step():
         _, _, met = loop.step_fn(params, state, batch, STEPS)
         float(met["loss"])
+    return device_profile(torch, step)
+
+
+def device_profile(torch, fn):
+    """``fn`` once under the profiler: this rank's wall ms (host clock,
+    to the card's synchronize), device busy ms (the union of its kernels'
+    intervals: NCCL runs on a stream of its own, beside the compute) and
+    idle share, and the device ms of the NCCL kernels (their transfers
+    and their waits for the other ranks), the GEMMs, attention and the
+    SSD scan, and the top kernels."""
+    from torch.autograd import DeviceType
+    with cs.padded_profile() as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     # "nccl:<op>" records repeat their kernels' time: left out
