@@ -1668,7 +1668,10 @@ def flash_family_cases():
     prefill over ``SP_RANKS`` cards (8 KV heads with 5 queries each, h
     128): each rank's ceil(S/3) query rows at their first position over
     every key, at prompts of 256 and 2048 (the last rank's block runs
-    one row past the prompt, as serve_mesh pads it)."""
+    one row past the prompt, as serve_mesh pads it); last granite-3-8b's
+    heads (8 KV heads with 4 queries each, h 128) at the train_mesh
+    phase's S 4096, one microbatch's row (B 16 over 4 cards, 4
+    microbatches)."""
     from repro_torch.configs.registry import get_config
     cases = [(cfg.name, 1, S, S, cfg.n_kv_heads, cfg.q_per_kv,
               cfg.head_dim, cfg.dtype, True, 0)
@@ -1680,6 +1683,7 @@ def flash_family_cases():
     ll4 = get_config("llama4-maverick-400b-a17b")
     q25 = get_config("qwen2.5-14b")
     heads = lambda c: (c.n_kv_heads, c.q_per_kv, c.head_dim)  # noqa: E731
+    gr = get_config("granite-3-8b")
     return cases + [
         enc[:7] + (ed.dtype, False, 0),
         ("cross:Sq=4096,Sk=2048", 1, 4096, 2048, *heads(ed), ed.dtype,
@@ -1690,7 +1694,9 @@ def flash_family_cases():
     ] + [(f"qwen2.5-14b:SP S={S} rank {r}", 1, c, S, *heads(q25),
           q25.dtype, True, r * c)
          for S in (256, 2048) for c in (-(-S // SP_RANKS),)
-         for r in range(SP_RANKS)]
+         for r in range(SP_RANKS)] + [
+        ("granite-3-8b:train", 1, TRAIN_SEQ, TRAIN_SEQ, *heads(gr),
+         gr.dtype, True, 0)]
 
 
 def flash_error(torch, got, want, bf16):
@@ -1876,7 +1882,9 @@ def flash_bwd_family_cases():
     attention of the train_mesh phase's qwen2.5-14b run (8 KV heads with
     5 queries each, h 128, one microbatch's row): rank r of m = 3 takes
     the S/m query rows at causal offset S r / m over all S = 3072 keys,
-    r = 1 and 2; bf16, on the tensor cores."""
+    r = 1 and 2; and granite-3-8b's train_mesh attention (8 KV heads
+    with 4 queries each, h 128, S 4096, one microbatch's row); bf16, on
+    the tensor cores."""
     from repro_torch.configs.registry import get_config
     bf = "bfloat16"
     heads = lambda c: (c.n_kv_heads, c.q_per_kv, c.head_dim)  # noqa: E731
@@ -1895,7 +1903,9 @@ def flash_bwd_family_cases():
          *heads(get_config("chameleon-34b")), bf, True, 0)] + [
         (f"qwen2.5-14b:sp:r={r}", 1, SP_SEQ // SP_RANKS, SP_SEQ,
          *heads(get_config("qwen2.5-14b")), bf, True,
-         SP_SEQ * r // SP_RANKS) for r in (1, 2)]
+         SP_SEQ * r // SP_RANKS) for r in (1, 2)] + [
+        ("granite-3-8b:train", 1, TRAIN_SEQ, TRAIN_SEQ,
+         *heads(get_config("granite-3-8b")), bf, True, 0)]
 
 
 def flash_bwd_error(torch, got, want, bf16):
@@ -2638,6 +2648,60 @@ def step_launches(cfg, tensor_cores):
     return {k: v * cfg.grad_accum_microbatches for k, v in out.items()}
 
 
+def step_collectives(model):
+    """The FSDP collectives of one training step of ``model`` under its
+    plan, as ``parallel.fsdp_counts`` counts them: every leaf that a data
+    axis of more than one process cuts is all-gathered over each such
+    axis where it is used, a unit's slice of a stacked leaf (never the
+    stack) where the unit runs, once in the forward and again in each
+    recompute (remat "full" or "dots": once more; the transformer's
+    two-level remat twice more, but for each group's last unit, as
+    ``step_launches`` counts the attention; zamba2's tail runs outside
+    any checkpoint: once), the leaves outside the stacks once a forward;
+    each gather's gradient is reduce-scattered once in the backward
+    along a batch axis (along a data axis that is not one it is sliced,
+    no collective); all of it once per microbatch.  Returns
+    {all_gather, reduce_scatter, all_gather_max_numel}: the counts a
+    step, and the most elements one all-gather gave."""
+    import math
+    from repro_torch.distributed import parallel as par
+    from repro_torch.utils.params import tree_leaves
+    cfg, plan = model.cfg, model.plan
+    out = {"all_gather": 0, "reduce_scatter": 0, "all_gather_max_numel": 0}
+    if plan is None:
+        return out
+    data = par.live_axes(plan.mesh, plan.data_axes)
+    batch = par.live_axes(plan.mesh, plan.batch_axes)
+    r = 0 if cfg.remat == "none" else 1
+    specs = model.param_specs()
+    for key, sub in model.param_defs().items():
+        leaves = tree_leaves(sub)
+        k = sum(a == "layer" for a in leaves[0][1].axes) \
+            if key in model.stack_keys else 0
+        n = math.prod(leaves[0][1].shape[:k])
+        uses = [1] * n if k == 0 or key == "tail" else [1 + r] * n
+        blk = cfg.scan_block
+        if (key == "layers" and cfg.ssm is None and r and cfg.scan_layers
+                and blk and n % blk == 0):
+            uses = [3 - (u % blk == blk - 1) for u in range(n)]
+        sp = dict(tree_leaves(specs[key]))
+        for name, d in leaves:
+            live = [a for e in tuple(sp[name])[k:]
+                    for a in par.live_axes(plan.mesh, e)]
+            cuts = [a for a in live if a in data]
+            if not cuts:
+                continue
+            out["all_gather"] += len(cuts) * sum(uses)
+            out["reduce_scatter"] += sum(a in batch for a in cuts) * n
+            # gathered over the data axes, still cut over "model"
+            numel = math.prod(d.shape[k:]) // math.prod(
+                plan.mesh.shape[a] for a in live if a not in data)
+            out["all_gather_max_numel"] = max(out["all_gather_max_numel"],
+                                              numel)
+    m = cfg.grad_accum_microbatches
+    return {k: v if k.endswith("numel") else v * m for k, v in out.items()}
+
+
 # train_check's models: (arch, depth cut) at full width in f32; zamba2
 # keeps one group of 6 and a tail layer, as serve_check cuts it
 TRAIN_CHECKS = ((TRAIN_ARCH, {"n_layers": 2}),
@@ -2954,29 +3018,35 @@ def phase_train_mesh(torch, np, train=None, names=None):
     ``python -m torch.distributed.run --standalone`` on
     ``tools/train_mesh.py``, rendezvous on the loopback, once per launch
     that ``mesh_launches`` gives (on four cards: 4, the MoE's 16-layer
-    cut in a launch of its own, then 3 for qwen2.5-14b's
-    sequence-parallel run; on one: 1).  Each run of
+    cut and granite-3-8b's 40 layers each in a launch of its own, then 3
+    for qwen2.5-14b's sequence-parallel run; on one: 1).  Each run of
     ``tools/train_mesh.py`` ``RUNS`` trains its model at published
-    widths (the depth cuts in ``RUNS``) from seed 0, B 4, for
-    ``MESH_STEPS`` steps on each of its (data, model) layouts:
+    widths (the depth cuts in ``RUNS``) from seed 0, B 4 (granite 16,
+    its config's 4 microbatches), for ``MESH_STEPS`` steps on each of
+    its (data, model) layouts, FSDP one unit at a time:
     qwen3-0.6b ((1, 1); (2, 1), (1, 2); (4, 1), (1, 4), (2, 2), and
     (1, 4) with ``seq_shard_activations`` also against (1, 4) without
     it), mamba2-780m ((1, 4), (2, 2)), zamba2-1.2b, qwen3-moe-30b-a3b at 4
     and 16 layers (expert parallel, 32 experts a rank) and
-    seamless-m4t-medium at (1, 4), qwen2.5-14b at (1, 3); qwen3's
+    seamless-m4t-medium at (1, 4), qwen2.5-14b at (1, 3), granite-3-8b
+    at 8 layers ((4, 1), (2, 2)) and all 40 ((4, 1): no reference, no
+    card holds it with its optimizer state); qwen3's
     checkpoint saved on one layout is restored onto another (one card: a
     one-card loop).  The worker's gates (``tools/train_mesh.py``
     ``gate_run``, checked after each run): exactly ``step_launches`` a
-    step on every rank; against rank 0's one-card reference, one card
-    bit-equal (losses and parameter checksums), more within stated
-    tolerances; each run's line says what missed (``gates_missed``, every
-    rank's).  Here, in addition: qwen3's reference
+    step on every rank, and exactly ``step_collectives``' FSDP
+    all-gathers and reduce-scatters; against rank 0's one-card
+    reference, one card bit-equal (losses and parameter checksums), more
+    within stated tolerances; each run's line says what missed
+    (``gates_missed``, every rank's).  Here, in addition: qwen3's reference
     bit-equal to the first steps of ``phase_train``'s run A when it ran
     (``train``).  A run that needs more cards than the host has is
     printed as not run.  ``names``: only the runs of these names.
     Prints per layout the median step ms (host
-    clock, steps 2-3), tokens/s, each rank's peak memory and shard
-    bytes, each rank's profile of a 4th step (device busy, NCCL, GEMM,
+    clock, steps 2-3), tokens/s, each rank's peak memory (beside the
+    run's prediction, where it has one), shard bytes and FSDP
+    collectives a step (counts, largest tensors), each rank's profile of
+    a 4th step (device busy, NCCL in all and by collective, GEMM,
     attention and SSD ms), the card count, and the memory this process
     still holds on cuda:0."""
     n = torch.cuda.device_count()
@@ -3173,8 +3243,9 @@ def phase_serve_mesh(torch, np, serve_rows=None, names=None):
 
 def mesh_rows(res, per_rank, world):
     """The printed rows of one train_mesh run: per layout and restore,
-    rank 0's row with every rank's launches a step, peak memory, shard
-    bytes and median step ms."""
+    rank 0's row with every rank's launches and FSDP collectives a step,
+    peak memory (beside the run's prediction, where it has one), shard
+    bytes, median step ms and NCCL ms by collective."""
     rows = {}
     for kind in ("layouts", "restores"):
         for i, row in enumerate(res.get(kind, ())):
@@ -3186,6 +3257,9 @@ def mesh_rows(res, per_rank, world):
                        "checksums", "launches")},
                    "launches_per_rank": [rr["launches_per_step"]
                                          for rr in ranks_of],
+                   "collectives_per_rank": [rr["collectives_per_step"]
+                                            for rr in ranks_of],
+                   "peak_gb_predicted": res.get("peak_gb"),
                    "peak_memory_bytes_per_rank": [rr["peak_memory_bytes"]
                                                   for rr in ranks_of],
                    "param_shard_bytes_per_rank": [rr["param_shard_bytes"]
@@ -3195,7 +3269,10 @@ def mesh_rows(res, per_rank, world):
                    "median_step_ms_per_rank": [rr["median_step_ms"]
                                                for rr in ranks_of],
                    "nccl_ms_per_rank": [rr.get("profile", {}).get("nccl_ms")
-                                        for rr in ranks_of]}
+                                        for rr in ranks_of],
+                   "nccl_ms_by_collective_per_rank": [
+                       rr.get("profile", {}).get("nccl_ms_by_collective")
+                       for rr in ranks_of]}
             emit(out)
             rows[f"{res['name']}:{kind[:-1]}:{row['layout']}"] = out
     return rows

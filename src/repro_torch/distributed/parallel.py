@@ -10,7 +10,12 @@ this module holds the operations that layout implies, over a
 
 - ``shard_tree`` / ``gather_tree``: a leaf cut along each dim by the mesh
   axes its spec names (a tuple of axes in its order, the first major),
-  as ``NamedSharding`` cuts it, and put back together by all-gathers;
+  as ``NamedSharding`` cuts it, and put back together by all-gathers
+  (checkpoints, ``LMBase.load_serving``);
+- ``gather_data``: FSDP as GSPMD runs JAX's scanned layers, one unit at a
+  time: a leaf's shard all-gathered over the data axes where it is used,
+  its gradient reduce-scattered back to the shard in the backward;
+  ``fsdp_counts`` counts both;
 - Megatron's f and g (``copy_to_model``: identity forward, all-reduce
   over "model" backward; ``reduce_from_model``: all-reduce forward in
   f32, cast once, identity backward) and ``matmul_f32``, the row-parallel
@@ -28,7 +33,9 @@ this module holds the operations that layout implies, over a
 - the vocab-parallel embedding lookup and cross-entropy
   (``models/common.py`` ``embed`` / ``chunked_xent`` with the vocab cut
   over "model");
-- ``reduce_grads``: the gradient rule of a sharded train step;
+- ``reduce_grads``: what the gradient rule of a sharded train step
+  leaves to the end of the step, once ``gather_data``'s backward has
+  cut each leaf's gradient to its shard;
 - ``all_reduce_`` / ``mean_over``: the sums and means over sharded dims
   the optimizer needs.
 
@@ -159,13 +166,18 @@ def shard_leaf(x, spec, mesh):
         memory_format=torch.contiguous_format)
 
 
+def _cuts(spec, ndim, mesh, axes=None):
+    """(dim, axis) of each axis of size > 1 (of ``axes`` when given) that
+    cuts a dim of a leaf of ``spec``, the major axis of a dim first."""
+    return [(d, a) for d, cut in enumerate(dim_axes(spec, ndim))
+            for a in _live(mesh, cut) if axes is None or a in axes]
+
+
 def gather_leaf(x, spec, mesh, axes=None):
     """The leaf whose shard is ``x`` gathered over the axes of size > 1
     that cut it (only those in ``axes`` when given)."""
-    for d, cut in enumerate(dim_axes(spec, x.ndim)):
-        for a in reversed(_live(mesh, cut)):     # the minor axis first
-            if axes is None or a in axes:
-                x = all_gather(x, d, mesh, a)
+    for d, a in reversed(_cuts(spec, x.ndim, mesh, axes)):
+        x = all_gather(x, d, mesh, a)           # the minor axis first
     return x
 
 
@@ -187,6 +199,73 @@ def gather_tree(local, specs, mesh, axes=None):
     sp = _specs_by_name(specs)
     return tree_from_flat(local, {n: gather_leaf(x, sp[n], mesh, axes)
                                   for n, x in tree_leaves(local)})
+
+
+# ------------------------------------------- FSDP, one unit at a time
+_FSDP_KEYS = ("all_gather", "all_gather_max_bytes", "all_gather_max_numel",
+              "reduce_scatter", "reduce_scatter_max_bytes")
+_fsdp = dict.fromkeys(_FSDP_KEYS, 0)
+
+
+def reset_fsdp_counts() -> None:
+    """Zero ``fsdp_counts``."""
+    _fsdp.update(dict.fromkeys(_FSDP_KEYS, 0))
+
+
+def fsdp_counts() -> dict:
+    """The all-gathers and reduce-scatters ``gather_data`` made over the
+    data axes since ``reset_fsdp_counts``: each count, and the largest
+    tensor each gathered (its bytes and elements) or reduce-scattered
+    (the full tensor's bytes)."""
+    return dict(_fsdp)
+
+
+def _count(kind, x):
+    _fsdp[kind] += 1
+    nbytes = x.numel() * x.element_size()
+    _fsdp[kind + "_max_bytes"] = max(_fsdp[kind + "_max_bytes"], nbytes)
+    if kind == "all_gather":
+        _fsdp["all_gather_max_numel"] = max(_fsdp["all_gather_max_numel"],
+                                            x.numel())
+
+
+class _GatherData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, cuts, mesh, batch):
+        ctx.cuts, ctx.mesh, ctx.batch = cuts, mesh, batch
+        for d, a in reversed(cuts):              # the minor axis first
+            x = all_gather(x, d, mesh, a)
+            _count("all_gather", x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        for d, a in ctx.cuts:                    # the major axis first
+            if a in ctx.batch:
+                _count("reduce_scatter", g)
+                g = _reduce_scatter(g, d, ctx.mesh, a)
+            else:
+                g = block(g, d, ctx.mesh, (a,)).contiguous()
+        return g, None, None, None
+
+
+def gather_data(x, spec, mesh, data_axes, batch_axes):
+    """The leaf whose shard is ``x`` (its spec ``spec``) gathered over the
+    axes of size > 1 of ``data_axes`` that cut it, as GSPMD gathers a
+    ``NamedSharding`` leaf where a scanned layer uses it; ``x`` itself
+    where none cuts it.  The backward is the first half of the gradient
+    rule (``reduce_grads`` the second): along a batch axis that cuts the
+    leaf, the full gradient of this rank's rows summed over the axis and
+    cut to this rank's block (a reduce-scatter); along a data axis that
+    is not a batch axis, this rank's block (the gradients are equal on
+    its ranks).  Nothing else: the sums over "model" and over the batch
+    axes that cut nothing, and the division by the batch shards, are
+    ``reduce_grads``', once a step on the shard."""
+    cuts = _cuts(spec, x.ndim, mesh, tuple(data_axes))
+    if not cuts:
+        return x
+    return _GatherData.apply(x, cuts, mesh, _live(mesh, entry_axes(
+        batch_axes)))
 
 
 # ------------------------------------------------- Megatron's f and g
@@ -534,40 +613,32 @@ def vocab_xent(w, h, targets, cfg, mesh, mask=None, axis: str = "model",
 # -------------------------------------------------------- the gradients
 def reduce_grads(grads, specs, mesh, batch_axes, model_partial=(),
                  model_axis: str = "model"):
-    """The gradient rule of a sharded step.  ``grads`` are this rank's
-    gradients of its rows' mean loss in the layout the step computed
-    with: every leaf whole over the non-model axes (FSDP gathered), cut
-    over ``model_axis`` as its spec says.  Returns each leaf as this
-    rank's shard (``specs``) of the mean over the batch axes:
-    - summed over ``model_axis`` first for the leaves in
-      ``model_partial``: replicated over it but used inside a
-      head-partitioned region, so each rank holds its heads' part;
-    - along a batch axis that cuts the leaf, a reduce-scatter; along one
-      that does not, an all-reduce;
-    - along a non-batch axis that cuts the leaf, a plain slice (the
-      gradients are equal on its ranks);
-    - divided by the number of batch shards."""
+    """The gradient rule of a sharded step, its second half.  ``grads``
+    are this rank's gradients of its rows' mean loss, already in the
+    shards' layout (``specs``): ``gather_data``'s backward reduce-scattered
+    each leaf over the batch axes that cut it, or took this rank's block
+    along a data axis that is not a batch axis, unit by unit.  What is
+    left, once a step on the shard, and nothing of that:
+    - the sum over ``model_axis`` of the leaves in ``model_partial``:
+      replicated over it but used inside a head-partitioned region, so
+      each rank holds its heads' part;
+    - along a batch axis that cuts nothing of the leaf, an all-reduce;
+    - the division by the number of batch shards.
+    The two halves together are the whole rule: along every batch axis
+    the leaf's gradient is summed once, by a reduce-scatter where the
+    axis cuts it and an all-reduce where it does not."""
     batch = _live(mesh, entry_axes(batch_axes))
     n = math.prod(mesh.shape[a] for a in batch)
     sp = _specs_by_name(specs)
     out = {}
     for name, g in tree_leaves(grads):
         cuts = dim_axes(sp[name], g.ndim)
-        in_place = name in model_partial or any(
-            not any(a in axes for axes in cuts) for a in batch)
-        # a copy before reducing in place: autograd may alias gradients
-        g = g.clone(memory_format=torch.contiguous_format) if in_place else g
-        if name in model_partial:
-            all_reduce_(g, mesh, (model_axis,))
-        for a in batch:
-            if not any(a in axes for axes in cuts):
-                all_reduce_(g, mesh, (a,))
-        for d, axes in enumerate(cuts):
-            for a in _live(mesh, axes):          # the major axis first
-                if a == model_axis:
-                    continue
-                g = (_reduce_scatter(g, d, mesh, a) if a in batch
-                     else block(g, d, mesh, (a,)).contiguous())
+        uncut = [a for a in batch if not any(a in axes for axes in cuts)]
+        if name in model_partial or uncut:
+            # a copy before reducing in place: autograd may alias gradients
+            g = g.clone(memory_format=torch.contiguous_format)
+            if name in model_partial:
+                all_reduce_(g, mesh, (model_axis,))
+            all_reduce_(g, mesh, tuple(uncut))
         out[name] = g / n if n > 1 else g
     return tree_from_flat(grads, out)
-

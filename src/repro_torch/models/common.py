@@ -190,6 +190,12 @@ def layer_slice(tree, i):
     return tree[i]
 
 
+class FSDPView(dict):
+    """A model's parameters for one forward under FSDP (``LMBase.view``):
+    the leaves outside the layer stacks gathered, the stacks still this
+    rank's shards (``LMBase.layer`` gathers a unit's slice at its use)."""
+
+
 class LMBase(nn.Module):
     """What the port's language models share: their parameters live in
     ``self.params``, a nested ``nn.ParameterDict`` in the JAX pytree's
@@ -199,6 +205,18 @@ class LMBase(nn.Module):
     argument, as the JAX models do.  ``plan`` is the sharding plan the
     model was made for (``models/zoo.py`` ``get_model``), None on one
     card.
+
+    Under a plan whose data axes cut the parameters (FSDP), the model
+    holds this rank's shards and gathers them one unit at a time, as
+    GSPMD runs JAX's scanned layers: ``view`` gathers the leaves outside
+    the layer stacks once a forward (the embedding and unembedding,
+    zamba2's shared block), ``layer`` a unit's slice of a stack where the
+    unit runs (inside its checkpoint, so again in its recompute), each
+    through ``parallel.gather_data``, whose backward reduce-scatters the
+    gradient to the shard.  Every family calls ``layer`` in place of
+    ``layer_slice``; both are the plain slice on one card, where no data
+    axis has more than one process, and for a model that holds
+    model-local leaves (``load_serving``, ``load_local``).
 
     Under a plan, ``prefill`` and ``decode_step`` serve (JAX's
     ``launch/programs.py`` cells): the parameters are the rank's
@@ -223,6 +241,9 @@ class LMBase(nn.Module):
         self.tp = par.TensorParallel(plan) if split else None
         self.tp_whole = (par.TensorParallel(plan, seq=False) if split
                          else None)
+        # True while the model holds model-local leaves (``load_local``,
+        # ``load_serving``): nothing to gather
+        self.model_local = False
 
     def param_defs(self):
         return with_dtype(self._param_defs_raw(), self.cfg.param_dtype)
@@ -266,6 +287,59 @@ class LMBase(nn.Module):
             return True
         return seq and parent in ("mlp", "shared") and \
             plan.rules["mlp"] != "model"
+
+    # --------------------------------------------- FSDP, unit by unit
+    @functools.cached_property
+    def stack_keys(self):
+        """The top-level keys whose leaves are stacked on "layer" axes."""
+        return frozenset(key for key, sub in self.param_defs().items()
+                         if all(d.axes[0] == "layer"
+                                for _, d in tree_leaves(sub)))
+
+    @functools.cached_property
+    def _fsdp_specs(self):
+        """The parameters' specs where some data axis of the plan has more
+        than one process, else None (one card, or the data axes of 1)."""
+        if self.plan is None or not par.live_axes(self.plan.mesh,
+                                                  self.plan.data_axes):
+            return None
+        return self.param_specs()
+
+    @property
+    def fsdp(self) -> bool:
+        """Whether this model gathers its FSDP shards as it runs: a plan
+        with a data axis of more than one process, and shards held (not
+        ``load_local``'s model-local leaves)."""
+        return self._fsdp_specs is not None and not self.model_local
+
+    def _gather(self, tree, specs, stacked: int = 0):
+        plan = self.plan
+        return tree_map(lambda x, sp: par.gather_data(
+            x, sp[stacked:], plan.mesh, plan.data_axes, plan.batch_axes),
+            tree, specs)
+
+    def view(self, params):
+        """``params`` for one forward: under FSDP an ``FSDPView`` with the
+        leaves outside the stacks gathered (once: a view passes through),
+        else ``params`` itself."""
+        if not self.fsdp or isinstance(params, FSDPView):
+            return params
+        out = FSDPView(params.items())
+        for key, sub in params.items():
+            if key not in self.stack_keys:
+                out[key] = self._gather(sub, self._fsdp_specs[key])
+        return out
+
+    def layer(self, params, key: str, *index):
+        """The slice ``index`` (one index per stacked axis taken) of the
+        stack ``params[key]``: under FSDP each leaf gathered over the data
+        axes (``parallel.gather_data``), else ``layer_slice``'s views."""
+        tree = params[key]
+        for i in index:
+            tree = layer_slice(tree, i)
+        if not self.fsdp:
+            return tree
+        return self._gather(tree, self._fsdp_specs[key], len(index))
 
     # ------------------------------------------- the split over "model"
     def _embed(self, p, tokens, tp=None):
@@ -323,13 +397,22 @@ class LMBase(nn.Module):
     def load_serving(self, params):
         """Hold this rank's shards ``params`` (the ``param_specs`` layout,
         as training holds them) as model-local leaves: the FSDP ("data")
-        cut of every leaf gathered once, as ``training/train_step.py``
-        ``make_grad_fn`` gathers it once a step."""
+        cut of every leaf gathered once here, and not again as the model
+        runs (``model_local``; a decode tick would otherwise gather every
+        unit for each token)."""
         if self.plan is not None:
             with torch.no_grad():
                 params = par.gather_tree(params, self.param_specs(),
                                          self.plan.mesh, self.plan.data_axes)
-        return self.load(params)
+        return self.load_local(params)
+
+    def load_local(self, params):
+        """Hold model-local leaves ``params`` (the ``serve_specs``
+        layout) as this model's parameters, never gathered again as the
+        model runs; returns them."""
+        params = self.load(params)
+        self.model_local = True
+        return params
 
     def local_cache_struct(self, batch: int, max_len: int, **kw):
         """``cache_struct`` of the global ``batch``, each leaf's shape this
@@ -363,6 +446,7 @@ class LMBase(nn.Module):
         ``param_defs``) as this model's parameters; returns them."""
         self.params = (params if isinstance(params, nn.ParameterDict)
                        else to_parameter_dict(params))
+        self.model_local = False
         return self.params
 
     def _final(self, params, x, aux=None):
@@ -377,6 +461,7 @@ class LMBase(nn.Module):
         """batch: {tokens (B,S), labels (B,S)[, mask (B,S)]} -> (loss,
         metrics {ce, aux, tokens}): ``forward``'s final hidden states
         through ``chunked_xent``, as every JAX model's ``loss``."""
+        params = self.view(params)
         h, aux = self.forward(params, batch["tokens"])
         ce, cnt = self._xent(params["embed"], h, batch["labels"],
                              batch.get("mask"))

@@ -10,7 +10,9 @@ memory (no RoPE, Sq != Sk), SwiGLU MLP.  Every prefill and training
 attention goes through ``blocked_attention`` (the flash kernels on
 CUDA); decode is ``decode_attention`` over the self cache and over the
 cross cache, plain torch ops as in the JAX package.  Each encoder and
-decoder layer is one ``remat`` unit, as JAX's ``_remat`` body.
+decoder layer is one ``remat`` unit, as JAX's ``_remat`` body; under
+FSDP its slice is gathered inside the unit (``LMBase.layer``), so again
+in its recompute.
 
 Under a plan that splits "model" (JAX ``:60-119``) every attention and
 MLP goes through ``TransformerLM``'s split blocks (``self._tf``, built
@@ -70,12 +72,13 @@ class EncDecLM(cm.LMBase):
         """enc_emb (B,Se,D) precomputed frame embeddings (frontend stub)
         -> encoder memory (B,Se,D) in the activation dtype."""
         cfg = self.cfg
+        params = self.view(params)
         x = enc_emb.to(cfg.act_dtype)
         positions = torch.arange(x.shape[1], device=x.device)
         if self.tp is not None and self.tp.seq:
             x = x[:, par.seq_rows(x.shape[1], self.tp.mesh)]
         body = remat(lambda i, h: self._enc_layer(
-            cm.layer_slice(params["enc"], i), h, positions), cfg)
+            self.layer(params, "enc", i), h, positions), cfg)
         for i in range(cfg.enc_layers):
             x = body(i, x)
         return cm.rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
@@ -115,12 +118,13 @@ class EncDecLM(cm.LMBase):
         """batch {tokens (B,St), enc_emb (B,Se,D)} -> (final hidden
         states (B,St,D), aux loss 0.0)."""
         cfg = self.cfg
+        params = self.view(params)
         enc_out = self.encode(params, batch["enc_emb"])
         tokens = batch["tokens"]
         x = self._embed(params["embed"], tokens)
         positions = torch.arange(tokens.shape[1], device=x.device)
         body = remat(lambda i, h, mem: self._dec_layer(
-            cm.layer_slice(params["dec"], i), h, mem, positions), cfg)
+            self.layer(params, "dec", i), h, mem, positions), cfg)
         for i in range(cfg.dec_layers):
             x = body(i, x, enc_out)
         return self._final(params, x)
@@ -128,6 +132,7 @@ class EncDecLM(cm.LMBase):
     def loss(self, params, batch):
         """batch: {tokens, labels (B,St)[, mask], enc_emb (B,Se,D)} ->
         (loss, metrics {ce, aux, tokens})."""
+        params = self.view(params)
         h, aux = self.forward(params, batch)
         ce, cnt = self._xent(params["embed"], h, batch["labels"],
                              batch.get("mask"))
@@ -152,11 +157,12 @@ class EncDecLM(cm.LMBase):
         over the whole encoder memory through the rank's heads."""
         cfg = self.cfg
         tp = self.tp_whole
+        params = self.view(params)
         x = self._embed(params["embed"], token[:, None], tp)
         cut = self.cache_cut
         Se = cache["xk"].shape[2] * (1 if cut is None else cut.n)
         for i in range(cfg.dec_layers):
-            p = cm.layer_slice(params["dec"], i)
+            p = self.layer(params, "dec", i)
             x = self._tf._decode_attn(p, x, cache["k"][i], cache["v"][i],
                                       pos, tp)
             # cross-attention over the full encoder memory
@@ -176,6 +182,7 @@ class EncDecLM(cm.LMBase):
         logits (B,Vp)).  Under a plan: this rank's rows, the encoder
         split as in training, each cache this rank's block."""
         cfg = self.cfg
+        params = self.view(params)
         enc_out = self.encode(params, enc_emb)
         if self.tp is not None:
             enc_out = self.tp.enter(enc_out)    # whole under Megatron-SP
@@ -185,7 +192,7 @@ class EncDecLM(cm.LMBase):
         cut = self.cache_cut
         for i in range(cfg.dec_layers):
             xk, xv = self._cross_kv(
-                cm.layer_slice(params["dec"], i)["xattn"], enc_out)
+                self.layer(params, "dec", i)["xattn"], enc_out)
             att.fill_cache(cache["xk"][i], xk, cut)
             att.fill_cache(cache["xv"][i], xv, cut)
         bos = torch.zeros((B,), dtype=torch.long, device=enc_out.device)

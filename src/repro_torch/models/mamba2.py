@@ -6,8 +6,9 @@ chunked matmul form (arXiv:2405.21060 §6): quadratic attention-like
 products within chunks and a sequential scan over chunk states; on CUDA
 tensors ``ssd_chunked`` runs the kernels of ``kernels.ssd_scan``, whose
 backward is a kernel too.  The training forward runs the layers in a
-Python loop over ``layer_slice`` views, each under ``remat`` (one
-checkpoint per layer, as JAX's ``_remat`` body).
+Python loop over ``LMBase.layer`` slices, each under ``remat`` (one
+checkpoint per layer, as JAX's ``_remat`` body); under FSDP the slice
+is gathered inside the checkpoint, so again in its recompute.
 Decode is the O(1) recurrent step on (H, N, hd) states.  Under a plan
 that splits the SSM heads, prefill and decode run on the rank's heads
 and d_in columns: its cache holds their states and conv_x columns
@@ -229,10 +230,11 @@ class Mamba2LM(cm.LMBase):
     def forward(self, params, tokens):
         """tokens (B,S) -> (final hidden states (B,S,D), aux loss 0.0)."""
         cfg = self.cfg
+        params = self.view(params)
         x = self._embed(params["embed"], tokens)
         tp = ssm_split(self)
         body = remat(lambda i, h: mamba_block(
-            cm.layer_slice(params["layers"], i), h, cfg, tp=tp)[0], cfg)
+            self.layer(params, "layers", i), h, cfg, tp=tp)[0], cfg)
         for i in range(cfg.n_layers):
             x = body(i, x)
         return self._final(params, x)
@@ -246,9 +248,10 @@ class Mamba2LM(cm.LMBase):
         plan: this rank's rows, SSM heads and conv_x columns."""
         cfg = self.cfg
         tp = self.tp_whole
+        params = self.view(params)
         x = self._embed(params["embed"], token[:, None], tp)
         for i in range(cfg.n_layers):
-            x = decode_layer(cm.layer_slice(params["layers"], i), x, cfg,
+            x = decode_layer(self.layer(params, "layers", i), x, cfg,
                              cache, i, ssm_split(self, tp))
         x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
         return self._logits_last(params["embed"], x[:, 0], tp), cache
@@ -258,10 +261,11 @@ class Mamba2LM(cm.LMBase):
         state, last-token logits).  Under a plan: this rank's rows, the
         scan on its heads (their states and conv_x columns kept)."""
         cfg = self.cfg
+        params = self.view(params)
         x = self._embed(params["embed"], tokens)
         tails, states = [], []
         for i in range(cfg.n_layers):
-            x, (t3, st) = mamba_block(cm.layer_slice(params["layers"], i), x,
+            x, (t3, st) = mamba_block(self.layer(params, "layers", i), x,
                                       cfg, return_state=True,
                                       tp=ssm_split(self))
             tails.append(t3)

@@ -3,8 +3,10 @@ training forward and loss, prefill and decode.
 
 Copied from ``src/repro/models/transformer.py``.  Layers are stacked on
 a leading axis, as in the JAX pytree, and run in a Python loop over
-``layer_slice`` views, so a layer's gradients land in the stacked
-leaves.  A unit is one layer, or for MoE configs with
+``LMBase.layer`` slices, so a layer's gradients land in the stacked
+leaves; under FSDP each unit's slice is gathered over the data axes
+inside the unit (so again in its recompute) and its gradient
+reduce-scattered to the shard.  A unit is one layer, or for MoE configs with
 ``moe.every`` = e > 1 the e layers {"dense0", ..., "moe_layer"} that
 JAX's scan stacks together; the MoE layers' aux losses are summed in
 f32 over units and added to the loss.  ``cfg.remat`` maps onto
@@ -13,7 +15,12 @@ f32 over units and added to the loss.  ``cfg.remat`` maps onto
 outputs of matrix products without batch dimensions (JAX's
 ``dots_with_no_batch_dims_saveable``), and ``scan_block`` > 0 wraps
 groups of that many units in one more checkpoint, as the JAX two-level
-scan does.  Every setting gives the same numbers.
+scan does.  Every setting gives the same numbers.  Under FSDP a unit's
+gather runs where the unit's forward runs: once, then in the recompute
+("full", "dots"), and under the two-level remat a third time in its
+group's recompute, but for the group's last unit, whose recompute
+PyTorch's early stop skips; with "none" every gathered unit is saved
+for the backward, as JAX without ``jax.checkpoint`` keeps them.
 
 With a plan whose "model" axis has more than one process, the layers
 run split over it (``LMBase.tp``, a ``parallel.TensorParallel``), with
@@ -149,17 +156,18 @@ class TransformerLM(cm.LMBase):
     def _unit_layers(self, params, u):
         """(depth, layer params) of unit u's layers in depth order."""
         per = self.cfg.moe.every if self.cfg.moe else 1
-        p_u = cm.layer_slice(params["layers"], u)
+        p_u = self.layer(params, "layers", u)
         if per == 1:
             return [(u, p_u)]
         names = [f"dense{i}" for i in range(per - 1)] + ["moe_layer"]
         return [(u * per + j, p_u[nm]) for j, nm in enumerate(names)]
 
     def _layers(self, params):
-        """(depth, layer params) over every layer in depth order."""
+        """(depth, layer params) over every layer in depth order, a unit
+        at a time."""
         n_units, _ = self._unit_defs()
-        return [dp for u in range(n_units)
-                for dp in self._unit_layers(params, u)]
+        return (dp for u in range(n_units)
+                for dp in self._unit_layers(params, u))
 
     def _kv_of_heads(self, k, v, Hm):
         """k / v (B, S, K, h) projected whole (the kv heads do not divide
@@ -284,6 +292,7 @@ class TransformerLM(cm.LMBase):
         """tokens (B,S) -> (final hidden states (B,S,D), aux loss: the
         MoE layers' summed, f32; 0.0 without MoE)."""
         cfg = self.cfg
+        params = self.view(params)
         x = self._embed(params["embed"], tokens)
         positions = torch.arange(tokens.shape[1], device=x.device)
         body = remat(lambda u, h: self._unit(params, u, h, positions), cfg)
@@ -381,6 +390,7 @@ class TransformerLM(cm.LMBase):
         Under a plan: this rank's rows and cache block, the stream
         whole."""
         tp = self.tp_whole
+        params = self.view(params)
         x = self._embed(params["embed"], token[:, None], tp)  # (B,1,D)
         for d, p_l in self._layers(params):
             x = self._decode_layer(p_l, x, cache["k"][d], cache["v"][d], pos,
@@ -393,6 +403,7 @@ class TransformerLM(cm.LMBase):
         Under a plan: this rank's rows, its block of the cache."""
         cfg = self.cfg
         B, S = tokens.shape
+        params = self.view(params)
         x = self._embed(params["embed"], tokens)
         positions = torch.arange(S, device=x.device)
         cache = self.init_cache(B * self.batch_shards, max(max_len, S))

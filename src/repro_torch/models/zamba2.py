@@ -9,7 +9,13 @@ layers; the parameters keep the JAX layout, ``groups`` stacked (G, k,
 own KV-cache slice.  The training forward checkpoints each group (its k
 mamba layers and the shared block, as JAX's ``_remat`` of
 ``_group_fwd``) and runs the tail outside any checkpoint; the shared
-block's gradients sum over its G uses.  Under a plan that splits
+block's gradients sum over its G uses.  Under FSDP each mamba layer's
+slice is gathered where it runs (``LMBase.layer``): inside its group's
+checkpoint, so again in the recompute; the tail's outside any, so its
+few gathered layers are saved for the backward, as JAX keeps an
+unscanned tail's.  The shared block is gathered once a forward
+(``LMBase.view``) and its gradient, summed over the G uses, reduce-
+scattered once.  Under a plan that splits
 "model", the mamba layers run on this rank's heads
 (``mamba2.mamba_block``'s ``tp``) and the shared block through
 ``TransformerLM``'s split attention and MLP (``self._tf``, built with
@@ -22,8 +28,6 @@ shared block consumes the residual stream directly (no
 concat-with-embedding re-projection, no per-invocation LoRA deltas).
 """
 from __future__ import annotations
-
-import itertools
 
 import torch
 
@@ -64,24 +68,28 @@ class Zamba2LM(cm.LMBase):
             d["tail"] = _stack_defs(md, self.tail)
         return d
 
+    def _mamba_layer(self, params, i):
+        """The parameters of mamba layer ``i`` (depth order): of group
+        i // k, or of the tail."""
+        if i < self.G * self.k:
+            return self.layer(params, "groups", i // self.k, i % self.k)
+        return self.layer(params, "tail", i - self.G * self.k)
+
     def _mamba_layers(self, params):
         """(depth index, layer params) for the n_layers mamba layers in
-        depth order, with the shared block due after each group."""
-        for g in range(self.G):
-            p_g = cm.layer_slice(params["groups"], g)
-            for j in range(self.k):
-                yield g * self.k + j, cm.layer_slice(p_g, j)
-        for j in range(self.tail):
-            yield self.G * self.k + j, cm.layer_slice(params["tail"], j)
+        depth order, a layer at a time, with the shared block due after
+        each group."""
+        for i in range(self.cfg.n_layers):
+            yield i, self._mamba_layer(params, i)
 
     # ------------------------------------------------------------- train
     def _group_fwd(self, params, g, x, positions):
         """Group g on x (B,S,D): its k mamba layers, then the shared
         attention and MLP block."""
         cfg, shared = self.cfg, params["shared"]
-        for _, p_l in itertools.islice(self._mamba_layers(params),
-                                       g * self.k, (g + 1) * self.k):
-            x, _ = mamba_block(p_l, x, cfg, tp=ssm_split(self))
+        for i in range(g * self.k, (g + 1) * self.k):
+            x, _ = mamba_block(self._mamba_layer(params, i), x, cfg,
+                               tp=ssm_split(self))
         x, _, _ = self._tf._attn_block(shared, x, positions)
         x, _ = self._tf._ffn_block(shared, x)
         return x
@@ -89,15 +97,16 @@ class Zamba2LM(cm.LMBase):
     def forward(self, params, tokens):
         """tokens (B,S) -> (final hidden states (B,S,D), aux loss 0.0)."""
         cfg = self.cfg
+        params = self.view(params)
         x = self._embed(params["embed"], tokens)
         positions = torch.arange(tokens.shape[1], device=x.device)
         body = remat(lambda g, h: self._group_fwd(params, g, h, positions),
                      cfg)
         for g in range(self.G):
             x = body(g, x)
-        for _, p_l in itertools.islice(self._mamba_layers(params),
-                                       self.G * self.k, None):
-            x, _ = mamba_block(p_l, x, cfg, tp=ssm_split(self))
+        for i in range(self.G * self.k, cfg.n_layers):
+            x, _ = mamba_block(self._mamba_layer(params, i), x, cfg,
+                               tp=ssm_split(self))
         return self._final(params, x)
 
     # ----------------------------------------------------------- serving
@@ -114,6 +123,7 @@ class Zamba2LM(cm.LMBase):
         block's cache."""
         cfg = self.cfg
         tp = self.tp_whole
+        params = self.view(params)
         x = self._embed(params["embed"], token[:, None], tp)
         shared = params["shared"]
         for i, p_l in self._mamba_layers(params):
@@ -128,6 +138,7 @@ class Zamba2LM(cm.LMBase):
     def prefill(self, params, tokens, max_len: int):
         cfg = self.cfg
         B, S = tokens.shape
+        params = self.view(params)
         x = self._embed(params["embed"], tokens)
         positions = torch.arange(S, device=x.device)
         shared = params["shared"]

@@ -11,13 +11,16 @@ trees are the ones passed in.
 With a plan (``distributed/rules.py``) over a process mesh, the trees
 hold this rank's shards (``model.param_specs()``, ``optimizers
 .state_specs``) and the batch this rank's rows, and a step does what the
-JAX step's shardings make GSPMD do: it gathers the FSDP leaves over the
-non-model axes once (a gather per layer, which saves memory, is later
-work), runs the forward and backward on the local rows (microbatches
-split them), reduces each gradient to the mean over the batch axes in
-its shard's layout (``parallel.reduce_grads``), clips by the global norm
-over the shards and runs the optimizer on the shards.  The loss is the
-mean over the batch shards.  Gradient compression under a plan raises:
+JAX step's shardings make GSPMD do: the forward and backward run on the
+local rows (microbatches split them) with the parameters still sharded,
+the model gathering each unit's FSDP shards over the data axes where the
+unit runs and again in its recompute, and reduce-scattering each unit's
+gradient in the backward (``LMBase.layer``, ``parallel.gather_data``);
+so the gradients, and the microbatches' accumulator, have the shards'
+shapes.  Then ``parallel.reduce_grads`` finishes the mean over the batch
+axes on the shards, the step clips by the global norm over the shards
+and runs the optimizer on them.  The loss is the mean over the batch
+shards.  Gradient compression under a plan raises:
 JAX compresses the logical leaf, and int8 blocks cut across shards would
 give other numbers.
 """
@@ -80,7 +83,9 @@ def _microbatch_grads(loss_fn, params, batch, n_micro: int,
 def make_grad_fn(model, cfg: ModelConfig, plan):
     """(params, batch) -> (grads, loss) of a sharded step: this rank's
     shards of the parameters and its rows in, this rank's shards of the
-    mean gradient over the batch shards and that mean loss out."""
+    mean gradient over the batch shards and that mean loss out.  The
+    gradient is taken with respect to the shards themselves: the model
+    gathers them unit by unit as it runs."""
     mesh, specs = plan.mesh, model.param_specs()
     partial = model.model_partial_leaves()
     batch_axes = par.entry_axes(plan.batch_axes)
@@ -92,12 +97,9 @@ def make_grad_fn(model, cfg: ModelConfig, plan):
                 "a masked batch over several batch shards: each rank's "
                 "mean loss would weigh its own token count (ROADMAP.md "
                 "item 8)")
-        with torch.no_grad():
-            work = par.gather_tree(params, specs, mesh, plan.data_axes)
         grads, loss, _ = _microbatch_grads(
-            model.loss, work, batch, cfg.grad_accum_microbatches,
+            model.loss, params, batch, cfg.grad_accum_microbatches,
             getattr(torch, cfg.grad_accum_dtype))
-        del work
         grads = par.reduce_grads(grads, specs, mesh, batch_axes, partial)
         if n > 1:
             loss = par.all_reduce_(loss.clone(), mesh, batch_axes) / n

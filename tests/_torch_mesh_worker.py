@@ -10,11 +10,13 @@ process mesh: the full parameters come from
 ``INPUT_DIR/<input_key(case)>.npz`` (dotted leaf names, as the test
 wrote them), are cut with
 ``shard_tree``, and the case takes two steps: the first from
-``make_grad_fn`` and the optimizer's update (its gradients recorded), the
+``make_grad_fn`` and the optimizer's update (its gradients recorded, and
+every rank's FSDP all-gathers and reduce-scatters in it counted), the
 second through ``make_train_step``.  Rank 0 writes what the test compares to
 ``OUTPUT_DIR/<case>.npz``: the losses, the gathered gradients, the
-parameters after each step, the optimizer state after the second and
-whether shard -> gather gave the parameters back bit for bit.
+parameters after each step, the optimizer state after the second,
+whether shard -> gather gave the parameters back bit for bit and the
+counts of each rank.
 ``RESTORES``: per arch a ``TrainLoop`` saves at step 1 on one layout, and
 loops on other layouts restore from it and run to step 3.  Last, the launcher's
 ``main`` trains over the same group (``LAUNCHER``, its log on
@@ -73,6 +75,17 @@ for _shape in ((1, 4), (2, 2)):
     CASES[f"moe-{_t}"] = ("qwen3-moe-30b-a3b", _shape, 4, 32, {}, {})
 CASES["zamba2-1x4"] = ("zamba2-1.2b", (1, 4), 4, 32, {}, {})
 CASES["seamless-1x4"] = ("seamless-m4t-medium", (1, 4), 4, 32, {}, {})
+# FSDP over "data" beside the split over "model": zamba2's grouped
+# layers, a tail layer and the shared block; seamless's two stacks
+CASES["zamba2-2x2"] = ("zamba2-1.2b", (2, 2), 4, 32, {"n_layers": 5}, {})
+CASES["seamless-2x2"] = ("seamless-m4t-medium", (2, 2), 4, 32, {}, {})
+# the per-unit gathers under the other remat settings: "dots", and the
+# two-level remat (two groups of two units)
+CASES["qwen3-dots-4x1"] = ("qwen3-0.6b", (4, 1), 4, 32, {"remat": "dots"},
+                           {})
+CASES["qwen3-scan-4x1"] = ("qwen3-0.6b", (4, 1), 4, 32,
+                           {"n_layers": 4, "remat": "full",
+                            "scan_block": 2}, {})
 # sequence parallelism: 6 query heads do not divide 4, so each rank
 # takes 8 of the 32 query rows; Megatron-SP: the residual stream cut on S
 CASES["qwen3-sp-1x4"] = ("qwen3-0.6b", (1, 4), 4, 32,
@@ -86,11 +99,13 @@ ENC_FRAMES = 64
 # the cases that split the other families or attention's query rows over
 # "model"
 SPLIT_CASES = ("mamba2-1x4", "mamba2-2x2", "moe-1x4", "moe-2x2",
-               "zamba2-1x4", "seamless-1x4", "qwen3-sp-1x4",
-               "qwen3-resid-seq-1x4")
+               "zamba2-1x4", "zamba2-2x2", "seamless-1x4", "seamless-2x2",
+               "qwen3-sp-1x4", "qwen3-resid-seq-1x4")
 # overrides that change the parameters' shapes: a case with one of them
 # has inputs of its own
-SHAPE_FIELDS = ("n_heads", "n_kv_heads")
+SHAPE_FIELDS = ("n_heads", "n_kv_heads", "n_layers")
+# the FSDP counts each rank records, in this order
+FSDP_KEYS = ("all_gather", "reduce_scatter", "all_gather_max_numel")
 
 # arch -> (save layout, restore layouts): a TrainLoop on the save layout
 # saves at step 1; loops on each restore layout restore it and run to
@@ -185,8 +200,13 @@ def run_case(name, in_dir, out_dir):
 
     # step 1 as the sharded step takes it, its gradients gathered before
     # the optimizer clips them in place; step 2 through make_train_step
+    par.reset_fsdp_counts()
     grads, loss = make_grad_fn(model, cfg, plan)(params, batch(0))
+    counts = par.fsdp_counts()
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, [counts[k] for k in FSDP_KEYS])
     out = {"roundtrip": np.array(roundtrip), "grad_loss": loss.numpy(),
+           "fsdp": np.array(ranks),
            **_np(par.gather_tree(grads, specs, mesh), "grad")}
     state = opt_init(params)
     update = opt.make_optimizer(ocfg.name, ocfg, mesh, specs)[2]

@@ -15,8 +15,10 @@ llama3-405b runs Adafactor (factored at the smoke widths with
 parallel at (4, 1) and split their 8 SSM heads and 4 experts over
 "model" at (1, 4) and (2, 2); zamba2-1.2b splits its mamba layers and
 shared block, seamless-m4t-medium its encoder, decoder and
-cross-attention at (1, 4); qwen3 with 6 query heads runs its attention
-sequence-parallel at (1, 4) (8 query rows a rank), and with
+cross-attention at (1, 4), and both at (2, 2) beside FSDP over "data"
+(zamba2 at 5 layers: two groups and a tail); qwen3 at (4, 1) also under
+remat "dots" and the two-level remat; qwen3 with 6 query heads runs its
+attention sequence-parallel at (1, 4) (8 query rows a rank), and with
 ``seq_shard_activations`` its residual stream cut on S (Megatron-SP);
 checkpoints saved on one layout are restored onto another (qwen3's
 heads, mamba2's SSM heads, qwen3-moe's experts, seamless); last, the
@@ -86,7 +88,8 @@ from repro_torch.utils.params import tree_from_flat, tree_leaves  # noqa: E402
 import _torch_mesh_worker as W  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SRC = os.path.join(HERE, "..", "src")
+ROOT = os.path.join(HERE, "..")
+SRC = os.path.join(ROOT, "src")
 
 
 JAX_ARCH = "qwen3-0.6b"     # the case held against the JAX package's step
@@ -336,6 +339,34 @@ def test_split_matches_jax_single_device(run, jax_models, name):
     assert set(grads) == set(flat)
     for n, g in flat.items():
         close(grads[n], g, 1e-5, n)
+
+
+# the cases whose data axes have more than one process: FSDP gathers
+FSDP_CASES = [n for n in CASE_NAMES if max(W.CASES[n][1][:-1]) > 1]
+
+
+@pytest.mark.parametrize("name", FSDP_CASES)
+def test_fsdp_gathers_per_unit(run, name, monkeypatch):
+    """Every rank's FSDP collectives in the first step's gradient
+    (``make_grad_fn``, ``parallel.fsdp_counts``): the all-gathers, the
+    reduce-scatters and the most elements one all-gather gave, equal to
+    ``chip_smoke.step_collectives``: a unit's slice of each stacked leaf
+    gathered where the unit runs and in each recompute, the leaves
+    outside the stacks once a forward, each gradient reduce-scattered
+    once, per microbatch; never a whole stack."""
+    monkeypatch.syspath_prepend(ROOT)
+    import chip_smoke
+    arch, shape, B, S, over, _ = W.CASES[name]
+    cfg = W.case_config(arch, over)
+    mesh = make_mesh(shape, W.AXES2 if len(shape) == 2 else W.AXES3,
+                     ["cpu"] * int(np.prod(shape)))
+    model = get_model(cfg, make_plan(cfg, mesh,
+                                     ShapeCfg("test", S, B, "train")))
+    want = chip_smoke.step_collectives(model)
+    got = _load(run[1] / f"{name}.npz")["fsdp"]
+    assert len(got) == 4
+    for r, row in enumerate(got):
+        assert dict(zip(W.FSDP_KEYS, map(int, row))) == want, (r, row)
 
 
 RESTORE_CASES = [(arch, shape) for arch, (_, shapes) in W.RESTORES.items()

@@ -17,8 +17,9 @@ order:
    same parameters: the plan of ``ShapeCfg("custom", max_len, slots,
    "decode")``, ``get_model(cfg, plan)``, the parameters drawn leaf by
    leaf on the card with each rank keeping its block
-   (``draw_params``).  ``engine`` runs: ``serving.engine.Engine`` over
-   requests drawn as ``launch.serve.serve`` draws them; ``encdec``: a
+   (``train_mesh.draw_params``).  ``engine`` runs:
+   ``serving.engine.Engine`` over requests drawn as ``launch.serve.serve``
+   draws them; ``encdec``: a
    prefill of frame embeddings and greedy decode steps, as
    ``chip_smoke.phase_serve_encdec``; ``cell``: JAX's ``long_500k``
    decode cell, a batch of 1 over a cache of ``LONG_LEN`` positions
@@ -50,7 +51,6 @@ import os
 import statistics
 import sys
 import time
-import zlib
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -222,57 +222,6 @@ def main(argv=None):
 def free(torch, dev):
     if dev.type == "cuda":
         tm.free_device(torch)
-
-
-def seed_of(*parts) -> int:
-    """A generator seed from a leaf's name, layer and chunk."""
-    return zlib.crc32(":".join(map(str, parts)).encode())
-
-
-def _scale(d):
-    """``utils/params.py`` ``_draw``'s factor of a standard normal draw
-    (``d``: the whole leaf's ParamDef)."""
-    if d.init == "scaled":
-        fan = d.fan_in_axes or tuple(range(len(d.shape) - 1))
-        return 1.0 / math.sqrt(max(1, math.prod(d.shape[i] for i in fan)))
-    return 0.02 if d.init == "normal" else 1.0
-
-
-def draw_params(torch, model, seed, dev, specs=None, mesh=None):
-    """The model's parameters from ``seed``, leaf by leaf on ``dev``, a
-    leaf's rows on its stacked "layer" axis one at a time, each from a
-    generator of its own (``seed_of(seed, leaf, layer)``): any depth cut
-    of a config draws the same layers, and a rank keeps only its block
-    (``specs`` over ``mesh``; the whole leaf without them) of each row."""
-    from repro_torch.distributed import parallel as par
-    from repro_torch.utils.params import tree_from_flat, tree_leaves
-    sp = dict(tree_leaves(specs)) if specs is not None else {}
-    out = {}
-    for name, d in tree_leaves(model.param_defs()):
-        spec = sp.get(name)
-        stacked = d.axes[0] == "layer"
-        leaf = None
-        for i in range(d.shape[0] if stacked else 1):
-            shape = d.shape[1:] if stacked else d.shape
-            if d.init in ("zeros", "ones"):
-                x = (torch.zeros if d.init == "zeros" else torch.ones)(
-                    shape, dtype=d.dtype, device=dev)
-            else:
-                g = torch.Generator(dev).manual_seed(
-                    seed_of(seed, name, i if stacked else -1))
-                x = (torch.randn(shape, generator=g, device=dev)
-                     * _scale(d)).to(d.dtype)
-            if spec is not None:
-                x = par.shard_leaf(x, spec[1:] if stacked else spec, mesh)
-            if not stacked:
-                leaf = x
-                break
-            if leaf is None:        # the rank's leaf, filled a row at a time
-                leaf = x.new_empty((d.shape[0],) + tuple(x.shape))
-            leaf[i] = x
-            del x
-        out[name] = leaf
-    return tree_from_flat(model.param_defs(), out)
 
 
 def mesh_group(mesh):
@@ -520,10 +469,10 @@ class Server:
                 return model, model.load_serving(sh)
             sh = par.shard_tree(full, model.serve_specs(), mesh)
             del full
-            return model, model.load(sh)
+            return model, model.load_local(sh)
         specs = None if plan is None else model.serve_specs()
-        return model, model.load(draw_params(torch, model, 0, self.dev,
-                                             specs, mesh))
+        return model, model.load_local(tm.draw_params(
+            torch, model, 0, self.dev, specs, mesh))
 
     def one(self, mesh, keep=False, ref=None, force=False):
         """Serve the run's traffic once on ``mesh`` (None: one card,
@@ -683,21 +632,21 @@ class Server:
     def fill_cache(self, model, cache):
         """Each cache leaf from the seed: the attention caches in chunks
         of ``LONG_CHUNK`` positions, each from a generator of its own
-        (``seed_of(leaf, group, chunk)``), this rank drawing the chunks
-        of its block; the SSM leaves whole."""
+        (``train_mesh.seed_of(leaf, group, chunk)``), this rank drawing
+        the chunks of its block; the SSM leaves whole."""
         torch = self.torch
         cut = model.cache_cut
         chunk = CPU_LONG_CHUNK if self.cpu else LONG_CHUNK
         for name, c in cache.items():
             if not name.startswith("attn_"):
-                g = torch.Generator(self.dev).manual_seed(seed_of(name))
+                g = torch.Generator(self.dev).manual_seed(tm.seed_of(name))
                 c.copy_(torch.randn(c.shape, generator=g, device=self.dev))
                 continue
             first = 0 if cut is None else cut.index * c.shape[2]
             for grp in range(c.shape[0]):
                 for s in range(0, c.shape[2], chunk):
                     g = torch.Generator(self.dev).manual_seed(
-                        seed_of(name, grp, (first + s) // chunk))
+                        tm.seed_of(name, grp, (first + s) // chunk))
                     blk = c[grp, :, s:s + chunk]
                     blk.copy_(torch.randn(blk.shape, generator=g,
                                           device=self.dev))

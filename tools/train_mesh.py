@@ -11,9 +11,11 @@ for a world of N processes (or those named), in order:
 
 1. unless the run has none, rank 0 alone runs ``STEPS`` one-card steps
    (mesh None): the reference, at the run's config (bf16 activations,
-   f32 parameters, remat "full", AdamW, the run's depth cut), B
-   ``chip_smoke.TRAIN_BATCH``, S the run's, seed 0 -- for qwen3-0.6b
-   what ``phase_train``'s run A does;
+   f32 parameters, remat "full", AdamW, the run's depth cut and
+   microbatches), B the run's (``chip_smoke.TRAIN_BATCH`` unless it says),
+   S the run's, seed 0 -- for qwen3-0.6b what ``phase_train``'s run A
+   does; a ``layerwise`` run draws its parameters a layer's slice at a
+   time (``draw_params``), each rank keeping its shard, here and below;
 2. every layout of the run (("data", "model") process meshes, with the
    run's config overrides, e.g. ``seq_shard_activations``) runs
    ``STEPS`` steps of a ``TrainLoop(mesh=)`` from the same seed (the
@@ -23,17 +25,20 @@ for a world of N processes (or those named), in order:
    (None: a one-card loop) restore that checkpoint and run step 3.
 
 Per layout each rank records its losses, step ms (host clock; a step
-ends when the rank has its loss), launches, peak device memory and the
-bytes of its parameter and optimizer shards, then profiles a 4th step
-(``profile_step``: device busy and idle, NCCL, GEMM, attention and SSD
-device ms, the top kernels); rank 0 gathers the parameters and holds
-them against the reference (``compare``) and, for the run's ``pairs``,
-one layout's against another's.  After every run each rank checks that
-run's gates (``gate_run``: a later run that fails cannot hide an earlier
-one's result), records what missed under ``gates_missed`` and writes
-``DIR/rank<r>.json``; it exits non-zero after the last run if any gate
-missed.  A rank that raises stops the world (torchrun ends the others,
-which would wait in a collective).
+ends when the rank has its loss), launches, its FSDP all-gathers and
+reduce-scatters over the data axes a step (``parallel.fsdp_counts``:
+counts and the largest tensors, against
+``chip_smoke.step_collectives``), peak device memory and the bytes of
+its parameter and optimizer shards, then profiles a 4th step
+(``profile_step``: device busy and idle, NCCL by collective, GEMM,
+attention and SSD device ms, the top kernels); rank 0 gathers the
+parameters and holds them against the reference (``compare``) and, for
+the run's ``pairs``, one layout's against another's.  After every run
+each rank checks that run's gates (``gate_run``: a later run that fails
+cannot hide an earlier one's result), records what missed under
+``gates_missed`` and writes ``DIR/rank<r>.json``; it exits non-zero
+after the last run if any gate missed.  A rank that raises stops the
+world (torchrun ends the others, which would wait in a collective).
 """
 import argparse
 import dataclasses
@@ -45,6 +50,7 @@ import shutil
 import statistics
 import sys
 import time
+import zlib
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -55,6 +61,16 @@ import chip_smoke as cs  # noqa: E402
 STEPS = cs.MESH_STEPS
 SAVE_AT = 2
 RESID_SEQ = {"seq_shard_activations": True}
+GRANITE, GRANITE_BATCH = "granite-3-8b", 16
+# a rank's peak at granite-3-8b's 40 layers at (4, 1), reckoned before
+# the run: 5 x 8.37 GB (the parameter shards, AdamW's two moments, the
+# f32 accumulator and a microbatch's gradients), 2.1 GB of a stacked
+# leaf's gradient summed a layer at a time, ~2 GB of one unit gathered,
+# its bf16 casts and its gradient, ~4 GB of the two tables gathered, the
+# unembedding's f32 copy and their gradients, 1.3 GB of the 40 layers'
+# bf16 inputs (one row of 4096), ~1 GB of one unit's recompute and the
+# logits' chunks
+GRANITE_PEAK_GB = 52.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +81,11 @@ class Run:
     at ``SAVE_AT`` and ``restores`` (shape or None, overrides) restore
     it; ``pairs`` (i, j): layout j also held against layout i.
     ``alone``: the run gets a torchrun launch of its own (a fresh process
-    a card, for a run that fills the card)."""
+    a card, for a run that fills the card).  ``batch``: the global batch;
+    ``layerwise``: the parameters drawn a layer's slice at a time
+    (``draw_params``), for a model no card holds whole beside its
+    optimizer state; ``peak_gb``: a rank's peak memory as reckoned
+    before the run (printed beside the reading)."""
     name: str
     arch: str
     cards: int
@@ -77,6 +97,9 @@ class Run:
     restores: tuple = ()
     pairs: tuple = ()
     alone: bool = False
+    batch: int = cs.TRAIN_BATCH
+    layerwise: bool = False
+    peak_gb: float = None
 
 
 RUNS = (
@@ -104,7 +127,9 @@ RUNS = (
     # its parameter shards (the parameters, AdamW's two moments, the
     # gradients, their f32 accumulator and the update's temporaries): 16
     # layers take 74 GB, in a process of their own; 16 is two groups of
-    # scan_block (8), so the two-level remat runs
+    # scan_block (8), so the two-level remat runs.  (No data axis cuts
+    # them at (1, 4); FSDP per unit, granite's 40 layers at (4, 1) peak at
+    # 5.7x their shards, 47.6 GB on NVIDIA H100 80GB HBM3 at 700 W.)
     Run("qwen3-moe-30b-a3b:4", cs.MOE_TRAIN[0], 4, (((1, 4), {}),),
         cut={"n_layers": cs.MOE_TRAIN[1],
              "grad_accum_microbatches": cs.MOE_TRAIN[2]}),
@@ -115,6 +140,16 @@ RUNS = (
     # the reference)
     Run("qwen2.5-14b", "qwen2.5-14b", cs.SP_RANKS,
         (((1, cs.SP_RANKS), {}),), cut={"n_layers": 4}, seq=cs.SP_SEQ),
+    # FSDP one unit at a time at granite-3-8b's published widths, B 16
+    # and its config's 4 microbatches (one row a microbatch a rank at
+    # (4, 1)): 8 of 40 layers (2.0 B parameters, 8.0 GB in f32), as deep
+    # as one card holds the reference at ~7x its parameters; then all 40
+    # (8.374 B, 33.5 GB), which no card holds with its optimizer state (a
+    # rank's reckoned peak: GRANITE_PEAK_GB)
+    Run("granite-3-8b:8", GRANITE, 4, (((4, 1), {}), ((2, 2), {})),
+        cut={"n_layers": 8}, batch=GRANITE_BATCH, layerwise=True),
+    Run("granite-3-8b:40", GRANITE, 4, (((4, 1), {}),), batch=GRANITE_BATCH,
+        reference=False, alone=True, layerwise=True, peak_gb=GRANITE_PEAK_GB),
 )
 # a layout against the one-card reference.  Losses within LOSS_TOL
 # relative: the same bf16 model, its products and f32 sums in another
@@ -136,6 +171,57 @@ RUNS = (
 LOSS_TOL = 1e-3
 PARAM_ABS_TOL = 4e-5
 MOVE_COS_MIN = 0.9
+
+
+def seed_of(*parts) -> int:
+    """A generator seed from a leaf's name, layer and chunk."""
+    return zlib.crc32(":".join(map(str, parts)).encode())
+
+
+def _scale(d):
+    """``utils/params.py`` ``_draw``'s factor of a standard normal draw
+    (``d``: the whole leaf's ParamDef)."""
+    if d.init == "scaled":
+        fan = d.fan_in_axes or tuple(range(len(d.shape) - 1))
+        return 1.0 / math.sqrt(max(1, math.prod(d.shape[i] for i in fan)))
+    return 0.02 if d.init == "normal" else 1.0
+
+
+def draw_params(torch, model, seed, dev, specs=None, mesh=None):
+    """The model's parameters from ``seed``, leaf by leaf on ``dev``, a
+    leaf's rows on its stacked "layer" axis one at a time, each from a
+    generator of its own (``seed_of(seed, leaf, layer)``): any depth cut
+    of a config draws the same layers, and a rank keeps only its block
+    (``specs`` over ``mesh``; the whole leaf without them) of each row."""
+    from repro_torch.distributed import parallel as par
+    from repro_torch.utils.params import tree_from_flat, tree_leaves
+    sp = dict(tree_leaves(specs)) if specs is not None else {}
+    out = {}
+    for name, d in tree_leaves(model.param_defs()):
+        spec = sp.get(name)
+        stacked = d.axes[0] == "layer"
+        leaf = None
+        for i in range(d.shape[0] if stacked else 1):
+            shape = d.shape[1:] if stacked else d.shape
+            if d.init in ("zeros", "ones"):
+                x = (torch.zeros if d.init == "zeros" else torch.ones)(
+                    shape, dtype=d.dtype, device=dev)
+            else:
+                g = torch.Generator(dev).manual_seed(
+                    seed_of(seed, name, i if stacked else -1))
+                x = (torch.randn(shape, generator=g, device=dev)
+                     * _scale(d)).to(d.dtype)
+            if spec is not None:
+                x = par.shard_leaf(x, spec[1:] if stacked else spec, mesh)
+            if not stacked:
+                leaf = x
+                break
+            if leaf is None:        # the rank's leaf, filled a row at a time
+                leaf = x.new_empty((d.shape[0],) + tuple(x.shape))
+            leaf[i] = x
+            del x
+        out[name] = leaf
+    return tree_from_flat(model.param_defs(), out)
 
 
 def runs_for(world, names=None):
@@ -210,7 +296,8 @@ def main(argv=None):
             t0 = time.perf_counter()
             res = train_run(run, rank, dev)
             res.update(name=run.name, arch=run.arch, cards=run.cards,
-                       seq=run.seq, cut=run.cut,
+                       seq=run.seq, batch=run.batch, cut=run.cut,
+                       peak_gb=run.peak_gb,
                        seconds=time.perf_counter() - t0)
             res["gates_missed"] = gate_run(res, rank, world)
             out["runs"].append(res)
@@ -239,7 +326,7 @@ def train_run(run, rank, dev):
     from repro_torch.models.zoo import get_model
     from repro_torch.utils.params import tree_leaves
     base = run_config(run)
-    B, S = cs.TRAIN_BATCH, run.seq
+    B, S = run.batch, run.seq
     batches = None
     if base.family == "encdec":     # the encdec train phase's batches
         batches = lambda step: cs.encdec_batch(torch, base, step)  # noqa
@@ -256,13 +343,18 @@ def train_run(run, rank, dev):
         t0 = time.perf_counter()
         loop = TrainLoop(base, global_batch=B, seq=S, device=dev,
                          batches=batches)
+        if run.layerwise:
+            layerwise_init(torch, loop, dev)
         params, _, _ = loop.run(STEPS, log=quiet)
         ref = {"losses": [h["loss"] for h in loop.history],
                "step_ms": [h["ms"] for h in loop.history],
                "checksums": cs.checksum(torch, params),
                "params": {n: x.clone() for n, x in flat(params).items()}}
         del loop, params
-        p0 = flat(get_model(base).init(torch.Generator(dev).manual_seed(0)))
+        m0 = get_model(base)
+        p0 = flat(draw_params(torch, m0, 0, dev) if run.layerwise else
+                  m0.init(torch.Generator(dev).manual_seed(0)))
+        del m0
         free_device(torch)
         res["reference"] = {k: ref[k] for k in ("losses", "step_ms",
                                                 "checksums")}
@@ -300,10 +392,14 @@ def train_run(run, rank, dev):
         t0 = time.perf_counter()
         loop = TrainLoop(cfg, global_batch=B, seq=S, mesh=mesh, device=dev,
                          ckpt_dir=kw.pop("ckpt_dir", None), batches=batches)
+        if run.layerwise:
+            layerwise_init(torch, loop, dev)
         rdev.reset_launch_counts()
+        par.reset_fsdp_counts()
         params, state, _ = loop.run(STEPS, log=quiet, **kw)
         torch.cuda.synchronize()
         counts = rdev.launch_counts()
+        fsdp = par.fsdp_counts()
         ms = [h["ms"] for h in loop.history]
         row = {"layout": tag(shape, over), "steps": [h["step"] for h in
                                                      loop.history],
@@ -312,6 +408,10 @@ def train_run(run, rank, dev):
                "launches": counts,
                "launches_per_step": {k: v // len(ms) for k, v in
                                      counts.items() if v},
+               "collectives_per_step": {
+                   k: v if "max" in k else v / len(ms)
+                   for k, v in fsdp.items()},
+               "collectives_per_step_want": cs.step_collectives(loop.model),
                "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                "held_bytes_before": held,
                "param_shard_bytes": sum(x.numel() * x.element_size() for
@@ -367,6 +467,18 @@ def train_run(run, rank, dev):
     return res
 
 
+def layerwise_init(torch, loop, dev):
+    """Make ``loop`` draw its parameters with ``draw_params`` (a layer's
+    slice at a time, each rank keeping its shard) in place of
+    ``TrainLoop.init_state``'s whole draw."""
+    def init_state(seed=0):
+        m = loop.model
+        specs = None if loop.mesh is None else m.param_specs()
+        params = m.load(draw_params(torch, m, seed, dev, specs, loop.mesh))
+        return params, loop.opt_init(params), 0
+    loop.init_state = init_state
+
+
 def free_device(torch):
     """Collect a finished run's objects (cycles included) and return the
     card's cached blocks, so the next run starts from what is live."""
@@ -394,8 +506,8 @@ def device_profile(torch, fn):
     to the card's synchronize), device busy ms (the union of its kernels'
     intervals: NCCL runs on a stream of its own, beside the compute) and
     idle share, and the device ms of the NCCL kernels (their transfers
-    and their waits for the other ranks), the GEMMs, attention and the
-    SSD scan, and the top kernels."""
+    and their waits for the other ranks; in all and by collective), the
+    GEMMs, attention and the SSD scan, and the top kernels."""
     from torch.autograd import DeviceType
     with cs.padded_profile() as prof:
         t0 = time.perf_counter()
@@ -420,11 +532,19 @@ def device_profile(torch, fn):
     def by(*words):
         return sum(ms for k, (ms, _) in kernels.items()
                    if any(w in k.lower() for w in words))
+
+    def nccl(op):
+        return sum(ms for k, (ms, _) in kernels.items()
+                   if "nccl" in k.lower() and op in k.lower())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     return {"wall_ms": wall, "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / 1e3 / wall if spans
             else "not measured",
-            "nccl_ms": by("nccl"), "gemm_ms": by("gemm", "cutlass",
+            "nccl_ms": by("nccl"),
+            "nccl_ms_by_collective": {
+                op: nccl(op.replace("_", "")) for op in (
+                    "all_gather", "reduce_scatter", "all_reduce")},
+            "gemm_ms": by("gemm", "cutlass",
                                                   "nvjet", "xmma"),
             "attention_ms": by("flash_"),
             "ssd_ms": by("ssd_"),
@@ -434,10 +554,13 @@ def device_profile(torch, fn):
 
 def gate_run(res, rank, world):
     """One run's gates on this rank, what missed (empty when none did):
-    exactly ``step_launches`` a step on every rank; a restored loop ran
-    step 3 alone; on rank 0 every loss finite and, against the
-    reference, one card bit-equal and more cards within the tolerances
-    above (and a pair's layouts against each other within the same)."""
+    exactly ``step_launches`` a step on every rank, and exactly
+    ``step_collectives``' FSDP all-gathers and reduce-scatters, none of
+    more elements than a unit's slice or a leaf outside the stacks; a
+    restored loop ran step 3 alone; on rank 0 every loss finite and,
+    against the reference, one card bit-equal and more cards within the
+    tolerances above (and a pair's layouts against each other within
+    the same)."""
     missed = []
 
     def check(ok, msg):
@@ -449,6 +572,11 @@ def gate_run(res, rank, world):
         got = {k: v for k, v in row["launches"].items() if v}
         check(got == want, f"{name} {row['layout']} rank {rank}: launches "
               f"{got}, want {want}")
+    for row in res["layouts"] + res["restores"]:
+        want_c = row["collectives_per_step_want"]
+        got_c = {k: row["collectives_per_step"][k] for k in want_c}
+        check(got_c == want_c, f"{name} {row['layout']} rank {rank}: FSDP "
+              f"collectives a step {got_c}, want {want_c}")
     for row in res["restores"]:
         check(row["steps"] == [STEPS], f"{name} restore {row['layout']}: "
               f"steps {row['steps']}")
