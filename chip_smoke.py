@@ -16,16 +16,23 @@ Phases, each printing JSON lines:
                column no row reaches, a row with every column set or
                masked, asymmetric per-batch masks, N = 1, a mask at an
                odd byte offset, uint8 values) and head counts (H = 1, 3,
-               8); gat_path: the 4 launches of one BERT population
-               forward, per launch and in total; gat_zoo_mask: both GAT
-               kernels on a zoo bucket's (G, N, N) masks shared by 16
-               genomes or by 24 critic transitions, against their plain
-               versions;
+               8); every block shape of ``ops.FWD_WARPS`` bit-equal to
+               the default's out, m and l on each case, with its
+               profiler device ms at the critic's and the population's
+               level-0 shapes; gat_path:
+               the 4 launches of one BERT population forward, per
+               launch and in total; gat_zoo_mask: both GAT kernels on a
+               zoo bucket's (G, N, N) masks shared by 16 genomes or by
+               24 critic transitions, against their plain versions,
+               every block shape bit-equal;
 4. gat_bwd  -- the GAT backward kernel against its plain version at the
                critic's and the actor's shapes and the same edge cases,
                and launched twice for bit-equal (deterministic)
-               gradients; gat_path_bwd: the 8 calls of one BERT SAC
-               step;
+               gradients; every block shape of ``ops.BWD_SHAPES``
+               bit-equal to the default's dz, de_src and de_dst, timed
+               at the critic's and the actor's level-0 shapes;
+               gat_path_bwd: the 8
+               calls of one BERT SAC step;
 5. memsim   -- the simulator kernel against its plain version on all 7
                zoo graphs at P = 1, 9, 20, 33 and at more blocks of 32
                mappings than the card has SMs (tiers, eps and valid
@@ -36,11 +43,17 @@ Phases, each printing JSON lines:
                P = 1, 20, 21, 33, against its plain version, against
                the single-graph kernel graph by graph and with its
                padded slots zeroed, every output bit-equal;
-6. slice    -- the EA-mode search on BERT and ResNet-50 (400 steps),
+6. slice    -- (the GAT kernels' block shapes tuned by ``core/gat_tune.py``
+               on each launch key's first call; its timing launches
+               counted apart, ``tuning_launches``, never as ``gat_mp``
+               or ``gat_mp_bwd``) the EA-mode search on BERT and
+               ResNet-50 (400 steps),
                the "egrl"-mode search on BERT and ResNet-50 (400 steps)
                and a "pg"-mode run on ResNet-50 (60 steps); the launch
                counters are reset just before each run and read just
                after it, and must match the counts the path implies;
+               gat_tune: the block shapes chosen at the BERT and
+               ResNet-50 levels' N, with each candidate's time;
                zoo: ``ZooEGRL`` on the 7-graph zoo at full width, 3 "ea"
                and 3 "egrl" generations with exact launch counts, then
                ``evaluate_gnn_zoo`` of the trained genome on BERT;
@@ -181,13 +194,15 @@ Phases, each printing JSON lines:
                versions), exact launch counts;
 17. train   -- ``launch.train.TrainLoop`` at the published configs of
                qwen3-0.6b, mamba2-780m and zamba2-1.2b (bf16
-               activations, f32 parameters, remat "full", AdamW) at
-               S = 4096, global batch 4: 10 steps straight, and 5 + a
-               checkpoint + 5 in a restored loop, equal; exact launch
-               counts a step (``step_launches``: qwen3 2 x 28 attention
-               forward and 28 backward; mamba2 96 SSD forward and 48
-               backward; zamba2 74 and 38, and 12 attention forward and
-               6 backward; every attention launch on the tensor cores),
+               activations, f32 parameters, remat "full", AdamW; the
+               two SSMs cut in depth to 24 and 20 layers,
+               ``TRAIN_SSM_LAYERS``) at S = 4096, global batch 4: 10
+               steps straight, and 5 + a checkpoint + 5 in a restored
+               loop, equal; exact launch counts a step
+               (``step_launches``: qwen3 2 x 28 attention forward and 28
+               backward; mamba2 48 SSD forward and 24 backward; zamba2
+               38 and 20, and 6 attention forward and 3 backward; every
+               attention launch on the tensor cores),
                step ms, tokens/s, the model-FLOPs share of the bf16 peak,
                peak memory; train_profile: device time by kernel and the
                idle share over 2 steps; then qwen3-moe-30b-a3b at full
@@ -435,6 +450,49 @@ def gat_compare(torch, ops, z, es, ed, adj, rep=1):
     return err, l_rel
 
 
+def gat_candidates(torch, ops, z, es, ed, adj, rep=1, timed=False):
+    """Every forward block shape of ``ops.FWD_WARPS`` on the same inputs:
+    bit-equal to ``gat_tune.DEFAULT_BLOCKS``' out, m and l (which
+    ``gat_compare`` holds against the plain version).  Launches count
+    as the tuner's.  With ``timed``, each shape's profiler device ms
+    per call.  Returns {label: device ms or True}."""
+    from repro_torch.core import gat_tune
+    tune = gat_tune.autotune
+
+    def run(w):
+        return ops._launch(z, es, ed, adj, rep, warps=w, counter=tune)
+    want = run(gat_tune.DEFAULT_BLOCKS["fwd"][0])
+    out = {}
+    for w in ops.FWD_WARPS:
+        got = run(w)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"gat forward at {w} warps differs from the default shape")
+        out[gat_tune.label("fwd", (w,))] = (
+            profiled(torch, lambda: run(w))["device_ms"] if timed else True)
+    return out
+
+
+def gat_bwd_candidates(torch, ops, args, rep=1, timed=False):
+    """Every backward block shape of ``ops.BWD_SHAPES`` on the same
+    inputs: dz, de_src and de_dst bit-equal to the default shape's
+    (which ``gat_bwd_compare`` holds against the plain version)."""
+    from repro_torch.core import gat_tune
+    tune = gat_tune.autotune
+
+    def run(shape):
+        return ops._launch_bwd(*args, rep, shape=shape, counter=tune)
+    want = run(gat_tune.DEFAULT_BLOCKS["bwd"])
+    out = {}
+    for shape in ops.BWD_SHAPES:
+        got = run(shape)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"gat backward at {shape} differs from the default shape")
+        out[gat_tune.label("bwd", shape)] = (
+            profiled(torch, lambda: run(shape))["device_ms"] if timed
+            else True)
+    return out
+
+
 def sdpa_call(torch, z, es, ed, adj):
     """One scaled_dot_product_attention call computing the same function
     (zero q/k, the dense masked score tensor as additive mask), timed as
@@ -550,9 +608,14 @@ def phase_gat(torch, gen, ops, masks):
         N = adj.shape[-1]
         z, es, ed, adj = gat_inputs(torch, gen, B, N, adj, H)
         err, l_rel = gat_compare(torch, ops, z, es, ed, adj)
+        # the critic's and the population's level-0 shapes are timed at
+        # every block shape
+        blocks = gat_candidates(torch, ops, z, es, ed, adj,
+                                timed=kind in ("critic:bert", "shared"))
         row = {"phase": "gat", "adj": kind, "B": B, "N": N, "H": H,
                "max_abs_err_out": err, "m_bit_equal": True,
                "max_rel_err_l": l_rel,
+               "blocks_bit_equal_device_ms": blocks,
                "kernel_ms": event_ms(torch, lambda: ops.gat_mp(z, es, ed, adj),
                                      100),
                **profiled(torch, lambda: ops.gat_mp(z, es, ed, adj)),
@@ -582,7 +645,10 @@ def phase_gat_zoo(torch, gen, ops, zoo_masks):
         out, m, l = ops.gat_mp(z, es, ed, adj, rep)
         errs = gat_bwd_compare(torch, ops, (z, es, ed, adj, m, l, out, g),
                                rep=rep)
-        emit({"phase": "gat_zoo_mask", "shared_by": kind, "bucket": name,
+        gat_candidates(torch, ops, z, es, ed, adj, rep)
+        gat_bwd_candidates(torch, ops, (z, es, ed, adj, m, l, out, g), rep)
+        emit({"phase": "gat_zoo_mask", "blocks_bit_equal": True,
+              "shared_by": kind, "bucket": name,
               "B": B, "G": G, "rep": rep, "N": N, "max_abs_err_out": err,
               "m_bit_equal": True, "max_rel_err_l": l_rel,
               "bwd_max_abs_err": errs, "bwd_deterministic": True,
@@ -675,6 +741,9 @@ def phase_gat_bwd(torch, gen, ops, masks):
         args = gat_bwd_inputs(torch, ops, gen, B, adj, H)
         floor = cancel_scale(args[0], args[7], H) if kind == "N=1" else 1e-30
         errs = gat_bwd_compare(torch, ops, args, floor)
+        blocks = gat_bwd_candidates(torch, ops, args,
+                                    timed=kind in ("critic:bert",
+                                                   "actor:level0"))
         if kind.startswith("all-masked"):
             row = 5 if args[0].shape[1] > 5 else 0
             check(bool((args[4][:, row] <= -1e30).all()),
@@ -682,7 +751,7 @@ def phase_gat_bwd(torch, gen, ops, masks):
         z, es, ed, a, m, l, out, g = args
         emit({"phase": "gat_bwd", "case": kind, "B": B, "N": a.shape[-1],
               "H": H, "mask_batch": a.shape[0], "max_abs_err": errs,
-              "deterministic": True,
+              "deterministic": True, "blocks_bit_equal_device_ms": blocks,
               "kernel_ms": event_ms(torch, lambda: ops.gat_mp_bwd(*args), 50),
               **profiled(torch, lambda: ops.gat_mp_bwd(*args)),
               "plain_ms": event_ms(
@@ -703,11 +772,12 @@ def phase_gat_path_bwd(torch, np, ops, sac, replay, feats, adj, gen):
     captured = []
     launch = ops._launch_bwd    # behind the wrapper: its counter still counts
 
-    def capture(*args):
-        check(args[8:] in ((), (1,)), "a single-graph SAC step shares no "
-              "mask by rep")
-        captured.append(args[:8])
-        return launch(*args)
+    def capture(*args, **kw):
+        if kw.get("counter") is None:   # not one of the tuner's launches
+            check(args[8:] in ((), (1,)), "a single-graph SAC step shares "
+                  "no mask by rep")
+            captured.append(args[:8])
+        return launch(*args, **kw)
 
     ops._launch_bwd = capture
     try:
@@ -1054,10 +1124,12 @@ def run_slice(torch, np, name, make, egrl, sim, compiler, rdev, mode="ea",
     rollout; per SAC step 8 forward and 8 backward GAT launches; one
     simulator launch per population and one for the PG rollouts per
     generation, plus the compiler reference's; no LLM kernel."""
+    from repro_torch.core import gat_tune
     cfg = egrl.EGRLConfig(total_steps=steps, seed=0)
     graph = make()
     sac_s = [0.0]
     rdev.reset_launch_counts()
+    gat_tune.autotune.launches = 0
     t0 = time.perf_counter()
     algo = egrl.EGRL(graph, cfg, mode=mode, device="cuda", pop_shards="off")
     update = algo.learner.update
@@ -1127,6 +1199,7 @@ def run_slice(torch, np, name, make, egrl, sim, compiler, rdev, mode="ea",
             "sac": {k: last[k] for k in ("critic_loss", "actor_loss",
                                          "entropy") if k in last},
             "launches": counts, "sac_steps": sac_steps,
+            "tuning_launches": gat_tune.autotune.launches,
             "bwd_launches_per_sac_step": (counts["gat_mp_bwd"] / sac_steps
                                           if sac_steps else None),
             "first_generation_ms": (t1 - t0) * 1e3,
@@ -1135,6 +1208,35 @@ def run_slice(torch, np, name, make, egrl, sim, compiler, rdev, mode="ea",
             "sac_update_ms_total": sac_s[0] * 1e3,
             "sac_step_ms": (sac_s[0] * 1e3 / sac_steps if sac_steps
                             else None)}
+
+
+def phase_gat_tune(torch, zoo):
+    """The block shapes ``core/gat_tune.py`` chose while the slice ran,
+    for every launch key at the BERT and ResNet-50 levels' N (the
+    graph, half and a quarter of it), with the timings behind each."""
+    from repro_torch.core import gat_tune
+    sizes = {}
+    for name in ("bert", "resnet50"):
+        n = zoo.WORKLOADS[name]().n
+        sizes[name] = (n, max(2, n // 2), max(2, n // 4))
+    rows = []
+    for key, t in sorted(gat_tune._CACHE.items(), key=str):
+        n, d, heads, dtype, batch, masks, card = key
+        graphs = [g for g, ns in sizes.items() if n in ns]
+        if graphs:
+            rows.append({"graphs": graphs, "N": n, "D": d, "H": heads,
+                         "dtype": dtype, "B": batch, "G": masks,
+                         "device": card, "backend": t.backend,
+                         "chosen": t.blocks, "timings_us": t.timings})
+    check(rows, "gat_tune: the slice resolved no key at its graphs' sizes")
+    check(all(r["backend"] == "cuda" for r in rows),
+          "gat_tune: a key on the card resolved to the plain version")
+    emit({"phase": "gat_tune", "sizes": sizes, "keys": rows,
+          "default": gat_tune.DEFAULT_BLOCKS,
+          "timing": f"CUDA events over a CUDA graph of "
+                    f"{gat_tune.TIMING_LAUNCHES} launches, least of "
+                    f"{gat_tune.TIMING_REPS} replays",
+          "nvidia_smi": nvidia_smi()})
 
 
 def zoo_launches(K, n_graphs, gens, sac_steps, pg=True):
@@ -2711,6 +2813,12 @@ TRAIN_CHECKS = ((TRAIN_ARCH, {"n_layers": 2}),
                 (ENCDEC_ARCH, {"enc_layers": 2, "dec_layers": 2,
                                "n_layers": 4}))
 TRAIN_SSM = ("mamba2-780m", "zamba2-1.2b")
+# their train phases cut in depth to about half (mamba2 24 of 48 layers,
+# zamba2 20 of 38: three shared-attention groups and the tail), widths
+# as published: the restarts' whole checkpoints (12-19 GB) took most of
+# their ~290 s, and the script must fit its time limit beside the GAT
+# tuner's phases
+TRAIN_SSM_LAYERS = {"mamba2-780m": 24, "zamba2-1.2b": 20}
 
 
 def phase_train_check(torch, rdev):
@@ -2865,12 +2973,14 @@ def profile_steps(torch, cfg, step_fn, pa, sa, batches, n, per_step):
     return row, pa, sa, bwd_ms, ssd_bwd_ms
 
 
-def phase_train(torch, np, rdev, arch=TRAIN_ARCH, n=TRAIN_STEPS):
+def phase_train(torch, np, rdev, arch=TRAIN_ARCH, n=TRAIN_STEPS,
+                layers=None):
     """``TrainLoop`` at ``arch``'s published config (bf16 activations,
-    f32 parameters, remat "full", AdamW) on train_4k's sequence length,
-    global batch 4, random weights from seed 0: qwen3-0.6b (28 layers,
-    d_model 1024), mamba2-780m (48 layers, d_model 1536) or zamba2-1.2b
-    (38 layers, d_model 2048).  Run A: ``n`` steps straight.  Run B: n / 2
+    f32 parameters, remat "full", AdamW; ``layers``: cut to that many
+    layers) on train_4k's sequence length, global batch 4, random weights
+    from seed 0: qwen3-0.6b (28 layers, d_model 1024), mamba2-780m (48
+    layers, d_model 1536; ``TRAIN_SSM_LAYERS``: 24) or zamba2-1.2b (38
+    layers, d_model 2048; 20).  Run A: ``n`` steps straight.  Run B: n / 2
     steps and a checkpoint, then a new ``TrainLoop`` restored from it for
     n / 2 more.  Gates: every loss finite; exactly ``step_launches`` per
     step, every attention launch on the tensor cores; run B's losses,
@@ -2888,6 +2998,8 @@ def phase_train(torch, np, rdev, arch=TRAIN_ARCH, n=TRAIN_STEPS):
     from repro_torch.launch.train import TrainLoop
     from repro_torch.utils.params import tree_leaves
     cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
     B, S = TRAIN_BATCH, TRAIN_SEQ
     L = cfg.n_layers
     per_step = step_launches(cfg, True)
@@ -4032,6 +4144,7 @@ def run_egrl(torch, np, rdev, gen, regs_memsim):
         best = runs["resnet50", mode]["best_speedup"]
         check(best > 1.0, f"resnet50 {mode} best speedup {best} <= 1.0")
     check(runs["resnet50", "pg"]["sac_steps"] > 0, "pg mode never trained")
+    phase_gat_tune(torch, zoo)
 
     # the multi-workload path
     zoo_runs = phase_zoo(torch, np, zoo, egrl, sim, compiler, rdev)
@@ -4267,7 +4380,8 @@ def main(argv=None):
     train = timed("train", phase_train, torch, np, rdev)   # 17
     train_mesh = timed("train_mesh", phase_train_mesh, torch, np, train)
     train_ssm = {arch: timed(f"train:{arch}", phase_train, torch, np, rdev,
-                             arch) for arch in TRAIN_SSM}
+                             arch, TRAIN_STEPS, TRAIN_SSM_LAYERS[arch])
+                 for arch in TRAIN_SSM}
     train_new = {arch: timed(f"train:{arch}", phase_train_repeat, torch, np,
                              rdev, arch)
                  for arch in (MOE_TRAIN[0], ENCDEC_ARCH)}

@@ -27,6 +27,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import gat_tune
 from repro_torch.core import params as P_
 from repro_torch.kernels.gat_mp import ops as gat_ops
 
@@ -40,7 +41,9 @@ def _gat(p: Dict[str, torch.Tensor], level: int, h: torch.Tensor,
     weights hold 1 set (shared by the batch), B sets, or P sets each
     over G = B / P consecutive batch elements (a genome over a bucket's
     graphs, b = p G + g).  adj (G', N, N) bool, element b reading mask
-    (b // rep) % G' (``gat_mp``)."""
+    (b // rep) % G' (``gat_mp``).  The kernels' block shapes are
+    resolved on the first call of a launch key (``core/gat_tune.py``
+    ``autotune``; JAX resolves its lowering in ``resolve_backend``)."""
     B, N, D = h.shape
     w, b = p[f"gat{level}.w"], p[f"gat{level}.b"]
     n_w = w.shape[0]
@@ -49,6 +52,8 @@ def _gat(p: Dict[str, torch.Tensor], level: int, h: torch.Tensor,
     zh = z.view(z.shape[0], -1, HEADS, D // HEADS)
     e_src = torch.einsum("pnhd,phd->pnh", zh, p[f"gat{level}.a_src"])
     e_dst = torch.einsum("pnhd,phd->pnh", zh, p[f"gat{level}.a_dst"])
+    gat_tune.autotune(N, D, HEADS, z.dtype, batch=B, masks=adj.shape[0],
+                      device=z.device)
     out, _, _ = gat_ops.gat_mp(z.view(B, N, D),
                                e_src.reshape(B, N, HEADS).contiguous(),
                                e_dst.reshape(B, N, HEADS).contiguous(),

@@ -36,8 +36,15 @@
 // and with ~1 % of alpha non-zero a dense alpha z product would do ~86x
 // the work the edges need.  fp32 CUDA cores, expf (not __expf).
 //
+// The block shape is a template argument: WARPS destination rows (one
+// warp each) per block.  Each row is one warp's and sums in column
+// order whatever WARPS is, so every shape gives the same bits; the
+// wrapper's tuner (core/gat_tune.py) times the shapes of FWD_WARPS and
+// passes the winner.
+//
 // C interface for ctypes: pointers are device pointers, `stream` is a
-// cudaStream_t, the return value is the CUDA error code of the launch.
+// cudaStream_t, the return value is the CUDA error code of the launch
+// (cudaErrorInvalidValue for a block shape outside the compiled set).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -48,9 +55,7 @@ namespace {
 
 using namespace gat;
 
-constexpr int WARPS = 4;         // destination rows per block
-
-template <int HP>
+template <int HP, int WARPS>
 __global__ void __launch_bounds__(32 * WARPS)
 gat_fwd_kernel(const float* __restrict__ z, const float* __restrict__ e_src,
                const float* __restrict__ e_dst,
@@ -145,16 +150,35 @@ gat_fwd_kernel(const float* __restrict__ z, const float* __restrict__ e_src,
   }
 }
 
-template <int HP>
+template <int HP, int WARPS>
 int launch(const float* z, const float* e_src, const float* e_dst,
            const unsigned char* adj, long long adj_bstride, int adj_rep,
            int adj_count, float* out, float* m, float* l, int B, int N, int H,
            cudaStream_t stream) {
   const dim3 grid((N + WARPS - 1) / WARPS, B);
-  gat_fwd_kernel<HP><<<grid, 32 * WARPS, 0, stream>>>(
+  gat_fwd_kernel<HP, WARPS><<<grid, 32 * WARPS, 0, stream>>>(
       z, e_src, e_dst, adj, adj_bstride, adj_rep, adj_count, out, m, l, N,
       H);
   return (int)cudaGetLastError();
+}
+
+template <int HP>
+int launch_warps(int warps, const float* z, const float* e_src,
+                 const float* e_dst, const unsigned char* adj,
+                 long long adj_bstride, int adj_rep, int adj_count,
+                 float* out, float* m, float* l, int B, int N, int H,
+                 cudaStream_t s) {
+  // the compiled set, FWD_WARPS in kernels/gat_mp/ops.py
+  if (warps == 2)
+    return launch<HP, 2>(z, e_src, e_dst, adj, adj_bstride, adj_rep,
+                         adj_count, out, m, l, B, N, H, s);
+  if (warps == 4)
+    return launch<HP, 4>(z, e_src, e_dst, adj, adj_bstride, adj_rep,
+                         adj_count, out, m, l, B, N, H, s);
+  if (warps == 8)
+    return launch<HP, 8>(z, e_src, e_dst, adj, adj_bstride, adj_rep,
+                         adj_count, out, m, l, B, N, H, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -163,20 +187,20 @@ extern "C" int gat_mp_fwd(const float* z, const float* e_src,
                           const float* e_dst, const unsigned char* adj,
                           long long adj_bstride, int adj_rep,
                           int adj_count, float* out, float* m, float* l,
-                          int B, int N, int H, void* stream) {
+                          int B, int N, int H, int warps, void* stream) {
   if (H < 1 || H > MAX_HEADS || B < 1 || N < 1 || B > 65535 || adj_rep < 1 ||
       adj_count < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (H == 1)
-    return launch<1>(z, e_src, e_dst, adj, adj_bstride, adj_rep, adj_count,
-                     out, m, l, B, N, H, s);
+    return launch_warps<1>(warps, z, e_src, e_dst, adj, adj_bstride, adj_rep,
+                           adj_count, out, m, l, B, N, H, s);
   if (H == 2)
-    return launch<2>(z, e_src, e_dst, adj, adj_bstride, adj_rep, adj_count,
-                     out, m, l, B, N, H, s);
+    return launch_warps<2>(warps, z, e_src, e_dst, adj, adj_bstride, adj_rep,
+                           adj_count, out, m, l, B, N, H, s);
   if (H <= 4)
-    return launch<4>(z, e_src, e_dst, adj, adj_bstride, adj_rep, adj_count,
-                     out, m, l, B, N, H, s);
-  return launch<8>(z, e_src, e_dst, adj, adj_bstride, adj_rep, adj_count,
-                   out, m, l, B, N, H, s);
+    return launch_warps<4>(warps, z, e_src, e_dst, adj, adj_bstride, adj_rep,
+                           adj_count, out, m, l, B, N, H, s);
+  return launch_warps<8>(warps, z, e_src, e_dst, adj, adj_bstride, adj_rep,
+                         adj_count, out, m, l, B, N, H, s);
 }

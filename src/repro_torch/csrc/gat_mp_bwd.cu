@@ -59,8 +59,18 @@
 // would not keep, and with ~1 % of alpha non-zero a dense product would
 // do ~86x the work the edges need.  fp32 CUDA cores, expf.
 //
+// The block shape is a set of template arguments: WARPS columns or rows
+// (one warp each) per block, RCH rows a column block lists at a time,
+// BATCH edges whose rows a warp gathers at once.  Each output still has
+// one warp as its owner, which walks its edges in ascending order and
+// sums them one after the other, so every shape gives the same bits;
+// the wrapper's tuner (core/gat_tune.py) times the shapes of BWD_SHAPES
+// and passes the winner.  The text above describes the default shape,
+// (8, 512, 2).
+//
 // C interface for ctypes: pointers are device pointers, `stream` is a
-// cudaStream_t, the return value is the CUDA error code of the launch.
+// cudaStream_t, the return value is the CUDA error code of the launch
+// (cudaErrorInvalidValue for a block shape outside the compiled set).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -71,19 +81,20 @@ namespace {
 
 using namespace gat;
 
-constexpr int WARPS = 8;         // rows or columns per block
-constexpr int RCH = 512;         // rows a column block lists at a time
-constexpr unsigned ANY_MASKED = 1u << WARPS;  // tile: a row has m = -1e30
 constexpr unsigned EDGE = 0x8000u;  // list entry: the row has an edge
-constexpr int BATCH = 2;         // edges whose rows are gathered at once
 
-template <int HP>
+// WARPS: rows or columns per block; RCH: rows a column block lists at a
+// time; BATCH: edges whose rows are gathered at once
+#define SHAPE_PARAMS int WARPS, int RCH, int BATCH
+#define SHAPE WARPS, RCH, BATCH
+
+template <int HP, SHAPE_PARAMS>
 struct RowSmem {
   unsigned short cols[WARPS][SWEEP];
   float alpha[WARPS][32 * HP];   // alpha of chunk edge k, head h
 };
 
-template <int HP>
+template <int HP, SHAPE_PARAMS>
 struct ColSmem {
   unsigned short bits[RCH];      // the block's columns set in row i
   unsigned char masked[RCH];     // row i has m = -1e30
@@ -92,10 +103,10 @@ struct ColSmem {
   float alpha[WARPS][32 * HP];
 };
 
-template <int HP>
+template <int HP, SHAPE_PARAMS>
 union BwdSmem {
-  RowSmem<HP> row;
-  ColSmem<HP> col;
+  RowSmem<HP, SHAPE> row;
+  ColSmem<HP, SHAPE> col;
 };
 
 struct Args {
@@ -150,8 +161,9 @@ __device__ __forceinline__ unsigned pos_bits(const Slot<HP>& me,
   return mine;
 }
 
-template <int HP>
-__device__ void columns(const Args& a, ColSmem<HP>& sm, int cb) {
+template <int HP, SHAPE_PARAMS>
+__device__ void columns(const Args& a, ColSmem<HP, SHAPE>& sm, int cb) {
+  constexpr unsigned ANY_MASKED = 1u << WARPS;  // tile: a row is masked
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int N = a.N, H = a.H, D = H * HD;
@@ -258,8 +270,8 @@ __device__ void columns(const Args& a, ColSmem<HP>& sm, int cb) {
   if (me.leader(lane)) a.de_dst[(nb + j) * H + me.head] = acc;
 }
 
-template <int HP>
-__device__ void rows(const Args& a, RowSmem<HP>& sm, int rb) {
+template <int HP, SHAPE_PARAMS>
+__device__ void rows(const Args& a, RowSmem<HP, SHAPE>& sm, int rb) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int N = a.N, H = a.H, D = H * HD;
@@ -321,21 +333,38 @@ __device__ void rows(const Args& a, RowSmem<HP>& sm, int rb) {
   if (me.leader(lane)) a.de_src[r * H + me.head] = acc;
 }
 
-template <int HP>
+template <int HP, SHAPE_PARAMS>
 __global__ void __launch_bounds__(32 * WARPS) gat_bwd_kernel(Args a) {
-  __shared__ BwdSmem<HP> sm;
+  __shared__ BwdSmem<HP, SHAPE> sm;
   const int nblk = (a.N + WARPS - 1) / WARPS;
   if ((int)blockIdx.x < nblk)
-    columns<HP>(a, sm.col, blockIdx.x);
+    columns<HP, SHAPE>(a, sm.col, blockIdx.x);
   else
-    rows<HP>(a, sm.row, blockIdx.x - nblk);
+    rows<HP, SHAPE>(a, sm.row, blockIdx.x - nblk);
 }
 
-template <int HP>
+template <int HP, SHAPE_PARAMS>
 int launch(const Args& a, int B, cudaStream_t stream) {
   const dim3 grid(2 * ((a.N + WARPS - 1) / WARPS), B);
-  gat_bwd_kernel<HP><<<grid, 32 * WARPS, 0, stream>>>(a);
+  gat_bwd_kernel<HP, SHAPE><<<grid, 32 * WARPS, 0, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// the compiled set, BWD_SHAPES in kernels/gat_mp/ops.py
+template <int HP>
+int launch_shape(const Args& a, int B, int warps, int rch, int batch,
+                 cudaStream_t s) {
+#define SHAPE_CASE(W, R, BT)                 \
+  if (warps == W && rch == R && batch == BT) \
+    return launch<HP, W, R, BT>(a, B, s);
+  SHAPE_CASE(8, 512, 2)
+  SHAPE_CASE(8, 256, 2)
+  SHAPE_CASE(4, 512, 2)
+  SHAPE_CASE(4, 256, 2)
+  SHAPE_CASE(8, 512, 1)
+  SHAPE_CASE(4, 512, 1)
+#undef SHAPE_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -346,7 +375,8 @@ extern "C" int gat_mp_bwd(const float* z, const float* e_src,
                           int adj_count, const float* m,
                           const float* l, const float* out, const float* g,
                           float* dz, float* de_src, float* de_dst, int B,
-                          int N, int H, void* stream) {
+                          int N, int H, int warps, int rch, int batch,
+                          void* stream) {
   if (H < 1 || H > MAX_HEADS || B < 1 || N < 1 || B > 65535 || adj_rep < 1 ||
       adj_count < 1)
     return (int)cudaErrorInvalidValue;
@@ -354,8 +384,8 @@ extern "C" int gat_mp_bwd(const float* z, const float* e_src,
                m, l, out, g,
                dz, de_src, de_dst, N, H};
   cudaStream_t s = (cudaStream_t)stream;
-  if (H == 1) return launch<1>(a, B, s);
-  if (H == 2) return launch<2>(a, B, s);
-  if (H <= 4) return launch<4>(a, B, s);
-  return launch<8>(a, B, s);
+  if (H == 1) return launch_shape<1>(a, B, warps, rch, batch, s);
+  if (H == 2) return launch_shape<2>(a, B, warps, rch, batch, s);
+  if (H <= 4) return launch_shape<4>(a, B, warps, rch, batch, s);
+  return launch_shape<8>(a, B, warps, rch, batch, s);
 }

@@ -3,7 +3,9 @@ and the kernels' launch counters.
 
 There is no silent fallback: a request for CUDA on a machine without it
 raises, and only an explicit ``device="cpu"`` runs the plain PyTorch
-versions of the kernels.
+versions of the kernels.  ``"meta"`` is accepted where a caller names it
+(the dry run, ``launch/dryrun.py``: shapes only, no data); it is never a
+default.
 """
 from __future__ import annotations
 
@@ -19,13 +21,13 @@ _COUNT_LOCK = threading.Lock()
 
 def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     """``torch.device`` for ``device``; raises ``RuntimeError`` when CUDA
-    is asked for and not available."""
+    is asked for and not available.  ``"meta"`` only when named."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch path on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

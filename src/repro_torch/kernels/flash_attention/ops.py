@@ -14,7 +14,9 @@ transposed copy); ``kernel_route`` says which: the tensor-core kernel
 and for bf16 at h = 16 or 32.  There is no other choice and no
 fallback: a launch that fails raises.  On CPU tensors it runs
 ``flash_attention_plain``, the forward of ``blocked_attention`` in torch
-ops.  Query i sits at position i + q_offset; with ``causal`` it sees the
+ops; so it does on meta tensors (the dry run, ``launch/dryrun.py``),
+the forward and the backward each one op of ``distributed/cost.py``'s
+count.  Query i sits at position i + q_offset; with ``causal`` it sees the
 keys at positions <= its own.
 
 The gradient is the counterpart of ``_flash_bwd`` in
@@ -35,6 +37,7 @@ import functools
 import torch
 
 from repro_torch.device import count_launch
+from repro_torch.distributed.cost import meta_op
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
@@ -218,15 +221,22 @@ def _launch(q, k, v, causal, q_offset, with_lse=False):
     return _launch_fp32cores(q, k, v, causal, q_offset, with_lse)
 
 
+def _plain_chunk(k, chunk):
+    Sk = k.shape[1]
+    chunk = chunk or Sk
+    if Sk % chunk:
+        raise ValueError(f"chunk {chunk} does not divide Sk={Sk}")
+    return chunk
+
+
 def _forward(q, k, v, causal, q_offset, chunk, with_lse=False):
-    """The kernel on CUDA tensors, the plain version on CPU tensors."""
-    if q.device.type == "cpu":
-        Sk = k.shape[1]
-        chunk = chunk or Sk
-        if Sk % chunk:
-            raise ValueError(f"chunk {chunk} does not divide Sk={Sk}")
-        return flash_attention_plain(q, k, v, chunk=chunk, causal=causal,
-                                     q_offset=q_offset, return_lse=with_lse)
+    """The kernel on CUDA tensors, the plain version on CPU tensors and,
+    as one op of the dry run's count, on meta tensors."""
+    if q.device.type in ("cpu", "meta"):
+        chunk = _plain_chunk(k, chunk)
+        return meta_op("flash_attention", lambda: flash_attention_plain(
+            q, k, v, chunk=chunk, causal=causal, q_offset=q_offset,
+            return_lse=with_lse), q, k, v)
     return _launch(q, k, v, causal, q_offset, with_lse)
 
 
@@ -411,13 +421,12 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, causal: bool = True,
     count as one launch); CPU tensors run ``flash_attention_bwd_plain``
     over KV chunks of ``chunk`` keys (0: all Sk)."""
     _check_bwd(q, k, v, out, lse, g)
-    if q.device.type == "cpu":
-        Sk = k.shape[1]
-        chunk = chunk or Sk
-        if Sk % chunk:
-            raise ValueError(f"chunk {chunk} does not divide Sk={Sk}")
-        return flash_attention_bwd_plain(q, k, v, out, lse, g, chunk=chunk,
-                                         causal=causal, q_offset=q_offset)
+    if q.device.type in ("cpu", "meta"):
+        chunk = _plain_chunk(k, chunk)
+        return meta_op(
+            "flash_attention_bwd", lambda: flash_attention_bwd_plain(
+                q, k, v, out, lse, g, chunk=chunk, causal=causal,
+                q_offset=q_offset), q, k, v, out, lse, g)
     return _launch_bwd(q, k, v, out, lse, g, causal, q_offset)
 
 

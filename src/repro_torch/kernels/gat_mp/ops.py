@@ -19,6 +19,16 @@ them through ``_GatMP``, whose backward is ``gat_mp_bwd``: the kernel
 set entries (one warp per row or column, z, g and out gathered per
 edge).  The mask gets no gradient.  A launch that fails raises; there is
 no fallback to the plain version for CUDA tensors.
+
+Both kernels take their block shape as arguments: the forward one of
+``FWD_WARPS`` (rows a block), the backward one of ``BWD_SHAPES``
+(warps, rows a column block lists at a time, edges gathered at once).
+A launch takes the shape ``core/gat_tune.py`` ``blocks_for`` gives its
+key (the tuned winner, else ``gat_tune.DEFAULT_BLOCKS``); a shape
+outside the sets raises ``RuntimeError``.  Every shape gives the same
+bits.  On meta tensors (the dry run, ``launch/dryrun.py``) both
+wrappers give their outputs' shapes through the plain versions and count
+as one op each (``distributed/cost.py`` ``meta_op``).
 """
 from __future__ import annotations
 
@@ -27,17 +37,24 @@ import ctypes
 import torch
 
 from repro_torch.device import count_launch
+from repro_torch.distributed.cost import meta_op
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIM = 32    # features per head the kernels take
 KERNEL_MAX_HEADS = 8
+# the block shapes compiled into csrc/gat_mp.cu (rows a block) and
+# csrc/gat_mp_bwd.cu ((warps, rows listed at a time, edges gathered at
+# once)); the C entry points return an error for any other
+FWD_WARPS = (2, 4, 8)
+BWD_SHAPES = ((8, 512, 2), (8, 256, 2), (4, 512, 2), (4, 256, 2),
+              (8, 512, 1), (4, 512, 1))
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
                                       ctypes.c_int]
-             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
                                           ctypes.c_int]
-                 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                  + [ctypes.c_void_p])
 
 
@@ -129,11 +146,27 @@ def _mask_args(adj, rep):
     return mask, (0 if G == 1 else N * N), rep, G
 
 
-def _launch(z, e_src, e_dst, adj, rep=1):
+def _blocks(z, e_src, adj, kind):
+    """The block shape of this launch's key (``gat_tune.blocks_for``)."""
+    from repro_torch.core import gat_tune
+    B, N, D = z.shape
+    return gat_tune.blocks_for(N, D, e_src.shape[-1], z.dtype, batch=B,
+                               masks=adj.shape[0], device=z.device)[kind]
+
+
+def _launch(z, e_src, e_dst, adj, rep=1, warps=None, counter=None):
+    """The forward kernel with ``warps`` rows a block (None: the shape
+    ``blocks_for`` gives), counted as a launch of ``counter`` (None:
+    ``gat_mp``; the tuner counts its timing launches apart)."""
     B, N, D = z.shape
     H = e_src.shape[-1]
     _kernel_inputs(z, e_src, (("z", z), ("e_src", e_src), ("e_dst", e_dst),
                               ("adj", adj)), aligned=(("z", z),))
+    if warps is None:
+        (warps,) = _blocks(z, e_src, adj, "fwd")
+    if warps not in FWD_WARPS:
+        raise RuntimeError(f"gat_mp: no kernel of {warps} warps a block; "
+                           f"compiled: {FWD_WARPS}")
     fn = build.function("gat_mp", "gat_mp_fwd", _ARGTYPES)
     out = torch.empty_like(z)
     m = torch.empty_like(e_src)
@@ -142,16 +175,20 @@ def _launch(z, e_src, e_dst, adj, rep=1):
     err = build.cuda_call(
         fn, z, z.data_ptr(), e_src.data_ptr(), e_dst.data_ptr(),
         mask.data_ptr(), stride, rep, count, out.data_ptr(), m.data_ptr(),
-        l.data_ptr(), B, N, H)
+        l.data_ptr(), B, N, H, warps)
     if err:
         raise RuntimeError(f"gat_mp kernel launch failed: CUDA error {err}")
-    count_launch(gat_mp)
+    count_launch(counter or gat_mp)
     return out, m, l
 
 
 def _forward(z, e_src, e_dst, adj, rep):
     if z.device.type == "cpu":
         return gat_mp_plain(z, e_src, e_dst, adj, rep)
+    if z.device.type == "meta":
+        return meta_op("gat_mp", lambda: gat_mp_plain(z, e_src, e_dst, adj,
+                                                      rep),
+                       z, e_src, e_dst, adj)
     return _launch(z, e_src, e_dst, adj, rep)
 
 
@@ -239,13 +276,21 @@ def _check_bwd(z, e_src, e_dst, adj, m, l, out, g, rep):
             raise ValueError("gat_mp_bwd inputs lie on different devices")
 
 
-def _launch_bwd(z, e_src, e_dst, adj, m, l, out, g, rep=1):
+def _launch_bwd(z, e_src, e_dst, adj, m, l, out, g, rep=1, shape=None,
+                counter=None):
+    """The backward kernel with block ``shape`` (warps, rows listed at a
+    time, edges gathered at once; None: the shape ``blocks_for``
+    gives), counted as a launch of ``counter`` (None: ``gat_mp_bwd``)."""
     B, N, D = z.shape
     H = e_src.shape[-1]
     _kernel_inputs(z, e_src, (("z", z), ("e_src", e_src), ("e_dst", e_dst),
                               ("adj", adj), ("m", m), ("l", l),
                               ("out", out), ("g", g)),
                    aligned=(("z", z), ("out", out), ("g", g)))
+    shape = tuple(shape or _blocks(z, e_src, adj, "bwd"))
+    if shape not in BWD_SHAPES:
+        raise RuntimeError(f"gat_mp_bwd: no kernel of block shape {shape}; "
+                           f"compiled: {BWD_SHAPES}")
     fn = build.function("gat_mp_bwd", "gat_mp_bwd", _BWD_ARGTYPES)
     dz = torch.empty_like(z)
     de_src = torch.empty_like(e_src)
@@ -255,11 +300,11 @@ def _launch_bwd(z, e_src, e_dst, adj, m, l, out, g, rep=1):
         fn, z, z.data_ptr(), e_src.data_ptr(), e_dst.data_ptr(),
         mask.data_ptr(), stride, rep, count, m.data_ptr(), l.data_ptr(),
         out.data_ptr(), g.data_ptr(), dz.data_ptr(), de_src.data_ptr(),
-        de_dst.data_ptr(), B, N, H)
+        de_dst.data_ptr(), B, N, H, *shape)
     if err:
         raise RuntimeError(f"gat_mp_bwd kernel launch failed: CUDA error "
                            f"{err}")
-    count_launch(gat_mp_bwd)
+    count_launch(counter or gat_mp_bwd)
     return dz, de_src, de_dst
 
 
@@ -272,6 +317,10 @@ def gat_mp_bwd(z, e_src, e_dst, adj, m, l, out, g, rep=1):
     _check_bwd(z, e_src, e_dst, adj, m, l, out, g, rep)
     if z.device.type == "cpu":
         return gat_mp_bwd_plain(z, e_src, e_dst, adj, m, l, out, g, rep)
+    if z.device.type == "meta":
+        return meta_op("gat_mp_bwd", lambda: gat_mp_bwd_plain(
+            z, e_src, e_dst, adj, m, l, out, g, rep),
+            z, e_src, e_dst, adj, m, l, out, g)
     return _launch_bwd(z, e_src, e_dst, adj, m, l, out, g, rep)
 
 

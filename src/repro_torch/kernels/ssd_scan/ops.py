@@ -13,7 +13,9 @@ wrapper: chunk states and C B^T, the pass over the states, chunk
 outputs), its backward ``csrc/ssd_scan_bwd.cu`` (six CUDA kernels,
 counted as one launch of ``ssd_scan_bwd``), which JAX's autodiff of
 ``ssd_chunked`` computes in XLA.  CPU tensors run ``ssd_scan_plain``,
-which autograd differentiates.
+which autograd differentiates.  Meta tensors (the dry run,
+``launch/dryrun.py``) run it too, through ``_SSDScanMeta``: one op of
+``distributed/cost.py``'s count forward and one backward.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import ctypes
 import torch
 
 from repro_torch.device import count_launch
+from repro_torch.distributed.cost import meta_op
 from repro_torch.kernels import build
 
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
@@ -235,6 +238,39 @@ class _SSDScan(torch.autograd.Function):
         return dxd, dla, dB, dC, dinit, None
 
 
+class _SSDScanMeta(torch.autograd.Function):
+    """The scan on meta tensors: ``ssd_scan_plain`` as one op of the dry
+    run's count, and its gradient, from the graph the forward kept (as
+    JAX's autodiff keeps its residuals), as one op of the backward."""
+
+    @staticmethod
+    def forward(ctx, xd, la, B_, C_, init_state, chunk):
+        ins = [t.detach().requires_grad_() for t in (xd, la, B_, C_)]
+        st0 = (None if init_state is None
+               else init_state.detach().float().requires_grad_())
+
+        def run():
+            with torch.enable_grad():
+                return ssd_scan_plain(*ins, chunk, st0)
+        y, final = meta_op("ssd_scan", run, xd, la, B_, C_, init_state)
+        ctx.graph = (ins + ([] if st0 is None else [st0]), y, final)
+        ctx.set_materialize_grads(False)
+        return y.detach(), final.detach()
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        ins, y, final = ctx.graph
+        del ctx.graph
+        pairs = [(o, g) for o, g in ((y, dy), (final, dfinal))
+                 if g is not None]
+        if not pairs:
+            return None, None, None, None, None, None
+        outs, cots = zip(*pairs)
+        grads = meta_op("ssd_scan_bwd", lambda: torch.autograd.grad(
+            outs, ins, cots, allow_unused=True), *ins, *cots)
+        return (*grads[:4], grads[4] if len(grads) > 4 else None, None)
+
+
 def ssd_scan(x, dt, A_log, B_, C_, *, chunk: int, init_state=None):
     """x (B, S, H, hd); dt (B, S, H) post-softplus; A_log (H,); B_ / C_
     (B, S, N) shared by the heads; optional init_state (B, H, N, hd).
@@ -248,6 +284,13 @@ def ssd_scan(x, dt, A_log, B_, C_, *, chunk: int, init_state=None):
     B_, C_ = B_.float(), C_.float()
     if x.device.type == "cpu":
         return ssd_scan_plain(xd, la, B_, C_, chunk, init_state)
+    if x.device.type == "meta":
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad
+                for t in (xd, la, B_, C_, init_state)):
+            return _SSDScanMeta.apply(xd, la, B_, C_, init_state, chunk)
+        return meta_op("ssd_scan", lambda: ssd_scan_plain(
+            xd, la, B_, C_, chunk, init_state), xd, la, B_, C_, init_state)
     st0 = None if init_state is None else init_state.float().contiguous()
     return _SSDScan.apply(xd.contiguous(), la.contiguous(), B_.contiguous(),
                           C_.contiguous(), st0, chunk)

@@ -113,11 +113,11 @@ class ProcessMesh(Mesh):
 
 
 def process_device(device: DeviceLike = "cuda") -> torch.device:
-    """The device of this process: the CPU for ``"cpu"``, else card
-    ``LOCAL_RANK`` (0 without it); raises when CUDA or that card is
-    missing."""
-    if torch.device(device).type == "cpu":
-        return torch.device("cpu")
+    """The device of this process: the CPU for ``"cpu"``, the meta
+    device for ``"meta"`` (the dry run), else card ``LOCAL_RANK`` (0
+    without it); raises when CUDA or that card is missing."""
+    if torch.device(device).type in ("cpu", "meta"):
+        return torch.device(torch.device(device).type)
     resolve_device("cuda")
     local = int(os.environ.get("LOCAL_RANK", 0))
     if local >= torch.cuda.device_count():

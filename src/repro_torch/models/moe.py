@@ -106,7 +106,11 @@ def route(p, x, cfg: ModelConfig, routes=None):
     me = probs.mean(dim=1)                                    # (B,E)
     flat_e = e_idx.reshape(B, S * k)
     rows = torch.arange(B, device=dev)[:, None] * E
-    counts = torch.bincount((flat_e + rows).reshape(-1), minlength=B * E)
+    # a fixed-size count (bincount's length depends on the data, which a
+    # meta tensor of the dry run does not hold); integer sums: exact
+    slot = (flat_e + rows).reshape(-1)
+    counts = torch.zeros(B * E, dtype=torch.long, device=dev).scatter_add_(
+        0, slot, torch.ones_like(slot))
     ce = counts.view(B, E).float() / (S * k)
     aux = m.aux_loss_weight * E * torch.sum(me * ce, dim=-1)
 

@@ -97,8 +97,13 @@ def make_grad_fn(model, cfg: ModelConfig, plan):
                 "a masked batch over several batch shards: each rank's "
                 "mean loss would weigh its own token count (ROADMAP.md "
                 "item 8)")
+        # the config's microbatches are a cap: a rank holding fewer rows
+        # (a wide mesh's batch shards) runs one row a microbatch, whose
+        # mean gradient is the same
+        rows = next(iter(batch.values())).shape[0]
         grads, loss, _ = _microbatch_grads(
-            model.loss, params, batch, cfg.grad_accum_microbatches,
+            model.loss, params, batch,
+            min(cfg.grad_accum_microbatches, rows),
             getattr(torch, cfg.grad_accum_dtype))
         grads = par.reduce_grads(grads, specs, mesh, batch_axes, partial)
         if n > 1:

@@ -125,7 +125,8 @@ def run_phase(name, cs, torch, np, rdev, fops, sops, gen, done,
         cs.phase_shard(torch, np, zoo, egrl, rdev)
     else:
         for arch in cs.TRAIN_SSM:
-            cs.phase_train(torch, np, rdev, arch)
+            cs.phase_train(torch, np, rdev, arch, cs.TRAIN_STEPS,
+                           cs.TRAIN_SSM_LAYERS[arch])
 
 
 if __name__ == "__main__":
