@@ -3131,7 +3131,8 @@ def phase_train_mesh(torch, np, train=None, names=None):
     ``tools/train_mesh.py``, rendezvous on the loopback, once per launch
     that ``mesh_launches`` gives (on four cards: 4, the MoE's 16-layer
     cut and granite-3-8b's 40 layers each in a launch of its own, then 3
-    for qwen2.5-14b's sequence-parallel run; on one: 1).  Each run of
+    for qwen2.5-14b's sequence-parallel run and qwen3-moe's (1, 3) one;
+    on one: 1).  Each run of
     ``tools/train_mesh.py`` ``RUNS`` trains its model at published
     widths (the depth cuts in ``RUNS``) from seed 0, B 4 (granite 16,
     its config's 4 microbatches), for ``MESH_STEPS`` steps on each of
@@ -3140,7 +3141,11 @@ def phase_train_mesh(torch, np, train=None, names=None):
     (1, 4) with ``seq_shard_activations`` also against (1, 4) without
     it), mamba2-780m ((1, 4), (2, 2)), zamba2-1.2b, qwen3-moe-30b-a3b at 4
     and 16 layers (expert parallel, 32 experts a rank) and
-    seamless-m4t-medium at (1, 4), qwen2.5-14b at (1, 3), granite-3-8b
+    seamless-m4t-medium at (1, 4), qwen3-0.6b with int8 gradient
+    compression at (4, 1) and (2, 2) (its sharded compression of a fixed
+    tree bit-equal to one card's), qwen2.5-14b at (1, 3), qwen3-moe at 4
+    layers at (1, 3) (128 experts on 3 cards: each expert's d_ff_expert
+    cut), granite-3-8b
     at 8 layers ((4, 1), (2, 2)) and all 40 ((4, 1): no reference, no
     card holds it with its optimizer state); qwen3's
     checkpoint saved on one layout is restored onto another (one card: a
@@ -3257,7 +3262,7 @@ def phase_serve_mesh(torch, np, serve_rows=None, names=None):
     ``tools/serve_mesh.py`` under torchrun once per launch that
     ``mesh_launches`` gives for its ``RUNS`` (on four cards: 4, the
     48-layer MoE in a launch of its own, then 3 for qwen2.5-14b's
-    sequence-parallel runs; on one: 1).  Each run serves its model at
+    sequence-parallel runs and qwen3-moe's (1, 3) run; on one: 1).  Each run serves its model at
     published widths (the depth cuts in ``RUNS``), random weights from
     seed 0, on each of its (data, model) layouts: qwen3-0.6b (8
     requests of 256-2048 tokens, 4 slots, 32 new: ``SERVE_MESH_TRAFFIC``)
@@ -3266,7 +3271,8 @@ def phase_serve_mesh(torch, np, serve_rows=None, names=None):
     decode steps) at (1, 4); zamba2-1.2b's long_500k decode cell at (4,
     1) (a batch of 1 over 524,288 cached positions, the cache cut on S
     over "data"); qwen3-moe-30b-a3b at 16 layers against one card (its
-    routes handed across) and at all 48; qwen2.5-14b at 8 layers
+    routes handed across; at (1, 4), and at (1, 3) with each expert's
+    d_ff_expert cut) and at all 48; qwen2.5-14b at 8 layers
     against one card and at 48, sequence-parallel over 3 cards.  The
     worker's gates (``tools/serve_mesh.py`` ``gate_run``): exact kernel
     launches on every rank, finite logits, every rank the same tokens,

@@ -15,15 +15,18 @@ this module holds the operations that layout implies, over a
 - ``gather_data``: FSDP as GSPMD runs JAX's scanned layers, one unit at a
   time: a leaf's shard all-gathered over the data axes where it is used,
   its gradient reduce-scattered back to the shard in the backward;
-  ``fsdp_counts`` counts both;
+  ``fsdp_counts`` counts both; ``gather_model``, the same rule over
+  "model" for a block that runs whole on every rank of it;
 - Megatron's f and g (``copy_to_model``: identity forward, all-reduce
   over "model" backward; ``reduce_from_model``: all-reduce forward in
-  f32, cast once, identity backward) and ``matmul_f32``, the row-parallel
-  product whose partial output is f32;
+  f32, cast once, identity backward) and ``matmul_f32`` / ``bmm_f32``,
+  the row-parallel products whose partial outputs are f32;
 - the sequence-parallel ends: all-gathers on S whose gradient is a
   reduce-scatter (``gather_seq``, Megatron-SP's f) or this rank's rows
   (``gather_seq_replicated``), and the reduce-scatter whose gradient is
-  an all-gather (``scatter_seq``, Megatron-SP's g); ``TensorParallel``
+  an all-gather (``scatter_seq``, Megatron-SP's g), and this rank's rows
+  of a tensor whole on every rank (``keep_seq_rows``, the gradient
+  all-gathered); ``TensorParallel``
   picks a model's entry and exit to a split block by its plan;
 - ``rms_norm_cut``: ``models/common.py`` ``rms_norm`` over a dim cut
   over "model" (Mamba2's gated norm over its d_in);
@@ -104,6 +107,13 @@ def block(x, dim: int, mesh, axes):
     size = x.shape[dim] // n
     i = _index(mesh, axes) * size
     return x[(slice(None),) * dim + (slice(i, i + size),)]
+
+
+def block_offsets(local_shape, spec, mesh) -> tuple:
+    """The global index of this rank's first element along each dim of a
+    leaf whose shard has ``local_shape`` (its spec ``spec``)."""
+    return tuple(n * _index(mesh, _live(mesh, axes)) for n, axes in
+                 zip(local_shape, dim_axes(spec, len(local_shape))))
 
 
 def global_shape(local_shape, spec, mesh) -> tuple:
@@ -231,11 +241,12 @@ def _count(kind, x):
 
 class _GatherData(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, cuts, mesh, batch):
+    def forward(ctx, x, cuts, mesh, batch, count=True):
         ctx.cuts, ctx.mesh, ctx.batch = cuts, mesh, batch
         for d, a in reversed(cuts):              # the minor axis first
             x = all_gather(x, d, mesh, a)
-            _count("all_gather", x)
+            if count:
+                _count("all_gather", x)
         return x
 
     @staticmethod
@@ -246,7 +257,7 @@ class _GatherData(torch.autograd.Function):
                 g = _reduce_scatter(g, d, ctx.mesh, a)
             else:
                 g = block(g, d, ctx.mesh, (a,)).contiguous()
-        return g, None, None, None
+        return g, None, None, None, None
 
 
 def gather_data(x, spec, mesh, data_axes, batch_axes):
@@ -266,6 +277,19 @@ def gather_data(x, spec, mesh, data_axes, batch_axes):
         return x
     return _GatherData.apply(x, cuts, mesh, _live(mesh, entry_axes(
         batch_axes)))
+
+
+def gather_model(x, spec, mesh, axis: str = "model"):
+    """The leaf whose shard is ``x`` gathered over ``axis`` where its spec
+    cuts it (``x`` itself where it does not), for a block that runs
+    whole on every rank of the axis: ``gather_data``'s rule along an
+    axis that is not a batch axis, so the backward takes this rank's
+    block of the gradient, whole and equal on every rank.  Not counted
+    in ``fsdp_counts``."""
+    cuts = _cuts(spec, x.ndim, mesh, (axis,))
+    if not cuts:
+        return x
+    return _GatherData.apply(x, cuts, mesh, (), False)
 
 
 # ------------------------------------------------- Megatron's f and g
@@ -307,6 +331,30 @@ def reduce_from_model(x, mesh, dtype, axis: str = "model"):
     """g: a row-parallel partial output ``x`` (f32) summed over ``axis``
     in f32 and cast once to ``dtype``; the gradient passes unchanged."""
     return _ReduceFromModel.apply(x, mesh, axis, dtype)
+
+
+class _BmmF32(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        if a.dtype == torch.float32:
+            return torch.bmm(a, w)
+        if a.is_cuda:
+            return torch.bmm(a, w, out_dtype=torch.float32)
+        return torch.bmm(a.float(), w.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return g.bmm(w.transpose(1, 2)), a.transpose(1, 2).bmm(g)
+
+
+def bmm_f32(a, w):
+    """``torch.bmm(a, w)`` (one dtype) with an f32 output, as
+    ``matmul_f32``: a batch of row-parallel partial outputs whose sum
+    over ranks rounds once."""
+    return _BmmF32.apply(a, w)
 
 
 class _MatmulF32(torch.autograd.Function):
@@ -422,6 +470,26 @@ def gather_seq_replicated(x, mesh, axis: str = "model"):
     all-gathered on S; the gradient, whole and equal on every rank, cut
     to this rank's rows.  The sequence-parallel attention's exit."""
     return _GatherSeq.apply(x, mesh, axis, False)
+
+
+class _KeepSeqRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x[:, seq_rows(x.shape[1], mesh, axis)].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, 1, ctx.mesh, ctx.axis), None, None
+
+
+def keep_seq_rows(x, mesh, axis: str = "model"):
+    """This rank's rows (B, S/m, ...) of a tensor (B, S, ...) whole and
+    equal on every rank of ``axis`` (a block run whole); the gradient,
+    each rank's rows', all-gathered on S, so the block's backward runs
+    whole on every rank too.  The exit matching
+    ``gather_seq_replicated``."""
+    return _KeepSeqRows.apply(x, mesh, axis)
 
 
 def scatter_seq(x, mesh, dtype, axis: str = "model"):

@@ -267,7 +267,9 @@ class LMBase(nn.Module):
         - under Megatron-SP the residual stream's norms, and a
           replicated MLP's leaves (this rank's positions).
         The norms on a replicated residual stream are not: under f and
-        g every rank already holds their whole gradient."""
+        g every rank already holds their whole gradient; nor is any leaf
+        of a mamba layer whose heads the plan does not split, which runs
+        whole on every rank (``mamba2.mamba_layer``)."""
         if self.tp is None:
             return frozenset()
         return frozenset(n for n, _ in tree_leaves(self.param_defs())
@@ -284,7 +286,9 @@ class LMBase(nn.Module):
         if leaf in SSM_STATE_LEAVES:
             return plan.rules["ssm_head"] == "model"
         if seq and leaf == "scale" and parent in RESID_NORMS:
-            return True
+            # "ln": a mamba layer's, on this rank's positions only where
+            # its heads are split
+            return parent != "ln" or plan.rules["ssm_head"] == "model"
         return seq and parent in ("mlp", "shared") and \
             plan.rules["mlp"] != "model"
 

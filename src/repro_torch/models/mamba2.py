@@ -12,7 +12,11 @@ is gathered inside the checkpoint, so again in its recompute.
 Decode is the O(1) recurrent step on (H, N, hd) states.  Under a plan
 that splits the SSM heads, prefill and decode run on the rank's heads
 and d_in columns: its cache holds their states and conv_x columns
-(``launch/programs.py`` ``cache_specs``), conv_B / conv_C whole.  n_groups = 1
+(``launch/programs.py`` ``cache_specs``), conv_B / conv_C whole.  Under
+a plan that splits "model" but not the heads (``mamba_layer``), a layer
+runs whole on every rank: its d_in-cut leaves gathered at its entry, a
+residual stream cut on S gathered and this rank's rows kept at its exit,
+the cache's conv_x columns gathered and cut back.  n_groups = 1
 (B/C shared across heads), as in the published 780m config.  z, x, B, C
 and dt have separate projection and conv parameters, as in the JAX
 package: mathematically the fused in_proj of the reference
@@ -28,7 +32,7 @@ from repro_torch.distributed import parallel as par
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models import common as cm
 from repro_torch.models.transformer import _stack_defs, remat
-from repro_torch.utils.params import ParamDef
+from repro_torch.utils.params import ParamDef, make_specs, tree_map
 
 
 def _dims(cfg: ModelConfig):
@@ -183,10 +187,57 @@ def mamba_decode(p, x, cfg: ModelConfig, conv_x, conv_B, conv_C, ssm_state,
 
 def ssm_split(model, tp=None):
     """``tp`` (``model.tp`` when None) where the model's plan splits the
-    SSM heads over "model" (``ssm_inner`` and ``ssm_head``, which
-    ``models/zoo.py`` ``check_plan`` holds equal), else None."""
+    SSM heads over "model" (``ssm_head``, and then ``ssm_inner``: d_in
+    = H * head_dim), else None."""
     tp = tp or model.tp
     return tp if tp is not None and tp.plan.rules["ssm_head"] else None
+
+
+def _whole_layer(model, p, mesh):
+    """A mamba layer's parameters ``p`` with the leaves that "model" cuts
+    (d_in, ``ssm_inner``, where the heads are not split: w_z, w_x,
+    conv_x, conv_bx, norm, out_proj) gathered over it
+    (``parallel.gather_model``: the backward takes this rank's block).
+    While the layer runs a rank holds its d_in leaves whole:
+    (3 D + W + 2) d_in elements."""
+    specs = make_specs(mamba_defs(model.cfg), model.plan.rules)
+    return tree_map(lambda x, sp: par.gather_model(x, sp, mesh), p, specs)
+
+
+def _cut_inner(model, t, mesh):
+    """This rank's block of a tensor's last dim (d_in) where the plan
+    cuts ``ssm_inner`` (a cache's conv_x columns), else ``t``."""
+    if not model.plan.rules["ssm_inner"]:
+        return t
+    return par.block(t, t.ndim - 1, mesh, ("model",))
+
+
+def mamba_layer(model, p, x, return_state: bool = False, tp=None):
+    """``mamba_block`` of one of ``model``'s layers under its plan (``tp``,
+    ``model.tp`` when None).  Where the plan splits the SSM heads, the
+    block's split.  Where it splits "model" but not the heads (d_in
+    divides the axis, H does not; or neither does), the layer runs
+    whole on every rank, as JAX computes it with no constraint on the
+    heads: its d_in-cut leaves gathered (``_whole_layer``); a residual
+    stream cut on S (``resid_seq``) gathered at the entry
+    (``gather_seq_replicated``) and this rank's rows kept at the exit
+    (``keep_seq_rows``: the gradient all-gathered, so the backward runs
+    whole too and no weight's gradient is partial); the conv_x tail
+    returned is this rank's d_in columns, as the cache holds them."""
+    tp = tp or model.tp
+    if tp is None or ssm_split(model, tp) is not None:
+        return mamba_block(p, x, model.cfg, return_state, tp)
+    mesh = tp.mesh
+    p = _whole_layer(model, p, mesh)
+    if tp.seq:
+        x = par.gather_seq_replicated(x, mesh)
+    y, state = mamba_block(p, x, model.cfg, return_state)
+    if tp.seq:
+        y = par.keep_seq_rows(y, mesh)
+    if state is not None:
+        (xr, Br, Cr), st = state
+        state = ((_cut_inner(model, xr, mesh), Br, Cr), st)
+    return y, state
 
 
 def ssm_cache_struct(cfg: ModelConfig, batch: int):
@@ -204,12 +255,26 @@ def ssm_cache_struct(cfg: ModelConfig, batch: int):
     }
 
 
-def decode_layer(p, x, cfg, cache, i, tp=None):
-    """``mamba_decode`` of layer i against its slices of ``cache``,
-    written back in place (the JAX code stacks new cache arrays)."""
+def decode_layer(model, p, x, cache, i, tp=None):
+    """``mamba_decode`` of ``model``'s layer i against its slices of
+    ``cache``, written back in place (the JAX code stacks new cache
+    arrays).  ``tp``: the split over a whole stream (``tp_whole``) or
+    None; where it does not split the SSM heads, the step runs whole
+    (``mamba_layer``): the d_in leaves and the cache's conv_x columns
+    gathered over "model", this rank's columns written back."""
+    cfg = model.cfg
+    conv_x = cache["conv_x"][i]
+    whole = tp is not None and ssm_split(model, tp) is None
+    if whole:
+        p = _whole_layer(model, p, tp.mesh)
+        if model.plan.rules["ssm_inner"]:
+            conv_x = par.all_gather(conv_x, conv_x.ndim - 1, tp.mesh,
+                                    "model")
     x, (ncx, ncb, ncc), ns = mamba_decode(
-        p, x, cfg, cache["conv_x"][i], cache["conv_B"][i],
-        cache["conv_C"][i], cache["state"][i], tp)
+        p, x, cfg, conv_x, cache["conv_B"][i], cache["conv_C"][i],
+        cache["state"][i], None if whole else tp)
+    if whole:
+        ncx = _cut_inner(model, ncx, tp.mesh)
     cache["conv_x"][i] = ncx
     cache["conv_B"][i] = ncb
     cache["conv_C"][i] = ncc
@@ -232,9 +297,8 @@ class Mamba2LM(cm.LMBase):
         cfg = self.cfg
         params = self.view(params)
         x = self._embed(params["embed"], tokens)
-        tp = ssm_split(self)
-        body = remat(lambda i, h: mamba_block(
-            self.layer(params, "layers", i), h, cfg, tp=tp)[0], cfg)
+        body = remat(lambda i, h: mamba_layer(
+            self, self.layer(params, "layers", i), h)[0], cfg)
         for i in range(cfg.n_layers):
             x = body(i, x)
         return self._final(params, x)
@@ -251,8 +315,8 @@ class Mamba2LM(cm.LMBase):
         params = self.view(params)
         x = self._embed(params["embed"], token[:, None], tp)
         for i in range(cfg.n_layers):
-            x = decode_layer(self.layer(params, "layers", i), x, cfg,
-                             cache, i, ssm_split(self, tp))
+            x = decode_layer(self, self.layer(params, "layers", i), x,
+                             cache, i, tp)
         x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
         return self._logits_last(params["embed"], x[:, 0], tp), cache
 
@@ -265,9 +329,8 @@ class Mamba2LM(cm.LMBase):
         x = self._embed(params["embed"], tokens)
         tails, states = [], []
         for i in range(cfg.n_layers):
-            x, (t3, st) = mamba_block(self.layer(params, "layers", i), x,
-                                      cfg, return_state=True,
-                                      tp=ssm_split(self))
+            x, (t3, st) = mamba_layer(self, self.layer(params, "layers", i),
+                                      x, return_state=True)
             tails.append(t3)
             states.append(st)
         x = cm.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.parallel import matmul_f32
+from repro_torch.distributed.parallel import bmm_f32, matmul_f32
 from repro_torch.models.common import mlp, mlp_defs
 from repro_torch.utils.params import ParamDef
 
@@ -176,19 +176,27 @@ def moe_block(p, x, cfg: ModelConfig, routes=None, record=None, tp=None):
 
 
 def _moe_split(p, x, cfg: ModelConfig, routes, record, tp):
-    """``moe_block`` with the experts split over "model" (JAX
-    ``moe_defs``: "expert" maps first).  The normed tokens enter the
-    split whole (f, or the gather on S under Megatron-SP), so every rank
-    routes every token of its rows as one card does: the same top-k,
-    capacity (per row and expert) and drops.  Expert parallelism (w_gate,
-    w_up, w_down cut on E): each rank runs the capacity slots of its E/m
-    experts.  A rank's combine is its choices' weighted outputs in
-    choice order (the others' read the zero row), summed in f32; the
-    shared expert's row-parallel partial (``rules["mlp"]`` "model") joins
-    it, and one exit sums them over "model" and casts once.  A shared
-    expert that is not split runs whole on the block's input.  The
-    router's gradient is each rank's part (its experts' gates): a
-    model-partial leaf; the aux loss's gradient is rank 0's alone."""
+    """``moe_block`` split over "model" as JAX ``moe_defs`` cuts the
+    experts' weights.  The normed tokens enter the split whole (f, or
+    the gather on S under Megatron-SP), so every rank routes every token
+    of its rows as one card does: the same top-k, capacity (per row and
+    expert) and drops.
+    - Expert parallelism (``rules["expert"]`` "model": w_gate, w_up,
+      w_down cut on E): each rank runs the capacity slots of its E/m
+      experts, each expert's output whole.
+    - Where the experts do not divide the axis ("expert" None,
+      "mlp_exp" "model"): each rank holds every expert's d_ff_expert/m
+      columns of w_gate and w_up and those rows of w_down, runs every
+      slot through its columns' SwiGLU, and its w_down product is a
+      partial output, kept in f32 (``bmm_f32``).
+    A rank's combine is its choices' weighted outputs in choice order
+    (under expert parallelism the others' read the zero row), summed in
+    f32; the shared expert's row-parallel partial (``rules["mlp"]``
+    "model") joins it, and one exit sums them over "model" and casts
+    once.  A shared expert that is not split runs whole on the block's
+    input.  The router's gradient is each rank's part (its experts' or
+    columns' gates): a model-partial leaf; the aux loss's gradient is
+    rank 0's alone."""
     m = cfg.moe
     k = m.top_k
     dt = x.dtype
@@ -199,7 +207,8 @@ def _moe_split(p, x, cfg: ModelConfig, routes, record, tp):
         record.update(r)
     C = r["capacity"]
     El = p["w_gate"].shape[0]
-    lo = tp.rank * El * C
+    ep = tp.plan.rules["expert"] is not None
+    lo = tp.rank * El * C if ep else 0
     hi = lo + El * C
     tok_slot = r["tok_slot"]
     mine = torch.where((tok_slot >= lo) & (tok_slot < hi), tok_slot - lo,
@@ -208,11 +217,15 @@ def _moe_split(p, x, cfg: ModelConfig, routes, record, tp):
     xe = buf.view(B, El, C, D).transpose(0, 1).reshape(El, B * C, D)
     a = F.silu(torch.bmm(xe, p["w_gate"].to(dt)))
     a = a * torch.bmm(xe, p["w_up"].to(dt))
-    eo = torch.bmm(a, p["w_down"].to(dt))
+    if ep:
+        eo = torch.bmm(a, p["w_down"].to(dt))
+        w = (r["gate"] * r["keep"]).to(dt)
+    else:
+        eo = bmm_f32(a, p["w_down"].to(dt))
+        w = r["gate"] * r["keep"]
     eo = eo.view(El, B, C, D).transpose(0, 1).reshape(B, El * C, D)
     got = _Route.apply(eo, mine.reshape(B, S * k),
                        r["slot_choice"][:, lo:hi, None])      # (B,S*k,D)
-    w = (r["gate"] * r["keep"]).to(dt)
     part = (got * w[..., None]).float().view(B, S, k, D).sum(2)
     whole_shared = m.shared_expert_ff and tp.plan.rules["mlp"] != "model"
     if m.shared_expert_ff and not whole_shared:

@@ -36,7 +36,8 @@ query heads do not divide the axis, attention is sequence-parallel
 query rows and k / v for the whole sequence, and the kernels take the
 rows' causal offset; the rows' outputs are gathered on S.  The MLP is
 column-parallel (w_gate, w_up) then row-parallel (w_down) when
-``rules["mlp"]`` is "model"; the MoE layers are expert-parallel
+``rules["mlp"]`` is "model"; the MoE layers are expert-parallel, or
+where the experts do not divide the axis cut each expert's d_ff_expert
 (``moe.moe_block``'s ``tp``); the embedding and the loss are
 vocab-parallel.  Over a replicated residual stream each split block
 starts with f and ends with g (f32 partial sums, cast once); with

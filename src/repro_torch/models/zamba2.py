@@ -16,8 +16,9 @@ few gathered layers are saved for the backward, as JAX keeps an
 unscanned tail's.  The shared block is gathered once a forward
 (``LMBase.view``) and its gradient, summed over the G uses, reduce-
 scattered once.  Under a plan that splits
-"model", the mamba layers run on this rank's heads
-(``mamba2.mamba_block``'s ``tp``) and the shared block through
+"model", the mamba layers run on this rank's heads where the plan splits
+them, else whole on every rank (``mamba2.mamba_layer``), and the shared
+block through
 ``TransformerLM``'s split attention and MLP (``self._tf``, built with
 the plan); serving keeps the rank's SSM heads' caches and its block of
 the shared block's KV cache (cut on S over "data" at a batch of 1, as
@@ -34,8 +35,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as att
 from repro_torch.models import common as cm
-from repro_torch.models.mamba2 import (decode_layer, mamba_block, mamba_defs,
-                                       ssm_cache_struct, ssm_split)
+from repro_torch.models.mamba2 import (decode_layer, mamba_defs,
+                                       mamba_layer, ssm_cache_struct)
 from repro_torch.models.transformer import (TransformerLM, _stack_defs,
                                            remat)
 
@@ -88,8 +89,7 @@ class Zamba2LM(cm.LMBase):
         attention and MLP block."""
         cfg, shared = self.cfg, params["shared"]
         for i in range(g * self.k, (g + 1) * self.k):
-            x, _ = mamba_block(self._mamba_layer(params, i), x, cfg,
-                               tp=ssm_split(self))
+            x, _ = mamba_layer(self, self._mamba_layer(params, i), x)
         x, _, _ = self._tf._attn_block(shared, x, positions)
         x, _ = self._tf._ffn_block(shared, x)
         return x
@@ -105,8 +105,7 @@ class Zamba2LM(cm.LMBase):
         for g in range(self.G):
             x = body(g, x)
         for i in range(self.G * self.k, cfg.n_layers):
-            x, _ = mamba_block(self._mamba_layer(params, i), x, cfg,
-                               tp=ssm_split(self))
+            x, _ = mamba_layer(self, self._mamba_layer(params, i), x)
         return self._final(params, x)
 
     # ----------------------------------------------------------- serving
@@ -127,7 +126,7 @@ class Zamba2LM(cm.LMBase):
         x = self._embed(params["embed"], token[:, None], tp)
         shared = params["shared"]
         for i, p_l in self._mamba_layers(params):
-            x = decode_layer(p_l, x, cfg, cache, i, ssm_split(self, tp))
+            x = decode_layer(self, p_l, x, cache, i, tp)
             if i < self.G * self.k and (i + 1) % self.k == 0:
                 g = i // self.k
                 x = self._tf._decode_layer(shared, x, cache["attn_k"][g],
@@ -149,8 +148,7 @@ class Zamba2LM(cm.LMBase):
         cut = self.cache_cut
         tails, states = [], []
         for i, p_l in self._mamba_layers(params):
-            x, (t3, st) = mamba_block(p_l, x, cfg, return_state=True,
-                                      tp=ssm_split(self))
+            x, (t3, st) = mamba_layer(self, p_l, x, return_state=True)
             tails.append(t3)
             states.append(st)
             if i < self.G * self.k and (i + 1) % self.k == 0:

@@ -20,9 +20,10 @@ so the gradients, and the microbatches' accumulator, have the shards'
 shapes.  Then ``parallel.reduce_grads`` finishes the mean over the batch
 axes on the shards, the step clips by the global norm over the shards
 and runs the optimizer on them.  The loss is the mean over the batch
-shards.  Gradient compression under a plan raises:
-JAX compresses the logical leaf, and int8 blocks cut across shards would
-give other numbers.
+shards.  Gradient compression under a plan runs where JAX's does, on
+the mean gradient before the optimizer: ``compression.compress_sharded``
+gives each rank its block of the whole leaf's int8 round trip, bit for
+bit, the block maxima all-reduced over the axes that cut the leaf.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import parallel as par
-from repro_torch.distributed.compression import compress_decompress
+from repro_torch.distributed.compression import (compress_decompress,
+                                                 compress_sharded)
 from repro_torch.training import optimizers as opt
 from repro_torch.utils.params import tree_from_flat, tree_leaves, tree_map
 
@@ -95,8 +97,9 @@ def make_grad_fn(model, cfg: ModelConfig, plan):
         if n > 1 and "mask" in batch:
             raise NotImplementedError(
                 "a masked batch over several batch shards: each rank's "
-                "mean loss would weigh its own token count (ROADMAP.md "
-                "item 8)")
+                "mean loss would weigh its own token count; JAX takes a "
+                "masked mean per microbatch of the global batch "
+                "(ROADMAP.md §3, contract narrowings)")
         # the config's microbatches are a cap: a rank holding fewer rows
         # (a wide mesh's batch shards) runs one row a microbatch, whose
         # mean gradient is the same
@@ -121,18 +124,15 @@ def make_train_step(model, cfg: ModelConfig, plan=None, opt_name: str = None,
     the sharded step over its process mesh."""
     opt_name = opt_name or cfg.optimizer
     if plan is not None:
-        if grad_compression:
-            raise NotImplementedError(
-                "gradient compression under a sharding plan is not ported "
-                "(ROADMAP.md item 8): JAX compresses each whole gradient "
-                "leaf, and int8 blocks cut across shards give other "
-                "numbers")
+        specs = model.param_specs()
         ocfg, opt_init, opt_update = opt.make_optimizer(
-            opt_name, opt_cfg, plan.mesh, model.param_specs())
+            opt_name, opt_cfg, plan.mesh, specs)
         grad_fn = make_grad_fn(model, cfg, plan)
 
         def sharded_step(params, opt_state, batch, step):
             grads, loss = grad_fn(params, batch)
+            if grad_compression:
+                grads = compress_sharded(grads, specs, plan.mesh)
             params, opt_state, om = opt_update(grads, opt_state, params)
             return params, opt_state, {"loss": loss, **om, "step": step + 1}
 

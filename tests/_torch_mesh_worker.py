@@ -17,11 +17,20 @@ second through ``make_train_step``.  Rank 0 writes what the test compares to
 parameters after each step, the optimizer state after the second,
 whether shard -> gather gave the parameters back bit for bit and the
 counts of each rank.
+The cases of ``COMPRESSED`` step with ``grad_compression``: their
+recorded gradients are the mean gradients before the int8 round trip
+(``compression.compress_sharded``) that the update takes, of both steps
+(the second's as ``grad2``).
+``compression_case`` cuts one fixed tree (``compression_tree``) on each
+of ``COMPRESSION_LAYOUTS``, compresses the shards and writes the
+gathered result.
 ``RESTORES``: per arch a ``TrainLoop`` saves at step 1 on one layout, and
 loops on other layouts restore from it and run to step 3.  Last, the launcher's
 ``main`` trains over the same group (``LAUNCHER``, its log on
-standard output).
+standard output), then again at (4, 1) with ``--grad-compression``
+(its losses in ``launcher-compressed.npz``).
 """
+import dataclasses
 import os
 import sys
 
@@ -36,6 +45,7 @@ from repro_torch.configs.base import ShapeCfg  # noqa: E402
 from repro_torch.configs.registry import get_config, smoke_config  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM, device_batch  # noqa: E402
 from repro_torch.distributed import parallel as par  # noqa: E402
+from repro_torch.distributed.compression import compress_sharded  # noqa: E402
 from repro_torch.distributed.rules import make_plan  # noqa: E402
 from repro_torch.launch.mesh import make_process_mesh  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
@@ -44,6 +54,7 @@ from repro_torch.models.zoo import get_model  # noqa: E402
 from repro_torch.training import optimizers as opt  # noqa: E402
 from repro_torch.training.train_step import (make_grad_fn,  # noqa: E402
                                              make_train_step)
+from repro_torch.utils.params import PartitionSpec as P  # noqa: E402
 from repro_torch.utils.params import tree_from_flat, tree_leaves  # noqa: E402
 
 AXES2, AXES3 = ("data", "model"), ("pod", "data", "model")
@@ -95,15 +106,53 @@ CASES["qwen3-resid-seq-1x4"] = ("qwen3-0.6b", (1, 4), 4, 32,
 # 30 query rows, which 4 do not divide: blocks of 8, the last 2 padding
 CASES["qwen3-sp-S30-1x4"] = ("qwen3-0.6b", (1, 4), 4, 30,
                              {"n_heads": 6, "n_kv_heads": 2}, {})
+# the plans whose "model" axis divides neither the experts nor the SSM
+# heads: 6 experts on 4 ranks (each rank all 6, 16 of the 64 d_ff_expert
+# columns), 3 experts (top-2) on 2 beside FSDP over "data"; mamba2 at
+# head_dim 64 (d_in 128 divides 4, its 2 heads do not: the layer runs
+# whole, its d_in leaves gathered), and zamba2 so with its residual
+# stream cut on S (Megatron-SP through the whole mamba layers)
+CASES["moe-ffcut-1x4"] = ("qwen3-moe-30b-a3b", (1, 4), 4, 32,
+                          {"moe.n_experts": 6}, {})
+CASES["moe-ffcut-2x2"] = ("qwen3-moe-30b-a3b", (2, 2), 4, 32,
+                          {"moe.n_experts": 3, "moe.top_k": 2}, {})
+CASES["mamba2-inner-1x4"] = ("mamba2-780m", (1, 4), 4, 32,
+                             {"ssm.head_dim": 64}, {})
+CASES["zamba2-inner-seq-1x4"] = ("zamba2-1.2b", (1, 4), 4, 32,
+                                 {"ssm.head_dim": 64,
+                                  "seq_shard_activations": True}, {})
+# int8 gradient compression of the sharded gradients
+for _shape in ((4, 1), (2, 2)):
+    CASES[f"qwen3-compress-{'x'.join(map(str, _shape))}"] = (
+        "qwen3-0.6b", _shape, 4, 32, {}, {})
+COMPRESSED = ("qwen3-compress-4x1", "qwen3-compress-2x2")
 ENC_FRAMES = 64
 # the cases that split the other families or attention's query rows over
 # "model"
 SPLIT_CASES = ("mamba2-1x4", "mamba2-2x2", "moe-1x4", "moe-2x2",
                "zamba2-1x4", "zamba2-2x2", "seamless-1x4", "seamless-2x2",
-               "qwen3-sp-1x4", "qwen3-resid-seq-1x4")
+               "qwen3-sp-1x4", "qwen3-resid-seq-1x4", "moe-ffcut-1x4",
+               "moe-ffcut-2x2", "mamba2-inner-1x4", "zamba2-inner-seq-1x4")
 # overrides that change the parameters' shapes: a case with one of them
-# has inputs of its own
-SHAPE_FIELDS = ("n_heads", "n_kv_heads", "n_layers")
+# has inputs of its own ("moe.n_experts": the field of the config's moe)
+SHAPE_FIELDS = ("n_heads", "n_kv_heads", "n_layers", "moe.n_experts",
+                "ssm.head_dim")
+# compression_case: the layouts, and the tree's leaves (name -> global
+# shape, dtype, spec over ("data", "model")): shards that straddle
+# 256-element blocks, a leaf of 288 whose shards hold 72, a 1-D leaf cut
+# over both axes, a replicated leaf, bf16, and leaves that stay as they
+# are (200 elements; integers)
+COMPRESSION_LAYOUTS = ((4, 1), (2, 2), (1, 4))
+COMPRESSION_LEAVES = {
+    "straddle": ((24, 40), "float32", P("data", "model")),
+    "few": ((8, 36), "float32", P(None, ("data", "model"))),
+    "deep": ((4, 6, 32), "float32", P("model", None, "data")),
+    "flat": ((1024,), "float32", P(("data", "model"))),
+    "whole": ((300,), "float32", P()),
+    "half": ((16, 48), "bfloat16", P("data", None)),
+    "small": ((8, 25), "float32", P("data", None)),
+    "ints": ((16, 32), "int32", P("data", "model")),
+}
 # the FSDP counts each rank records, in this order
 FSDP_KEYS = ("all_gather", "reduce_scatter", "all_gather_max_numel")
 
@@ -121,8 +170,39 @@ RESTORE_B, RESTORE_S = 4, 32
 LAUNCHER = {"arch": "qwen3-0.6b", "steps": 2, "global_batch": 4, "seq": 32}
 
 
+def with_overrides(cfg, overrides):
+    """``cfg.replace(**overrides)``, a dotted key ("moe.n_experts") a
+    field of the sub-config it names (the JAX package's configs too)."""
+    top = {k: v for k, v in overrides.items() if "." not in k}
+    for k, v in overrides.items():
+        if "." in k:
+            sub, field = k.split(".")
+            top[sub] = dataclasses.replace(top.get(sub, getattr(cfg, sub)),
+                                           **{field: v})
+    return cfg.replace(**top)
+
+
 def case_config(arch, overrides):
-    return smoke_config(get_config(arch)).replace(**overrides)
+    return with_overrides(smoke_config(get_config(arch)), overrides)
+
+
+def compression_tree():
+    """``COMPRESSION_LEAVES`` drawn from seeded numpy (standard normal
+    scaled by 10^U(-3, 3) per row, one row of zeros; integers in
+    [-1000, 1000)): {name: float32 or int32 array}, bf16 leaves' values
+    rounded to bf16 and held in f32."""
+    rng = np.random.default_rng(31)
+    out = {}
+    for name, (shape, dtype, _) in COMPRESSION_LEAVES.items():
+        if dtype == "int32":
+            out[name] = rng.integers(-1000, 1000, shape, dtype=np.int32)
+            continue
+        x = rng.standard_normal(shape) * 10.0 ** rng.uniform(
+            -3, 3, shape[:1] + (1,) * (len(shape) - 1))
+        x[0] = 0.0
+        x = torch.tensor(x, dtype=getattr(torch, dtype))
+        out[name] = x.float().numpy()
+    return out
 
 
 def input_key(name):
@@ -192,7 +272,9 @@ def run_case(name, in_dir, out_dir):
                     zip(tree_leaves(full), tree_leaves(back)))
     params = model.load(local)
     ocfg = opt.OptConfig(name=cfg.optimizer, **opt_over)
-    step_fn, opt_init, _ = make_train_step(model, cfg, plan, opt_cfg=ocfg)
+    compressed = name in COMPRESSED
+    step_fn, opt_init, _ = make_train_step(model, cfg, plan, opt_cfg=ocfg,
+                                           grad_compression=compressed)
 
     def batch(i):
         return device_batch(host_batch(name, i), "cpu", mesh,
@@ -210,9 +292,17 @@ def run_case(name, in_dir, out_dir):
            **_np(par.gather_tree(grads, specs, mesh), "grad")}
     state = opt_init(params)
     update = opt.make_optimizer(ocfg.name, ocfg, mesh, specs)[2]
+    if compressed:
+        grads = compress_sharded(grads, specs, mesh)
     params, state, met = update(grads, state, params)
     met["loss"] = loss
     for i in range(2):
+        if i and compressed:
+            # the mean gradient the step compresses, gathered: the test
+            # tells where its int8 code turned against one device's
+            g2, _ = make_grad_fn(model, cfg, plan)(params, batch(i))
+            out.update(_np(par.gather_tree(g2, specs, mesh), "grad2"))
+            del g2
         if i:
             params, state, met = step_fn(params, state, batch(i), i)
         out[f"loss{i + 1}"] = met["loss"].numpy()
@@ -222,6 +312,29 @@ def run_case(name, in_dir, out_dir):
     out.update(_np(par.gather_tree(state, ss, mesh), "opt"))
     if mesh.rank == 0:
         np.savez(os.path.join(out_dir, f"{name}.npz"), **out)
+
+
+def compression_case(out_dir):
+    """``compress_sharded`` of ``compression_tree`` cut on each of
+    ``COMPRESSION_LAYOUTS``, gathered (bf16 held in f32):
+    ``compression.npz``, ``<layout>/<leaf>``."""
+    tree = compression_tree()
+    out = {}
+    for shape in COMPRESSION_LAYOUTS:
+        mesh = mesh_of(shape)
+        specs = {n: sp for n, (_, _, sp) in COMPRESSION_LEAVES.items()}
+        full = {n: torch.tensor(x).to(getattr(torch, COMPRESSION_LEAVES[n][1]))
+                for n, x in tree.items()}
+        local = par.shard_tree(full, specs, mesh)
+        got = par.gather_tree(compress_sharded(local, specs, mesh), specs,
+                              mesh)
+        t = "x".join(map(str, shape))
+        for n, x in got.items():
+            assert x.dtype == full[n].dtype, (n, x.dtype)
+            out[f"{t}/{n}"] = (x.float() if x.is_floating_point()
+                               else x).numpy()
+    if dist.get_rank() == 0:
+        np.savez(os.path.join(out_dir, "compression.npz"), **out)
 
 
 def run_restores(out_dir):
@@ -246,15 +359,22 @@ def main(argv):
     in_dir, out_dir = argv
     init_distributed("cpu")
     try:
+        compression_case(out_dir)
         for name in CASES:
             run_case(name, in_dir, out_dir)
         run_restores(out_dir)
         dist.barrier()
         # the launcher itself, in the group this process already joined
-        train.main(["--distributed", "--mesh", "2,2", "--smoke",
-                    "--device", "cpu"] + [
-            a for k, v in LAUNCHER.items()
-            for a in (f"--{k.replace('_', '-')}", str(v))])
+        args = ["--distributed", "--mesh", "2,2", "--smoke", "--device",
+                "cpu"] + [a for k, v in LAUNCHER.items()
+                          for a in (f"--{k.replace('_', '-')}", str(v))]
+        train.main(args)
+        # and with --grad-compression at (4, 1), quiet: its losses saved
+        loop = train.main(args[:1] + ["--mesh", "4,1"] + args[3:]
+                          + ["--grad-compression", "--quiet"])
+        if dist.get_rank() == 0:
+            np.savez(os.path.join(out_dir, "launcher-compressed.npz"),
+                     losses=np.array([h["loss"] for h in loop.history]))
     finally:
         dist.destroy_process_group()
 

@@ -42,6 +42,8 @@ from repro_torch.models.zoo import get_model  # noqa: E402
 from repro_torch.serving.engine import Engine, Request  # noqa: E402
 from repro_torch.utils.params import PartitionSpec, tree_from_flat  # noqa: E402
 
+from _torch_mesh_worker import with_overrides  # noqa: E402
+
 AXES = ("data", "model")
 DECODE_STEPS = 3
 SP = {"n_heads": 6, "n_kv_heads": 2}
@@ -72,10 +74,21 @@ CASES = {
     "zamba2-1x4": ("zamba2-1.2b", (1, 4), 2, 12, 16, {}, "decode"),
     "zamba2-4x1": ("zamba2-1.2b", (4, 1), 1, 12, 16, {}, "decode"),
     "seamless-1x4": ("seamless-m4t-medium", (1, 4), 2, 16, 8, {}, "decode"),
+    # the plans whose "model" axis divides neither the experts nor the
+    # SSM heads: 6 experts (each rank all 6, 16 of 64 d_ff_expert
+    # columns); mamba2 and zamba2 at head_dim 64 (d_in 128 divides 4,
+    # 2 heads do not: the layers run whole, the cache's conv_x columns
+    # cut), zamba2's prefill with its residual stream cut on S
+    "moe-ffcut-1x4": ("qwen3-moe-30b-a3b", (1, 4), 2, 12, 16,
+                      {"moe.n_experts": 6}, "decode"),
+    "mamba2-inner-1x4": ("mamba2-780m", (1, 4), 2, 12, 16,
+                         {"ssm.head_dim": 64}, "decode"),
+    "zamba2-inner-seq-1x4": ("zamba2-1.2b", (1, 4), 2, 12, 16,
+                             {"ssm.head_dim": 64, **RESID_SEQ}, "prefill"),
 }
 # overrides that change the parameters' shapes: a case with one of them
 # has inputs of its own
-SHAPE_FIELDS = ("n_heads", "n_kv_heads")
+SHAPE_FIELDS = ("n_heads", "n_kv_heads", "moe.n_experts", "ssm.head_dim")
 
 # the engine over (1, 4): 5 requests over 2 slots, as
 # tests/test_torch_serving.py drives one card
@@ -86,7 +99,7 @@ ENGINE_SLOTS, ENGINE_MAX_LEN, ENGINE_NEW = 2, 48, 4
 
 
 def case_config(arch, overrides=None):
-    return smoke_config(get_config(arch)).replace(**(overrides or {}))
+    return with_overrides(smoke_config(get_config(arch)), overrides or {})
 
 
 def input_key(name):

@@ -14,7 +14,11 @@ a batch of 1 the cache on S over "data"; with 6 query heads its
 attention is sequence-parallel at (1, 4) (prompts of 13 and 8), with
 ``seq_shard_activations`` its prefill's residual stream is cut on S;
 qwen3-moe, mamba2, zamba2 and seamless split at (1, 4), zamba2 also
-cuts its shared block's cache on S over "data" at (4, 1).  The
+cuts its shared block's cache on S over "data" at (4, 1); the plans
+"model" 4 does not divide the experts or SSM heads of: qwen3-moe with 6
+experts (each expert's d_ff_expert cut), mamba2 and zamba2 at head_dim
+64 (d_in cut, the layers whole; zamba2's prefill with its residual
+stream cut on S).  The
 parameters are JAX's initialisation (``PRNGKey(0)``), carried across by
 ``convert.lm_params_from_jax``; smoke configs in f32.
 
@@ -61,7 +65,7 @@ TOL = 1e-5
 
 
 def _jax_cfg(arch, over=None):
-    return jax_smoke(jax_config(arch)).replace(**(over or {}))
+    return W.with_overrides(jax_smoke(jax_config(arch)), over or {})
 
 
 def _over(name):

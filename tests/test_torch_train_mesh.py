@@ -20,9 +20,15 @@ cross-attention at (1, 4), and both at (2, 2) beside FSDP over "data"
 remat "dots" and the two-level remat; qwen3 with 6 query heads runs its
 attention sequence-parallel at (1, 4) (8 query rows a rank), and with
 ``seq_shard_activations`` its residual stream cut on S (Megatron-SP);
-checkpoints saved on one layout are restored onto another (qwen3's
-heads, mamba2's SSM heads, qwen3-moe's experts, seamless); last, the
-launcher's ``main`` trains over the same 4 ranks.  The parameters of
+the plans whose "model" axis divides neither the experts nor the SSM
+heads run: qwen3-moe with 6 experts at (1, 4) and 3 at (2, 2) (each
+expert's d_ff_expert cut), mamba2 at head_dim 64 (2 heads, d_in 128 cut:
+the layer whole on every rank) and zamba2 so with its residual stream
+cut on S; qwen3 steps with int8 gradient compression at (4, 1) and
+(2, 2); checkpoints saved on one layout are restored onto another
+(qwen3's heads, mamba2's SSM heads, qwen3-moe's experts, seamless);
+last, the launcher's ``main`` trains over the same 4 ranks, and again
+with ``--grad-compression``.  The parameters of
 qwen3 (4 and 6 query heads), mamba2 and qwen3-moe are JAX's
 initialisation, carried across by ``convert.lm_params_from_jax``, the
 others the port's draws; all in f32.
@@ -50,7 +56,18 @@ roundings can fall the other way, as at one element of mamba2-1x4's
 embedding), and their exempt elements also count those whose first
 moment after step 2 cancels to below 1 % of its terms, where m / sqrt(v)
 turns with the gradients' last digits (one element of zamba2-1x4's
-out_proj: 0.7 %); still at most 0.1 % of a leaf.
+out_proj: 0.7 %); still at most 0.1 % of a leaf.  The compressed cases
+(``COMPRESSED`` of the worker: int8 gradient compression at (4, 1) and
+(2, 2)) quantise the mean gradient, so where it lies at a rounding
+boundary of its int8 block the code turns to the next step of 1/127 of
+the block's largest with the sums' last digits (one element of qwen3's
+mlp w_down at step 2: 109.5 steps).  The elements whose code differs
+between the sharded run's recorded gradients and one device's at some
+step (``int8_turned``) count as exempt too, still at most 0.1 % of a
+leaf, and their optimizer state (AdamW's m and v, which carry the
+turned step) is held on the other elements.  The sharded
+compression itself is held bit for bit against JAX's
+``compress_decompress`` of each whole leaf on a fixed tree.
 """
 import dataclasses
 import os
@@ -70,12 +87,15 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.registry import get_config as jax_config  # noqa: E402
 from repro.configs.registry import smoke_config as jax_smoke  # noqa: E402
+from repro.distributed.compression import \
+    compress_decompress as jax_compress  # noqa: E402
 from repro.models.zoo import get_model as jax_model  # noqa: E402
 from repro.training.train_step import make_train_step as jax_step  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs.base import ShapeCfg  # noqa: E402
 from repro_torch.configs.registry import get_config, smoke_config  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM, device_batch  # noqa: E402
+from repro_torch.distributed.compression import compress_decompress  # noqa: E402
 from repro_torch.distributed.rules import make_plan  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.launch.train import TrainLoop  # noqa: E402
@@ -83,7 +103,8 @@ from repro_torch.models.zoo import get_model  # noqa: E402
 from repro_torch.training import optimizers as opt  # noqa: E402
 from repro_torch.training.train_step import (_microbatch_grads,  # noqa: E402
                                              make_train_step)
-from repro_torch.utils.params import tree_from_flat, tree_leaves  # noqa: E402
+from repro_torch.utils.params import (tree_from_flat, tree_leaves,  # noqa: E402
+                                      tree_map)
 
 import _torch_mesh_worker as W  # noqa: E402
 
@@ -95,8 +116,9 @@ SRC = os.path.join(ROOT, "src")
 JAX_ARCH = "qwen3-0.6b"     # the case held against the JAX package's step
 # the parameter files (``input_key``) that hold JAX's initialisation, each
 # by a case that reads it: their cases can be held against the JAX package
-JAX_INPUTS = {W.input_key(n): n for n in ("qwen3-4x1", "mamba2-4x1",
-                                          "moe-4x1", "qwen3-sp-1x4")}
+JAX_INPUTS = {W.input_key(n): n for n in (
+    "qwen3-4x1", "mamba2-4x1", "moe-4x1", "qwen3-sp-1x4", "moe-ffcut-1x4",
+    "moe-ffcut-2x2", "mamba2-inner-1x4")}
 
 
 @pytest.fixture(scope="module")
@@ -105,7 +127,7 @@ def jax_models():
     out = {}
     for key, name in JAX_INPUTS.items():
         arch, over = W.CASES[name][0], W.CASES[name][4]
-        jm = jax_model(jax_smoke(jax_config(arch)).replace(**over))
+        jm = jax_model(W.with_overrides(jax_smoke(jax_config(arch)), over))
         out[key] = jm, jm.init(jax.random.PRNGKey(0))
     return out
 
@@ -180,6 +202,30 @@ def moved_close(got, want, before, lr_sum, small, what, roundings=1):
     assert np.mean(beyond) <= 1e-3, (what, int(beyond.sum()))
 
 
+def int8_codes(g):
+    """The int8 code of each element of a gradient leaf in
+    ``compress_decompress``'s round trip (blocks of 256 of the flattened
+    leaf, each over its largest |g| / 127), in its f32 arithmetic."""
+    flat = g.astype(np.float32).reshape(-1)
+    pad = np.concatenate([flat, np.zeros((-flat.size) % 256, np.float32)])
+    pad = pad.reshape(-1, 256)
+    scale = np.abs(pad).max(1, keepdims=True) / np.float32(127.0)
+    q = np.clip(np.round(pad / np.maximum(scale, np.float32(1e-12))),
+                -127, 127)
+    return q.reshape(-1)[:flat.size].reshape(g.shape)
+
+
+def int8_turned(got, ref, n):
+    """Elements of leaf ``n`` whose int8 code differs between the
+    sharded run's gradients (``grad``, ``grad2``: its steps') and the
+    one-device reference's at some step."""
+    out = np.zeros(ref["steps"][0]["grads"][n].shape, bool)
+    for i, st in enumerate(ref["steps"]):
+        g = _sub(got, "grad" if i == 0 else f"grad{i + 1}")[n]
+        out |= int8_codes(g) != int8_codes(st["grads"][n])
+    return out
+
+
 def first_moment_cancels(steps, n, b1=0.9):
     """Elements whose AdamW first moment after the last step sums the
     steps' clipped gradients to below 1 % of its terms' sizes."""
@@ -202,7 +248,8 @@ def one_device(name, inp):
                                         for k in f.files}))
     ocfg = opt.OptConfig(name=cfg.optimizer, **opt_over)
     # make_train_step's one-device step, its gradients kept before the
-    # optimizer clips them in place
+    # optimizer clips them in place (and before the int8 round trip of
+    # a compressed case)
     _, init, update = opt.make_optimizer(cfg.optimizer, ocfg)
     out = {"before": _np(params), "steps": []}
     state = init(params)
@@ -212,6 +259,8 @@ def one_device(name, inp):
                                        cfg.grad_accum_microbatches,
                                        getattr(torch, cfg.grad_accum_dtype))
         grads = _np(g)
+        if name in W.COMPRESSED:
+            g = tree_map(compress_decompress, g)
         params, state, met = update(g, state, params)
         clip = min(1.0, ocfg.grad_clip / max(float(met["grad_norm"]), 1e-9))
         out["steps"].append({"loss": float(loss), "grads": grads,
@@ -266,6 +315,8 @@ def test_two_steps_match_one_device(run, refs, name):
         small = np.zeros(p.shape, bool)
         for s in ref["steps"]:
             small |= np.abs(s["grads"][n]) * s["clip"] < 1e-6
+        if name in W.COMPRESSED:
+            small |= int8_turned(got, ref, n)
         roundings = 1
         if name in W.SPLIT_CASES:
             roundings = len(ref["steps"])
@@ -276,7 +327,43 @@ def test_two_steps_match_one_device(run, refs, name):
     assert int(state.pop("step")) == 2
     assert set(state) == set(ref["opt"])
     for n, v in ref["opt"].items():
+        if name in W.COMPRESSED:
+            # AdamW's m and v of a parameter: the elements whose int8
+            # code turned left out, at most 0.1 % of the leaf
+            turned = int8_turned(got, ref, n.split(".", 1)[1])
+            assert np.mean(turned) <= 1e-3, (n, int(turned.sum()))
+            state[n], v = state[n][~turned], v[~turned]
         close(state[n], v, 1e-5, n)
+
+
+def _holds_jax_step(run, refs, jax_qwen3, name, grad_compression=False):
+    """Case ``name`` (qwen3-0.6b) against the JAX package on the same
+    parameters and batch: the loss and one step of JAX's single-device
+    ``make_train_step(model, cfg, None, grad_compression=)``."""
+    got = _load(run[1] / f"{name}.npz")
+    _, _, B, S, _, _ = W.CASES[name]
+    jm, jp = jax_qwen3
+    hb = SyntheticLM(jm.cfg.vocab_size, S, B, seed=W.BATCH_SEED).batch_at(0)
+    jb = {k: jnp.asarray(v) for k, v in hb.items()}
+    jl, _ = jm.loss(jp, jb)
+    close(got["grad_loss"], jl, 1e-6, "loss")
+    close(got["loss1"], jl, 1e-6, "loss1")
+    step, init, _ = jax_step(jm, jm.cfg, None,
+                             grad_compression=grad_compression)
+    jp1, _, jmet = jax.jit(step)(jp, init(jp), jb, jnp.int32(0))
+    flat = lambda t: {".".join(k.key for k in path): np.asarray(v)  # noqa
+                      for path, v in jax.tree_util.tree_leaves_with_path(t)}
+    want, before = flat(jp1), flat(jp)
+    one = refs[name]["steps"][0]
+    params = _sub(got, "p1")
+    assert set(params) == set(want)
+    for n, p in want.items():
+        close(params[n], p, 1e-5, n)
+        small = np.abs(one["grads"][n]) * one["clip"] < 1e-6
+        if grad_compression:
+            small |= int8_codes(_sub(got, "grad")[n]) != int8_codes(
+                one["grads"][n])
+        moved_close(params[n], p, before[n], float(jmet["lr"]), small, n)
 
 
 def test_slice_matches_jax_single_device(run, refs, jax_qwen3):
@@ -287,32 +374,54 @@ def test_slice_matches_jax_single_device(run, refs, jax_qwen3):
     of JAX's single-device ``make_train_step(model, cfg, None)`` and
     their movement as the module note says (the small gradients: the
     port's one-device ones, held against JAX's in ``test_torch_train``)."""
-    got = _load(run[1] / "qwen3-2x2.npz")
-    _, _, B, S, _, _ = W.CASES["qwen3-2x2"]
-    jm, jp = jax_qwen3
-    hb = SyntheticLM(jm.cfg.vocab_size, S, B, seed=W.BATCH_SEED).batch_at(0)
-    jb = {k: jnp.asarray(v) for k, v in hb.items()}
-    jl, _ = jm.loss(jp, jb)
-    close(got["grad_loss"], jl, 1e-6, "loss")
-    close(got["loss1"], jl, 1e-6, "loss1")
-    step, init, _ = jax_step(jm, jm.cfg, None)
-    jp1, _, jmet = jax.jit(step)(jp, init(jp), jb, jnp.int32(0))
-    flat = lambda t: {".".join(k.key for k in path): np.asarray(v)  # noqa
-                      for path, v in jax.tree_util.tree_leaves_with_path(t)}
-    want, before = flat(jp1), flat(jp)
-    one = refs["qwen3-2x2"]["steps"][0]
-    params = _sub(got, "p1")
-    assert set(params) == set(want)
-    for n, p in want.items():
-        close(params[n], p, 1e-5, n)
-        moved_close(params[n], p, before[n], float(jmet["lr"]),
-                    np.abs(one["grads"][n]) * one["clip"] < 1e-6, n)
+    _holds_jax_step(run, refs, jax_qwen3, "qwen3-2x2")
+
+
+@pytest.mark.parametrize("name", W.COMPRESSED)
+def test_compressed_step_matches_jax_single_device(run, refs, jax_qwen3,
+                                                   name):
+    """qwen3-0.6b at (4, 1) and (2, 2) with int8 gradient compression
+    (each rank its block of every whole leaf's round trip) against JAX's
+    single-device ``make_train_step(..., grad_compression=True)``: the
+    loss and the parameters after one step, as
+    ``test_slice_matches_jax_single_device`` holds them."""
+    _holds_jax_step(run, refs, jax_qwen3, name, grad_compression=True)
+
+
+@pytest.mark.parametrize("shape", W.COMPRESSION_LAYOUTS,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_sharded_compression_bit_equal_to_jax(run, shape):
+    """``compress_sharded`` of the worker's fixed tree cut on ``shape``,
+    gathered, against JAX's ``compress_decompress`` of each whole leaf,
+    bit for bit: shards that straddle 256-element blocks, a leaf of 288
+    whose shards hold 72 (compressed), a 1-D leaf cut over both axes, a
+    replicated leaf and a bf16 one; the leaf of 200 and the integers
+    left exactly as they were."""
+    got = _load(run[1] / "compression.npz")
+    t = "x".join(map(str, shape))
+    tree = W.compression_tree()
+    for n, x in tree.items():
+        dtype = W.COMPRESSION_LEAVES[n][1]
+        jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+        want = np.asarray(jax_compress(jx).astype(
+            jnp.float32 if dtype != "int32" else jnp.int32))
+        g = got[f"{t}/{n}"]
+        assert g.dtype == want.dtype and g.shape == want.shape, n
+        assert np.array_equal(g.view(np.uint32 if dtype != "int32"
+                                     else np.int32),
+                              want.view(np.uint32 if dtype != "int32"
+                                        else np.int32)), n
+        if n in ("small", "ints"):
+            assert np.array_equal(g, x), n
+        else:
+            assert not np.array_equal(g, x), n
 
 
 # the split cases held against the JAX package's single-device loss and
 # gradients on the same parameters
 JAX_SPLIT_CASES = ("mamba2-1x4", "moe-1x4", "qwen3-sp-1x4",
-                   "qwen3-resid-seq-1x4")
+                   "qwen3-resid-seq-1x4", "moe-ffcut-1x4", "moe-ffcut-2x2",
+                   "mamba2-inner-1x4", "zamba2-inner-seq-1x4")
 
 
 @pytest.mark.parametrize("name", JAX_SPLIT_CASES)
@@ -321,15 +430,27 @@ def test_split_matches_jax_single_device(run, jax_models, name):
     attention sequence-parallel (6 query heads over 2 kv heads: each rank
     8 query rows at their causal offset, the rows gathered) and qwen3
     with its residual stream cut on S (Megatron-SP: all-gathers and
-    reduce-scatters on S, the norms model-partial), each split over a
-    "model" axis of 4, against ``jax.value_and_grad`` of the JAX
+    reduce-scatters on S, the norms model-partial), and the plans whose
+    "model" axis divides neither the experts nor the SSM heads (6
+    experts at (1, 4) and 3 at (2, 2), each expert's d_ff_expert cut;
+    mamba2 and zamba2 at head_dim 64, their mamba layers whole on every
+    rank, zamba2's residual stream cut on S; zamba2 on the port's draws,
+    as its other cases), against ``jax.value_and_grad`` of the JAX
     package's ``model.loss`` on one device: the loss within 1e-6 of its
     value and every gathered gradient within 1e-5 of its leaf's largest
     element, as ``test_torch_arch_smoke.py`` and
     ``test_torch_train_ssm.py`` hold the one-device port (f32, sums in
     another order)."""
     got = _load(run[1] / f"{name}.npz")
-    jm, jp = jax_models[W.input_key(name)]
+    key = W.input_key(name)
+    if key in jax_models:
+        jm, jp = jax_models[key]
+    else:       # the port's draws (zamba2's, as its other cases take)
+        arch, over = W.CASES[name][0], W.CASES[name][4]
+        jm = jax_model(W.with_overrides(jax_smoke(jax_config(arch)), over))
+        jp = jax.tree.map(jnp.asarray, tree_from_flat(
+            get_model(W.case_config(arch, over)).param_defs(),
+            _load(run[0] / f"{key}.npz")))
     jb = {k: jnp.asarray(v) for k, v in W.host_batch(name, 0).items()}
     (jl, _), jg = jax.value_and_grad(jm.loss, has_aux=True)(jp, jb)
     close(got["grad_loss"], jl, 1e-6, "loss")
@@ -412,38 +533,58 @@ def test_every_family_builds_at_model_2(arch):
         assert get_model(cfg, plan).plan is plan
 
 
-def test_ssm_rules_disagreeing_raise():
+def test_ssm_rules_disagreeing_accepted():
     """A plan that cuts the SSM's d_in over "model" but not its heads
-    (4 heads of 32 on an 8-way axis: d_in 128 divides, H does not)
-    raises, naming both rules, and never runs unsplit."""
+    (4 heads of 32 on an 8-way axis: d_in 128 divides, H does not), and
+    one that also cuts the residual stream on S (``resid_seq``) through
+    those mamba layers: ``get_model`` builds both, the d_in leaves stay
+    cut (the layer gathers them as it runs), and no mamba leaf is
+    model-partial (the layer runs whole).  ``mamba2-inner-1x4`` and
+    ``zamba2-inner-seq-1x4`` hold their numbers."""
     cfg = smoke_config(get_config("mamba2-780m"))
     cfg = cfg.replace(ssm=dataclasses.replace(cfg.ssm, head_dim=32))
     mesh = make_mesh((1, 8), ("data", "model"), ["cpu"] * 8)
-    plan = make_plan(cfg, mesh, ShapeCfg("t", 32, 4, "train"))
-    assert plan.rules["ssm_inner"] == "model"
-    assert plan.rules["ssm_head"] is None
-    with pytest.raises(NotImplementedError,
-                       match=r'ssm_inner.*ssm_head.*item 8'):
-        get_model(cfg, plan)
+    for c in (cfg, cfg.replace(seq_shard_activations=True)):
+        plan = make_plan(c, mesh, ShapeCfg("t", 32, 4, "train"))
+        assert plan.rules["ssm_inner"] == "model"
+        assert plan.rules["ssm_head"] is None
+        assert plan.resid_seq == ("model" if c.seq_shard_activations
+                                  else None)
+        model = get_model(c, plan)
+        specs = dict(tree_leaves(model.param_specs()))
+        assert tuple(specs["layers.w_x"]) == (None, "data", "model")
+        assert tuple(specs["layers.A_log"]) == (None, None)
+        assert not {n for n in model.model_partial_leaves()
+                    if n.startswith("layers.")}
 
 
-def test_moe_experts_not_dividing_raise():
-    """6 experts on a 4-way "model" axis (JAX cuts each expert's
-    d_ff_expert there) raise, never run unsplit."""
+def test_moe_experts_not_dividing_accepted():
+    """6 experts on a 4-way "model" axis: ``get_model`` builds the plan
+    JAX makes, each expert's d_ff_expert cut over "model" (every rank
+    all 6 experts), the router model-partial.  ``moe-ffcut-1x4`` and
+    ``moe-ffcut-2x2`` hold its numbers."""
     cfg = smoke_config(get_config("qwen3-moe-30b-a3b"))
     cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, n_experts=6))
     mesh = make_mesh((1, 4), ("data", "model"), ["cpu"] * 4)
     plan = make_plan(cfg, mesh, ShapeCfg("t", 32, 4, "train"))
     assert plan.rules["expert"] is None
-    with pytest.raises(NotImplementedError, match=r"6 experts.*item 8"):
-        get_model(cfg, plan)
+    model = get_model(cfg, plan)
+    specs = dict(tree_leaves(model.param_specs()))
+    assert tuple(specs["layers.moe.w_gate"]) == (None, None, "data",
+                                                 "model")
+    assert tuple(specs["layers.moe.w_down"]) == (None, None, "model",
+                                                 "data")
+    assert "layers.moe.router" in model.model_partial_leaves()
 
 
-def test_grad_compression_under_a_plan_raises():
+def test_grad_compression_under_a_plan_accepted():
+    """``make_train_step(plan=, grad_compression=True)`` builds the
+    sharded step; ``qwen3-compress-4x1`` / ``-2x2`` and
+    ``test_sharded_compression_bit_equal_to_jax`` hold its numbers."""
     cfg, plan = _plan("qwen3-0.6b", (4, 1))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_train_step(get_model(cfg, plan), cfg, plan,
-                        grad_compression=True)
+    step, init, ocfg = make_train_step(get_model(cfg, plan), cfg, plan,
+                                       grad_compression=True)
+    assert callable(step) and callable(init) and ocfg.name == cfg.optimizer
 
 
 def test_launcher_over_four_processes(run):
@@ -460,6 +601,21 @@ def test_launcher_over_four_processes(run):
     one.run(la["steps"], log=lambda _: None)
     for h in one.history:
         assert f"step {h['step']} loss {h['loss']:.4f}" in log
+
+
+def test_launcher_grad_compression_over_four_processes(run):
+    """``launch.train.main(["--distributed", "--mesh", "4,1",
+    "--grad-compression", ...])`` in the worker's gloo group of 4: its
+    losses within 1e-6 (relative) of one process's compressed loop."""
+    got = _load(run[1] / "launcher-compressed.npz")["losses"]
+    la = W.LAUNCHER
+    one = TrainLoop(smoke_config(get_config(la["arch"])),
+                    global_batch=la["global_batch"], seq=la["seq"],
+                    device="cpu", grad_compression=True)
+    one.run(la["steps"], log=lambda _: None)
+    assert len(got) == la["steps"]
+    for g, h in zip(got, one.history):
+        close(g, h["loss"], 1e-6, f"loss {h['step']}")
 
 
 def test_no_fallback_from_the_card(monkeypatch):

@@ -104,7 +104,8 @@ class Run:
     ``alone``: a torchrun launch of its own; ``over``: config overrides
     (f32 activations, to hold the split against one card without bf16's
     roundings); ``long_len``: the cell's cached positions; ``cpu_over``:
-    config overrides of the CPU rehearsal."""
+    config overrides of the CPU rehearsal ("moe.d_ff_expert": a field of
+    the config's moe)."""
     name: str
     arch: str
     cards: int
@@ -137,6 +138,12 @@ RUNS = (
         draw="sliced", routes=True),
     Run("qwen3-moe-30b-a3b:48", cs.MOE_TRAIN[0], 4, ((1, 4),),
         draw="sliced", reference=False, repeat=True, alone=True),
+    # 128 experts do not divide 3 cards: each rank all 128, 256 of each
+    # expert's 768 d_ff_expert columns; attention sequence-parallel (32
+    # heads), the cache cut on S (4 kv heads); 16 layers against one card
+    Run("qwen3-moe-30b-a3b:16:1x3", cs.MOE_TRAIN[0], cs.SP_RANKS,
+        ((1, cs.SP_RANKS),), layers=16, draw="sliced", routes=True,
+        cpu_over={"vocab_size": 768, "moe.d_ff_expert": 48}),
     # the SP fallback (40 heads over 3 cards): prompts of every length
     Run("qwen2.5-14b:8", "qwen2.5-14b", cs.SP_RANKS, ((1, cs.SP_RANKS),),
         layers=8, draw="sliced", cpu_over={"vocab_size": 768}),
@@ -169,7 +176,13 @@ def run_config(run, cpu):
     from repro_torch.configs.registry import get_config, smoke_config
     cfg = get_config(run.arch).replace(**run.over)
     if cpu:
-        cfg = smoke_config(cfg).replace(**run.cpu_over)
+        cfg = smoke_config(cfg)
+        top = {k: v for k, v in run.cpu_over.items() if "." not in k}
+        for k, v in run.cpu_over.items():
+            if "." in k:
+                sub, field = k.split(".")
+                top[sub] = dataclasses.replace(getattr(cfg, sub), **{field: v})
+        cfg = cfg.replace(**top)
     if run.layers is not None and not cpu:
         cfg = cfg.replace(n_layers=run.layers)
     return cfg

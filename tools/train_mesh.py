@@ -85,7 +85,9 @@ class Run:
     ``layerwise``: the parameters drawn a layer's slice at a time
     (``draw_params``), for a model no card holds whole beside its
     optimizer state; ``peak_gb``: a rank's peak memory as reckoned
-    before the run (printed beside the reading)."""
+    before the run (printed beside the reading); ``grad_compression``:
+    the reference and every layout step with int8 gradient compression,
+    and each layout also holds ``compression_check``."""
     name: str
     arch: str
     cards: int
@@ -100,6 +102,7 @@ class Run:
     batch: int = cs.TRAIN_BATCH
     layerwise: bool = False
     peak_gb: float = None
+    grad_compression: bool = False
 
 
 RUNS = (
@@ -136,6 +139,17 @@ RUNS = (
     Run("qwen3-moe-30b-a3b:16", cs.MOE_TRAIN[0], 4, (((1, 4), {}),),
         cut={"n_layers": 16, "grad_accum_microbatches": cs.MOE_TRAIN[2]},
         reference=False, alone=True),
+    # int8 gradient compression under a mesh: each rank its block of the
+    # whole leaf's round trip, against one card's compressed run
+    Run("qwen3-0.6b:int8", cs.TRAIN_ARCH, 4, (((4, 1), {}), ((2, 2), {})),
+        grad_compression=True),
+    # 128 experts do not divide 3 cards: each rank all 128, 256 of each
+    # expert's 768 d_ff_expert columns (JAX's "mlp_exp"), attention
+    # sequence-parallel (32 heads); the 4-layer cut against one card
+    Run("qwen3-moe-30b-a3b:4:1x3", cs.MOE_TRAIN[0], cs.SP_RANKS,
+        (((1, cs.SP_RANKS), {}),),
+        cut={"n_layers": cs.MOE_TRAIN[1],
+             "grad_accum_microbatches": cs.MOE_TRAIN[2]}),
     # the SP fallback, 3 cards, cut to 4 of 48 layers (one card holds
     # the reference)
     Run("qwen2.5-14b", "qwen2.5-14b", cs.SP_RANKS,
@@ -342,7 +356,8 @@ def train_run(run, rank, dev):
     if run.reference and rank == 0:
         t0 = time.perf_counter()
         loop = TrainLoop(base, global_batch=B, seq=S, device=dev,
-                         batches=batches)
+                         batches=batches,
+                         grad_compression=run.grad_compression)
         if run.layerwise:
             layerwise_init(torch, loop, dev)
         params, _, _ = loop.run(STEPS, log=quiet)
@@ -391,7 +406,8 @@ def train_run(run, rank, dev):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         loop = TrainLoop(cfg, global_batch=B, seq=S, mesh=mesh, device=dev,
-                         ckpt_dir=kw.pop("ckpt_dir", None), batches=batches)
+                         ckpt_dir=kw.pop("ckpt_dir", None), batches=batches,
+                         grad_compression=run.grad_compression)
         if run.layerwise:
             layerwise_init(torch, loop, dev)
         rdev.reset_launch_counts()
@@ -430,7 +446,12 @@ def train_run(run, rank, dev):
             check_against_ref(row, full)
         if profile:
             row["profile"] = profile_step(torch, loop, params, state)
-        del loop, params, state
+        if run.grad_compression and mesh is not None:
+            del params, state
+            free_device(torch)
+            row["compression_check"] = compression_check(torch, loop.model,
+                                                         mesh, dev)
+        del loop
         return row, full
 
     for i, (shape, over) in enumerate(run.layouts):
@@ -465,6 +486,37 @@ def train_run(run, rank, dev):
     if rank == 0:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     return res
+
+
+def compression_check(torch, model, mesh, dev, seed=31):
+    """``compression.compress_sharded`` of a fixed tree (standard normal
+    leaves at the model's parameter shapes, each scaled by 10^k for k
+    from -3 to 3 by leaf, drawn whole on every rank from ``seed``: not a
+    gradient of the model) cut by the model's specs on ``mesh``,
+    gathered and held bit for bit against the one-card
+    ``compress_decompress`` of each whole leaf, a leaf at a time."""
+    from repro_torch.distributed import parallel as par
+    from repro_torch.distributed.compression import (compress_decompress,
+                                                     compress_shard)
+    from repro_torch.utils.params import tree_leaves
+    specs = dict(tree_leaves(model.param_specs()))
+    t0 = time.perf_counter()
+    differ, n = [], 0
+    for i, (name, d) in enumerate(tree_leaves(model.param_defs())):
+        g = torch.Generator(dev).manual_seed(seed_of(seed, name))
+        full = torch.randn(d.shape, generator=g, device=dev) * 10.0 ** (
+            i % 7 - 3)
+        got = par.gather_leaf(compress_shard(
+            par.shard_leaf(full, specs[name], mesh), specs[name], mesh),
+            specs[name], mesh)
+        want = compress_decompress(full)
+        n += full.numel()
+        if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
+            differ.append(name)
+        del full, got, want
+    torch.cuda.synchronize()
+    return {"bit_equal": not differ, "leaves_differing": differ,
+            "elements": n, "seconds": time.perf_counter() - t0}
 
 
 def layerwise_init(torch, loop, dev):
@@ -557,7 +609,9 @@ def gate_run(res, rank, world):
     exactly ``step_launches`` a step on every rank, and exactly
     ``step_collectives``' FSDP all-gathers and reduce-scatters, none of
     more elements than a unit's slice or a leaf outside the stacks; a
-    restored loop ran step 3 alone; on rank 0 every loss finite and,
+    compressed run's sharded compression bit-equal to one card's
+    (``compression_check``); a restored loop ran step 3 alone; on rank 0
+    every loss finite and,
     against the reference, one card bit-equal and more cards within the
     tolerances above (and a pair's layouts against each other within
     the same)."""
@@ -572,6 +626,11 @@ def gate_run(res, rank, world):
         got = {k: v for k, v in row["launches"].items() if v}
         check(got == want, f"{name} {row['layout']} rank {rank}: launches "
               f"{got}, want {want}")
+    for row in res["layouts"]:
+        cc = row.get("compression_check")
+        check(cc is None or cc["bit_equal"], f"{name} {row['layout']} rank "
+              f"{rank}: the sharded compression differs from the one-card "
+              f"one in {cc and cc['leaves_differing']}")
     for row in res["layouts"] + res["restores"]:
         want_c = row["collectives_per_step_want"]
         got_c = {k: row["collectives_per_step"][k] for k in want_c}
