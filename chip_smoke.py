@@ -3147,12 +3147,15 @@ def phase_train_mesh(torch, np, train=None, names=None):
     layers at (1, 3) (128 experts on 3 cards: each expert's d_ff_expert
     cut), granite-3-8b
     at 8 layers ((4, 1), (2, 2)) and all 40 ((4, 1): no reference, no
-    card holds it with its optimizer state); qwen3's
+    card holds it with its optimizer state), qwen3-0.6b and granite-3-8b
+    at 8 layers on masked batches ((4, 1), (2, 2): JAX's masked mean per
+    global microbatch, against one card's masked run); qwen3's
     checkpoint saved on one layout is restored onto another (one card: a
     one-card loop).  The worker's gates (``tools/train_mesh.py``
     ``gate_run``, checked after each run): exactly ``step_launches`` a
     step on every rank, and exactly ``step_collectives``' FSDP
-    all-gathers and reduce-scatters; against rank 0's one-card
+    all-gathers and reduce-scatters, a masked run's one token-count
+    all-reduce a step (none unmasked); against rank 0's one-card
     reference, one card bit-equal (losses and parameter checksums), more
     within stated tolerances; each run's line says what missed
     (``gates_missed``, every rank's).  Here, in addition: qwen3's reference

@@ -38,7 +38,9 @@ this module holds the operations that layout implies, over a
   over "model");
 - ``reduce_grads``: what the gradient rule of a sharded train step
   leaves to the end of the step, once ``gather_data``'s backward has
-  cut each leaf's gradient to its shard;
+  cut each leaf's gradient to its shard; ``global_token_counts``, the
+  masked step's token count per global microbatch (``token_reduces``
+  counts its all-reduces);
 - ``all_reduce_`` / ``mean_over``: the sums and means over sharded dims
   the optimizer needs.
 
@@ -676,6 +678,43 @@ def vocab_xent(w, h, targets, cfg, mesh, mask=None, axis: str = "model",
                                     cfg.vocab_size, mesh, axis)
         cnt = cnt + mc.sum()
     return tot / torch.clamp(cnt, min=1.0), cnt
+
+
+# -------------------------------------------- a masked step's token counts
+_token_reduces = [0]
+
+
+def reset_token_reduces() -> None:
+    """Zero ``token_reduces``."""
+    _token_reduces[0] = 0
+
+
+def token_reduces() -> int:
+    """The all-reduces ``global_token_counts`` made since
+    ``reset_token_reduces``: one per batch axis of size > 1 a masked
+    sharded step, none an unmasked one."""
+    return _token_reduces[0]
+
+
+def global_token_counts(mask, n_micro: int, mesh, batch_axes):
+    """The sum of the mask over each of ``n_micro`` equal microbatches of
+    the global batch, rows in order (JAX's ``C_i``), from this rank's
+    block of rows ``mask`` (R, ...) cut over ``batch_axes`` as ``block``
+    cuts it: (n_micro,) f32, equal on every rank, by one all-reduce over
+    each batch axis of size > 1."""
+    R = mask.shape[0]
+    B = global_shape((R,), (batch_axes,), mesh)[0]
+    if B % n_micro:
+        raise ValueError(f"batch {B} does not split into {n_micro} "
+                         f"microbatches")
+    first = block_offsets((R,), (batch_axes,), mesh)[0]
+    micro = (first + torch.arange(R, device=mask.device)) // (B // n_micro)
+    counts = torch.zeros(n_micro, device=mask.device).index_add_(
+        0, micro, mask.reshape(R, -1).float().sum(dim=1))
+    for a in _live(mesh, entry_axes(batch_axes)):
+        dist.all_reduce(counts, group=mesh.groups[a])
+        _token_reduces[0] += 1
+    return counts
 
 
 # -------------------------------------------------------- the gradients

@@ -17,6 +17,12 @@ second through ``make_train_step``.  Rank 0 writes what the test compares to
 parameters after each step, the optimizer state after the second,
 whether shard -> gather gave the parameters back bit for bit and the
 counts of each rank.
+The cases of ``MASKED`` carry ``masked_batch``'s loss mask; they also
+record, before the update, the loss of the formula the sharded step had
+before it took JAX's masked mean per global microbatch
+(``rank_means_loss``) and ``make_eval_step(model, plan)`` of the batch
+(``eval/...``).  Every case records each rank's token-count all-reduces
+in step 1 (``parallel.token_reduces``).
 The cases of ``COMPRESSED`` step with ``grad_compression``: their
 recorded gradients are the mean gradients before the int8 round trip
 (``compression.compress_sharded``) that the update takes, of both steps
@@ -52,8 +58,8 @@ from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.train import TrainLoop, init_distributed  # noqa: E402
 from repro_torch.models.zoo import get_model  # noqa: E402
 from repro_torch.training import optimizers as opt  # noqa: E402
-from repro_torch.training.train_step import (make_grad_fn,  # noqa: E402
-                                             make_train_step)
+from repro_torch.training.train_step import (make_eval_step,  # noqa: E402
+                                             make_grad_fn, make_train_step)
 from repro_torch.utils.params import PartitionSpec as P  # noqa: E402
 from repro_torch.utils.params import tree_from_flat, tree_leaves  # noqa: E402
 
@@ -125,12 +131,36 @@ CASES["zamba2-inner-seq-1x4"] = ("zamba2-1.2b", (1, 4), 4, 32,
 for _shape in ((4, 1), (2, 2)):
     CASES[f"qwen3-compress-{'x'.join(map(str, _shape))}"] = (
         "qwen3-0.6b", _shape, 4, 32, {}, {})
-COMPRESSED = ("qwen3-compress-4x1", "qwen3-compress-2x2")
+# masked batches over several batch shards (``masked_batch``): JAX's
+# masked mean per global microbatch; name -> the unmasked case of the
+# same config and layout (None: none).  B 12 in 3 microbatches at
+# (4, 1): a rank's 3 rows fall in two global microbatches
+for _shape in ((4, 1), (2, 2), (2, 1, 2)):
+    CASES[f"qwen3-mask-{'x'.join(map(str, _shape))}"] = (
+        "qwen3-0.6b", _shape, 4, 32, {}, {})
+for _shape in ((4, 1), (2, 2)):
+    CASES[f"granite-micro4-mask-{'x'.join(map(str, _shape))}"] = (
+        "granite-3-8b", _shape, 16, 32, {"grad_accum_microbatches": 4}, {})
+CASES["moe-mask-4x1"] = ("qwen3-moe-30b-a3b", (4, 1), 4, 32, {}, {})
+CASES["seamless-mask-2x2"] = ("seamless-m4t-medium", (2, 2), 4, 32, {}, {})
+CASES["qwen3-compress-mask-2x2"] = ("qwen3-0.6b", (2, 2), 4, 32, {}, {})
+CASES["qwen3-mask-b12-micro3-4x1"] = ("qwen3-0.6b", (4, 1), 12, 32,
+                                     {"grad_accum_microbatches": 3}, {})
+MASKED = {"qwen3-mask-4x1": "qwen3-4x1", "qwen3-mask-2x2": "qwen3-2x2",
+          "qwen3-mask-2x1x2": "qwen3-2x1x2",
+          "granite-micro4-mask-4x1": "granite-micro4-4x1",
+          "granite-micro4-mask-2x2": "granite-micro4-2x2",
+          "moe-mask-4x1": "moe-4x1", "seamless-mask-2x2": "seamless-2x2",
+          "qwen3-compress-mask-2x2": "qwen3-compress-2x2",
+          "qwen3-mask-b12-micro3-4x1": None}
+COMPRESSED = ("qwen3-compress-4x1", "qwen3-compress-2x2",
+              "qwen3-compress-mask-2x2")
 ENC_FRAMES = 64
 # the cases that split the other families or attention's query rows over
 # "model"
 SPLIT_CASES = ("mamba2-1x4", "mamba2-2x2", "moe-1x4", "moe-2x2",
                "zamba2-1x4", "zamba2-2x2", "seamless-1x4", "seamless-2x2",
+               "seamless-mask-2x2",
                "qwen3-sp-1x4", "qwen3-resid-seq-1x4", "moe-ffcut-1x4",
                "moe-ffcut-2x2", "mamba2-inner-1x4", "zamba2-inner-seq-1x4")
 # overrides that change the parameters' shapes: a case with one of them
@@ -214,9 +244,35 @@ def input_key(name):
 
 
 def host_batch(name, i):
-    """Batch ``i`` of a case on the host (``lm_batch``)."""
+    """Batch ``i`` of a case on the host (``lm_batch``), with
+    ``masked_batch``'s mask for the cases of ``MASKED``."""
     arch, _, B, S, over, _ = CASES[name]
-    return lm_batch(case_config(arch, over), B, S, BATCH_SEED, i)
+    cfg = case_config(arch, over)
+    hb = lm_batch(cfg, B, S, BATCH_SEED, i)
+    if name in MASKED:
+        hb["mask"] = masked_batch(B, S, cfg.grad_accum_microbatches, i)
+    return hb
+
+
+def masked_batch(B, S, n_micro, i):
+    """A loss mask (B, S) f32 for batch ``i``, as instruction tuning
+    gives: each row's first P tokens (P uniform in [S/10, 9S/10]) weigh
+    0, the last 10-30 % of every fourth row too (padding), an eighth of
+    what is left 0.5; a whole global microbatch weighs 0 (the second
+    last of ``n_micro``; with one microbatch, row 1)."""
+    rng = np.random.default_rng([BATCH_SEED, i, 32])
+    mask = np.ones((B, S), np.float32)
+    for r in range(B):
+        mask[r, :rng.integers(S // 10, 9 * S // 10 + 1)] = 0.0
+        if r % 4 == 3:
+            mask[r, S - rng.integers(-(-S // 10), 3 * S // 10 + 1):] = 0.0
+    mask[(rng.random((B, S)) < 0.125) & (mask > 0)] = 0.5
+    if n_micro > 1:
+        size = B // n_micro
+        mask[(n_micro - 2) * size:(n_micro - 1) * size] = 0.0
+    else:
+        mask[1] = 0.0
+    return mask
 
 
 def lm_batch(cfg, B, S, seed, i):
@@ -283,13 +339,21 @@ def run_case(name, in_dir, out_dir):
     # step 1 as the sharded step takes it, its gradients gathered before
     # the optimizer clips them in place; step 2 through make_train_step
     par.reset_fsdp_counts()
+    par.reset_token_reduces()
     grads, loss = make_grad_fn(model, cfg, plan)(params, batch(0))
     counts = par.fsdp_counts()
     ranks = [None] * dist.get_world_size()
-    dist.all_gather_object(ranks, [counts[k] for k in FSDP_KEYS])
+    dist.all_gather_object(ranks, [counts[k] for k in FSDP_KEYS]
+                           + [par.token_reduces()])
     out = {"roundtrip": np.array(roundtrip), "grad_loss": loss.numpy(),
-           "fsdp": np.array(ranks),
+           "fsdp": np.array(ranks)[:, :len(FSDP_KEYS)],
+           "token_reduces": np.array(ranks)[:, len(FSDP_KEYS)],
            **_np(par.gather_tree(grads, specs, mesh), "grad")}
+    if name in MASKED:
+        out["rank_means_loss"] = rank_means_loss(model, cfg, plan, params,
+                                                 batch(0)).numpy()
+        ev = make_eval_step(model, plan)(params, batch(0))
+        out.update({f"eval/{k}": v.numpy() for k, v in ev.items()})
     state = opt_init(params)
     update = opt.make_optimizer(ocfg.name, ocfg, mesh, specs)[2]
     if compressed:
@@ -312,6 +376,21 @@ def run_case(name, in_dir, out_dir):
     out.update(_np(par.gather_tree(state, ss, mesh), "opt"))
     if mesh.rank == 0:
         np.savez(os.path.join(out_dir, f"{name}.npz"), **out)
+
+
+def rank_means_loss(model, cfg, plan, params, batch):
+    """What the sharded step's loss was before it took JAX's masked mean
+    per global microbatch: each rank's mean over its own microbatches of
+    their mean losses, averaged over the batch shards."""
+    rows = batch["tokens"].shape[0]
+    k = min(cfg.grad_accum_microbatches, rows)
+    with torch.no_grad():
+        mean = sum(model.loss(params, {n: v[j * rows // k:(j + 1) * rows // k]
+                                       for n, v in batch.items()})[0]
+                   for j in range(k)) / k
+    axes = par.entry_axes(plan.batch_axes)
+    n = int(np.prod([plan.mesh.shape[a] for a in axes]))
+    return par.all_reduce_(mean.clone(), plan.mesh, axes) / n
 
 
 def compression_case(out_dir):

@@ -25,7 +25,11 @@ heads run: qwen3-moe with 6 experts at (1, 4) and 3 at (2, 2) (each
 expert's d_ff_expert cut), mamba2 at head_dim 64 (2 heads, d_in 128 cut:
 the layer whole on every rank) and zamba2 so with its residual stream
 cut on S; qwen3 steps with int8 gradient compression at (4, 1) and
-(2, 2); checkpoints saved on one layout are restored onto another
+(2, 2); masked batches over several batch shards (qwen3 at (4, 1), (2, 2),
+(2, 1, 2) and compressed at (2, 2), granite's 4 microbatches, the MoE,
+seamless, and B 12 in 3 microbatches, where a rank's rows fall in two)
+take JAX's masked mean per global microbatch, and the sharded eval step
+JAX's eval of the global batch; checkpoints saved on one layout are restored onto another
 (qwen3's heads, mamba2's SSM heads, qwen3-moe's experts, seamless);
 last, the launcher's ``main`` trains over the same 4 ranks, and again
 with ``--grad-compression``.  The parameters of
@@ -90,11 +94,14 @@ from repro.configs.registry import smoke_config as jax_smoke  # noqa: E402
 from repro.distributed.compression import \
     compress_decompress as jax_compress  # noqa: E402
 from repro.models.zoo import get_model as jax_model  # noqa: E402
+from repro.training.train_step import _microbatch_grads as jax_grads  # noqa: E402
+from repro.training.train_step import make_eval_step as jax_eval  # noqa: E402
 from repro.training.train_step import make_train_step as jax_step  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs.base import ShapeCfg  # noqa: E402
 from repro_torch.configs.registry import get_config, smoke_config  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM, device_batch  # noqa: E402
+from repro_torch.distributed import parallel as par  # noqa: E402
 from repro_torch.distributed.compression import compress_decompress  # noqa: E402
 from repro_torch.distributed.rules import make_plan  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
@@ -336,21 +343,40 @@ def test_two_steps_match_one_device(run, refs, name):
         close(state[n], v, 1e-5, n)
 
 
-def _holds_jax_step(run, refs, jax_qwen3, name, grad_compression=False):
-    """Case ``name`` (qwen3-0.6b) against the JAX package on the same
-    parameters and batch: the loss and one step of JAX's single-device
-    ``make_train_step(model, cfg, None, grad_compression=)``."""
+def _jax_case(run, jax_models, name):
+    """The JAX package's model of case ``name`` and its parameters: JAX's
+    initialisation where the case's inputs are (``JAX_INPUTS``), else the
+    port's draws the worker read."""
+    key = W.input_key(name)
+    if key in jax_models:
+        return jax_models[key]
+    arch, over = W.CASES[name][0], W.CASES[name][4]
+    jm = jax_model(W.with_overrides(jax_smoke(jax_config(arch)), over))
+    return jm, jax.tree.map(jnp.asarray, tree_from_flat(
+        get_model(W.case_config(arch, over)).param_defs(),
+        _load(run[0] / f"{key}.npz")))
+
+
+def _jax_batch(name):
+    return {k: jnp.asarray(v) for k, v in W.host_batch(name, 0).items()}
+
+
+def _holds_jax_step(run, refs, name, jm, jp, grad_compression=False):
+    """Case ``name`` against the JAX package on the same parameters and
+    batch (``host_batch``): the loss (``model.loss``; with several
+    microbatches, the step's) and one step of JAX's single-device
+    ``make_train_step(model, cfg, None, grad_compression=)``, ``cfg`` with
+    the case's microbatches."""
     got = _load(run[1] / f"{name}.npz")
-    _, _, B, S, _, _ = W.CASES[name]
-    jm, jp = jax_qwen3
-    hb = SyntheticLM(jm.cfg.vocab_size, S, B, seed=W.BATCH_SEED).batch_at(0)
-    jb = {k: jnp.asarray(v) for k, v in hb.items()}
-    jl, _ = jm.loss(jp, jb)
-    close(got["grad_loss"], jl, 1e-6, "loss")
-    close(got["loss1"], jl, 1e-6, "loss1")
-    step, init, _ = jax_step(jm, jm.cfg, None,
+    cfg = W.with_overrides(jm.cfg, W.CASES[name][4])
+    jb = _jax_batch(name)
+    step, init, _ = jax_step(jm, cfg, None,
                              grad_compression=grad_compression)
     jp1, _, jmet = jax.jit(step)(jp, init(jp), jb, jnp.int32(0))
+    jl = (jm.loss(jp, jb)[0] if cfg.grad_accum_microbatches == 1
+          else jmet["loss"])
+    close(got["grad_loss"], jl, 1e-6, "loss")
+    close(got["loss1"], jl, 1e-6, "loss1")
     flat = lambda t: {".".join(k.key for k in path): np.asarray(v)  # noqa
                       for path, v in jax.tree_util.tree_leaves_with_path(t)}
     want, before = flat(jp1), flat(jp)
@@ -374,10 +400,11 @@ def test_slice_matches_jax_single_device(run, refs, jax_qwen3):
     of JAX's single-device ``make_train_step(model, cfg, None)`` and
     their movement as the module note says (the small gradients: the
     port's one-device ones, held against JAX's in ``test_torch_train``)."""
-    _holds_jax_step(run, refs, jax_qwen3, "qwen3-2x2")
+    _holds_jax_step(run, refs, "qwen3-2x2", *jax_qwen3)
 
 
-@pytest.mark.parametrize("name", W.COMPRESSED)
+@pytest.mark.parametrize("name", [n for n in W.COMPRESSED
+                                  if n not in W.MASKED])
 def test_compressed_step_matches_jax_single_device(run, refs, jax_qwen3,
                                                    name):
     """qwen3-0.6b at (4, 1) and (2, 2) with int8 gradient compression
@@ -385,7 +412,7 @@ def test_compressed_step_matches_jax_single_device(run, refs, jax_qwen3,
     single-device ``make_train_step(..., grad_compression=True)``: the
     loss and the parameters after one step, as
     ``test_slice_matches_jax_single_device`` holds them."""
-    _holds_jax_step(run, refs, jax_qwen3, name, grad_compression=True)
+    _holds_jax_step(run, refs, name, *jax_qwen3, grad_compression=True)
 
 
 @pytest.mark.parametrize("shape", W.COMPRESSION_LAYOUTS,
@@ -442,16 +469,8 @@ def test_split_matches_jax_single_device(run, jax_models, name):
     ``test_torch_train_ssm.py`` hold the one-device port (f32, sums in
     another order)."""
     got = _load(run[1] / f"{name}.npz")
-    key = W.input_key(name)
-    if key in jax_models:
-        jm, jp = jax_models[key]
-    else:       # the port's draws (zamba2's, as its other cases take)
-        arch, over = W.CASES[name][0], W.CASES[name][4]
-        jm = jax_model(W.with_overrides(jax_smoke(jax_config(arch)), over))
-        jp = jax.tree.map(jnp.asarray, tree_from_flat(
-            get_model(W.case_config(arch, over)).param_defs(),
-            _load(run[0] / f"{key}.npz")))
-    jb = {k: jnp.asarray(v) for k, v in W.host_batch(name, 0).items()}
+    jm, jp = _jax_case(run, jax_models, name)
+    jb = _jax_batch(name)
     (jl, _), jg = jax.value_and_grad(jm.loss, has_aux=True)(jp, jb)
     close(got["grad_loss"], jl, 1e-6, "loss")
     flat = {".".join(k.key for k in path): np.asarray(v)
@@ -460,6 +479,55 @@ def test_split_matches_jax_single_device(run, jax_models, name):
     assert set(grads) == set(flat)
     for n, g in flat.items():
         close(grads[n], g, 1e-5, n)
+
+
+MASKED = list(W.MASKED)
+
+
+@pytest.mark.parametrize("name", MASKED)
+def test_masked_matches_jax_single_device(run, refs, jax_models, name):
+    """A masked batch over several batch shards (the worker's
+    ``masked_batch``: prompts and padding weighing 0, some tokens 0.5, a
+    whole global microbatch or row 0) against the JAX package's
+    single-device step on the global batch with the same microbatches:
+    the loss within 1e-6 (relative) and every gathered gradient within
+    1e-5 of its leaf's largest element of JAX's ``_microbatch_grads``
+    (its masked mean per global microbatch), and one step of
+    ``make_train_step(model, cfg, None)`` as
+    ``test_slice_matches_jax_single_device`` holds it; and the step's
+    earlier loss, the mean of the ranks' own means, misses JAX's by at
+    least 100 times the loss's gate."""
+    got = _load(run[1] / f"{name}.npz")
+    jm, jp = _jax_case(run, jax_models, name)
+    cfg = W.with_overrides(jm.cfg, W.CASES[name][4])
+    jg, jl, _ = jax.jit(lambda p, b: jax_grads(
+        jm.loss, p, b, cfg.grad_accum_microbatches, None))(
+        jp, _jax_batch(name))
+    close(got["grad_loss"], jl, 1e-6, "loss")
+    flat = {".".join(k.key for k in path): np.asarray(v)
+            for path, v in jax.tree_util.tree_leaves_with_path(jg)}
+    grads = _sub(got, "grad")
+    assert set(grads) == set(flat)
+    for n, g in flat.items():
+        close(grads[n], g, 1e-5, n)
+    old = float(got["rank_means_loss"])
+    assert abs(old - float(jl)) >= 100 * 1e-6 * abs(float(jl)), (old, jl)
+    _holds_jax_step(run, refs, name, jm, jp,
+                    grad_compression=name in W.COMPRESSED)
+
+
+@pytest.mark.parametrize("name", MASKED)
+def test_masked_eval_matches_jax_single_device(run, jax_models, name):
+    """``make_eval_step(model, plan)`` on each rank's rows of a masked
+    batch against JAX's ``make_eval_step`` on the global batch: loss,
+    ce, aux and the token count within 1e-6 (relative)."""
+    got = _load(run[1] / f"{name}.npz")
+    jm, jp = _jax_case(run, jax_models, name)
+    want = jax_eval(jm)(jp, _jax_batch(name))
+    assert {k[len("eval/"):] for k in got if k.startswith("eval/")} == set(
+        want)
+    for k, v in want.items():
+        close(got[f"eval/{k}"], v, 1e-6, k)
 
 
 # the cases whose data axes have more than one process: FSDP gathers
@@ -474,20 +542,30 @@ def test_fsdp_gathers_per_unit(run, name, monkeypatch):
     ``chip_smoke.step_collectives``: a unit's slice of each stacked leaf
     gathered where the unit runs and in each recompute, the leaves
     outside the stacks once a forward, each gradient reduce-scattered
-    once, per microbatch; never a whole stack."""
+    once, per microbatch; never a whole stack.  A masked case's equal
+    the unmasked case's of its layout (``MASKED``' twin); its step adds
+    one all-reduce of the token counts per batch axis over one process
+    (``parallel.token_reduces``), an unmasked step none."""
     monkeypatch.syspath_prepend(ROOT)
     import chip_smoke
     arch, shape, B, S, over, _ = W.CASES[name]
     cfg = W.case_config(arch, over)
     mesh = make_mesh(shape, W.AXES2 if len(shape) == 2 else W.AXES3,
                      ["cpu"] * int(np.prod(shape)))
-    model = get_model(cfg, make_plan(cfg, mesh,
-                                     ShapeCfg("test", S, B, "train")))
+    plan = make_plan(cfg, mesh, ShapeCfg("test", S, B, "train"))
+    model = get_model(cfg, plan)
     want = chip_smoke.step_collectives(model)
-    got = _load(run[1] / f"{name}.npz")["fsdp"]
+    out = _load(run[1] / f"{name}.npz")
+    got = out["fsdp"]
     assert len(got) == 4
     for r, row in enumerate(got):
         assert dict(zip(W.FSDP_KEYS, map(int, row))) == want, (r, row)
+    if W.MASKED.get(name):
+        assert np.array_equal(got, _load(run[1] / f"{W.MASKED[name]}.npz")[
+            "fsdp"])
+    batch = par.live_axes(mesh, plan.batch_axes)
+    assert list(out["token_reduces"]) == [
+        len(batch) if name in W.MASKED else 0] * 4
 
 
 RESTORE_CASES = [(arch, shape) for arch, (_, shapes) in W.RESTORES.items()

@@ -29,11 +29,19 @@ ends when the rank has its loss), launches, its FSDP all-gathers and
 reduce-scatters over the data axes a step (``parallel.fsdp_counts``:
 counts and the largest tensors, against
 ``chip_smoke.step_collectives``), peak device memory and the bytes of
-its parameter and optimizer shards, then profiles a 4th step
+its parameter and optimizer shards, the token-count all-reduces a
+step (``parallel.token_reduces``: one per batch axis over one process
+in a masked run's step, none in an unmasked one's), then profiles a 4th
+step
 (``profile_step``: device busy and idle, NCCL by collective, GEMM,
 attention and SSD device ms, the top kernels); rank 0 gathers the
 parameters and holds them against the reference (``compare``) and, for
-the run's ``pairs``, one layout's against another's.  After every run
+the run's ``pairs``, one layout's against another's.  A ``mask`` run's
+batches carry ``instruction_mask``'s loss mask, and each layout also
+records ``mask_check``: each rank's token count, the global counts per
+microbatch, the first step's loss beside JAX's formula evaluated apart
+and the mean of the ranks' own means (the formula the sharded step had
+before it took the global counts).  After every run
 each rank checks that run's gates (``gate_run``: a later run that fails
 cannot hide an earlier one's result), records what missed under
 ``gates_missed`` and writes ``DIR/rank<r>.json``; it exits non-zero
@@ -87,7 +95,8 @@ class Run:
     optimizer state; ``peak_gb``: a rank's peak memory as reckoned
     before the run (printed beside the reading); ``grad_compression``:
     the reference and every layout step with int8 gradient compression,
-    and each layout also holds ``compression_check``."""
+    and each layout also holds ``compression_check``; ``mask``: every
+    batch carries ``instruction_mask``'s loss mask (``mask_check``)."""
     name: str
     arch: str
     cards: int
@@ -103,6 +112,7 @@ class Run:
     layerwise: bool = False
     peak_gb: float = None
     grad_compression: bool = False
+    mask: bool = False
 
 
 RUNS = (
@@ -162,6 +172,13 @@ RUNS = (
     # rank's reckoned peak: GRANITE_PEAK_GB)
     Run("granite-3-8b:8", GRANITE, 4, (((4, 1), {}), ((2, 2), {})),
         cut={"n_layers": 8}, batch=GRANITE_BATCH, layerwise=True),
+    # a loss mask over several batch shards (instruction_mask): JAX's
+    # masked mean per global microbatch, against one card's run of the
+    # same masked batches; at (4, 1) and (2, 2) beside the unmasked runs'
+    Run("qwen3-0.6b:mask", cs.TRAIN_ARCH, 4, (((4, 1), {}), ((2, 2), {})),
+        mask=True),
+    Run("granite-3-8b:8:mask", GRANITE, 4, (((4, 1), {}), ((2, 2), {})),
+        cut={"n_layers": 8}, batch=GRANITE_BATCH, layerwise=True, mask=True),
     Run("granite-3-8b:40", GRANITE, 4, (((4, 1), {}),), batch=GRANITE_BATCH,
         reference=False, alone=True, layerwise=True, peak_gb=GRANITE_PEAK_GB),
 )
@@ -183,6 +200,10 @@ RUNS = (
 # router choice can move, read 0.956 at 4 layers).  One rank runs the
 # one-card ops: bit-equal.
 LOSS_TOL = 1e-3
+# a masked run's first loss against JAX's formula evaluated apart on the
+# same parameters and batch (``mask_check``): the same bf16 forward, the
+# sums in another order
+MASK_LOSS_TOL = 1e-5
 PARAM_ABS_TOL = 4e-5
 MOVE_COS_MIN = 0.9
 
@@ -236,6 +257,21 @@ def draw_params(torch, model, seed, dev, specs=None, mesh=None):
             del x
         out[name] = leaf
     return tree_from_flat(model.param_defs(), out)
+
+
+def instruction_mask(B, S, step, seed=0):
+    """A loss mask (B, S) f32 for batch ``step``, as instruction tuning
+    gives: each row's first P tokens (P uniform in [S/10, 9S/10]) weigh 0
+    (the prompt), and a quarter of the rows also their last 10-30 % of
+    positions (padding)."""
+    import numpy as np
+    rng = np.random.default_rng([seed, step, 32])
+    mask = np.ones((B, S), np.float32)
+    for r in range(B):
+        mask[r, :rng.integers(S // 10, 9 * S // 10 + 1)] = 0.0
+    for r in rng.choice(B, max(B // 4, 1), replace=False):
+        mask[r, S - rng.integers(-(-S // 10), 3 * S // 10 + 1):] = 0.0
+    return mask
 
 
 def runs_for(world, names=None):
@@ -345,6 +381,11 @@ def train_run(run, rank, dev):
     if base.family == "encdec":     # the encdec train phase's batches
         batches = lambda step: cs.encdec_batch(torch, base, step)  # noqa
         assert (B, S) == (cs.TRAIN_BATCH, cs.TRAIN_SEQ)
+    if run.mask:        # TrainLoop's stream (seed 0) and a mask
+        from repro_torch.data.pipeline import SyntheticLM
+        data = SyntheticLM(base.vocab_size, S, B, seed=0)
+        batches = lambda step: dict(data.batch_at(step),  # noqa: E731
+                                    mask=instruction_mask(B, S, step))
     quiet = lambda _: None      # noqa: E731
     res = {"launches_per_step_want": cs.step_launches(base, True),
            "layouts": [], "restores": []}
@@ -412,10 +453,12 @@ def train_run(run, rank, dev):
             layerwise_init(torch, loop, dev)
         rdev.reset_launch_counts()
         par.reset_fsdp_counts()
+        par.reset_token_reduces()
         params, state, _ = loop.run(STEPS, log=quiet, **kw)
         torch.cuda.synchronize()
         counts = rdev.launch_counts()
         fsdp = par.fsdp_counts()
+        token_reduces = par.token_reduces()
         ms = [h["ms"] for h in loop.history]
         row = {"layout": tag(shape, over), "steps": [h["step"] for h in
                                                      loop.history],
@@ -428,6 +471,10 @@ def train_run(run, rank, dev):
                    k: v if "max" in k else v / len(ms)
                    for k, v in fsdp.items()},
                "collectives_per_step_want": cs.step_collectives(loop.model),
+               "token_reduces_per_step": token_reduces / len(ms),
+               "token_reduces_per_step_want": len(par.live_axes(
+                   mesh, loop.plan.batch_axes))
+               if run.mask and mesh is not None else 0,
                "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                "held_bytes_before": held,
                "param_shard_bytes": sum(x.numel() * x.element_size() for
@@ -446,11 +493,14 @@ def train_run(run, rank, dev):
             check_against_ref(row, full)
         if profile:
             row["profile"] = profile_step(torch, loop, params, state)
-        if run.grad_compression and mesh is not None:
+        if (run.grad_compression or run.mask) and mesh is not None:
             del params, state
             free_device(torch)
+        if run.grad_compression and mesh is not None:
             row["compression_check"] = compression_check(torch, loop.model,
                                                          mesh, dev)
+        if run.mask and mesh is not None:
+            row["mask_check"] = mask_check(torch, loop, row["losses"][0])
         del loop
         return row, full
 
@@ -517,6 +567,59 @@ def compression_check(torch, model, mesh, dev, seed=31):
     torch.cuda.synchronize()
     return {"bit_equal": not differ, "leaves_differing": differ,
             "elements": n, "seconds": time.perf_counter() - t0}
+
+
+def mask_check(torch, loop, step_loss):
+    """A masked run's first step against JAX's formula, evaluated apart:
+    the loop's first parameters drawn again and batch 0, each rank's
+    local microbatches through ``model.loss`` without a gradient, and
+    from their ce, aux and token counts c_j, with C_i the mask's sum over
+    global microbatch i (m of them, B rows over n batch shards, k local
+    microbatches a rank)
+
+        L = sum over ranks and j of ce_j max(c_j, 1) / (m max(C_i(j), 1))
+            + aux_j / (n k),
+
+    beside ``step_loss`` (the loop's first loss) and the mean of the
+    ranks' own mean losses, which the sharded step gave before it took
+    the global counts.  Every rank's token count is gathered."""
+    import torch.distributed as dist
+    from repro_torch.distributed import parallel as par
+    plan, cfg = loop.plan, loop.cfg
+    params, state, _ = loop.init_state()
+    del state
+    batch = loop.batch_at(0)
+    axes = par.entry_axes(plan.batch_axes)
+    n = math.prod(plan.mesh.shape[a] for a in axes)
+    R, m = batch["tokens"].shape[0], cfg.grad_accum_microbatches
+    k = min(m, R)
+    counts = par.global_token_counts(batch["mask"], m, plan.mesh, axes)
+    first = par.block_offsets((R,), (axes,), plan.mesh)[0]
+    terms = torch.zeros(3, dtype=torch.float64, device=loop.device)
+    with torch.no_grad():
+        for j in range(k):
+            rows = slice(j * (R // k), (j + 1) * (R // k))
+            loss, met = loop.model.loss(params, {key: v[rows] for key, v in
+                                                 batch.items()})
+            i = (first + rows.start) // (R * n // m)
+            terms += torch.stack([
+                (met["ce"] * met["tokens"].clamp(min=1.0)).double()
+                / (m * counts[i].clamp(min=1.0).double())
+                + met["aux"].double() / (n * k),
+                loss.double() / (k * n), met["tokens"].double()])
+    tokens = terms[2].clone()
+    par.all_reduce_(terms[:2], plan.mesh, axes)
+    every = [torch.zeros_like(tokens) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, tokens)
+    formula, old = float(terms[0]), float(terms[1])
+    del params
+    free_device(torch)
+    return {"rank_tokens": [float(t) for t in every],
+            "counts": counts.tolist(), "step_loss": step_loss,
+            "formula_loss": formula,
+            "formula_rel_err": abs(step_loss - formula) / abs(formula),
+            "rank_means_loss": old,
+            "rank_means_rel_diff": abs(old - formula) / abs(formula)}
 
 
 def layerwise_init(torch, loop, dev):
@@ -631,6 +734,17 @@ def gate_run(res, rank, world):
         check(cc is None or cc["bit_equal"], f"{name} {row['layout']} rank "
               f"{rank}: the sharded compression differs from the one-card "
               f"one in {cc and cc['leaves_differing']}")
+    for row in res["layouts"] + res["restores"]:
+        check(row["token_reduces_per_step"]
+              == row["token_reduces_per_step_want"], f"{name} "
+              f"{row['layout']} rank {rank}: token-count all-reduces a step "
+              f"{row['token_reduces_per_step']}, want "
+              f"{row['token_reduces_per_step_want']}")
+        mc = row.get("mask_check")
+        check(mc is None or mc["formula_rel_err"] <= MASK_LOSS_TOL,
+              f"{name} {row['layout']} rank {rank}: first loss "
+              f"{mc and mc['step_loss']} against the masked mean "
+              f"{mc and mc['formula_loss']}")
     for row in res["layouts"] + res["restores"]:
         want_c = row["collectives_per_step_want"]
         got_c = {k: row["collectives_per_step"][k] for k in want_c}
